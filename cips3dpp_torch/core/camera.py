@@ -31,11 +31,13 @@ def camera_from_angles(
     azim: torch.Tensor,
     elev: torch.Tensor,
     img_size: int,
-    fov_ang: float = 6.0,
+    fov_ang: float | torch.Tensor = 6.0,
     dist_radius: float = 0.12,
     up: torch.Tensor | None = None,
 ) -> CameraParams:
-    """Look-at extrinsics + intrinsics from (azim, elev) in radians, (B,)."""
+    """Look-at extrinsics + intrinsics from (azim, elev) in radians, (B,).
+    fov_ang (degrees) is a scalar or one per camera (B,); up is the world
+    up vector, (3,) or one per camera (B, 3), default +y."""
     azim = azim.reshape(-1)
     elev = elev.reshape(-1)
     b = azim.shape[0]
@@ -44,7 +46,10 @@ def camera_from_angles(
     dist = torch.ones((b,), **kw)
     near = (dist - dist_radius).reshape(b, 1, 1)
     far = (dist + dist_radius).reshape(b, 1, 1)
-    fov = torch.full((b,), fov_ang * math.pi / 180.0, **kw)
+    if isinstance(fov_ang, torch.Tensor):
+        fov = (fov_ang.to(**kw) * math.pi / 180.0).reshape(-1).expand(b)
+    else:
+        fov = torch.full((b,), fov_ang * math.pi / 180.0, **kw)
     focal = (0.5 * img_size / torch.tan(fov)).reshape(b, 1, 1)
 
     x = torch.cos(elev) * torch.sin(azim)
@@ -53,8 +58,8 @@ def camera_from_angles(
     camera_dir = torch.stack([x, y, z], dim=-1)  # (B, 3)
     camera_loc = dist[:, None] * camera_dir
 
-    if up is None:
-        up = torch.tensor([0.0, 1.0, 0.0], **kw).expand(b, 3)
+    up = torch.tensor([0.0, 1.0, 0.0], **kw) if up is None else up.to(**kw)
+    up = up.expand(b, 3)
 
     z_axis = _normalize(camera_dir)
     x_axis = _normalize(torch.linalg.cross(up, z_axis))

@@ -3,11 +3,12 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` for sm_90a into its own shared
 library with a plain C interface, at first use, into
 `cips3dpp_torch/_build/` (git-ignored), and loaded with ctypes. The library
-name carries a hash of the source and flags, so an edited source is
+name carries a hash of the source and the flags, so an edited source is
 rebuilt. `build_all` starts one nvcc per source, all at once.
 
 `LAUNCHES[name]` counts kernel launches: a wrapper adds one where it
-launches its kernel and nowhere else.
+launches its kernel and nowhere else. `device_ms` times a kernel on the
+card by the profiler's device time.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("siren_render", "decoder_block")
+SOURCES = ("siren_render", "decoder_block", "elem_probe")
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -118,6 +119,36 @@ def check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def device_ms(fn, iters: int, kernel: str, tries: int = 3) -> float:
+    """Mean device time in ms of one launch of the CUDA kernel whose name
+    holds `kernel`, over `iters` calls of fn(i), from torch.profiler. A
+    wrapper's call can take the host longer to issue than the kernel takes
+    on the card, so CUDA events around back-to-back calls would time the
+    host; the profiler's device time does not. The profiler at times drops
+    the device records of part of a run (13 of 50 launches, once on the
+    H100), so a run whose count is off is profiled again, up to `tries`
+    times; raises unless one run saw each call launch the kernel once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key]
+        launches = sum(e.count for e in hits)
+        if launches == iters:
+            return sum(e.self_device_time_total for e in hits) / 1e3 / launches
+        seen.append(launches)
+    raise RuntimeError(f"profiler saw {seen} launches of {kernel} in {tries} runs, "
+                       f"want {iters}")
 
 
 def raise_on_error(code: int, what: str) -> None:

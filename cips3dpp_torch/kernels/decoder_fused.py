@@ -11,6 +11,11 @@ feature store is skipped. The 3-channel RGB skip chain stays plain f32.
 Split prepare/render: `decoder_fused_prepare` computes everything that
 depends only on styles and noise (modulated weights, noise casts) once
 per trajectory; `decoder_fused_render` consumes it per frame.
+
+Noise comes from buffers or from one `noise_seed`: then layer i's noise
+is the hash realization of `layer_seed(noise_seed, i)`, made by the block
+kernel for the upsample blocks and made once at prepare time as
+`hash_noise_map` buffers for the plain layers. Explicit buffers win.
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ import torch
 from ..ops.fused_act import fused_leaky_relu
 from ..ops.modulated import modulate_weights_1x1
 from ..ops.upfirdn2d import upsample2x
-from .decoder_block import decoder_block_packed, decoder_block_prepare
+from .decoder_block import (
+    decoder_block_packed, decoder_block_prepare, hash_noise_map, layer_seed,
+)
 
 
 def _mod_style(mod, style):
@@ -54,14 +61,29 @@ def _plan(upsample_list, size_start, size_end):
 
 
 @torch.no_grad()
-def decoder_fused_prepare(decoder, styles, noise, *, fold_rgb=True):
+def decoder_fused_prepare(decoder, styles, noise, *, fold_rgb=True,
+                          noise_seed=None, feat_size=None):
     """Trajectory-invariant half. decoder: models.Decoder; styles
-    (1, n_latent, style_dim); noise: list of num_layers (1, h, w, 1)."""
+    (1, n_latent, style_dim); noise: list of num_layers (1, h, w, 1), or
+    None with `noise_seed` (a uint32; then `feat_size`, the feature map's
+    side, is required)."""
     if styles.shape[0] != 1 or styles.shape[1] != decoder.n_latent:
         raise ValueError(f"styles {tuple(styles.shape)}: want (1, {decoder.n_latent}, D)")
-    if noise is None or len(noise) != decoder.num_layers:
+    if noise is None and noise_seed is None:
+        raise ValueError("pass noise buffers or a noise_seed")
+    if noise is not None and len(noise) != decoder.num_layers:
         raise ValueError(f"want {decoder.num_layers} noise buffers")
+    if noise is None:
+        if feat_size is None:
+            raise ValueError("feat_size is required with noise_seed")
+        noise = [None] * decoder.num_layers
     dt = decoder.dtype
+    dev = styles.device
+
+    def get_noise(idx, size):
+        if noise[idx] is not None:
+            return noise[idx]
+        return hash_noise_map(size, size, layer_seed(noise_seed, idx), dev)[None]
 
     def conv_rec(sc, style, nbuf):
         return {
@@ -75,8 +97,9 @@ def decoder_fused_prepare(decoder, styles, noise, *, fold_rgb=True):
         return {"w": _conv_weight(tr.conv, style, demodulate=False).to(dt),
                 "b": tr.bias.reshape(3)}
 
+    cur = feat_size if feat_size is not None else noise[0].shape[1]
     prep = {
-        "head": conv_rec(decoder.conv1, styles[:, 0], noise[0]),
+        "head": conv_rec(decoder.conv1, styles[:, 0], get_noise(0, cur)),
         "rgb1": rgb_rec(decoder.to_rgb1, styles[:, 1]),
         "blocks": [],
     }
@@ -86,15 +109,22 @@ def decoder_fused_prepare(decoder, styles, noise, *, fold_rgb=True):
         ca, cb = decoder.convs[2 * block], decoder.convs[2 * block + 1]
         tr = decoder.to_rgbs[block]
         if kind == "fused":
+            cur *= 2
             wrgb = (_conv_weight(tr.conv, styles[:, layer_i + 2], demodulate=False)
                     if fold_rgb else None)
+            if noise[layer_i] is None:  # hash noise, made in the kernel
+                bufs = (None, None)
+                seeds = (layer_seed(noise_seed, layer_i),
+                         layer_seed(noise_seed, layer_i + 1))
+            else:
+                bufs, seeds = (noise[layer_i][0], noise[layer_i + 1][0]), None
             rec = {
                 "wa": _conv_weight(ca.conv, styles[:, layer_i]).to(dt),
                 "bp": decoder_block_prepare(
-                    noise[layer_i][0], noise[layer_i + 1][0],
-                    _conv_weight(cb.conv, styles[:, layer_i + 1]),
+                    *bufs, _conv_weight(cb.conv, styles[:, layer_i + 1]),
                     ca.activate.bias, cb.activate.bias,
                     ca.noise.weight, cb.noise.weight, wrgb, dtype=dt,
+                    noise_seeds=seeds,
                 ),
             }
             if fold_rgb:
@@ -103,8 +133,8 @@ def decoder_fused_prepare(decoder, styles, noise, *, fold_rgb=True):
                 rec["rgb"] = rgb_rec(tr, styles[:, layer_i + 2])
         else:
             rec = {
-                "a": conv_rec(ca, styles[:, layer_i], noise[layer_i]),
-                "b": conv_rec(cb, styles[:, layer_i + 1], noise[layer_i + 1]),
+                "a": conv_rec(ca, styles[:, layer_i], get_noise(layer_i, cur)),
+                "b": conv_rec(cb, styles[:, layer_i + 1], get_noise(layer_i + 1, cur)),
                 "rgb": rgb_rec(tr, styles[:, layer_i + 2]),
             }
         prep["blocks"].append(rec)
@@ -158,8 +188,11 @@ def decoder_fused_render(decoder, prep, features, *, fold_rgb=True):
 
 
 @torch.no_grad()
-def decoder_fused_apply(decoder, features, styles, noise, *, fold_rgb=False):
+def decoder_fused_apply(decoder, features, styles, noise, *, fold_rgb=False,
+                        noise_seed=None):
     """decoder_fused_prepare + decoder_fused_render in one call; mirrors
-    Decoder.forward for batch 1 with explicit noise."""
-    prep = decoder_fused_prepare(decoder, styles, noise, fold_rgb=fold_rgb)
+    Decoder.forward for batch 1 with explicit noise (or a noise seed)."""
+    prep = decoder_fused_prepare(decoder, styles, noise, fold_rgb=fold_rgb,
+                                 noise_seed=noise_seed,
+                                 feat_size=features.shape[1])
     return decoder_fused_render(decoder, prep, features, fold_rgb=fold_rgb)

@@ -15,6 +15,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..kernels.decoder_block import hash_noise_map, layer_seed
 from .layers import StyledConv, ToRGB, channel_table
 
 
@@ -88,6 +89,13 @@ class Decoder(nn.Module):
             torch.randn((batch,) + s[1:], generator=generator).to(device)
             for s in self.noise_shapes(start_size)
         ]
+
+    def hash_noise(self, seed: int, start_size: int, device=None):
+        """The buffers of one noise seed's realization: layer i's buffer is
+        hash_noise_map of layer_seed(seed, i), as the block kernels make it
+        (kernels/decoder_block.py)."""
+        return [hash_noise_map(s[1], s[2], layer_seed(seed, i), device)[None]
+                for i, s in enumerate(self.noise_shapes(start_size))]
 
     def forward(self, features, styles, noise):
         """features (B,H,W,in_channel); styles (B, n_latent, style_dim);

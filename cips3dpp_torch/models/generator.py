@@ -220,10 +220,14 @@ class Generator(nn.Module):
         style_decoder=None,
         noise_bufs=None,  # list[num_layers] or None -> drawn from `generator`
         perturb: bool = False,
+        ray_chunk: int | None = None,  # plain renderer: rays per tile
         fused_renderer: bool = False,  # SIREN render kernel
         fused_decoder: bool = False,  # decoder block kernels (batch 1)
         inject_index: int | None = None,
         generator: torch.Generator | None = None,  # perturb + noise draws
+        noise_seed: int | None = None,  # uint32: the hash noise realization
+        # of that seed instead of drawn buffers (made in the block kernels
+        # with fused_decoder); explicit noise_bufs take priority
     ):
         c = self.cfg
         img_size = img_size or c.img_size
@@ -243,23 +247,25 @@ class Generator(nn.Module):
         flat = lambda a: a.reshape(b, h * w, *a.shape[3:])
         thumb, features, sdf, mask_depth, xyz, _ = self.renderer(
             flat(pts), flat(rays_d), flat(viewdirs), flat(z_vals), near, far,
-            style_render, fused=fused_renderer,
+            style_render, fused=fused_renderer, ray_chunk=ray_chunk,
         )
         thumb = thumb.reshape(b, h, w, 3)
         features = features.reshape(b, h, w, -1)
         if c.enable_decoder:
-            if noise_bufs is None:
+            if noise_bufs is None and noise_seed is None:
                 noise_bufs = self.decoder.make_noise(
-                    generator, features.shape[1], device=features.device
-                )
+                    generator, features.shape[1], device=features.device)
             if fused_decoder:
                 from ..kernels.decoder_fused import decoder_fused_apply
 
                 rgb = decoder_fused_apply(
                     self.decoder, features, style_decoder, noise_bufs,
-                    fold_rgb=True,
+                    fold_rgb=True, noise_seed=noise_seed,
                 )
             else:
+                if noise_bufs is None:
+                    noise_bufs = self.decoder.hash_noise(
+                        noise_seed, features.shape[1], device=features.device)
                 rgb = self.decoder(features, style_decoder, noise_bufs)
         else:
             rgb = thumb

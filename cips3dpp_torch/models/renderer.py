@@ -3,8 +3,10 @@
 
 `fused=True` routes a depth-2 SDF renderer through the SIREN render
 kernel (`kernels/siren_render.py`), one call per batch item, and raises for
-any other depth; otherwise the plain network + `volume_integration`. The eikonal term, ray chunking and
-remat are training features and are not part of this module yet.
+any other depth; otherwise the plain network + `volume_integration`, over
+tiles of `ray_chunk` rays when it is given (same result, less memory). The
+eikonal term and remat are training features and are not part of this
+module yet.
 """
 
 from __future__ import annotations
@@ -40,9 +42,10 @@ class VolumeFeatureRenderer(nn.Module):
         return rgb.float(), sdf.float(), feats.float()
 
     def forward(self, pts, rays_d, viewdirs, z_vals, near, far, styles,
-                fused: bool = False):
+                fused: bool = False, ray_chunk: int | None = None):
         """pts (B,R,N,3), rays_d/viewdirs (B,R,3), z_vals (B,R,N),
-        near/far (B,1,1), styles (B, depth+1, style_dim). Returns
+        near/far (B,1,1), styles (B, depth+1, style_dim); ray_chunk must
+        divide R (the fused kernel ignores it). Returns
         (thumb (B,R,3), feat (B,R,C), sdf (B,R,N,1), mask_depth (B,R,2),
         xyz (B,R,3), None)."""
         if fused:
@@ -61,6 +64,21 @@ class VolumeFeatureRenderer(nn.Module):
             thumb, feat, sdf, maskd, xyz = (torch.stack(o) for o in zip(*outs))
             return thumb, feat, sdf, maskd, xyz, None
 
+        r = pts.shape[1]
+        if ray_chunk is None or ray_chunk >= r:
+            return self._render_tile(pts, rays_d, viewdirs, z_vals, near, far, styles)
+        if r % ray_chunk:
+            raise ValueError(f"ray_chunk {ray_chunk} does not divide {r} rays")
+        tiles = [
+            self._render_tile(pts[:, i:i + ray_chunk], rays_d[:, i:i + ray_chunk],
+                              viewdirs[:, i:i + ray_chunk], z_vals[:, i:i + ray_chunk],
+                              near, far, styles)
+            for i in range(0, r, ray_chunk)
+        ]
+        outs = list(zip(*tiles))[:5]
+        return tuple(torch.cat(o, dim=1) for o in outs) + (None,)
+
+    def _render_tile(self, pts, rays_d, viewdirs, z_vals, near, far, styles):
         npts = normalize_points(pts, near, far)
         rgb, sdf, feats = self.run_network(npts, viewdirs, styles)
         thumb, feat, xyz, maskd = volume_integration(

@@ -35,18 +35,24 @@ def prepare_trajectory(
     model,  # models.generator.Generator (depth-2 renderer)
     zs,  # (z_render, z_decoder[, z_decoder_2]), each (1, z_dim)
     *,
-    noise_bufs,  # fixed per trajectory: list of num_layers (1, h, w, 1)
+    noise_bufs=None,  # fixed per trajectory: list of num_layers (1, h, w, 1)
+    noise_seed=None,  # or a uint32: hash noise, made in the block kernels
+    # (layer i takes hash_noise_map of layer_seed(noise_seed, i)); one of
+    # the two is required and the buffers win
     truncation: float = 1.0,
     mean_latents=None,
     inject_index=None,
     fold_rgb: bool = True,  # fold ToRGB into the block kernels; pass the
     # same value to render_frame
+    near=None,  # the trajectory's depth range (scalars); default that of
+    far=None,  # the config's camera
     device=None,
 ):
-    """Trajectory-invariant state for `render_frame`."""
+    """Trajectory-invariant state for `render_frame` / `render_camera`."""
     dev = _device_for(model, device)
-    if noise_bufs is None:
-        raise ValueError("serving trajectories use fixed noise: pass noise_bufs")
+    if noise_bufs is None and noise_seed is None:
+        raise ValueError("serving trajectories use fixed noise: pass noise_bufs "
+                         "or noise_seed")
     cfg = model.cfg
     style_render, style_decoder = model.map_zs(
         zs, truncation, mean_latents, inject_index
@@ -55,14 +61,17 @@ def prepare_trajectory(
         raise ValueError("batch-1 serving path: one identity per trajectory")
     # near/far depend on dist_radius alone, so the SIREN scale fold is
     # trajectory-invariant
-    zero = torch.zeros((1,), device=dev)
-    cam0 = camera_from_angles(zero, zero, cfg.img_size, fov_ang=cfg.fov_ang,
-                              dist_radius=cfg.dist_radius)
+    if near is None or far is None:
+        zero = torch.zeros((1,), device=dev)
+        cam0 = camera_from_angles(zero, zero, cfg.img_size, fov_ang=cfg.fov_ang,
+                                  dist_radius=cfg.dist_radius)
+        near, far = cam0.near, cam0.far
     return {
         "siren": siren_prepare(model.renderer, style_render[0],
-                               cam0.near.reshape(-1)[0], cam0.far.reshape(-1)[0]),
-        "dec": decoder_fused_prepare(model.decoder, style_decoder, noise_bufs,
-                                     fold_rgb=fold_rgb),
+                               near.reshape(-1)[0], far.reshape(-1)[0]),
+        "dec": decoder_fused_prepare(
+            model.decoder, style_decoder, noise_bufs, fold_rgb=fold_rgb,
+            noise_seed=noise_seed, feat_size=cfg.img_size),
     }
 
 
@@ -71,24 +80,37 @@ def render_frame(model, prep, azim, elev, *, img_size: int | None = None,
                  fold_rgb: bool = True, device=None):
     """F frames of the prepared identity from camera angles azim/elev (F,),
     through one launch of each kernel. Returns {"rgb": (F, out, out, 3),
-    "thumb_rgb": (F, img, img, 3)}."""
-    _device_for(model, device)
+    "thumb_rgb": (F, img, img, 3), "depth": (F, img, img, 1),
+    "xyz": (F, img, img, 3)}."""
     cfg = model.cfg
     img_size = img_size or cfg.img_size
     cam = camera_from_angles(azim, elev, img_size, fov_ang=cfg.fov_ang,
                              dist_radius=cfg.dist_radius)
+    return render_camera(model, prep, cam, img_size=img_size, fold_rgb=fold_rgb,
+                         device=device)
+
+
+@torch.no_grad()
+def render_camera(model, prep, cam, *, img_size: int | None = None,
+                  fold_rgb: bool = True, device=None):
+    """`render_frame` from F cameras (core.camera.CameraParams) whose depth
+    range is the prepared one."""
+    _device_for(model, device)
+    cfg = model.cfg
+    img_size = img_size or cfg.img_size
     pts, rays_d, viewdirs, z_vals = prepare_nerf_inputs(
         cam.focal, img_size, cam.extrinsics, cam.near, cam.far, cfg.n_samples,
         perturb=False, static_viewdirs=cfg.static_viewdirs,
     )
     b, h, w, _, _ = pts.shape
     flat = lambda a: a.reshape(b * h * w, *a.shape[3:])
-    thumb, feat, _, _, _ = siren_render_prepared(
+    thumb, feat, _, maskd, xyz = siren_render_prepared(
         prep["siren"], flat(pts), flat(viewdirs), flat(z_vals), flat(rays_d)
     )
     rgb = decoder_fused_render(model.decoder, prep["dec"],
                                feat.reshape(b, h, w, -1), fold_rgb=fold_rgb)
-    return {"rgb": rgb, "thumb_rgb": thumb.reshape(b, h, w, 3)}
+    return {"rgb": rgb, "thumb_rgb": thumb.reshape(b, h, w, 3),
+            "depth": maskd[:, 1].reshape(b, h, w, 1), "xyz": xyz.reshape(b, h, w, 3)}
 
 
 @torch.no_grad()

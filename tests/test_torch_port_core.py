@@ -6,6 +6,7 @@ summation order and libm (sin/cos/exp) last-bit differences, so 1e-5
 relative / 1e-6 absolute unless a comment says otherwise.
 """
 
+import pkgutil
 import subprocess
 import sys
 
@@ -137,7 +138,13 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[1]) >= 15  # every submodule was imported
+    assert int(out.stdout.split()[1]) >= 29  # every submodule was imported
+    import cips3dpp_torch
+
+    names = {m.name for m in pkgutil.walk_packages(cips3dpp_torch.__path__, "cips3dpp_torch.")}
+    for mod in ("apps.sample", "apps.cli", "utils.mesh", "utils.rasterize", "io.config",
+                "tools.elem_dtype_probe"):
+        assert f"cips3dpp_torch.{mod}" in names, mod
 
 
 def test_entry_points_default_to_the_card():
@@ -173,3 +180,15 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         render_trajectory_scan(g, prep, torch.zeros(2))
     assert render_trajectory_scan(g, prep, torch.zeros(2), device="cpu").shape == ()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prepare_trajectory(g, zs, noise_seed=5)
+
+    from cips3dpp_torch.apps import cli, sample
+
+    for traj in (sample.yaw_trajectory, sample.circle_trajectory,
+                 sample.elev_circle_trajectory, sample.translate_rotate_trajectory):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            traj(4, 8)
+        assert traj(4, 8, device="cpu").extrinsics.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["style-mixing", "--n-rows", "1", "--n-cols", "1"])

@@ -107,3 +107,27 @@ def test_plain_matches_pallas_and_oracle_f32(c):
         t(x["b2"]), 0.3, -0.2,
     )
     np.testing.assert_allclose(a(got_ref), a(want), **tol)
+
+
+def test_v1_block_plain_matches_pallas_and_oracle():
+    """K3, the v1 block (f32 in and out, ToRGB bias and upsampled-skip
+    epilogue): the port's plain version against the Pallas kernel in
+    interpret mode and against its jnp oracle, at tests/test_kernels.py's
+    shape (32, 16, 32) and tolerance."""
+    from cips3dpp_tpu.kernels.decoder_block import decoder_block_fused as jfused
+    from cips3dpp_tpu.kernels.decoder_block import decoder_block_reference as jref
+    from cips3dpp_torch.kernels.decoder_block import decoder_block_fused
+
+    hp, wp, c = 32, 16, 32
+    rng = np.random.default_rng(3)
+    n = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    args = (n(hp, wp, c), n(hp, wp, 3), n(2 * hp, 2 * wp, 1), n(2 * hp, 2 * wp, 1),
+            0.1 * n(c, c), 0.1 * n(c, 3), 0.1 * n(c), 0.1 * n(c), 0.1 * n(3))
+    nw = (0.3, 0.2)
+    feat, rgb = decoder_block_fused(*[t(x) for x in args], *nw)
+    assert feat.shape == (2 * hp, 2 * wp, c) and rgb.shape == (2 * hp, 2 * wp, 3)
+    assert feat.dtype == rgb.dtype == torch.float32
+    jn = tuple(jnp.asarray(v) for v in nw)
+    for want in (jfused(*args, *jn, t_rows=8, interpret=True), jref(*args, *jn)):
+        np.testing.assert_allclose(a(feat), a(want[0]), rtol=0, atol=2e-3)
+        np.testing.assert_allclose(a(rgb), a(want[1]), rtol=0, atol=2e-3)

@@ -60,33 +60,52 @@ def test_siren_render_kernel_matches_plain(dev):
         assert torch.equal(g, g2)  # fixed summation order: same bits every launch
 
 
+# (storage, noise): the serving mode (bf16, buffers), the f32 decoder
+# config's mode, and hash noise made in the kernel in either storage
+MODES = [("bf16", "buffers"), ("f32", "buffers"), ("bf16", "hash"), ("f32", "hash")]
+
+
+@pytest.mark.parametrize("mode", MODES, ids=["-".join(m) for m in MODES])
 @pytest.mark.parametrize("c", [32, 64, 128, 256])
 @pytest.mark.parametrize("frames", [1, 2])
-def test_decoder_block_kernel_matches_plain(dev, c, frames):
+def test_decoder_block_kernel_matches_plain(dev, c, frames, mode):
     from cips3dpp_torch.kernels import _lib
     from cips3dpp_torch.kernels.decoder_block import (
-        decoder_block_packed, decoder_block_plain, decoder_block_prepare,
+        decoder_block_packed, decoder_block_plain, decoder_block_prepare, launch_name,
     )
 
     gen = torch.Generator().manual_seed(c + frames)
     hp, wp = 16, 32
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[mode[0]]
     rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
     prep = decoder_block_prepare(
         rnd(2 * hp, 2 * wp, 1), rnd(2 * hp, 2 * wp, 1), rnd(c, c) / c**0.5,
-        0.1 * rnd(c), 0.1 * rnd(c), 0.3, -0.2, rnd(c, 3) / c**0.5,
+        0.1 * rnd(c), 0.1 * rnd(c), 0.3, -0.2, rnd(c, 3) / c**0.5, dtype=dt,
+        noise_seeds=(123, 456) if mode[1] == "hash" else None,
     )
-    y1 = rnd(frames * hp, wp, c).to(torch.bfloat16)
+    y1 = rnd(frames * hp, wp, c).to(dt)
+    name = launch_name(prep)
+    assert name == {("bf16", "buffers"): "decoder_block", ("f32", "buffers"): "decoder_block_f32",
+                    ("bf16", "hash"): "decoder_block_hash",
+                    ("f32", "hash"): "decoder_block_hash_f32"}[mode]
     for emit_feat in (True, False):
-        before = _lib.LAUNCHES["decoder_block"]
+        before = dict(_lib.LAUNCHES)
         got = decoder_block_packed(y1, prepared=prep, emit_feat=emit_feat, frames=frames)
-        assert _lib.LAUNCHES["decoder_block"] == before + 1
+        assert _lib.LAUNCHES[name] == before.get(name, 0) + 1
+        assert sum(_lib.LAUNCHES.values()) == sum(before.values()) + 1
         want = decoder_block_plain(y1, prep, emit_feat, frames)
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         for g, w in zip(got, want):
             assert g.shape == w.shape and g.dtype == w.dtype
-            torch.testing.assert_close(g.float(), w.float(), rtol=1.6e-2, atol=2e-2)
+            # bf16: a flip of a stored feature is one bf16 ulp; f32: nothing
+            # is stored in bf16 and conv_b's bf16 operands are rounded from
+            # the same f32 values, so only f32 sum orders differ, and 1e-3
+            # lies under one bf16 ulp of a stored feature
+            tol = (dict(rtol=0, atol=1e-3) if dt == torch.float32
+                   else dict(rtol=1.6e-2, atol=2e-2))
+            torch.testing.assert_close(g.float(), w.float(), **tol)
 
 
 def test_generator_fused_route_matches_render_frame(dev):
@@ -128,3 +147,108 @@ def test_generator_fused_route_matches_render_frame(dev):
     for k in ("rgb", "thumb_rgb"):
         assert torch.isfinite(got[k]).all()
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-5)
+
+
+def test_hash_noise_in_kernel_matches_its_map(dev):
+    """The kernel's hash noise is hash_noise_map's realization: the f32
+    block fed the map as buffers gives what the seeds give."""
+    from cips3dpp_torch.kernels.decoder_block import (
+        decoder_block_packed, decoder_block_prepare, hash_noise_map,
+    )
+
+    gen = torch.Generator().manual_seed(7)
+    c, hp, wp = 64, 16, 32
+    rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
+    w2, b1, b2, wrgb = rnd(c, c) / c**0.5, 0.1 * rnd(c), 0.1 * rnd(c), rnd(c, 3) / c**0.5
+    maps = [hash_noise_map(2 * hp, 2 * wp, s, dev) for s in (11, 22)]
+    y1 = rnd(2 * hp, wp, c)
+    kw = dict(dtype=torch.float32)
+    by_seed = decoder_block_packed(
+        y1, frames=2, prepared=decoder_block_prepare(
+            None, None, w2, b1, b2, 0.3, -0.2, wrgb, noise_seeds=(11, 22), **kw))
+    by_map = decoder_block_packed(
+        y1, frames=2, prepared=decoder_block_prepare(
+            maps[0], maps[1], w2, b1, b2, 0.3, -0.2, wrgb, **kw))
+    torch.cuda.synchronize()
+    for g, w in zip(by_seed, by_map):
+        torch.testing.assert_close(g, w, rtol=0, atol=5e-3)
+
+
+@pytest.mark.parametrize("c", [32, 64, 128, 256])
+def test_decoder_block_fused_kernel_matches_plain(dev, c):
+    """K3, the v1 block: f32 in and out, bias and upsampled-skip epilogue."""
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.kernels.decoder_block import (
+        decoder_block_fused, decoder_block_fused_plain,
+    )
+
+    gen = torch.Generator().manual_seed(100 + c)
+    hp, wp = 32, 16
+    rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
+    args = (rnd(hp, wp, c), rnd(hp, wp, 3), rnd(2 * hp, 2 * wp, 1), rnd(2 * hp, 2 * wp, 1),
+            rnd(c, c) / c**0.5, rnd(c, 3) / c**0.5, 0.1 * rnd(c), 0.1 * rnd(c),
+            0.1 * rnd(3), 0.3, 0.2)
+    before = _lib.LAUNCHES["decoder_block_fused"]
+    got = decoder_block_fused(*args)
+    assert _lib.LAUNCHES["decoder_block_fused"] == before + 1
+    want = decoder_block_fused_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+    # feat: f32, as K2's f32 mode; rgb multiplies bf16(feat), which flips a
+    # bf16 ulp where feat differs in its last f32 bits
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-3)
+    torch.testing.assert_close(got[1], want[1], rtol=1.6e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_elem_probe_kernel_is_bit_equal_to_plain(dev, dtype):
+    """P1: every product and sum rounded alone, in the plain chain's order."""
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.tools.elem_dtype_probe import SHAPE, elem_chain, elem_chain_plain
+
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(SHAPE, generator=gen).to(dev, dtype)
+    n = torch.randn(SHAPE, generator=gen).to(dev, dtype)
+    name = "elem_probe_bf16" if dtype == torch.bfloat16 else "elem_probe_f32"
+    before = _lib.LAUNCHES[name]
+    got = elem_chain(x, n)
+    assert _lib.LAUNCHES[name] == before + 1
+    want = elem_chain_plain(x, n)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    assert torch.equal(got, want)
+
+
+def test_f32_fused_trajectory_with_hash_noise(dev):
+    """The f32-decoder config through render_trajectory(fused=True,
+    noise_seed=...): one K1 and one f32 hash-mode K2 per upsample block a
+    frame, and the frames the same seed's hash_noise_map buffers give
+    through the f32 buffer-mode kernel."""
+    import dataclasses
+
+    from cips3dpp_torch.apps.sample import render_trajectory, yaw_trajectory
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.models.generator import Generator, preset_r1024
+    from cips3dpp_torch.models.layers import randomize_zero_init_
+
+    base = preset_r1024()  # f32 decoder storage
+    cfg = dataclasses.replace(
+        base, img_size=16,
+        decoder=dataclasses.replace(base.decoder, upsample_list=(128, 256)))
+    model = Generator(cfg, device=dev, seed=8)
+    randomize_zero_init_(model, torch.Generator().manual_seed(8))
+    gen = torch.Generator().manual_seed(9)
+    zs = [torch.randn((1, 256), generator=gen).to(dev) for _ in range(2)]
+    cams = yaw_trajectory(2, cfg.img_size, device=dev)
+    _lib.reset_launches()
+    by_seed = render_trajectory(model, zs, cams, fused=True, noise_seed=31)
+    assert dict(_lib.LAUNCHES) == {"siren_render": 2, "decoder_block_hash_f32": 4}
+    bufs = model.decoder.hash_noise(31, cfg.img_size, device=dev)
+    by_bufs = render_trajectory(model, zs, cams, fused=True, noise_bufs=bufs)
+    assert _lib.LAUNCHES["decoder_block_f32"] == 4
+    assert by_seed["rgb"].shape == (2, 64, 64, 3)
+    assert torch.isfinite(torch.from_numpy(by_seed["rgb"])).all()
+    # the same realization: tests/test_kernels.py:387's bound
+    torch.testing.assert_close(torch.from_numpy(by_seed["rgb"]),
+                               torch.from_numpy(by_bufs["rgb"]), rtol=0, atol=1e-2)

@@ -158,3 +158,32 @@ def test_fused_flags_raise_where_the_kernels_cannot_run(served):
         rend(torch.zeros(1, r, n, 3), torch.ones(1, r, 3), torch.ones(1, r, 3),
              torch.ones(1, r, n), cam.near[:1], cam.far[:1],
              torch.zeros(1, 4, 256), fused=True)
+
+
+def test_noise_seed_serving_matches_jax(served):
+    """prepare_trajectory(noise_seed=...) (hash noise made by the block
+    kernels, here their plain versions, and hash_noise_map buffers for the
+    plain layers) against JAX's, and against the port fed the seed's own
+    buffers; Generator.forward with the seed takes the same route."""
+    from cips3dpp_tpu.serving import prepare_trajectory as jprep
+    from cips3dpp_tpu.serving import render_frame as jrender
+    from cips3dpp_torch.core.camera import camera_from_angles
+    from cips3dpp_torch.serving import prepare_trajectory, render_frame
+
+    jmodel, _, tmodel, _, zs, _ = served
+    _, variables = port_and_jax_generator(jmodel.cfg, tmodel.cfg, seed=11)  # served's weights
+    jp = jprep(jmodel, variables, tuple(jnp.asarray(z) for z in zs), noise_seed=9)
+    tp = prepare_trajectory(tmodel, [t(z) for z in zs], noise_seed=9, device="cpu")
+    azim, elev = np.asarray([0.1], np.float32), np.asarray([0.05], np.float32)
+    want = jrender(jmodel, jp, jnp.asarray(azim), jnp.asarray(elev), interpret=True)
+    got = render_frame(tmodel, tp, t(azim), t(elev), device="cpu")
+    _compare(got, want)
+    bufs = tmodel.decoder.hash_noise(9, tmodel.cfg.img_size, device="cpu")
+    tb = prepare_trajectory(tmodel, [t(z) for z in zs], noise_bufs=bufs, device="cpu")
+    by_bufs = render_frame(tmodel, tb, t(azim), t(elev), device="cpu")
+    torch.testing.assert_close(got["rgb"], by_bufs["rgb"], rtol=0, atol=1e-5)
+    cam = camera_from_angles(t(azim), t(elev), tmodel.cfg.img_size)
+    with torch.no_grad():
+        fwd = tmodel([t(z) for z in zs], cam.extrinsics, cam.focal, cam.near, cam.far,
+                     fused_renderer=True, fused_decoder=True, noise_seed=9)
+    torch.testing.assert_close(fwd["rgb"], got["rgb"], rtol=0, atol=1e-5)
