@@ -8,39 +8,63 @@
 // [mask, depth], sdf. The plain PyTorch version is
 // cips3dpp_torch/kernels/siren_render.py:siren_render_plain.
 //
-// What bounds it on the H100: operations. At the serving shape (4096 rays x
-// 24 samples, width 256) the two (rows,256)@(256,256) products per sample are
-// ~26 GFLOP in bf16 (>= 26 us at 989 TFLOP/s); the 75M polynomial sines are
-// ~1.5 GFLOP of f32 on the CUDA cores (~22 us at 67 TFLOP/s); the I/O is ~7 MB.
+// What bounds it on the H100: operations, on two pipes. At the serving shape
+// (4096 rays x 24 samples, width 256) the two (rows,256)@(256,256) products
+// are 25.8 GFLOP of bf16: >= 26 us at 989 TFLOP/s on the tensor cores. The
+// rest is ~1.53 G f32 operations on the CUDA cores. The phases, the 75M
+// polynomial sines and the feat sums (1.18 G) keep products and sums rounded
+// apart to match the plain version, so they cannot contract to FMA and each
+// issues as one instruction, at half the 67 TFLOP/s FMA peak: >= 35 us. The
+// dot products of layer 0 and the two heads (0.35 G) may contract: >= 5 us.
+// So >= ~41 us on the f32 pipe; the I/O is ~7 MB (2 us). The f32 pipe is the
+// floor this design is up against: the tensor work is the smaller of the
+// two, so wgmma would not lower the floor. A block runs its products and its
+// sine epilogues in turn, between barriers, so the two pipes rarely work at
+// once and the time is nearer their sum than the larger; overlapping them
+// needs warps specialised by role.
 //
 // Design:
-//  - A block owns 4 rays x 24 samples = 96 rows, ordered sample-major
-//    (row = s*4 + ray), so a 16-row tensor-core tile holds 4 samples of all
-//    4 rays and the two rows a thread's accumulators cover belong to one ray.
+//  - Persistent blocks: the entry point launches one block per SM, and each
+//    block walks the 8-ray tiles blockIdx.x, blockIdx.x + gridDim.x, ...
+//    It loads and rounds its constants (w0, wvv, wrgb, wsdf to bf16; g*, be*,
+//    bev) into shared memory once, not once a tile.
+//  - A tile is 8 rays x 24 samples = 192 rows, sample-major (row = s*8 + ray),
+//    so the rows g and g+8 of a thread's mma.sync accumulators are two
+//    samples of the same ray. 12 warps = 3 row groups (4 row tiles of 16)
+//    x 4 column quarters (8 n-tiles of 8): 128 f32 accumulators a thread.
 //  - Both 256x256 products run on the tensor cores with mma.sync m16n8k16
-//    (bf16 inputs, f32 accumulation). 12 warps = 6 row tiles x 2 column
-//    halves. The activation tile (96 x 256 bf16) stays in shared memory; the
-//    weight, stored (out, in) = (n, k), is streamed through shared memory in
-//    K-chunks of 32 (a 256x256 bf16 weight alone is 128 KB), so the block
-//    needs ~113 KB. Row strides are padded by 8 bf16 so fragment loads hit 32
-//    distinct banks.
-//  - Layer 0 (K=3), the sdf/rgb heads (N=1, N=3) and the per-ray view term are
-//    FMAs on the CUDA cores; the head dot products are reduced with warp
-//    shuffles and shared-memory atomics (two addends per row: deterministic).
-//  - Integration is a running product per ray (the TPU kernel's triangular
-//    matmul only worked around Mosaic). The compositing weights depend only on
-//    sdf and z, so they are computed after the trunk, and the view layer's
-//    features are summed into per-ray sums as they come out of the second
-//    product: the (rows, 256) per-sample features are never stored. Each of
-//    the 6 row-tile warps writes its own partial sums (24 KB of shared memory
-//    in all) and the 6 partials are added in a fixed order, so the outputs
-//    are the same bit for bit from run to run.
+//    (bf16 operands through ldmatrix, f32 accumulation). The 192 x 256 bf16
+//    activation tile stays in shared memory. The weights, stored (out, in) =
+//    (n, k), stream through a 3-stage ring of 32-wide K-chunks filled by
+//    cp.async.cg, with one block barrier a chunk. The chunks of all of a
+//    block's products form one stream (w1, wv, then w1 of the next tile, ...)
+//    issued two chunks ahead, so the view weight's first chunks are in flight
+//    while integration runs, and the next tile's first w1 chunks while its
+//    inputs and layer 0 run. Each weight pass serves 192 rows: 134 MB from L2
+//    to shared memory a launch at the serving shape (4-ray tiles would move
+//    268 MB).
+//  - Layer 0 (K=3) is on the CUDA cores, one column pair a thread with its
+//    constants in registers. The head dot products (N=1, N=3) are reduced
+//    over a warp's columns with shuffles and over the 4 column quarters from
+//    shared-memory partials added in a fixed order.
+//  - Integration: sigma, alpha and the sdf output in parallel over the 192
+//    rows; the running transmittance product and xyz on one thread a ray;
+//    w*sigmoid(rgb) in parallel over the rows beside the feat sums, then one
+//    thread a (ray, channel) sums them. The view layer's features never reach
+//    shared memory: each thread sums w*feat over its 8 samples (all one ray)
+//    into the partial of its (row group, ray, column)s, which it alone owns
+//    (25 KB in all; kept out of registers, which the 128 accumulators
+//    fill), and the 3 partials are added in a fixed order. Every sum has a fixed
+//    order, so two launches on the same inputs give the same bits.
 //  - Same arithmetic as the TPU kernel: bias folded on the host as
 //    beff = g*b + beta with the weights unfolded, the degree-9 range-reduced
 //    polynomial sin, matmul inputs rounded to bf16, phase math and compositing
 //    in f32 with products and sums kept separate (no contraction) where the
 //    plain version has them separate.
-//  - Rays past the end (R not a multiple of 4) read zeros and are not written.
+//  - Rays past the end (R not a multiple of 8) read zeros and are not written.
+//  - Built with -DSIREN_PHASE_CLOCKS, the kernel also counts each block's
+//    clock cycles by phase (PHASE_MARK below); the plain build has no trace
+//    of it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -48,17 +72,22 @@
 
 namespace {
 
-constexpr int W = 256;             // SIREN width
-constexpr int S = 24;              // samples per ray
-constexpr int TR = 4;              // rays per block
-constexpr int M = TR * S;          // 96 rows per block
-constexpr int MT = M / 16;         // 6 row tiles
-constexpr int NWARPS = 2 * MT;     // 12 warps: (row tile, column half)
+constexpr int W = 256;                 // SIREN width
+constexpr int S = 24;                  // samples per ray
+constexpr int TR = 8;                  // rays per tile
+constexpr int M = TR * S;              // 192 rows per tile
+constexpr int RG = 3;                  // row groups
+constexpr int CQ = 4;                  // column quarters
+constexpr int NWARPS = RG * CQ;        // 12 warps: (row group, column quarter)
 constexpr int NTHREADS = 32 * NWARPS;
-constexpr int KC = 32;             // K chunk of the streamed weight
-constexpr int ACT_LD = W + 8;      // padded activation row stride (bf16)
-constexpr int WC_LD = KC + 8;      // padded weight-chunk row stride (bf16)
-constexpr int NT = W / 2 / 8;      // 16 n-tiles of 8 per warp
+constexpr int RT = M / 16 / RG;        // 4 row tiles of 16 a warp
+constexpr int NTW = W / CQ / 8;        // 8 n-tiles of 8 a warp
+constexpr int KC = 32;                 // K chunk of the streamed weight
+constexpr int NKC = W / KC;            // 8 chunks a product
+constexpr int STAGES = 3;              // weight ring depth
+constexpr int ACT_LD = W + 8;          // padded row strides (bf16): ldmatrix
+constexpr int WC_LD = KC + 8;          // rows hit 8 distinct 16-byte units
+constexpr int VEC_LD = W + 8;          // padded per-ray rows (f32)
 
 constexpr float INV_2PI = 0.15915494309189535f;
 constexpr float TWO_PI = 6.283185307179586f;
@@ -68,22 +97,59 @@ constexpr float SC2 = 0.008305441787505873f;
 constexpr float SC3 = -0.00019215724206787978f;
 constexpr float SC4 = 2.125150239026409e-06f;
 
+struct Integ {
+  float alpha[M];
+  float fac[M];                        // 1 - alpha + 1e-10
+};
+
 struct __align__(16) Smem {
-  __nv_bfloat16 act[M * ACT_LD];  // activation tile, bf16
-  __nv_bfloat16 wc[W * WC_LD];    // weight K-chunk, (n, k)
-  float w0[3 * W];                // layer-0 weight (k, n), bf16-rounded
-  float g0[W], be0[W], g1[W], be1[W], gv[W];
-  float wsdf[W];                  // bf16-rounded
-  float wrgb[W * 3];              // (n, j), bf16-rounded
-  float vphase[TR * W];           // per-ray view phase gv*vterm + bev
-  float featp[MT * TR * W];        // per-ray weighted feature sums of each row tile
+  __nv_bfloat16 act[M * ACT_LD];       // activation tile, bf16
+  __nv_bfloat16 ring[STAGES][W * WC_LD];  // weight K-chunks, (n, k)
+  float featp[RG * TR * VEC_LD];       // w*feat partials by row group
+  float vphase[TR * VEC_LD];           // per-ray view phase gv*vterm + bev
+  float w0[3 * W];                     // (k, n), bf16-rounded
+  float wvv[3 * W];                    // (k, n), bf16-rounded
+  float wrgb[W * 3];                   // (n, j), bf16-rounded
+  float g0[W], be0[W], g1[W], be1[W], gv[W], bev[W];
+  float wsdf[W];                       // bf16-rounded
+  union {
+    float sdf[CQ * M];                 // sdf head partials by column quarter
+    float rgb[CQ * M * 3];             // rgb head partials by column quarter
+  } head;
+  union {
+    Integ it;
+    float wsig[M * 3];                 // w * sigmoid(rgb + brgb)
+  } rows;
   float pts[M * 3];
+  float xs[M * 3];                     // bf16(pts * scale)
   float z[M];
-  float sdf[M];                   // sdf head sums (without bias)
-  float wgt[M];                   // compositing weights
-  float rgb[M * 3];               // rgb head sums (without bias)
+  float wgt[M];                        // compositing weights
   float dnorm[TR];
 };
+static_assert(sizeof(Smem) <= 232448, "shared memory over the 227 KB a block may use");
+static_assert(NTHREADS % (W / 2) == 0, "layer 0 gives each thread one column pair");
+
+#ifdef SIREN_PHASE_CLOCKS
+// Instrumented build only (python -m cips3dpp_torch.tools.siren_phase_split):
+// at each mark, after a block barrier (some of them added by the mark),
+// thread 0 adds the SM clock cycles since the previous mark to that phase's
+// counter, so a phase's count is the blocks' time in it, waits included.
+constexpr int NPHASES = 11;
+__device__ unsigned long long g_phase_cycles[NPHASES];
+#define PHASE_MARK(k)                                                      \
+  do {                                                                     \
+    __syncthreads();                                                       \
+    if (tid == 0) {                                                        \
+      const long long now = clock64();                                     \
+      atomicAdd(&g_phase_cycles[k], (unsigned long long)(now - mark));     \
+      mark = now;                                                          \
+    }                                                                      \
+  } while (0)
+#else
+#define PHASE_MARK(k) \
+  do {                \
+  } while (0)
+#endif
 
 __device__ __forceinline__ float bfr(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -105,50 +171,112 @@ __device__ __forceinline__ float fast_sin(float x) {
   return __fmul_rn(r, p);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// a and b rounded to bf16 as one packed pair (one conversion), and the two
+// rounded values back as floats from its bits
+__device__ __forceinline__ __nv_bfloat162 pack_bf16(float a, float b, float& ra, float& rb) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(&p);
+  ra = __uint_as_float(u << 16);
+  rb = __uint_as_float(u & 0xffff0000u);
+  return p;
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// acc = act (M x W, bf16) @ wt^T, wt (W x W) bf16 stored (n, k) in global
-// memory; each warp accumulates its 16 rows x 128 columns.
-__device__ __forceinline__ void gemm_act_w(Smem& sm, const __nv_bfloat16* __restrict__ wt,
-                           float (&acc)[NT][4], int mt, int nh, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  const __nv_bfloat16* arow0 = sm.act + (mt * 16 + g) * ACT_LD + 2 * t;
-  const __nv_bfloat16* arow1 = arow0 + 8 * ACT_LD;
-  for (int kc = 0; kc < W / KC; ++kc) {
+// Chunk q of the block's weight stream: K-chunk q % NKC of w1t when q / NKC
+// is even (layer 1) and of wvht when it is odd (the view layer), copied into
+// ring stage q % STAGES. Every thread commits one group a chunk, an empty
+// one past the block's last chunk, so that wait_group counts chunks.
+__device__ __forceinline__ void issue_chunk(Smem& sm, const __nv_bfloat16* __restrict__ w1t,
+                                            const __nv_bfloat16* __restrict__ wvht, int q,
+                                            int q_end) {
+  if (q < q_end) {
+    const __nv_bfloat16* src = ((q / NKC) & 1 ? wvht : w1t) + (q % NKC) * KC;
+    __nv_bfloat16* dst = sm.ring[q % STAGES];
     for (int i = threadIdx.x; i < W * (KC / 8); i += NTHREADS) {
-      int n = i / (KC / 8), q = i % (KC / 8);
-      *reinterpret_cast<uint4*>(sm.wc + n * WC_LD + q * 8) =
-          *reinterpret_cast<const uint4*>(wt + n * W + kc * KC + q * 8);
+      const int n = i / (KC / 8), c = (i % (KC / 8)) * 8;
+      cp_async16(dst + n * WC_LD + c, src + n * W + c);
     }
+  }
+  cp_async_commit();
+}
+
+// acc = act (M x W, bf16) @ w^T over the warp's 64 rows x 64 columns, the
+// weight arriving as chunks q0 .. q0 + NKC - 1 of the stream. The one barrier
+// a chunk publishes chunk q (each thread waited for its own copies) and
+// frees the stage read at q - 1, which then takes chunk q + STAGES - 1.
+__device__ __forceinline__ void gemm(Smem& sm, const __nv_bfloat16* __restrict__ w1t,
+                                     const __nv_bfloat16* __restrict__ wvht, int q0, int q_end,
+                                     float (&acc)[RT][NTW][4], int rg, int cq, int lane) {
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  // ldmatrix row addresses (shared space, bytes): A rows (lane & 15) at
+  // k + (lane >> 4) * 8; B rows n (lane & 7) + (lane >> 4) * 8 at
+  // k + ((lane >> 3) & 1) * 8
+  const uint32_t a_addr =
+      smem_u32(sm.act) + 2 * ((rg * RT * 16 + (lane & 15)) * ACT_LD + (lane >> 4) * 8);
+  const uint32_t b_addr = smem_u32(sm.ring[0]) +
+      2 * ((cq * (W / CQ) + (lane & 7) + (lane >> 4) * 8) * WC_LD + ((lane >> 3) & 1) * 8);
+  for (int kc = 0; kc < NKC; ++kc) {
+    const int q = q0 + kc;
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
+    issue_chunk(sm, w1t, wvht, q + STAGES - 1, q_end);
+    const uint32_t wc = b_addr + 2 * (q % STAGES) * (W * WC_LD);
 #pragma unroll
     for (int ks = 0; ks < KC / 16; ++ks) {
-      const int k = kc * KC + ks * 16;
-      uint32_t a0 = ld32(arow0 + k), a1 = ld32(arow1 + k);
-      uint32_t a2 = ld32(arow0 + k + 8), a3 = ld32(arow1 + k + 8);
+      uint32_t a[RT][4];
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const __nv_bfloat16* b = sm.wc + (nh * 128 + j * 8 + g) * WC_LD + ks * 16 + 2 * t;
-        mma_bf16(acc[j], a0, a1, a2, a3, ld32(b), ld32(b + 8));
+      for (int i = 0; i < RT; ++i)
+        ldmatrix_x4(a[i], a_addr + 2 * (i * 16 * ACT_LD + kc * KC + ks * 16));
+#pragma unroll
+      for (int jp = 0; jp < NTW / 2; ++jp) {
+        uint32_t b[4];  // b0, b1 of n-tile 2jp, then of 2jp + 1
+        ldmatrix_x4(b, wc + 2 * (jp * 16 * WC_LD + ks * 16));
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          mma_bf16(acc[i][2 * jp], a[i], b[0], b[1]);
+          mma_bf16(acc[i][2 * jp + 1], a[i], b[2], b[3]);
+        }
       }
     }
-    __syncthreads();
   }
 }
 
@@ -169,188 +297,273 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel(
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int mt = warp % MT, nh = warp / MT;
-  const int ray0 = blockIdx.x * TR;
+  const int rg = warp / CQ, cq = warp % CQ;
+  const int n_tiles = (n_rays + TR - 1) / TR;
+  if (int(blockIdx.x) >= n_tiles) return;
+  const int q_end = 2 * NKC * ((n_tiles - 1 - int(blockIdx.x)) / int(gridDim.x) + 1);
+#ifdef SIREN_PHASE_CLOCKS
+  long long mark = clock64();
+#endif
 
-  // ---- constants and per-ray inputs ----
+  // ---- the first weight chunks, then the constants, once a block ----
+  for (int q = 0; q < STAGES - 1; ++q) issue_chunk(sm, w1t, wvht, q, q_end);
   for (int i = tid; i < 3 * W; i += NTHREADS) {
     sm.w0[i] = bfr(w0[i]);
+    sm.wvv[i] = bfr(wvv[i]);
     sm.wrgb[i] = bfr(wrgb[i]);
   }
   for (int i = tid; i < W; i += NTHREADS) {
     sm.g0[i] = g0[i]; sm.be0[i] = be0[i];
     sm.g1[i] = g1[i]; sm.be1[i] = be1[i];
-    sm.gv[i] = gv[i];
+    sm.gv[i] = gv[i]; sm.bev[i] = bev[i];
     sm.wsdf[i] = bfr(wsdf[i]);
   }
-  for (int i = tid; i < M; i += NTHREADS) {
-    const int s = i / TR, ray = ray0 + i % TR;
-    const bool ok = ray < n_rays;
-    for (int c = 0; c < 3; ++c)
-      sm.pts[i * 3 + c] = ok ? pts[(size_t(ray) * S + s) * 3 + c] : 0.f;
-    sm.z[i] = ok ? z_vals[size_t(ray) * S + s] : 0.f;
-    sm.sdf[i] = 0.f;
-    sm.rgb[i * 3] = sm.rgb[i * 3 + 1] = sm.rgb[i * 3 + 2] = 0.f;
-  }
-  for (int i = tid; i < TR * W; i += NTHREADS) {
-    const int r = i / W, n = i % W, ray = ray0 + r;
-    float vt = 0.f;
-    if (ray < n_rays) {
-      const float* v = viewdirs + size_t(ray) * 3;
-      vt = __fadd_rn(__fadd_rn(__fmul_rn(bfr(v[0]), bfr(wvv[n])),
-                               __fmul_rn(bfr(v[1]), bfr(wvv[W + n]))),
-                     __fmul_rn(bfr(v[2]), bfr(wvv[2 * W + n])));
-    }
-    sm.vphase[i] = mul_add(gv[n], vt, bev[n]);
-  }
-  if (tid < TR) sm.dnorm[tid] = ray0 + tid < n_rays ? dnorm[ray0 + tid] : 0.f;
   __syncthreads();
+  PHASE_MARK(0);  // constants
 
-  // ---- layer 0 (K = 3) on the CUDA cores ----
-  for (int i = tid; i < M * (W / 2); i += NTHREADS) {
-    const int row = i / (W / 2), n = (i % (W / 2)) * 2;
-    const float x0 = bfr(__fmul_rn(sm.pts[row * 3], scale));
-    const float x1 = bfr(__fmul_rn(sm.pts[row * 3 + 1], scale));
-    const float x2 = bfr(__fmul_rn(sm.pts[row * 3 + 2], scale));
-    float h[2];
+  float acc[RT][NTW][4];
+  int q = 0;  // the tile's first layer-1 chunk in the block's stream
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, q += 2 * NKC) {
+    const int ray0 = tile * TR;
+
+    // ---- per-tile inputs ----
+    for (int i = tid; i < M; i += NTHREADS) {  // i = ray * S + s: coalesced
+      const int r = i / S, s = i % S, row = s * TR + r;
+      const bool ok = ray0 + r < n_rays;
+      const size_t src = size_t(ray0) * S + i;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float p = ok ? pts[src * 3 + c] : 0.f;
+        sm.pts[row * 3 + c] = p;
+        sm.xs[row * 3 + c] = bfr(__fmul_rn(p, scale));  // layer 0's operand
+      }
+      sm.z[row] = ok ? z_vals[src] : 0.f;
+    }
+    for (int i = tid; i < TR * W; i += NTHREADS) {
+      const int r = i / W, n = i % W, ray = ray0 + r;
+      float vt = 0.f;
+      if (ray < n_rays) {
+        const float* v = viewdirs + size_t(ray) * 3;
+        vt = __fadd_rn(__fadd_rn(__fmul_rn(bfr(v[0]), sm.wvv[n]),
+                                 __fmul_rn(bfr(v[1]), sm.wvv[W + n])),
+                       __fmul_rn(bfr(v[2]), sm.wvv[2 * W + n]));
+      }
+      sm.vphase[r * VEC_LD + n] = mul_add(sm.gv[n], vt, sm.bev[n]);
+    }
+    if (tid < TR) sm.dnorm[tid] = ray0 + tid < n_rays ? dnorm[ray0 + tid] : 0.f;
+    __syncthreads();
+    PHASE_MARK(1);  // per-tile inputs
+
+    // ---- layer 0 (K = 3) on the CUDA cores, one column pair a thread with
+    //      its constants in registers (loaded here: not held through the
+    //      products) ----
+    const int l0c = (tid % (W / 2)) * 2;
+    float lw[3][2], lg[2], lb[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int c = n + e;
-      float lin = __fadd_rn(__fadd_rn(__fmul_rn(x0, sm.w0[c]), __fmul_rn(x1, sm.w0[W + c])),
-                            __fmul_rn(x2, sm.w0[2 * W + c]));
-      h[e] = fast_sin(mul_add(sm.g0[c], lin, sm.be0[c]));
-    }
-    *reinterpret_cast<__nv_bfloat162*>(sm.act + row * ACT_LD + n) =
-        __floats2bfloat162_rn(h[0], h[1]);
-  }
-  __syncthreads();
-
-  // ---- layer 1 on the tensor cores, then the sdf head ----
-  float acc[NT][4];
-  gemm_act_w(sm, w1t, acc, mt, nh, lane);  // ends with __syncthreads()
-  {
-    float ps0 = 0.f, ps1 = 0.f;
-    const int r0 = mt * 16 + g, r1 = r0 + 8;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = nh * 128 + j * 8 + 2 * t;
-      float h00 = bfr(fast_sin(mul_add(sm.g1[c], acc[j][0], sm.be1[c])));
-      float h01 = bfr(fast_sin(mul_add(sm.g1[c + 1], acc[j][1], sm.be1[c + 1])));
-      float h10 = bfr(fast_sin(mul_add(sm.g1[c], acc[j][2], sm.be1[c])));
-      float h11 = bfr(fast_sin(mul_add(sm.g1[c + 1], acc[j][3], sm.be1[c + 1])));
-      *reinterpret_cast<__nv_bfloat162*>(sm.act + r0 * ACT_LD + c) = __floats2bfloat162_rn(h00, h01);
-      *reinterpret_cast<__nv_bfloat162*>(sm.act + r1 * ACT_LD + c) = __floats2bfloat162_rn(h10, h11);
-      ps0 += h00 * sm.wsdf[c] + h01 * sm.wsdf[c + 1];
-      ps1 += h10 * sm.wsdf[c] + h11 * sm.wsdf[c + 1];
+      for (int k = 0; k < 3; ++k) lw[k][e] = sm.w0[k * W + l0c + e];
+      lg[e] = sm.g0[l0c + e];
+      lb[e] = sm.be0[l0c + e];
     }
-    ps0 += __shfl_xor_sync(0xffffffffu, ps0, 1);
-    ps0 += __shfl_xor_sync(0xffffffffu, ps0, 2);
-    ps1 += __shfl_xor_sync(0xffffffffu, ps1, 1);
-    ps1 += __shfl_xor_sync(0xffffffffu, ps1, 2);
-    if (t == 0) {
-      atomicAdd(&sm.sdf[r0], ps0);
-      atomicAdd(&sm.sdf[r1], ps1);
+#pragma unroll 1  // unrolled, it measured slower
+    for (int row = tid / (W / 2); row < M; row += NTHREADS / (W / 2)) {
+      const float x0 = sm.xs[row * 3], x1 = sm.xs[row * 3 + 1], x2 = sm.xs[row * 3 + 2];
+      float h[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float lin = __fadd_rn(__fadd_rn(__fmul_rn(x0, lw[0][e]), __fmul_rn(x1, lw[1][e])),
+                                    __fmul_rn(x2, lw[2][e]));
+        h[e] = fast_sin(mul_add(lg[e], lin, lb[e]));
+      }
+      *reinterpret_cast<__nv_bfloat162*>(sm.act + row * ACT_LD + l0c) =
+          __floats2bfloat162_rn(h[0], h[1]);
     }
-  }
-  __syncthreads();
+    PHASE_MARK(2);  // layer 0
 
-  // ---- integration: a running transmittance product per ray ----
-  if (tid < TR) {
-    const int ray = ray0 + tid;
-    const float b = bsdf[0];
-    float trans = 1.f, x = 0.f, y = 0.f, zz = 0.f, w = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const int row = s * TR + tid;
-      const float sd = __fadd_rn(sm.sdf[row], b);
+    // ---- layer 1 on the tensor cores (its first barrier publishes act) ----
+    gemm(sm, w1t, wvht, q, q_end, acc, rg, cq, lane);
+    __syncthreads();  // every warp has read act before it is overwritten
+    PHASE_MARK(3);  // layer 1 product
+    // one row tile at a time (rows g and g + 8), its column constants
+    // re-read from shared memory: few registers beside the accumulators
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int r0 = (rg * RT + i) * 16 + g, r1 = r0 + 8;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        const int c = cq * (W / CQ) + j * 8 + 2 * t;
+        const float2 gc = *reinterpret_cast<const float2*>(sm.g1 + c);
+        const float2 bc = *reinterpret_cast<const float2*>(sm.be1 + c);
+        const float2 wc = *reinterpret_cast<const float2*>(sm.wsdf + c);
+        float h00, h01, h10, h11;
+        *reinterpret_cast<__nv_bfloat162*>(sm.act + r0 * ACT_LD + c) =
+            pack_bf16(fast_sin(mul_add(gc.x, acc[i][j][0], bc.x)),
+                      fast_sin(mul_add(gc.y, acc[i][j][1], bc.y)), h00, h01);
+        *reinterpret_cast<__nv_bfloat162*>(sm.act + r1 * ACT_LD + c) =
+            pack_bf16(fast_sin(mul_add(gc.x, acc[i][j][2], bc.x)),
+                      fast_sin(mul_add(gc.y, acc[i][j][3], bc.y)), h10, h11);
+        ps0 += h00 * wc.x + h01 * wc.y;
+        ps1 += h10 * wc.x + h11 * wc.y;
+      }
+      ps0 += __shfl_xor_sync(0xffffffffu, ps0, 1);
+      ps0 += __shfl_xor_sync(0xffffffffu, ps0, 2);
+      ps1 += __shfl_xor_sync(0xffffffffu, ps1, 1);
+      ps1 += __shfl_xor_sync(0xffffffffu, ps1, 2);
+      if (t == 0) {
+        sm.head.sdf[cq * M + r0] = ps0;
+        sm.head.sdf[cq * M + r1] = ps1;
+      }
+    }
+    __syncthreads();
+    PHASE_MARK(4);  // layer 1 epilogue and sdf head
+
+    // ---- integration: sigma and alpha over the rows in parallel ----
+    for (int i = tid; i < M; i += NTHREADS) {
+      const int r = i / S, s = i % S, row = s * TR + r;
+      const float* hp = sm.head.sdf + row;
+      float sd = hp[0];
+#pragma unroll
+      for (int p = 1; p < CQ; ++p) sd = __fadd_rn(sd, hp[p * M]);
+      sd = __fadd_rn(sd, bsdf[0]);
       const float gap = s + 1 < S ? __fsub_rn(sm.z[row + TR], sm.z[row]) : 1e10f;
-      const float dist = __fmul_rn(gap, sm.dnorm[tid]);
+      const float dist = __fmul_rn(gap, sm.dnorm[r]);
       const float sig = __fdiv_rn(__fdiv_rn(1.f, __fadd_rn(1.f, expf(__fdiv_rn(sd, sbeta)))), sbeta);
       const float alpha = __fsub_rn(1.f, expf(-__fmul_rn(sig, dist)));
-      w = __fmul_rn(alpha, trans);
-      trans = __fmul_rn(trans, __fadd_rn(__fsub_rn(1.f, alpha), 1e-10f));
-      sm.wgt[row] = w;
-      x += w * sm.pts[row * 3];
-      y += w * sm.pts[row * 3 + 1];
-      zz += w * sm.pts[row * 3 + 2];
-      if (ray < n_rays) sdf_out[size_t(ray) * S + s] = sd;
+      sm.rows.it.alpha[row] = alpha;
+      sm.rows.it.fac[row] = __fadd_rn(__fsub_rn(1.f, alpha), 1e-10f);
+      if (ray0 + r < n_rays) sdf_out[size_t(ray0) * S + i] = sd;
     }
-    if (ray < n_rays) {
-      xyz[size_t(ray) * 3] = x;
-      xyz[size_t(ray) * 3 + 1] = y;
-      xyz[size_t(ray) * 3 + 2] = zz;
-      maskd[size_t(ray) * 2] = w;
-      maskd[size_t(ray) * 2 + 1] = -sqrtf(x * x + y * y + zz * zz);
+    __syncthreads();
+    PHASE_MARK(5);  // sigma and alpha
+    // ... and the running transmittance product, one thread a ray
+    if (tid < TR) {
+      const int ray = ray0 + tid;
+      float trans = 1.f, x = 0.f, y = 0.f, zz = 0.f, w = 0.f;
+      for (int s = 0; s < S; ++s) {
+        const int row = s * TR + tid;
+        w = __fmul_rn(sm.rows.it.alpha[row], trans);
+        trans = __fmul_rn(trans, sm.rows.it.fac[row]);
+        sm.wgt[row] = w;
+        x = __fadd_rn(x, __fmul_rn(w, sm.pts[row * 3]));
+        y = __fadd_rn(y, __fmul_rn(w, sm.pts[row * 3 + 1]));
+        zz = __fadd_rn(zz, __fmul_rn(w, sm.pts[row * 3 + 2]));
+      }
+      if (ray < n_rays) {
+        xyz[size_t(ray) * 3] = x;
+        xyz[size_t(ray) * 3 + 1] = y;
+        xyz[size_t(ray) * 3 + 2] = zz;
+        maskd[size_t(ray) * 2] = w;
+        maskd[size_t(ray) * 2 + 1] = -sqrtf(x * x + y * y + zz * zz);
+      }
     }
-  }
-  __syncthreads();
+    PHASE_MARK(6);  // transmittance product, xyz, mask and depth
 
-  // ---- view layer on the tensor cores; features summed per ray ----
-  gemm_act_w(sm, wvht, acc, mt, nh, lane);
-  {
-    const int r0 = mt * 16 + g, r1 = r0 + 8, ray = r0 % TR;  // r1 % TR == ray
-    const float w0r = sm.wgt[r0], w1r = sm.wgt[r1];
-    float pr0[3] = {0.f, 0.f, 0.f}, pr1[3] = {0.f, 0.f, 0.f};
+    // ---- view layer on the tensor cores (its first barrier publishes wgt);
+    //      features summed per ray ----
+    gemm(sm, w1t, wvht, q + NKC, q_end, acc, rg, cq, lane);
+    PHASE_MARK(7);  // view product
+    {
+      // one row tile at a time, as for layer 1. w*feat over the thread's 8
+      // samples (all ray g), in sample order, is summed in the thread's own
+      // slots of featp (one owner a (row group, ray, column))
+      float* fp = sm.featp + (rg * TR + g) * VEC_LD + cq * (W / CQ) + 2 * t;
+      const float* vp = sm.vphase + g * VEC_LD;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = nh * 128 + j * 8 + 2 * t;
-      const float* vp = sm.vphase + ray * W;
-      float f00 = fast_sin(mul_add(sm.gv[c], acc[j][0], vp[c]));
-      float f01 = fast_sin(mul_add(sm.gv[c + 1], acc[j][1], vp[c + 1]));
-      float f10 = fast_sin(mul_add(sm.gv[c], acc[j][2], vp[c]));
-      float f11 = fast_sin(mul_add(sm.gv[c + 1], acc[j][3], vp[c + 1]));
-      float s0 = w0r * f00 + w1r * f10;
-      float s1 = w0r * f01 + w1r * f11;
-      s0 += __shfl_xor_sync(0xffffffffu, s0, 16);  // rows g and g+4: same ray
-      s1 += __shfl_xor_sync(0xffffffffu, s1, 16);
-      if (lane < 16) {  // one writer for each (row tile, ray, column)
-        sm.featp[(mt * TR + ray) * W + c] = s0;
-        sm.featp[(mt * TR + ray) * W + c + 1] = s1;
-      }
-      const float b00 = bfr(f00), b01 = bfr(f01), b10 = bfr(f10), b11 = bfr(f11);
+      for (int i = 0; i < RT; ++i) {
+        const int r0 = (rg * RT + i) * 16 + g, r1 = r0 + 8;
+        const float w0r = sm.wgt[r0], w1r = sm.wgt[r1];
+        float pr[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
 #pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        pr0[q] += b00 * sm.wrgb[c * 3 + q] + b01 * sm.wrgb[(c + 1) * 3 + q];
-        pr1[q] += b10 * sm.wrgb[c * 3 + q] + b11 * sm.wrgb[(c + 1) * 3 + q];
+        for (int j = 0; j < NTW; ++j) {
+          const int c = cq * (W / CQ) + j * 8 + 2 * t;
+          const float2 gvc = *reinterpret_cast<const float2*>(sm.gv + c);
+          const float2 vpc = *reinterpret_cast<const float2*>(vp + c);
+          const float f00 = fast_sin(mul_add(gvc.x, acc[i][j][0], vpc.x));
+          const float f01 = fast_sin(mul_add(gvc.y, acc[i][j][1], vpc.y));
+          const float f10 = fast_sin(mul_add(gvc.x, acc[i][j][2], vpc.x));
+          const float f11 = fast_sin(mul_add(gvc.y, acc[i][j][3], vpc.y));
+          float2 fs = i == 0 ? make_float2(0.f, 0.f) : *reinterpret_cast<float2*>(fp + j * 8);
+          fs.x = __fadd_rn(__fadd_rn(fs.x, __fmul_rn(w0r, f00)), __fmul_rn(w1r, f10));
+          fs.y = __fadd_rn(__fadd_rn(fs.y, __fmul_rn(w0r, f01)), __fmul_rn(w1r, f11));
+          *reinterpret_cast<float2*>(fp + j * 8) = fs;
+          float b00, b01, b10, b11;  // the rgb head's bf16 operands
+          pack_bf16(f00, f01, b00, b01);
+          pack_bf16(f10, f11, b10, b11);
+          const float* wr = sm.wrgb + c * 3;  // columns c and c + 1
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            pr[0][k] += b00 * wr[k] + b01 * wr[3 + k];
+            pr[1][k] += b10 * wr[k] + b11 * wr[3 + k];
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            pr[e][k] += __shfl_xor_sync(0xffffffffu, pr[e][k], 1);
+            pr[e][k] += __shfl_xor_sync(0xffffffffu, pr[e][k], 2);
+            if (t == 0) sm.head.rgb[(cq * M + r0 + 8 * e) * 3 + k] = pr[e][k];
+          }
       }
     }
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      pr0[q] += __shfl_xor_sync(0xffffffffu, pr0[q], 1);
-      pr0[q] += __shfl_xor_sync(0xffffffffu, pr0[q], 2);
-      pr1[q] += __shfl_xor_sync(0xffffffffu, pr1[q], 1);
-      pr1[q] += __shfl_xor_sync(0xffffffffu, pr1[q], 2);
-      if (t == 0) {
-        atomicAdd(&sm.rgb[r0 * 3 + q], pr0[q]);
-        atomicAdd(&sm.rgb[r1 * 3 + q], pr1[q]);
-      }
-    }
-  }
-  __syncthreads();
+    __syncthreads();
+    PHASE_MARK(8);  // view epilogue: feat partials and rgb head
 
-  // ---- per-ray outputs ----
-  if (tid < TR && ray0 + tid < n_rays) {
-    float acc3[3] = {0.f, 0.f, 0.f};
-    for (int s = 0; s < S; ++s) {
-      const int row = s * TR + tid;
-      for (int q = 0; q < 3; ++q) {
-        const float v = __fadd_rn(sm.rgb[row * 3 + q], brgb[q]);
-        acc3[q] += sm.wgt[row] * __fdiv_rn(1.f, __fadd_rn(1.f, expf(-v)));
+    // ---- per-ray outputs: feat, and w*sigmoid(rgb) for thumb ----
+    for (int i = tid; i < TR * W; i += NTHREADS) {
+      const int r = i / W, n = i % W;
+      const float* fp = sm.featp + r * VEC_LD + n;
+      float f = fp[0];
+#pragma unroll
+      for (int p = 1; p < RG; ++p) f = __fadd_rn(f, fp[p * TR * VEC_LD]);
+      if (ray0 + r < n_rays) feat[size_t(ray0) * W + i] = f;
+    }
+    for (int i = tid; i < M * 3; i += NTHREADS) {
+      const int row = i / 3, k = i % 3;
+      const float* hp = sm.head.rgb + i;
+      float v = hp[0];
+#pragma unroll
+      for (int p = 1; p < CQ; ++p) v = __fadd_rn(v, hp[p * M * 3]);
+      v = __fadd_rn(v, brgb[k]);
+      sm.rows.wsig[i] = __fmul_rn(sm.wgt[row], __fdiv_rn(1.f, __fadd_rn(1.f, expf(-v))));
+    }
+    __syncthreads();
+    PHASE_MARK(9);  // feat output, w*sigmoid(rgb)
+    // thumb, one thread a (ray, channel); the other threads go on to the
+    // next tile's inputs, which touch none of wsig
+    if (tid < TR * 3) {
+      const int r = tid / 3, k = tid % 3;
+      if (ray0 + r < n_rays) {
+        float a = 0.f;
+        for (int s = 0; s < S; ++s) a = __fadd_rn(a, sm.rows.wsig[(s * TR + r) * 3 + k]);
+        thumb[size_t(ray0 + r) * 3 + k] = -1.f + 2.f * a;
       }
     }
-    for (int q = 0; q < 3; ++q)
-      thumb[size_t(ray0 + tid) * 3 + q] = -1.f + 2.f * acc3[q];
-  }
-  for (int i = tid; i < TR * W; i += NTHREADS) {
-    const int ray = ray0 + i / W;
-    float f = 0.f;
-#pragma unroll
-    for (int m = 0; m < MT; ++m) f += sm.featp[m * TR * W + i];
-    if (ray < n_rays) feat[size_t(ray) * W + i % W] = f;
+    PHASE_MARK(10);  // thumb
   }
 }
 
 }  // namespace
 
+#ifdef SIREN_PHASE_CLOCKS
+// Copies the phase counters to `out` (NPHASES values) and, with `reset`,
+// sets them to 0. Returns NPHASES through `n`.
+extern "C" int siren_render_phase_cycles(unsigned long long* out, int* n, int reset) {
+  *n = NPHASES;
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(g_phase_cycles));
+  if (err == cudaSuccess && reset) {
+    static const unsigned long long zero[NPHASES] = {};
+    err = cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
+  }
+  return int(err);
+}
+#endif
+
+// One block an SM (at most one a tile); each block walks the 8-ray tiles
+// with a stride of the grid. The SM count is read once: it sets only how the
+// tiles are shared, never what a launch computes.
 extern "C" int siren_render_forward(
     const float* pts, const float* viewdirs, const float* z_vals,
     const float* dnorm, const float* w0, const float* g0, const float* be0,
@@ -359,11 +572,21 @@ extern "C" int siren_render_forward(
     const float* bsdf, const float* wrgb, const float* brgb, float scale,
     float sigmoid_beta, float* thumb, float* feat, float* xyz, float* maskd,
     float* sdf, int n_rays, void* stream) {
+  static int sms = 0;
+  cudaError_t err;
+  if (sms == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return int(err);
+  }
   const int smem = int(sizeof(Smem));
-  cudaError_t err = cudaFuncSetAttribute(
+  err = cudaFuncSetAttribute(
       siren_render_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
-  const int blocks = (n_rays + TR - 1) / TR;
+  const int tiles = (n_rays + TR - 1) / TR;
+  const int blocks = tiles < sms ? tiles : sms;
   siren_render_kernel<<<blocks, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       pts, viewdirs, z_vals, dnorm, w0, g0, be0,
       static_cast<const __nv_bfloat16*>(w1t), g1, be1,

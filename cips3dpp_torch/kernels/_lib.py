@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` is compiled by `nvcc` for sm_90a into its own shared
 library with a plain C interface, at first use, into
 `cips3dpp_torch/_build/` (git-ignored), and loaded with ctypes. The library
 name carries a hash of the source and the flags, so an edited source is
-rebuilt. `build_all` starts one nvcc per source, all at once.
+rebuilt. `build_all` starts one nvcc per source, all at once; `defines`
+(extra `-D` flags) build an instrumented variant beside the plain library.
 
 `LAUNCHES[name]` counts kernel launches: a wrapper adds one where it
 launches its kernel and nowhere else. `device_ms` times a kernel on the
@@ -35,7 +36,7 @@ SOURCES = ("siren_render", "decoder_block", "elem_probe")
 LAUNCHES: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
@@ -54,23 +55,24 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, defines=()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS + tuple(defines)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build_all(names=SOURCES) -> dict[str, str]:
-    """Compile every missing library in parallel (one nvcc each). Returns
-    {name: ptxas report} for the libraries built by this call."""
+def build_all(names=SOURCES, defines=()) -> dict[str, str]:
+    """Compile every missing library in parallel (one nvcc each), with the
+    extra flags `defines`. Returns {name: ptxas report} for the libraries
+    built by this call."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = _lib_path(name)
+        out = _lib_path(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -87,16 +89,18 @@ def build_all(names=SOURCES) -> dict[str, str]:
     return reports
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if needed."""
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu (built with the extra flags
+    `defines`), built first if needed."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            path = _lib_path(name)
+            path = _lib_path(name, defines)
             if not path.exists():
-                build_all((name,))
+                build_all((name,), defines)
             lib = ctypes.CDLL(str(path))
-            _libs[name] = lib
+            _libs[key] = lib
         return lib
 
 

@@ -137,7 +137,9 @@ def siren_render_plain(prepared, pts, viewdirs, z_vals, dnorm):
     return thumb, feat, sdf[..., None], maskd, xyz
 
 
-def _launch(prepared, pts, viewdirs, z_vals, dnorm):
+def _launch(prepared, pts, viewdirs, z_vals, dnorm, defines=()):
+    """The kernel on the card; `defines` selects an instrumented build
+    (`_lib.load`)."""
     dev = pts.device
     r, s, _ = pts.shape
     weights = prepared["weights"]
@@ -166,7 +168,7 @@ def _launch(prepared, pts, viewdirs, z_vals, dnorm):
     sdf = torch.empty((r, s), dtype=f32, device=dev)
     if r == 0:
         return thumb, feat, sdf[..., None], maskd, xyz
-    lib = _lib.load("siren_render")
+    lib = _lib.load("siren_render", defines)
     fn = lib.siren_render_forward
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_float] * 2 + \

@@ -9,7 +9,8 @@ On a machine with the card:
 (--noconftest: tests/conftest.py sets up JAX, which this file does not use.)
 
 The tolerances are those of the CPU parity tests for the same pair of
-computations: same rounding points, different f32 summation order.
+computations: same rounding points, different f32 summation order. K1's
+are tighter, set from its readings on the card.
 """
 
 import pytest
@@ -28,8 +29,11 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def test_siren_render_kernel_matches_plain(dev):
-    """Full width, ragged ray count (not a multiple of the 4-ray tile)."""
+# 1001 = 8*125 + 1 is ragged against the 8-ray tile, 5 is less than one
+# tile, and 64*64 is the serving shape, where the tiles outnumber the SMs
+@pytest.mark.parametrize("r", [1001, 5, 4096])
+def test_siren_render_kernel_matches_plain(dev, r):
+    """Full width, 24 samples a ray, at R rays."""
     from cips3dpp_torch.kernels import _lib
     from cips3dpp_torch.kernels.siren_render import (
         siren_prepare, siren_render_plain, siren_render_prepared,
@@ -39,7 +43,7 @@ def test_siren_render_kernel_matches_plain(dev):
 
     gen = torch.Generator().manual_seed(0)
     rend = init_parameters(VolumeFeatureRenderer(depth=2), gen).to(dev)
-    r, s = 1001, 24
+    s = 24
     styles = torch.randn((3, 256), generator=gen).to(dev)
     pts = (0.1 * torch.randn((r, s, 3), generator=gen)).to(dev)
     vd = torch.nn.functional.normalize(torch.randn((r, 3), generator=gen), dim=-1).to(dev)
@@ -53,11 +57,27 @@ def test_siren_render_kernel_matches_plain(dev):
     want = siren_render_plain(prep, pts, vd, z, torch.linalg.norm(rd, dim=-1, keepdim=True))
     again = siren_render_prepared(prep, pts, vd, z, rd)
     torch.cuda.synchronize()
-    atol = (1e-2, 6e-2, 1e-2, 1e-2, 1e-3)  # thumb, feat, sdf, mask_depth, xyz
-    for g, w, g2, tol in zip(got, want, again, atol):
+    # only f32 sum orders differ: the bounds sit 10x (feat) to 90x (xyz)
+    # above the largest readings on the H100 (PERF.md section 6)
+    atol = {"thumb": 1e-3, "feat": 5e-3, "sdf": 1e-3, "mask_depth": 1e-4, "xyz": 1e-4}
+    errs = {k: float((g - w).abs().max()) for k, g, w in zip(atol, got, want)}
+    print(f"R={r}: max |kernel - plain| {errs}")
+    for g, w, g2, tol in zip(got, want, again, atol.values()):
         assert g.shape == w.shape
         torch.testing.assert_close(g, w, rtol=0, atol=tol)
         assert torch.equal(g, g2)  # fixed summation order: same bits every launch
+
+
+def test_siren_phase_split_counts_every_phase(dev):
+    """The instrumented K1 build computes what the plain build computes
+    (checked inside `measure`) and counts cycles in every phase."""
+    from cips3dpp_torch.tools.siren_phase_split import PHASES, measure
+
+    out = measure(64, 2, dev)
+    assert list(out["share"]) == list(PHASES)
+    assert all(v > 0 for v in out["share"].values())
+    assert abs(sum(out["share"].values()) - 1.0) < 1e-9
+    assert out["ms"] > 0 and out["instrumented_ms"] > 0
 
 
 # (storage, noise): the serving mode (bf16, buffers), the f32 decoder
