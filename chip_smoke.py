@@ -5,14 +5,18 @@
 Phases, each fatal on failure:
   1. device: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: nvcc compiles every kernel in cips3dpp_torch/csrc, one process
-     per source, in parallel;
+     per source, in parallel; ptxas registers and spills by entry, and each
+     K2/K3 instantiation's shared memory, blocks an SM and registers;
   3. K1 (SIREN render) against its plain PyTorch version at the serving
      shape (4096 rays x 24 samples, width 256), with timings;
   4. K2 (decoder upsample block) against its plain version at the four
      block shapes of the r1024 decoder, in each of its variants: bf16
      storage with noise buffers (the serving mode), f32 storage (the f32
      decoder of the sample_multi_view config), and noise hashed in the
-     kernel in bf16 and in f32; then K3 (the v1 block, f32 in and out) at
+     kernel in bf16 and in f32 (two launches bit-equal, the share of feat
+     values that differ from the plain version's, and the bound per shape
+     with its byte and operation terms from decoder_block_work, summed);
+     then K3 (the v1 block, f32 in and out) at
      the same shapes through its own entry point, and P1 (the elementwise
      dtype probe) in f32 and bf16 through the probe tool, bit for bit;
   5. the serving slice: a seeded full-width preset_serving Generator
@@ -61,10 +65,6 @@ PEAK_F32_APART = PEAK_F32 / 2
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 SEED = 1234
 NOISE_SEED = 20240607
-# f32 operations of one hash_normal value: two avalanche hashes (2 x 7
-# integer ops), two int->float uniforms (4), log, sqrt and -2x (3), the
-# sin polynomial with its range reduction (14), the phase and product (3)
-HASH_OPS = 38
 K2_SRC, K2_TPU = "cips3dpp_torch/csrc/decoder_block.cu", "cips3dpp_tpu/kernels/decoder_block.py:362"
 # Kernel against plain version by storage dtype. bf16: a bf16 activation
 # that rounds the other way (the f32 sums differ in order) moves a stored
@@ -231,7 +231,9 @@ def make_model(cfg, dev, seed):
 def k2_phase(label, blocks, img_size, gen, dev):
     """K2 in the variant of `blocks` (decoder_block_prepare outputs of the
     four upsample blocks) against its plain version at each block shape,
-    with timings. The last block skips its feature store, as in a frame."""
+    with timings. The last block skips its feature store, as in a frame.
+    The bound is taken per shape (decoder_block_work: bytes against the
+    tensor and f32 operations) and summed."""
     from cips3dpp_torch.kernels import decoder_block as kdb
 
     res = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0, "bytes": 0.0,
@@ -243,41 +245,52 @@ def k2_phase(label, blocks, img_size, gen, dev):
         hashed = "seeds" in bp
         y1 = torch.randn((hp, hp, c), generator=gen).to(dev, dt)
         got = kdb.decoder_block_packed(y1, prepared=bp, emit_feat=not last)
+        again = kdb.decoder_block_packed(y1, prepared=bp, emit_feat=not last)
         want = kdb.decoder_block_plain(y1, bp, emit_feat=not last)
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
         want = want if isinstance(want, tuple) else (want,)
-        for g, w in zip(got, want):
+        for g, a, w in zip(got, again, want):
             if not torch.isfinite(g.float()).all():
                 raise AssertionError(f"{label} C={c}: output not finite")
+            if not torch.equal(g, a):
+                raise AssertionError(f"{label} C={c}: two launches on the same inputs differ")
             torch.testing.assert_close(g.float(), w.float(), **K2_TOL[dt])
         err = max(max_err(g, w) for g, w in zip(got, want))
+        # share of stored feature values that differ from the plain version's
+        flips = float((got[0] != want[0]).float().mean()) if not last else None
         ms, call_ms = kernel_time(
             lambda: kdb.decoder_block_packed(y1, prepared=bp, emit_feat=not last),
             "block_kernel")
         plain_ms = cuda_time(lambda: kdb.decoder_block_plain(y1, bp, emit_feat=not last),
                              iters=5)
-        es = y1.element_size()
-        px = 4 * hp * hp
-        nbytes = (es * hp * hp * c + (0 if hashed else 2 * es * px)  # y1, noise maps
-                  + (0 if last else es * px * c) + 4 * px * 3  # feat, rgb
-                  + 2 * c * c + 4 * (2 * c + 2) + es * 3 * c)  # weights
-        flops = 2 * px * c * c
-        f32_ops = 2 * px * 3 * c + (2 * px * HASH_OPS if hashed else 0)
-        b_ms, b_by = bound(nbytes, bf16_flops=flops, f32_flops=f32_ops)
-        log(f"[{label}] y1 ({hp},{hp},{c}) feat {'skipped' if last else 'stored'}: "
-            f"max |kernel - plain| {err:.3e}; {ms:.4f} ms kernel ({call_ms:.4f} a call), "
-            f"{plain_ms:.4f} ms plain, bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB)")
-        res["shapes"].append({"y1": [hp, hp, c], "feat": not last, "err": err, "ms": ms,
-                              "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                              "bound_by": b_by, "bytes": nbytes})
+        work = kdb.decoder_block_work(hp, hp, c, dt, hashed, emit_feat=not last)
+        b_ms, b_by = bound(work["bytes"], work["bf16_flops"], work["f32_dot"], work["f32_apart"])
+        terms = {"bytes_ms": work["bytes"] / PEAK_BYTES * 1e3,
+                 "f32_ms": (work["f32_dot"] / PEAK_F32 + work["f32_apart"] / PEAK_F32_APART) * 1e3,
+                 "bf16_tensor_ms": work["bf16_flops"] / PEAK_BF16 * 1e3}
+        flip_txt = "feat skipped" if last else f"{100 * flips:.4f}% of feat values differ"
+        log(f"[{label}] y1 ({hp},{hp},{c}): max |kernel - plain| {err:.3e}, {flip_txt}, two "
+            f"launches bit-equal; {ms:.4f} ms kernel ({call_ms:.4f} a call), {plain_ms:.4f} ms "
+            f"plain, bound {b_ms:.4f} ms ({b_by}; bytes {terms['bytes_ms']:.4f} ms for "
+            f"{work['bytes'] / 1e6:.2f} MB, f32 {terms['f32_ms']:.4f} ms for "
+            f"{work['f32_apart'] / 1e6:.1f} M ops apart + {work['f32_dot'] / 1e6:.1f} M FMA "
+            f"flops, bf16 tensor {terms['bf16_tensor_ms']:.4f} ms); {ms / b_ms:.2f}x the bound")
+        res["shapes"].append({"y1": [hp, hp, c], "feat": not last, "err": err,
+                              "feat_flip_share": flips, "ms": ms, "call_ms": call_ms,
+                              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                              "bound_terms_ms": terms, **work})
         for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                     ("bytes", nbytes), ("flops", flops)):
+                     ("bytes", work["bytes"]), ("flops", work["bf16_flops"])):
             res[k] += v
         res["err"] = max(res["err"], err)
         hp *= 2
-    res["bound_by"] = ("bytes" if res["bytes"] / PEAK_BYTES > res["flops"] / PEAK_BF16
-                       else "operations")
+    by = [s["bound_by"] for s in res["shapes"]]
+    res["bound_by"] = max(set(by), key=lambda b: sum(
+        s["bound_ms"] for s in res["shapes"] if s["bound_by"] == b))
+    log(f"[{label}] four blocks: {res['ms']:.4f} ms kernel, bound {res['bound_ms']:.4f} ms "
+        f"(sum of the per-shape bounds, by {by}); {res['ms'] / res['bound_ms']:.2f}x the bound")
     return res
 
 
@@ -473,12 +486,26 @@ def main() -> int:
     ptxas = _lib.build_all()
     build_s = time.time() - t0
     log(f"[build] {len(ptxas)} libraries built in {build_s:.1f} s")
-    for lib, rep in ptxas.items():  # each kernel's registers, shared memory, spills
+    for lib, rep in ptxas.items():  # each kernel's registers and spills, by entry
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"[build] {lib}: {line.strip()}")
     report["build_s"] = build_s
     report["ptxas"] = ptxas
+    # every K2 / K3 instantiation: shared memory (sizeof(Smem)), blocks an SM,
+    # registers and local (spill) bytes a thread, tile geometry
+    report["decoder_block_info"] = {}
+    for mode, (dt, hashed, k3) in {
+            "bf16": (torch.bfloat16, False, False), "bf16-hash": (torch.bfloat16, True, False),
+            "f32": (torch.float32, False, False), "f32-hash": (torch.float32, True, False),
+            "K3": (torch.float32, False, True)}.items():
+        for c in kdb.KERNEL_CHANNELS:
+            info = kdb.decoder_block_info(c, dt, hashed, k3)
+            report["decoder_block_info"][f"{mode} C={c}"] = info
+            log(f"[build] block_kernel {mode} C={c}: {info['smem_bytes']} B shared, "
+                f"{info['blocks_per_sm']} block(s) an SM, {info['registers']} registers, "
+                f"{info['local_bytes']} B local, tile {info['tile_input_columns']} input "
+                f"columns = {info['tile_pixels']} output pixels")
 
     # ---- models and trajectory state ----
     cfg = preset_serving()

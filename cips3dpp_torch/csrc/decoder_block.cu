@@ -1,4 +1,4 @@
-// The fused CIPS-decoder upsample block for Hopper (sm_90a), with two entry
+// The fused CIPS-decoder upsample block for Hopper (sm_90a), with three entry
 // points at the end of this file:
 //   - decoder_block_forward (K2): replaces the Pallas TPU kernel
 //     cips3dpp_tpu/kernels/decoder_block.py:_packed_kernel, the serving block
@@ -7,9 +7,11 @@
 //   - decoder_block_fused_forward (K3): replaces _block_kernel (the v1 block,
 //     f32 in and out), which adds the ToRGB bias and the upsampled RGB skip;
 //     the row halo the TPU kernel took from three host-side row-shifted
-//     copies is read from y1 and skip in the kernel.
-// Wrappers: decoder_block_packed and decoder_block_fused in
-// cips3dpp_torch/kernels/decoder_block.py.
+//     copies is read from y1 and skip in the kernel;
+//   - decoder_block_info: shared memory, blocks an SM, registers, local
+//     memory and tile width of one instantiation (nothing is launched).
+// Wrappers: decoder_block_packed, decoder_block_fused and decoder_block_info
+// in cips3dpp_torch/kernels/decoder_block.py.
 //
 // For y1 (F*Hp, Wp, C), conv_a's output at the previous resolution:
 //   2x separable [1,3,3,1] upsample, taps (.25,.75,.75,.25), zero edges at
@@ -20,34 +22,60 @@
 // The plain PyTorch versions are decoder_block_plain and
 // decoder_block_fused_plain in cips3dpp_torch/kernels/decoder_block.py.
 //
-// What bounds it on the H100: bytes. conv_b is ~2.1 GFLOP per block at the
-// serving shapes, while y1 + noise + feat + rgb are 11-46 MB per block in
-// bf16 (~113 MB a frame, ~34 us at 3.35 TB/s), twice that in f32.
+// What bounds it on the H100: bytes and the f32 pipe, by shape. Every output
+// value takes ~10.25 f32 instructions at the plain version's rounding points
+// (row and column blends, noise and bias adds, two lrelus: decoder_block_work
+// counts them) plus 3 ToRGB FMAs, while conv_b is ~2.1 GFLOP a block on the
+// tensor cores. At the r1024 serving shapes in bf16 the bytes (y1, noise,
+// feat, rgb: ~113 MB a frame) bound the 128^2-512^2 blocks; at the 1024^2
+// block, which stores no feat, the f32 work is the larger. So the design
+// keeps memory streaming while the f32 pipe works, and spends as few f32
+// instructions as the rounding points allow: .25*a is exact, so a blend is a
+// multiply and a fused multiply-add, and the .75 product is shared by the
+// two outputs that take the same centre.
 //
 // Design:
-//  - A block is persistent: it loads the C x C conv_b weight (stored (out, in),
-//    bf16) into shared memory once and walks output tiles of 2 rows x 32
-//    columns (64 pixels), the 2x upsample of one input row segment of 16
-//    pixels. The one-row halo above and below and the one-column halo left and
-//    right come from y1 directly (L2-resident), zero at image and frame edges.
-//  - The tile's 64 noise values of each map are staged in shared memory first:
-//    read from the buffers, or made by the hash generator (hash_normal below,
-//    the counterpart of decoder_block.py:hash_normal), once per pixel and not
-//    once per channel.
-//  - conv_b is a (64, C) @ (C, C) mma.sync m16n8k16 product by 8 warps.
-//  - Storage T = bf16: the row-upsampled values are rounded to bf16 before the
-//    column blend, feat is rounded to bf16 into shared memory and stored in
-//    16-byte rows, and ToRGB reads that stored feat. T = float: no rounding
-//    between the row and column passes (the staging tile is f32, so shared
-//    memory grows by 18 KB at C=256, to 208 KB), feat is stored in f32 straight
-//    from the accumulators, and ToRGB is summed from the accumulators: each
-//    thread its channels, then the 4 lanes of a row by shuffles, then the two
-//    column halves through shared memory, in a fixed order.
-//  - RGB_BF16 (K3): ToRGB multiplies bf16(feat) by the bf16 wrgb; the epilogue
-//    adds brgb and the 2x-upsampled skip, computed per pixel in f32 from its
-//    4 neighbours (the TPU kernel's host-side row-shifted copies are gone).
-//  - Elementwise f32 math keeps products and sums separate, as the plain
-//    version has them.
+//  - A block is persistent (grid = SMs x blocks an SM) and walks tiles of one
+//    input row x TW_IN = 2048 / C input columns: 2 output rows x 2*TW_IN
+//    columns, TM = 8192 / C output pixels, so a tile holds 8192 values at
+//    every C (32 pixels at C=256 up to 256 at C=32). The 128^2 block (C=256)
+//    gets 512 tiles for 132 SMs. The ragged last tile of a row (Wp not a
+//    multiple of TW_IN) reads zeros and writes nothing past the row's end.
+//  - Staging: each tile's y1 rows (r-1, r, r+1; columns c0-1 .. c0+TW_IN, zero
+//    outside the frame) and its noise row segments go into a 2-slot ring in
+//    shared memory by 16-byte cp.async copies (zero-filled where out of
+//    range), one tile ahead: the next tile's bytes fly while this tile
+//    upsamples, multiplies and stores. Hash noise for the next tile is made
+//    at the same point, once per pixel. The C x C conv_b weight (stored (out,
+//    in), bf16) is loaded once a block, in the first tile's copy group.
+//  - Upsample: each thread takes 4 channels x 2 adjacent input columns, row-
+//    blends the 4 staged columns they need (rounded to the storage type), and
+//    column-blends them into 8 output pixels; + noise1 + b1 + lrelu -> bf16
+//    activation tile.
+//  - conv_b: (TM, C) @ (C, C) by mma.sync m16n8k16 with ldmatrix fragments.
+//    8 warps = MW pixel groups x NW column groups: at C <= 64 a warp owns all
+//    C output columns (NW = 1); at C = 128 / 256 a warp tile is 32 pixels x
+//    32 columns (NW = 4 / 8).
+//  - Epilogue in registers in every mode: noise2 + b2 + lrelu on the
+//    accumulators, rounded to bf16 in registers where the storage is bf16,
+//    ToRGB from the rounded values times wrgb (rounded to the storage type;
+//    bf16 in K3), summed over a thread's channels, then over the 4 lanes of a
+//    row by shuffles. f32 feat goes out as 16-byte stores after one shuffle
+//    between lane pairs; bf16 feat through a warp-private slice of shared
+//    memory (__syncwarp, no block barrier) as 16-byte rows. ToRGB's column-
+//    group partials (NW of them, 1 at C <= 64) wait in shared memory and are
+//    summed in a fixed order and stored as runs of float4 over the tile's
+//    output rows after the next tile's first barrier (bias and upsampled skip
+//    added in K3).
+//  - Two block barriers a tile: one after the tile's copies land (the ring
+//    slot is full; every warp is done with the last tile), one after the
+//    activation tile is written.
+//  - Elementwise f32 math rounds where the plain version rounds; every sum
+//    is in a fixed order, so two launches on the same inputs give the same
+//    bits.
+//  - Built with -DDBLOCK_PHASE_CLOCKS, every warp also counts its clock
+//    cycles by phase of a tile (PHASE_MARK below); the plain build has no
+//    trace of it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -57,11 +85,10 @@
 
 namespace dblock {
 
-constexpr int NTHREADS = 256;   // 8 warps
-constexpr int TW_IN = 16;       // input columns per tile
-constexpr int TW = 2 * TW_IN;   // 32 output columns per tile
-constexpr int TM = 2 * TW;      // 64 output pixels per tile (2 rows)
+constexpr int NTHREADS = 256;         // 8 warps
+constexpr int TILE_VALUES = 8192;     // output pixels x channels of a tile
 constexpr float SQRT2 = 1.4142135623730951f;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Params {
   const void* y1;        // (F*Hp, Wp, C) T
@@ -80,44 +107,124 @@ struct Params {
   uint32_t seed1, seed2; // hash mode
 };
 
+// Tile geometry and warp layout by channel count.
 template <int C, typename T>
-struct __align__(16) Smem {
-  static constexpr int LD = C + 8;         // padded row stride (bf16)
-  __nv_bfloat16 w2t[C * LD];               // conv_b weight (n, k)
-  __nv_bfloat16 act[TM * LD];              // activation tile (and bf16 feat)
-  T xs[2 * (TW_IN + 2) * C];               // row-upsampled y1
-  float b1[C], b2[C];
-  float wrgb[3 * C];                       // (j, k)
-  float nz1[TM], nz2[TM];                  // the tile's noise
-  float rgbp[2 * TM * 3];                  // ToRGB partials of the column halves
+struct Geo {
+  static constexpr int TW_IN = TILE_VALUES / 4 / C;      // input columns a tile
+  static constexpr int TW = 2 * TW_IN;                   // output columns a tile row
+  static constexpr int TM = 2 * TW;                      // output pixels a tile
+  // warps across conv_b's columns: at C >= 128 a warp owns 32 of them (32
+  // pixels x 32 columns), which halves the shared-memory reads of the weight
+  // against 16 x 64 warp tiles; at C <= 64 a warp owns all C
+  static constexpr int NW = C >= 128 ? C / 32 : 1;
+  static constexpr int MW = 8 / NW;                      // warps across the pixels
+  static constexpr int MT = TM / 16 / MW;                // m-tiles of 16 pixels a warp
+  static constexpr int NT = C / NW / 8;                  // n-tiles of 8 columns a warp
+  static constexpr int LD = C + 8;                       // bf16 row stride: weight, act
+  // staged y1 column stride: bf16 at C=32 is padded so that a half-warp's
+  // 8-byte reads of two column pairs fall in distinct banks
+  static constexpr int SLD = C + (C * sizeof(T) == 64 ? 16 : 0);
+  static constexpr int SCOLS = TW_IN + 2;                // staged columns, halo included
+  static constexpr int FLD = C / NW + 8;                 // warp feat slice row stride
+  static_assert((C / 4) * (TW_IN / 2) == NTHREADS, "one upsample item a thread");
+  static_assert(MT * 16 * MW == TM && NT % 2 == 0, "warp layout");
 };
 
+template <int C, typename T, bool HASH>
+struct __align__(16) Smem {
+  using G = Geo<C, T>;
+  using NZ = typename std::conditional<HASH, float, T>::type;
+  // bf16 feat slices: a warp that owns all columns (NW = 1) reuses its own
+  // rows of the activation tile instead
+  static constexpr int FS =
+      std::is_same<T, float>::value || G::NW == 1 ? 8 : 8 * G::MT * 16 * G::FLD;
+  __nv_bfloat16 w2t[C * G::LD];             // conv_b weight (n, k)
+  __nv_bfloat16 act[G::TM * G::LD];         // activation tile
+  T ys[2][3 * G::SCOLS * G::SLD];           // ring: y1 rows r-1, r, r+1 of the tile
+  NZ nz[2][2][G::TM];                       // ring: the tile's noise1, noise2
+  __nv_bfloat16 fs[FS];                     // bf16 feat, a 16 MT-row slice a warp (NW > 1)
+  float b1[C], b2[C];
+  float wrgb[3 * C];                        // (j, k)
+  float rgbp[G::NW * G::TM * 3];            // ToRGB partials of the column groups
+};
+
+// (v >= 0 ? v : 0.2v) * sqrt2; max(v, 0.2v) picks the same value
 __device__ __forceinline__ float lrelu(float v) {
-  return __fmul_rn(v >= 0.f ? v : __fmul_rn(v, 0.2f), SQRT2);
+  return __fmul_rn(fmaxf(v, __fmul_rn(v, 0.2f)), SQRT2);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// .25 * a + k, where k = .75 * b is rounded: .25 * a is exact (a power of
+// two), so one fused multiply-add rounds as the plain version's sum does
+__device__ __forceinline__ float blend(float a, float k) { return __fmaf_rn(0.25f, a, k); }
 
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(float v) { return v; }
 
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
 }
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = unpack_bf16(u.x), b = unpack_bf16(u.y);
+  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
 }
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+}
+
+// the storage rounding of 4 values: bf16 (round to nearest even) or none
+template <typename T>
+__device__ __forceinline__ void round4(float (&v)[4]) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const float2 a = unpack_bf16(pack_bf16(v[0], v[1])), b = unpack_bf16(pack_bf16(v[2], v[3]));
+    v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+  }
 }
 
 __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, or 16 zero bytes where !ok (src not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---- hash noise (decoder_block.py:_hash_u32, _fast_sin, hash_normal) ----
@@ -156,16 +263,6 @@ __device__ __forceinline__ float hash_normal(uint32_t pix, uint32_t seed) {
                                          1.5707963267948966f)));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 // The 2x-upsampled skip at output pixel (oy, ox): rows then columns in f32,
 // zero outside the (hp, wp) image.
 __device__ __forceinline__ float skip_up(const float* skip, int hp, int wp, int oy,
@@ -184,15 +281,37 @@ __device__ __forceinline__ float skip_up(const float* skip, int hp, int wp, int 
                : __fadd_rn(__fmul_rn(0.25f, row(ix - 1)), __fmul_rn(0.75f, row(ix)));
 }
 
+#ifdef DBLOCK_PHASE_CLOCKS
+// Instrumented build only (python -m cips3dpp_torch.tools.decoder_block_phase_split):
+// every warp adds the SM clock cycles since its previous mark to that
+// phase's count in registers, and lane 0 adds its counts to these totals at
+// the end, so a phase's count is the warps' time in it, waits included. No
+// barrier is added.
+constexpr int NPHASES = 9;
+__device__ unsigned long long g_phase_cycles[NPHASES];
+#define PHASE_MARK(k)                                    \
+  do {                                                   \
+    const long long now = clock64();                     \
+    phase_cyc[k] += (unsigned long long)(now - mark);    \
+    mark = now;                                          \
+  } while (0)
+#else
+#define PHASE_MARK(k) \
+  do {                \
+  } while (0)
+#endif
+
 // T: storage of y1, buffer noise and feat. HASH: noise made in the kernel.
 // RGB_BF16: K3 (bf16 ToRGB operands, bias and skip epilogue; T = float).
 template <int C, typename T, bool HASH, bool RGB_BF16>
-__global__ void __launch_bounds__(NTHREADS) block_kernel(const Params P) {
-  using S = Smem<C, T>;
+__global__ void __launch_bounds__(NTHREADS, C == 256 ? 1 : 2) block_kernel(const Params P) {
+  using G = Geo<C, T>;
+  using S = Smem<C, T, HASH>;
   using WT = typename std::conditional<RGB_BF16, __nv_bfloat16, T>::type;
-  constexpr int LD = S::LD;
-  constexpr int NT = C / 16;  // n-tiles of 8 per warp (each warp: C/2 columns)
+  constexpr int TW_IN = G::TW_IN, TW = G::TW, TM = G::TM, NW = G::NW, MT = G::MT,
+                NT = G::NT, LD = G::LD, SLD = G::SLD, SCOLS = G::SCOLS, FLD = G::FLD;
   constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int VT = 16 / sizeof(T);  // values of T in 16 bytes
   static_assert(F32 || !RGB_BF16, "K3 stores f32");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S& sm = *reinterpret_cast<S*>(smem_raw);
@@ -200,13 +319,20 @@ __global__ void __launch_bounds__(NTHREADS) block_kernel(const Params P) {
   const WT* __restrict__ wrgbt = static_cast<const WT*>(P.wrgbt);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int mt = warp & 3, nh = warp >> 2;
-  const int hp = P.hp, wp = P.wp;
+  const int mg = warp / NW, nq = warp % NW;  // pixel group, column group
+  const int hp = P.hp, wp = P.wp, wo = 2 * wp;
+  const int segs = (wp + TW_IN - 1) / TW_IN;
+  const int n_tiles = P.frames * hp * segs;
+  const float nw1 = P.nw[0], nw2 = P.nw[1];
+#ifdef DBLOCK_PHASE_CLOCKS
+  unsigned long long phase_cyc[NPHASES] = {};
+  long long mark = clock64();
+#endif
 
+  // ---- the first copy group: conv_b's weight, then the first tile ----
   for (int i = tid; i < C * (C / 8); i += NTHREADS) {
     const int n = i / (C / 8), q = i % (C / 8);
-    *reinterpret_cast<uint4*>(sm.w2t + n * LD + q * 8) =
-        *reinterpret_cast<const uint4*>(P.w2t + n * C + q * 8);
+    cp_async16(sm.w2t + n * LD + q * 8, P.w2t + n * C + q * 8);
   }
   for (int i = tid; i < C; i += NTHREADS) {
     sm.b1[i] = P.b1[i];
@@ -214,213 +340,321 @@ __global__ void __launch_bounds__(NTHREADS) block_kernel(const Params P) {
   }
   if (wrgbt != nullptr)
     for (int i = tid; i < 3 * C; i += NTHREADS) sm.wrgb[i] = to_f(wrgbt[i]);
-  const float nw1 = P.nw[0], nw2 = P.nw[1];
-  const int wo = 2 * wp;                  // output width
-  const int segs = wp / TW_IN;
-  const int n_tiles = P.frames * hp * segs;
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int r = tile / segs;             // input row, frames stacked
-    const int c0 = (tile % segs) * TW_IN;  // first input column
-    const int rf = r % hp;                 // row within its frame
-    __syncthreads();  // previous tile done with smem (and weights loaded)
+  // tile -> input row r (frames stacked), row in its frame rf, first column c0
+  auto where = [&](int tile, int& r, int& rf, int& c0) {
+    r = tile / segs;
+    rf = r % hp;
+    c0 = (tile % segs) * TW_IN;
+  };
 
-    // the tile's noise: pixel ids are per frame (every frame reuses one map)
-    if (tid < 2 * TM) {
-      const int second = tid >= TM, p = tid % TM;
-      const int orow = 2 * rf + p / TW, ocol = 2 * c0 + p % TW;
-      float v;
-      if constexpr (HASH) {
-        v = hash_normal(uint32_t(orow) * uint32_t(wo) + uint32_t(ocol),
-                        second ? P.seed2 : P.seed1);
-      } else {
-        const T* nb = static_cast<const T*>(second ? P.n2 : P.n1);
-        v = to_f(nb[size_t(orow) * wo + ocol]);
-      }
-      (second ? sm.nz2 : sm.nz1)[p] = v;
-    }
-
-    // row upsample of input columns c0-1 .. c0+16 (f32), stored as T
-    for (int i = tid; i < 2 * (TW_IN + 2) * (C / 2); i += NTHREADS) {
-      const int ch = (i % (C / 2)) * 2;
-      const int j = (i / (C / 2)) % (TW_IN + 2);
-      const int par = i / ((C / 2) * (TW_IN + 2));
-      const int ic = c0 - 1 + j;
-      float v0 = 0.f, v1 = 0.f;
-      if (ic >= 0 && ic < wp) {
-        const size_t base = (size_t(r) * wp + ic) * C + ch;
-        const float2 yc = load2(y1 + base);
-        float2 ynb = make_float2(0.f, 0.f);
-        const bool has_nb = par == 0 ? rf > 0 : rf < hp - 1;
-        if (has_nb) ynb = load2(y1 + (par == 0 ? base - size_t(wp) * C : base + size_t(wp) * C));
-        // even output row: .25*y[r-1] + .75*y[r]; odd: .75*y[r] + .25*y[r+1]
-        const float kn = 0.25f, kc = 0.75f;
-        v0 = par == 0 ? __fadd_rn(__fmul_rn(kn, ynb.x), __fmul_rn(kc, yc.x))
-                      : __fadd_rn(__fmul_rn(kc, yc.x), __fmul_rn(kn, ynb.x));
-        v1 = par == 0 ? __fadd_rn(__fmul_rn(kn, ynb.y), __fmul_rn(kc, yc.y))
-                      : __fadd_rn(__fmul_rn(kc, yc.y), __fmul_rn(kn, ynb.y));
-      }
-      store2(sm.xs + (par * (TW_IN + 2) + j) * C + ch, v0, v1);
-    }
-    __syncthreads();
-
-    // column upsample + noise1 + b1 + lrelu -> bf16 activation tile
-    for (int i = tid; i < TM * (C / 2); i += NTHREADS) {
-      const int ch = (i % (C / 2)) * 2;
-      const int p = i / (C / 2);
-      const int par = p / TW, oc = p % TW;
-      const int j = oc / 2 + 1;
-      const T* xr = sm.xs + par * (TW_IN + 2) * C + ch;
-      const float2 xc = load2(xr + j * C);
-      const float2 xn = load2(xr + (oc & 1 ? j + 1 : j - 1) * C);
-      float u0, u1;
-      if (oc & 1) {
-        u0 = __fadd_rn(__fmul_rn(0.75f, xc.x), __fmul_rn(0.25f, xn.x));
-        u1 = __fadd_rn(__fmul_rn(0.75f, xc.y), __fmul_rn(0.25f, xn.y));
-      } else {
-        u0 = __fadd_rn(__fmul_rn(0.25f, xn.x), __fmul_rn(0.75f, xc.x));
-        u1 = __fadd_rn(__fmul_rn(0.25f, xn.y), __fmul_rn(0.75f, xc.y));
-      }
-      const float nzw = __fmul_rn(nw1, sm.nz1[p]);
-      const float h0 = lrelu(__fadd_rn(__fadd_rn(u0, nzw), sm.b1[ch]));
-      const float h1 = lrelu(__fadd_rn(__fadd_rn(u1, nzw), sm.b1[ch + 1]));
-      store2(sm.act + p * LD + ch, h0, h1);
-    }
-    __syncthreads();
-
-    // conv_b: (64, C) @ (C, C); warp = (16-row tile, column half)
-    float acc[NT][4];
+  // The tile's y1 rows and noise into ring slot s (copies not committed).
+  auto stage = [&](int tile, int s) {
+    int r, rf, c0;
+    where(tile, r, rf, c0);
+    constexpr int CH = C / VT;  // 16-byte chunks of a pixel; a thread keeps its chunk q
+    const int q = tid % CH;
 #pragma unroll
-    for (int jn = 0; jn < NT; ++jn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[jn][e] = 0.f;
-    const __nv_bfloat16* arow0 = sm.act + (mt * 16 + g) * LD + 2 * t;
-    const __nv_bfloat16* arow1 = arow0 + 8 * LD;
-#pragma unroll 4
-    for (int k = 0; k < C; k += 16) {
-      const uint32_t a0 = ld32(arow0 + k), a1 = ld32(arow1 + k);
-      const uint32_t a2 = ld32(arow0 + k + 8), a3 = ld32(arow1 + k + 8);
-#pragma unroll
-      for (int jn = 0; jn < NT; ++jn) {
-        const __nv_bfloat16* b = sm.w2t + (nh * (C / 2) + jn * 8 + g) * LD + k + 2 * t;
-        mma_bf16(acc[jn], a0, a1, a2, a3, ld32(b), ld32(b + 8));
+    for (int row = 0; row < 3; ++row) {
+      const bool row_ok = rf - 1 + row >= 0 && rf - 1 + row < hp;
+      const T* src = y1 + (long long)(r - 1 + row) * wp * C + q * VT;  // read only where ok
+      T* dst = sm.ys[s] + row * SCOLS * SLD + q * VT;
+      for (int col = tid / CH; col < SCOLS; col += NTHREADS / CH) {
+        const int ic = c0 - 1 + col;
+        const bool ok = row_ok && ic >= 0 && ic < wp;
+        cp_async16(dst + col * SLD, ok ? src + ic * C : y1, ok);
       }
     }
-    __syncthreads();  // every warp is done reading act
-
-    const int p0 = mt * 16 + g, p1 = p0 + 8;
-    const float nz0 = __fmul_rn(nw2, sm.nz2[p0]);
-    const float nz1 = __fmul_rn(nw2, sm.nz2[p1]);
-    const size_t out_px0 = size_t(2 * r) * wo + 2 * c0;  // first pixel, row 0
-    const size_t px0 = out_px0 + size_t(p0 / TW) * wo + p0 % TW;
-    const size_t px1 = out_px0 + size_t(p1 / TW) * wo + p1 % TW;
-
-    if constexpr (!F32) {
-      // noise2 + b2 + lrelu -> bf16 feat, written back into act
-#pragma unroll
-      for (int jn = 0; jn < NT; ++jn) {
-        const int ch = nh * (C / 2) + jn * 8 + 2 * t;
-        const float v00 = lrelu(__fadd_rn(__fadd_rn(acc[jn][0], nz0), sm.b2[ch]));
-        const float v01 = lrelu(__fadd_rn(__fadd_rn(acc[jn][1], nz0), sm.b2[ch + 1]));
-        const float v10 = lrelu(__fadd_rn(__fadd_rn(acc[jn][2], nz1), sm.b2[ch]));
-        const float v11 = lrelu(__fadd_rn(__fadd_rn(acc[jn][3], nz1), sm.b2[ch + 1]));
-        store2(sm.act + p0 * LD + ch, v00, v01);
-        store2(sm.act + p1 * LD + ch, v10, v11);
-      }
-      __syncthreads();
-
-      T* feat = static_cast<T*>(P.feat);
-      if (feat != nullptr) {
-        for (int i = tid; i < TM * (C / 8); i += NTHREADS) {
-          const int p = i / (C / 8), q = i % (C / 8);
-          const size_t px = out_px0 + size_t(p / TW) * wo + p % TW;
-          *reinterpret_cast<uint4*>(feat + px * C + q * 8) =
-              *reinterpret_cast<const uint4*>(sm.act + p * LD + q * 8);
-        }
-      }
-      if (P.rgb != nullptr) {
-        // 4 threads per pixel, each a quarter of the channels
-        const int p = tid >> 2, part = tid & 3;
-        float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-        for (int ch = part * (C / 4); ch < (part + 1) * (C / 4); ++ch) {
-          const float f = __bfloat162float(sm.act[p * LD + ch]);
-          s0 += f * sm.wrgb[ch];
-          s1 += f * sm.wrgb[C + ch];
-          s2 += f * sm.wrgb[2 * C + ch];
-        }
-#pragma unroll
-        for (int o = 1; o < 4; o <<= 1) {
-          s0 += __shfl_xor_sync(0xffffffffu, s0, o);
-          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-          s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-        }
-        if (part == 0) {
-          const size_t px = out_px0 + size_t(p / TW) * wo + p % TW;
-          P.rgb[px * 3] = s0;
-          P.rgb[px * 3 + 1] = s1;
-          P.rgb[px * 3 + 2] = s2;
-        }
+    if constexpr (HASH) {
+      // pixel ids are per frame (every frame takes one realization)
+      for (int i = tid; i < 2 * TM; i += NTHREADS) {
+        const int m = i / TM, p = i % TM;
+        const int orow = 2 * rf + p / TW, ocol = 2 * c0 + p % TW;
+        sm.nz[s][m][p] = hash_normal(uint32_t(orow) * uint32_t(wo) + uint32_t(ocol),
+                                     m ? P.seed2 : P.seed1);
       }
     } else {
-      // noise2 + b2 + lrelu in registers -> f32 feat; ToRGB partial sums
-      float* feat = static_cast<float*>(P.feat);
-      float s0[3] = {0.f, 0.f, 0.f}, s1[3] = {0.f, 0.f, 0.f};
+      constexpr int NCH = TW / VT;  // 16-byte chunks of a noise row segment
+      for (int i = tid; i < 4 * NCH; i += NTHREADS) {
+        const int q = i % NCH, par = (i / NCH) & 1, m = i / (2 * NCH);
+        const int ocol = 2 * c0 + q * VT;
+        const bool ok = ocol < wo;
+        const T* nb = static_cast<const T*>(m ? P.n2 : P.n1);
+        cp_async16(&sm.nz[s][m][par * TW + q * VT],
+                   ok ? nb + size_t(2 * rf + par) * wo + ocol : nb, ok);
+      }
+    }
+  };
+
+  // Upsample + noise1 + b1 + lrelu of ring slot s -> the bf16 activation
+  // tile. Thread: channels ch .. ch+3 of input columns j0, j0+1 (staged
+  // columns j0 .. j0+3), output pixels 2*j0 .. 2*j0+3 of both rows.
+  auto upsample = [&](int s) {
+    const int ch = 4 * (tid % (C / 4)), j0 = 2 * (tid / (C / 4));
+    const T* ys = sm.ys[s] + j0 * SLD + ch;
+    float x[4][2][4];  // row-upsampled staged columns, even and odd output row
 #pragma unroll
-      for (int jn = 0; jn < NT; ++jn) {
-        const int ch = nh * (C / 2) + jn * 8 + 2 * t;
-        const float v00 = lrelu(__fadd_rn(__fadd_rn(acc[jn][0], nz0), sm.b2[ch]));
-        const float v01 = lrelu(__fadd_rn(__fadd_rn(acc[jn][1], nz0), sm.b2[ch + 1]));
-        const float v10 = lrelu(__fadd_rn(__fadd_rn(acc[jn][2], nz1), sm.b2[ch]));
-        const float v11 = lrelu(__fadd_rn(__fadd_rn(acc[jn][3], nz1), sm.b2[ch + 1]));
-        if (feat != nullptr) {
-          store2(feat + px0 * C + ch, v00, v01);
-          store2(feat + px1 * C + ch, v10, v11);
-        }
-        const float a00 = RGB_BF16 ? bf16r(v00) : v00, a01 = RGB_BF16 ? bf16r(v01) : v01;
-        const float a10 = RGB_BF16 ? bf16r(v10) : v10, a11 = RGB_BF16 ? bf16r(v11) : v11;
+    for (int k = 0; k < 4; ++k) {
+      float up[4], c[4], dn[4];
+      load4(ys + k * SLD, up);
+      load4(ys + (SCOLS + k) * SLD, c);
+      load4(ys + (2 * SCOLS + k) * SLD, dn);
 #pragma unroll
-        for (int jj = 0; jj < 3; ++jj) {
-          const float w0 = sm.wrgb[jj * C + ch], w1 = sm.wrgb[jj * C + ch + 1];
-          s0[jj] += a00 * w0 + a01 * w1;
-          s1[jj] += a10 * w0 + a11 * w1;
+      for (int e = 0; e < 4; ++e) {
+        // even output row: .25*y[r-1] + .75*y[r]; odd: .75*y[r] + .25*y[r+1]
+        const float kc = __fmul_rn(0.75f, c[e]);
+        x[k][0][e] = blend(up[e], kc);
+        x[k][1][e] = blend(dn[e], kc);
+      }
+      round4<T>(x[k][0]);
+      round4<T>(x[k][1]);
+    }
+    float bb[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) bb[e] = sm.b1[ch + e];
+#pragma unroll
+    for (int par = 0; par < 2; ++par)
+#pragma unroll
+      for (int jc = 1; jc < 3; ++jc) {  // staged column of the centre input
+        float kc[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) kc[e] = __fmul_rn(0.75f, x[jc][par][e]);
+#pragma unroll
+        for (int odd = 0; odd < 2; ++odd) {  // output column 2*(j0 + jc - 1) + odd
+          const int p = par * TW + 2 * (j0 + jc - 1) + odd;
+          const float(&xn)[4] = x[odd ? jc + 1 : jc - 1][par];
+          const float nzw = __fmul_rn(nw1, to_f(sm.nz[s][0][p]));
+          float h[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            h[e] = lrelu(__fadd_rn(__fadd_rn(blend(xn[e], kc[e]), nzw), bb[e]));
+          *reinterpret_cast<uint2*>(sm.act + p * LD + ch) =
+              make_uint2(pack_bf16(h[0], h[1]), pack_bf16(h[2], h[3]));
         }
       }
-      if (P.rgb != nullptr) {
+  };
+
+  // conv_b: the warp's (16 MT, 8 NT) block of act @ w2t^T.
+  auto product = [&](float (&acc)[MT][NT][4]) {
 #pragma unroll
-        for (int jj = 0; jj < 3; ++jj)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-          for (int o = 1; o < 4; o <<= 1) {
-            s0[jj] += __shfl_xor_sync(0xffffffffu, s0[jj], o);
-            s1[jj] += __shfl_xor_sync(0xffffffffu, s1[jj], o);
-          }
-        if (t == 0)
+      for (int jn = 0; jn < NT; ++jn)
 #pragma unroll
-          for (int jj = 0; jj < 3; ++jj) {
-            sm.rgbp[(nh * TM + p0) * 3 + jj] = s0[jj];
-            sm.rgbp[(nh * TM + p1) * 3 + jj] = s1[jj];
-          }
-        __syncthreads();
-        if (tid < TM) {
-          const int p = tid;
-          const size_t px = out_px0 + size_t(p / TW) * wo + p % TW;
+        for (int e = 0; e < 4; ++e) acc[i][jn][e] = 0.f;
+    // ldmatrix rows: A pixel (lane & 15) at k + (lane >> 4) * 8; B output
+    // column (lane & 7) + (lane >> 4) * 8 at k + ((lane >> 3) & 1) * 8
+    const uint32_t a_addr =
+        smem_u32(sm.act + (mg * MT * 16 + (lane & 15)) * LD + (lane >> 4) * 8);
+    const uint32_t b_addr = smem_u32(sm.w2t + (nq * NT * 8 + (lane & 7) + (lane >> 4) * 8) * LD +
+                                     ((lane >> 3) & 1) * 8);
 #pragma unroll
-          for (int jj = 0; jj < 3; ++jj) {
-            float v = __fadd_rn(sm.rgbp[p * 3 + jj], sm.rgbp[(TM + p) * 3 + jj]);
-            if constexpr (RGB_BF16)
-              v = __fadd_rn(__fadd_rn(v, P.brgb[jj]),
-                            skip_up(P.skip, hp, wp, 2 * rf + p / TW, 2 * c0 + p % TW, jj));
-            P.rgb[px * 3 + jj] = v;
-          }
+    for (int k = 0; k < C; k += 16) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) ldmatrix_x4(a[i], a_addr + 2 * (i * 16 * LD + k));
+#pragma unroll
+      for (int jp = 0; jp < NT / 2; ++jp) {
+        uint32_t b[4];  // b0, b1 of n-tile 2jp, then of 2jp + 1
+        ldmatrix_x4(b, b_addr + 2 * (jp * 16 * LD + k));
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma_bf16(acc[i][2 * jp], a[i], b[0], b[1]);
+          mma_bf16(acc[i][2 * jp + 1], a[i], b[2], b[3]);
         }
       }
     }
+  };
+
+  // noise2 + b2 + lrelu, feat stores and ToRGB partials of a tile.
+  auto epilogue = [&](int tile, int s, const float (&acc)[MT][NT][4]) {
+    int r, rf, c0;
+    where(tile, r, rf, c0);
+    const size_t out0 = size_t(2 * r) * wo + 2 * c0;  // the tile's first output pixel
+    T* feat = static_cast<T*>(P.feat);
+    const bool emit_rgb = P.rgb != nullptr;
+    const int col0 = nq * NT * 8;  // the warp's first output column
+    // the warp's (16 MT) x (C / NW) bf16 feat slice: its own act rows when it
+    // owns all columns (its product has read them), else its own slice
+    __nv_bfloat16* fsw = NW == 1 ? sm.act + mg * MT * 16 * LD
+                                 : sm.fs + (F32 ? 0 : warp * MT * 16 * FLD);
+    bool inside[MT];    // an m-tile lies in one output row, inside or past its end
+    size_t px0[MT];     // its first output pixel
+    float z[MT][2];     // nw2 * noise2 of rows g, g + 8
+    float srgb[MT][2][3];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int pm = (mg * MT + i) * 16;
+      inside[i] = 2 * c0 + pm % TW < wo;
+      px0[i] = out0 + size_t(pm / TW) * wo + pm % TW;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        z[i][rr] = __fmul_rn(nw2, to_f(sm.nz[s][1][pm + g + 8 * rr]));
+#pragma unroll
+        for (int jj = 0; jj < 3; ++jj) srgb[i][rr][jj] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      float v[MT][2][2][2];  // [m-tile][n-tile of the pair][row g, g + 8][column 2t, 2t + 1]
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int jn = 2 * jp + h, ch = col0 + jn * 8 + 2 * t;
+        const float2 bb = *reinterpret_cast<const float2*>(sm.b2 + ch);
+        float2 w[3];
+#pragma unroll
+        for (int jj = 0; jj < 3; ++jj) w[jj] = *reinterpret_cast<const float2*>(sm.wrgb + jj * C + ch);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            float v0 = lrelu(__fadd_rn(__fadd_rn(acc[i][jn][2 * rr], z[i][rr]), bb.x));
+            float v1 = lrelu(__fadd_rn(__fadd_rn(acc[i][jn][2 * rr + 1], z[i][rr]), bb.y));
+            if constexpr (!F32) {  // feat rounded in registers; ToRGB reads it
+              const uint32_t pk = pack_bf16(v0, v1);
+              if (feat != nullptr)
+                *reinterpret_cast<uint32_t*>(fsw + (16 * i + g + 8 * rr) * FLD + jn * 8 + 2 * t) = pk;
+              const float2 f = unpack_bf16(pk);
+              v0 = f.x, v1 = f.y;
+            }
+            v[i][h][rr][0] = v0, v[i][h][rr][1] = v1;
+            if (emit_rgb) {
+              const float a0 = RGB_BF16 ? bf16r(v0) : v0, a1 = RGB_BF16 ? bf16r(v1) : v1;
+#pragma unroll
+              for (int jj = 0; jj < 3; ++jj)
+                srgb[i][rr][jj] = __fmaf_rn(a1, w[jj].y, __fmaf_rn(a0, w[jj].x, srgb[i][rr][jj]));
+            }
+          }
+      }
+      if constexpr (F32) {
+        // one exchange between lanes t, t^1 gives each 4 adjacent channels:
+        // even lanes those of n-tile 2jp, odd lanes those of 2jp + 1
+        if (feat != nullptr) {
+          const bool odd = t & 1;
+          const int ch = col0 + (2 * jp + odd) * 8 + 2 * (t & 2);
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const float s0 = odd ? v[i][0][rr][0] : v[i][1][rr][0];
+              const float s1 = odd ? v[i][0][rr][1] : v[i][1][rr][1];
+              const float r0 = __shfl_xor_sync(FULL, s0, 1), r1 = __shfl_xor_sync(FULL, s1, 1);
+              const float4 o = odd ? make_float4(r0, r1, v[i][1][rr][0], v[i][1][rr][1])
+                                   : make_float4(v[i][0][rr][0], v[i][0][rr][1], r0, r1);
+              if (inside[i])
+                *reinterpret_cast<float4*>(feat + (px0[i] + g + 8 * rr) * C + ch) = o;
+            }
+        }
+      }
+    }
+    if constexpr (!F32) {
+      // the warp's slice as 16-byte rows
+      if (feat != nullptr) {
+        __syncwarp();
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          if (inside[i])
+            for (int u = lane; u < 16 * NT; u += 32) {
+              const int row = u / NT, q = u % NT;
+              *reinterpret_cast<uint4*>(feat + (px0[i] + row) * C + col0 + q * 8) =
+                  *reinterpret_cast<const uint4*>(fsw + (16 * i + row) * FLD + q * 8);
+            }
+        __syncwarp();
+      }
+    }
+    if (emit_rgb) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+          for (int jj = 0; jj < 3; ++jj) {
+            srgb[i][rr][jj] += __shfl_xor_sync(FULL, srgb[i][rr][jj], 1);
+            srgb[i][rr][jj] += __shfl_xor_sync(FULL, srgb[i][rr][jj], 2);
+          }
+      if (t == 0)
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+            for (int jj = 0; jj < 3; ++jj)
+              sm.rgbp[(nq * TM + (mg * MT + i) * 16 + g + 8 * rr) * 3 + jj] = srgb[i][rr][jj];
+    }
+  };
+
+  // The column groups' ToRGB partials of a tile, summed in order (+ brgb
+  // and the upsampled skip in K3), as float4 runs over its output rows.
+  auto flush_rgb = [&](int tile) {
+    if (P.rgb == nullptr) return;
+    int r, rf, c0;
+    where(tile, r, rf, c0);
+    const size_t out0 = size_t(2 * r) * wo + 2 * c0;
+    for (int u = tid; u < TM * 3 / 4; u += NTHREADS) {
+      const int f = 4 * u, par = f / (3 * TW), fr = f % (3 * TW);
+      if (2 * c0 + fr / 3 >= wo) continue;  // past the row's end (16-pixel aligned)
+      // rgbp holds (pixel, j) in the order rgb does: float4 f / 4 of each group
+      float4 a = *reinterpret_cast<const float4*>(sm.rgbp + f);
+#pragma unroll
+      for (int q = 1; q < NW; ++q) {
+        const float4 b = *reinterpret_cast<const float4*>(sm.rgbp + q * TM * 3 + f);
+        a = make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                        __fadd_rn(a.w, b.w));
+      }
+      if constexpr (RGB_BF16) {
+        float o[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = (f + e) / 3, jj = (f + e) % 3;
+          o[e] = __fadd_rn(__fadd_rn(o[e], P.brgb[jj]),
+                           skip_up(P.skip, hp, wp, 2 * rf + p / TW, 2 * c0 + p % TW, jj));
+        }
+        a = make_float4(o[0], o[1], o[2], o[3]);
+      }
+      *reinterpret_cast<float4*>(P.rgb + (out0 + size_t(par) * wo) * 3 + fr) = a;
+    }
+  };
+
+  stage(blockIdx.x, 0);
+  cp_async_commit();
+  PHASE_MARK(0);  // prologue: constants, the first tile's copies started
+  int s = 0, prev = -1;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, s ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // slot s landed; every warp is done with the last tile
+    PHASE_MARK(1);    // wait for the copies, barrier
+    if (prev >= 0) flush_rgb(prev);
+    PHASE_MARK(2);  // the last tile's rgb
+    if (tile + int(gridDim.x) < n_tiles) stage(tile + gridDim.x, s ^ 1);
+    cp_async_commit();
+    PHASE_MARK(3);  // the next tile's copies started (and its hash noise)
+    upsample(s);
+    PHASE_MARK(4);  // upsample
+    __syncthreads();  // the activation tile is complete
+    PHASE_MARK(5);    // barrier
+    float acc[MT][NT][4];
+    product(acc);
+    PHASE_MARK(6);  // conv_b
+    epilogue(tile, s, acc);
+    PHASE_MARK(7);  // epilogue
+    prev = tile;
   }
+  __syncthreads();
+  flush_rgb(prev);
+  PHASE_MARK(8);  // the last rgb
+#ifdef DBLOCK_PHASE_CLOCKS
+  if (lane == 0)
+    for (int k = 0; k < NPHASES; ++k) atomicAdd(&g_phase_cycles[k], phase_cyc[k]);
+#endif
 }
 
+// Launches the instantiation, or with `info` (6 ints) fills in its shared
+// memory bytes, blocks an SM, registers a thread, local (spill) bytes a
+// thread, input columns a tile and output pixels a tile, and launches nothing.
 template <int C, typename T, bool HASH, bool RGB_BF16>
-int launch(const Params& P, cudaStream_t stream) {
+int launch(const Params& P, cudaStream_t stream, int* info) {
   auto kernel = block_kernel<C, T, HASH, RGB_BF16>;
-  const int smem = int(sizeof(Smem<C, T>));
+  const int smem = int(sizeof(Smem<C, T, HASH>));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
@@ -431,7 +665,16 @@ int launch(const Params& P, cudaStream_t stream) {
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTHREADS, smem)) !=
       cudaSuccess)
     return int(err);
-  const int n_tiles = P.frames * P.hp * (P.wp / TW_IN);
+  if (info != nullptr) {
+    cudaFuncAttributes attr;
+    if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return int(err);
+    const int vals[6] = {smem, per_sm, attr.numRegs, int(attr.localSizeBytes),
+                         Geo<C, T>::TW_IN, Geo<C, T>::TM};
+    for (int i = 0; i < 6; ++i) info[i] = vals[i];
+    return 0;
+  }
+  const int tw_in = Geo<C, T>::TW_IN;
+  const int n_tiles = P.frames * P.hp * ((P.wp + tw_in - 1) / tw_in);
   int blocks = sms * (per_sm > 0 ? per_sm : 1);
   if (blocks > n_tiles) blocks = n_tiles;
   kernel<<<blocks, NTHREADS, smem, stream>>>(P);
@@ -439,15 +682,26 @@ int launch(const Params& P, cudaStream_t stream) {
 }
 
 template <typename T, bool HASH, bool RGB_BF16>
-int launch_c(int c, const Params& P, cudaStream_t s) {
-  if (P.wp % TW_IN != 0 || P.frames < 1 || P.hp < 1) return int(cudaErrorInvalidValue);
+int launch_c(int c, const Params& P, cudaStream_t s, int* info = nullptr) {
+  if (info == nullptr && (P.wp % 16 != 0 || P.frames < 1 || P.hp < 1))
+    return int(cudaErrorInvalidValue);
   switch (c) {
-    case 32: return launch<32, T, HASH, RGB_BF16>(P, s);
-    case 64: return launch<64, T, HASH, RGB_BF16>(P, s);
-    case 128: return launch<128, T, HASH, RGB_BF16>(P, s);
-    case 256: return launch<256, T, HASH, RGB_BF16>(P, s);
+    case 32: return launch<32, T, HASH, RGB_BF16>(P, s, info);
+    case 64: return launch<64, T, HASH, RGB_BF16>(P, s, info);
+    case 128: return launch<128, T, HASH, RGB_BF16>(P, s, info);
+    case 256: return launch<256, T, HASH, RGB_BF16>(P, s, info);
     default: return int(cudaErrorInvalidValue);
   }
+}
+
+template <bool RGB_BF16>
+int launch_mode(int c, int f32_storage, int hash, const Params& P, cudaStream_t s, int* info) {
+  if constexpr (RGB_BF16) return launch_c<float, false, true>(c, P, s, info);
+  if (f32_storage)
+    return hash ? launch_c<float, true, false>(c, P, s, info)
+                : launch_c<float, false, false>(c, P, s, info);
+  return hash ? launch_c<__nv_bfloat16, true, false>(c, P, s, info)
+              : launch_c<__nv_bfloat16, false, false>(c, P, s, info);
 }
 
 }  // namespace dblock
@@ -460,11 +714,8 @@ extern "C" int decoder_block_forward(
   using namespace dblock;
   Params P{y1, n1, n2, static_cast<const __nv_bfloat16*>(w2t), b1, b2, nw, wrgbt,
            nullptr, nullptr, feat, rgb, frames, hp, wp, seed1, seed2};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f32_storage)
-    return hash ? launch_c<float, true, false>(c, P, s) : launch_c<float, false, false>(c, P, s);
-  return hash ? launch_c<__nv_bfloat16, true, false>(c, P, s)
-              : launch_c<__nv_bfloat16, false, false>(c, P, s);
+  return launch_mode<false>(c, f32_storage, hash, P, static_cast<cudaStream_t>(stream),
+                            nullptr);
 }
 
 extern "C" int decoder_block_fused_forward(
@@ -475,5 +726,26 @@ extern "C" int decoder_block_fused_forward(
   using namespace dblock;
   Params P{y1, n1, n2, static_cast<const __nv_bfloat16*>(w2t), b1, b2, nw, wrgbt,
            skip, brgb, feat, rgb, 1, hp, wp, 0u, 0u};
-  return launch_c<float, false, true>(c, P, static_cast<cudaStream_t>(stream));
+  return launch_mode<true>(c, 1, 0, P, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+#ifdef DBLOCK_PHASE_CLOCKS
+// Copies the phase counts to `out` (NPHASES values) and, with `reset`, sets
+// them to 0. Returns NPHASES through `n`.
+extern "C" int decoder_block_phase_cycles(unsigned long long* out, int* n, int reset) {
+  *n = dblock::NPHASES;
+  cudaError_t err = cudaMemcpyFromSymbol(out, dblock::g_phase_cycles, sizeof(dblock::g_phase_cycles));
+  if (err == cudaSuccess && reset) {
+    static const unsigned long long zero[dblock::NPHASES] = {};
+    err = cudaMemcpyToSymbol(dblock::g_phase_cycles, zero, sizeof(zero));
+  }
+  return int(err);
+}
+#endif
+
+extern "C" int decoder_block_info(int c, int f32_storage, int hash, int k3, int* info) {
+  using namespace dblock;
+  const Params P{};
+  return k3 ? launch_mode<true>(c, 1, 0, P, nullptr, info)
+            : launch_mode<false>(c, f32_storage, hash, P, nullptr, info);
 }

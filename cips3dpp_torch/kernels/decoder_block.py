@@ -45,6 +45,19 @@ SQRT2 = 1.4142135623730951
 KERNEL_CHANNELS = (32, 64, 128, 256)
 STORAGE = (torch.bfloat16, torch.float32)
 _M32 = 0xFFFFFFFF
+# f32 operations of one hash_normal value: two avalanche hashes (2 x 7
+# integer ops), two int->float uniforms (4), log, sqrt and -2x (3), the
+# sin polynomial with its range reduction (14), the phase and product (3)
+HASH_OPS = 38
+# f32 instructions a K2 output value needs with every product and sum
+# rounded as decoder_block_plain rounds it. A blend .25*a + .75*b is one
+# multiply (.75*b, shared by the two outputs that take b as their centre)
+# and one fused multiply-add (.25*a is exact): 1.5 an output of a pass. The
+# row pass makes half as many values as the column pass (0.75), the column
+# pass 1.5; then noise1 and b1 adds (2), lrelu (x0.2, x sqrt2: 2), noise2
+# and b2 adds (2), lrelu (2). The lrelu max and the bf16 conversions are
+# not counted.
+K2_APART_PER_VALUE = 10.25
 _2PI = 6.283185307179586
 _HALF_PI = 1.5707963267948966
 
@@ -139,6 +152,25 @@ def launch_name(prepared) -> str:
             + ("_f32" if prepared["dtype"] == torch.float32 else ""))
 
 
+def decoder_block_work(hp, wp, c, dtype, hashed, emit_feat, emit_rgb=True, frames=1):
+    """The least work of one K2 call on y1 (frames*hp, wp, c): bytes (each
+    input read once, each output written once), bf16 tensor-core FLOPs
+    (conv_b), f32 operations that may contract to FMA (`f32_dot`: ToRGB, the
+    hash generator) and f32 operations kept rounded apart (`f32_apart`:
+    K2_APART_PER_VALUE an output value, plus the two noise-weight products
+    a pixel). Noise maps and their hash realization are shared by the
+    frames."""
+    es = torch.finfo(dtype).bits // 8
+    px = 4 * frames * hp * wp  # output pixels
+    map_px = 4 * hp * wp  # pixels of one noise map
+    nbytes = (es * frames * hp * wp * c + (0 if hashed else 2 * es * map_px)
+              + (es * px * c if emit_feat else 0) + (4 * px * 3 if emit_rgb else 0)
+              + 2 * c * c + 4 * (2 * c + 2) + (es * 3 * c if emit_rgb else 0))
+    f32_dot = (2 * px * 3 * c if emit_rgb else 0) + (2 * map_px * HASH_OPS if hashed else 0)
+    return {"bytes": nbytes, "bf16_flops": 2 * px * c * c, "f32_dot": f32_dot,
+            "f32_apart": K2_APART_PER_VALUE * px * c + 2 * px}
+
+
 def _noise_maps(prepared, hp, wp, device):
     """The block's two (2Hp, 2Wp, 1) f32 noise maps."""
     if "seeds" in prepared:
@@ -178,7 +210,32 @@ def _check_block_shape(what, rows, wp, c, frames):
                          f"{frames} frames (C in {KERNEL_CHANNELS}, Wp % 16 == 0)")
 
 
-def _launch(y1, prepared, emit_feat, frames):
+def _check_aligned(**tensors):
+    """The kernel moves 16 bytes at a time: every operand starts 16-byte aligned."""
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: data not 16-byte aligned")
+
+
+def decoder_block_info(c, dtype=torch.bfloat16, hashed=False, k3=False):
+    """Resources of one instantiation of the kernel on the current card:
+    shared memory a block (bytes), blocks an SM, registers a thread, local
+    (spill) bytes a thread, input columns and output pixels of a tile. K3
+    (`k3=True`) is the f32 instantiation with the bias and skip epilogue."""
+    info = (ctypes.c_int * 6)()
+    lib = _lib.load("decoder_block")
+    fn = lib.decoder_block_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    _lib.raise_on_error(fn(c, int(dtype == torch.float32), int(hashed), int(k3),
+                           ctypes.cast(info, ctypes.c_void_p)), "decoder_block_info")
+    keys = ("smem_bytes", "blocks_per_sm", "registers", "local_bytes",
+            "tile_input_columns", "tile_pixels")
+    return dict(zip(keys, list(info)))
+
+
+def _launch(y1, prepared, emit_feat, frames, defines=()):
+    """Launch K2 (the library built with the extra flags `defines`)."""
     dev = y1.device
     rows, wp, c = y1.shape
     dt = prepared["dtype"]
@@ -200,8 +257,10 @@ def _launch(y1, prepared, emit_feat, frames):
             if emit_feat else None)
     rgb = (torch.empty((2 * rows, 2 * wp, 3), dtype=torch.float32, device=dev)
            if emit_rgb else None)
+    _check_aligned(y1=y1, noise1=prepared.get("n1"), noise2=prepared.get("n2"),
+                   w2t=prepared["w2t"])
     seed1, seed2 = prepared["seeds"] if hashed else (0, 0)
-    lib = _lib.load("decoder_block")
+    lib = _lib.load("decoder_block", defines)
     fn = lib.decoder_block_forward
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
@@ -308,6 +367,7 @@ def _launch_fused(y1, skip, noise1, noise2, w2, wrgb, b1, b2, brgb, noise_w1,
               "nw": ((2,), f32), "wrgbt": ((3, c), bf16), "brgb": ((3,), f32)}
     for name, (shape, dtype) in shapes.items():
         _lib.check(ops[name], name, shape, dtype, dev)
+    _check_aligned(**ops)
     feat = torch.empty((2 * hp, 2 * wp, c), dtype=f32, device=dev)
     rgb = torch.empty((2 * hp, 2 * wp, 3), dtype=f32, device=dev)
     lib = _lib.load("decoder_block")

@@ -83,19 +83,31 @@ def test_siren_phase_split_counts_every_phase(dev):
 # (storage, noise): the serving mode (bf16, buffers), the f32 decoder
 # config's mode, and hash noise made in the kernel in either storage
 MODES = [("bf16", "buffers"), ("f32", "buffers"), ("bf16", "hash"), ("f32", "hash")]
+# y1 (F*Hp, Wp) by name: the first two as before; Wp = 48 is ragged against
+# the tile width at C = 32 and 64 (64 and 32 input columns) with F = 3;
+# Hp = 1 puts every row at a frame edge; "large" gives every persistent
+# block several tiles, so the staging ring wraps
+SHAPES = {"16x32": (16, 32, 1), "16x32-f2": (16, 32, 2), "ragged-f3": (8, 48, 3),
+          "hp1-f2": (1, 32, 2), "large-f2": None}
+
+
+def _block_shape(name, c):
+    if name == "large-f2":
+        return (256, 256, 2) if c <= 64 else (128, 128, 2)
+    return SHAPES[name]
 
 
 @pytest.mark.parametrize("mode", MODES, ids=["-".join(m) for m in MODES])
 @pytest.mark.parametrize("c", [32, 64, 128, 256])
-@pytest.mark.parametrize("frames", [1, 2])
-def test_decoder_block_kernel_matches_plain(dev, c, frames, mode):
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_decoder_block_kernel_matches_plain(dev, c, shape, mode):
     from cips3dpp_torch.kernels import _lib
     from cips3dpp_torch.kernels.decoder_block import (
         decoder_block_packed, decoder_block_plain, decoder_block_prepare, launch_name,
     )
 
-    gen = torch.Generator().manual_seed(c + frames)
-    hp, wp = 16, 32
+    hp, wp, frames = _block_shape(shape, c)
+    gen = torch.Generator().manual_seed(c + frames + hp)
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}[mode[0]]
     rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
     prep = decoder_block_prepare(
@@ -113,12 +125,15 @@ def test_decoder_block_kernel_matches_plain(dev, c, frames, mode):
         got = decoder_block_packed(y1, prepared=prep, emit_feat=emit_feat, frames=frames)
         assert _lib.LAUNCHES[name] == before.get(name, 0) + 1
         assert sum(_lib.LAUNCHES.values()) == sum(before.values()) + 1
+        again = decoder_block_packed(y1, prepared=prep, emit_feat=emit_feat, frames=frames)
         want = decoder_block_plain(y1, prep, emit_feat, frames)
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
         want = want if isinstance(want, tuple) else (want,)
-        for g, w in zip(got, want):
+        for g, a, w in zip(got, again, want):
             assert g.shape == w.shape and g.dtype == w.dtype
+            assert torch.equal(g, a)  # fixed summation order: same bits every launch
             # bf16: a flip of a stored feature is one bf16 ulp; f32: nothing
             # is stored in bf16 and conv_b's bf16 operands are rounded from
             # the same f32 values, so only f32 sum orders differ, and 1e-3
@@ -194,16 +209,21 @@ def test_hash_noise_in_kernel_matches_its_map(dev):
         torch.testing.assert_close(g, w, rtol=0, atol=5e-3)
 
 
+# K3 takes one frame: the same shapes as K2's, F = 1
+K3_SHAPES = {"32x16": (32, 16), "ragged": (8, 48), "hp1": (1, 32), "large": None}
+
+
 @pytest.mark.parametrize("c", [32, 64, 128, 256])
-def test_decoder_block_fused_kernel_matches_plain(dev, c):
+@pytest.mark.parametrize("shape", list(K3_SHAPES))
+def test_decoder_block_fused_kernel_matches_plain(dev, c, shape):
     """K3, the v1 block: f32 in and out, bias and upsampled-skip epilogue."""
     from cips3dpp_torch.kernels import _lib
     from cips3dpp_torch.kernels.decoder_block import (
         decoder_block_fused, decoder_block_fused_plain,
     )
 
-    gen = torch.Generator().manual_seed(100 + c)
-    hp, wp = 32, 16
+    hp, wp = K3_SHAPES[shape] or ((256, 256) if c <= 64 else (128, 128))
+    gen = torch.Generator().manual_seed(100 + c + hp)
     rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
     args = (rnd(hp, wp, c), rnd(hp, wp, 3), rnd(2 * hp, 2 * wp, 1), rnd(2 * hp, 2 * wp, 1),
             rnd(c, c) / c**0.5, rnd(c, 3) / c**0.5, 0.1 * rnd(c), 0.1 * rnd(c),
@@ -211,14 +231,54 @@ def test_decoder_block_fused_kernel_matches_plain(dev, c):
     before = _lib.LAUNCHES["decoder_block_fused"]
     got = decoder_block_fused(*args)
     assert _lib.LAUNCHES["decoder_block_fused"] == before + 1
+    again = decoder_block_fused(*args)
     want = decoder_block_fused_plain(*args)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
+    for g, a, w in zip(got, again, want):
         assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+        assert torch.equal(g, a)
     # feat: f32, as K2's f32 mode; rgb multiplies bf16(feat), which flips a
     # bf16 ulp where feat differs in its last f32 bits
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-3)
     torch.testing.assert_close(got[1], want[1], rtol=1.6e-2, atol=2e-2)
+
+
+def test_decoder_block_phase_split_counts_every_phase(dev):
+    """The instrumented K2 build computes what the plain build computes and
+    counts cycles in every phase; at y1 (256, 256, 64) every block walks
+    several tiles. (The tool's timings are not taken here.)"""
+    from cips3dpp_torch.kernels import decoder_block as kdb
+    from cips3dpp_torch.tools.decoder_block_phase_split import (
+        DEFINES, PHASES, block_inputs, phase_cycles,
+    )
+
+    prep, y1 = block_inputs(256, 64, torch.bfloat16, False, dev)
+    want = kdb.decoder_block_packed(y1, prepared=prep)
+    phase_cycles(reset=True)
+    got = kdb._launch(y1, prep, True, 1, DEFINES)
+    torch.cuda.synchronize()
+    cycles = phase_cycles(reset=False)
+    print(dict(zip(PHASES, cycles)))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert len(cycles) == len(PHASES) and all(c > 0 for c in cycles)
+
+
+def test_decoder_block_resources(dev):
+    """Every K2 / K3 instantiation fits on the card with no spill, and tiles
+    hold 8192 values at every C."""
+    from cips3dpp_torch.kernels.decoder_block import KERNEL_CHANNELS, decoder_block_info
+
+    for dt, hashed, k3 in ((torch.bfloat16, False, False), (torch.bfloat16, True, False),
+                           (torch.float32, False, False), (torch.float32, True, False),
+                           (torch.float32, False, True)):
+        for c in KERNEL_CHANNELS:
+            info = decoder_block_info(c, dt, hashed, k3)
+            print(dt, hashed, k3, c, info)
+            assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
+            assert info["smem_bytes"] <= 232448
+            assert info["tile_pixels"] * c == 8192
+            assert info["tile_input_columns"] * 4 == info["tile_pixels"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,0 +1,30 @@
+"""The phase-clock build of K2 (`tools/decoder_block_phase_split.py`) on the
+CPU: its phase names match the marks in the kernel source, it is a library
+of its own, and it refuses to run without the card (it measures the
+kernel). The measurement itself is a card test in test_torch_port_gpu.py."""
+
+import re
+
+import pytest
+import torch
+
+from cips3dpp_torch.kernels import _lib
+from cips3dpp_torch.tools.decoder_block_phase_split import DEFINES, PHASES, measure
+
+
+def test_phase_names_match_the_kernel_marks():
+    src = (_lib.CSRC / "decoder_block.cu").read_text()
+    marks = [int(k) for k in re.findall(r"PHASE_MARK\((\d+)\);", src)]
+    assert marks == list(range(len(PHASES)))  # each phase marked once, in order
+    assert f"NPHASES = {len(PHASES)};" in src
+
+
+def test_instrumented_build_is_a_separate_library():
+    plain = _lib._lib_path("decoder_block")
+    marked = _lib._lib_path("decoder_block", DEFINES)
+    assert plain != marked and plain.parent == marked.parent
+
+
+def test_phase_split_needs_the_card():
+    with pytest.raises(RuntimeError, match="card"):
+        measure(torch.bfloat16, False, 1, torch.device("cpu"))
