@@ -31,9 +31,20 @@ Phases, each fatal on failure:
      the plain kernels, and against frames fed the seed's hash_noise_map
      buffers; a geometry-aware (project_noise) trajectory and a 2x2 style
      mixing grid; image grids written to chiprun_out/;
-  7. with --profile only: torch.profiler over 10 serving frames, device
-     time per kernel and the device idle share (table in
-     chiprun_out/profile_frame.txt).
+  7. the training slice at train_r1024 (configs/ffhq.yaml), full width,
+     batch 4, f32, random weights and "real" images from the seed:
+     sphere_init_step, d_step with and without lazy R1, g_step,
+     path_reg_step and ema_update, each once to warm up and twice timed
+     (CUDA events, peak memory per step); losses finite, each optimizer
+     moved its parameters, K1 launched once per batch item in every D step
+     and nowhere else; the D step's fakes through K1 against K1's plain
+     version, and SirenRender's gradients (K1 forward, replayed backward)
+     against autograd through the replayed function and through the plain
+     f32 renderer;
+  8. with --profile only: torch.profiler over 10 serving frames (phase 5)
+     and over one call each of d_step with and without R1 and g_step
+     (phase 7): device time per kernel and kernel group and the device idle
+     share (tables in chiprun_out/profile_*.txt).
 Each path that launches kernels runs with the launch counts set to 0
 just before it and read just after. A kernel's "ms" is its device time a
 launch (torch.profiler), beside the time a call takes back to back (CUDA
@@ -167,18 +178,19 @@ def plain_kernels():
         serving.siren_render_prepared, ksr.siren_render_prepared, kdf.decoder_block_packed = saved
 
 
-def profile_frames(render, frame_ms, n=10):
-    """Device time per frame by kernel over n frames (torch.profiler), the
-    groups K1 / K2 / matmul / other, and the device idle share against the
-    unprofiled frame time. The full table goes to chiprun_out/."""
+def profile_calls(fn, call_ms, n=10, what="frame", table="profile_frame.txt"):
+    """Device time per call of fn by kernel over n calls (torch.profiler),
+    the groups K1 / K2 / convolution / matmul / other, and the device idle
+    share against the unprofiled call time `call_ms`. The full table goes
+    to chiprun_out/`table`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    render()
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            render()
+            fn()
         torch.cuda.synchronize()
     avgs = prof.key_averages()
     dev_events = [e for e in avgs if e.device_type == DeviceType.CUDA]
@@ -190,26 +202,27 @@ def profile_frames(render, frame_ms, n=10):
             return "K1 siren_render"
         if "block_kernel" in name or "decoder_block" in name:
             return "K2 decoder_block"
+        if any(s in name for s in ("fprop", "dgrad", "wgrad", "conv", "fft")):
+            return "convolution (cuDNN)"
         if any(s in name for s in ("gemm", "xmma", "cutlass", "sm90")):
             return "matmul (cuBLAS)"
         return "other (elementwise, copies, reductions)"
 
     kernels = sorted(
-        ({"name": e.key, "group": group(e.key), "calls_per_frame": e.count / n,
-          "ms_per_frame": e.self_device_time_total / 1e3 / n} for e in dev_events),
-        key=lambda k: -k["ms_per_frame"])
+        ({"name": e.key, "group": group(e.key), "calls_per_call": e.count / n,
+          "ms_per_call": e.self_device_time_total / 1e3 / n} for e in dev_events),
+        key=lambda k: -k["ms_per_call"])
     groups = {}
     for k in kernels:
-        groups[k["group"]] = groups.get(k["group"], 0.0) + k["ms_per_frame"]
+        groups[k["group"]] = groups.get(k["group"], 0.0) + k["ms_per_call"]
     busy = sum(groups.values())
-    out = {"frames": n, "device_ms_per_frame": busy, "frame_ms": frame_ms,
-           "idle_share": 1.0 - busy / frame_ms, "groups": groups,
-           "kernels": kernels[:25]}
+    out = {"calls": n, "device_ms_per_call": busy, "call_ms": call_ms,
+           "idle_share": 1.0 - busy / call_ms, "groups": groups, "kernels": kernels[:25]}
     for g, ms in sorted(groups.items(), key=lambda x: -x[1]):
-        log(f"[profile] {g}: {ms:.4f} ms/frame ({100 * ms / busy:.1f}% of device time)")
-    log(f"[profile] device busy {busy:.4f} ms of a {frame_ms:.4f} ms frame "
+        log(f"[profile] {what}: {g}: {ms:.4f} ms a call ({100 * ms / busy:.1f}% of device time)")
+    log(f"[profile] {what}: device busy {busy:.4f} ms of a {call_ms:.4f} ms call "
         f"(idle share {out['idle_share']:.3f})")
-    with open(os.path.join(OUT, "profile_frame.txt"), "w") as fh:
+    with open(os.path.join(OUT, table), "w") as fh:
         fh.write(avgs.table(sort_by="self_cuda_time_total", row_limit=60))
     return out
 
@@ -450,6 +463,178 @@ def trajectory_phase(label, model, zs, dev, dtype_suffix):
     save_grid(out["rgb"], f"trajectory{dtype_suffix or '_bf16'}.png")
     return {"launches_seed": l_seed, "launches_buffers": l_bufs, "gaps": gaps,
             "mean_abs_rgb": scale, "ms_per_frame": 1e3 * traj_s / n, "yaw_diff": yaw_diff}
+
+
+def training_phase(dev, profile=False):
+    """The training slice at train_r1024 (configs/ffhq.yaml train_base:
+    the _G_r1024 generator in f32, DStyleGANProgressive(1024, channel
+    multiplier 2), DVolumeRenderProgressive(1024) on the 64^2 thumbnails,
+    TrainConfig's defaults, batch 4), random weights from the seed and
+    "real" images drawn from it. sphere_init_step, d_step with and without
+    lazy R1, g_step, path_reg_step and ema_update, each once to warm up and
+    twice timed (CUDA events, peak memory per step); every D step renders
+    its fakes through K1, one launch per batch item. Then the fakes of K1
+    against the same fakes through K1's plain version, and SirenRender's
+    gradients against autograd through the plain renderer. With `profile`,
+    the device time of d_step (with and without R1) and g_step by kernel
+    group (one call each, after the timed ones)."""
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.kernels import siren_render as ksr
+    from cips3dpp_torch.models.discriminator import DStyleGANProgressive
+    from cips3dpp_torch.models.discriminator_pose import DVolumeRenderProgressive
+    from cips3dpp_torch.models.generator import Generator, preset_r1024
+    from cips3dpp_torch.models.layers import randomize_zero_init_
+    from cips3dpp_torch.train import (TrainConfig, create_train_state, draw_inputs,
+                                      ema_update, make_train_steps)
+
+    cfg, tcfg = preset_r1024(), TrainConfig()  # _G_r1024, train_base: batch 4
+    b, size = tcfg.batch, cfg.out_size
+    g = Generator(cfg, device=dev, seed=SEED + 20)
+    d = DStyleGANProgressive(1024, 2, device=dev, seed=SEED + 21)
+    d_render = DVolumeRenderProgressive(1024, viewpoint_loss=True, device=dev, seed=SEED + 22)
+    for i, m in enumerate((g, d)):
+        randomize_zero_init_(m, torch.Generator().manual_seed(SEED + 23 + i))
+    state = create_train_state(tcfg, g, d, d_render)
+    d_step, g_step, path_step, sphere_step = make_train_steps(cfg, tcfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    real = torch.rand((b, size, size, 3), generator=gen, device=dev) * 2 - 1
+    alpha = 0.5  # the fade branches of both Ds live
+    snap = lambda m: [p.detach().clone() for p in m.parameters()]
+    moved = lambda m, before: any(not torch.equal(p, q) for p, q in zip(m.parameters(), before))
+
+    steps = {
+        "sphere_init_step": (lambda: sphere_step(state, gen)[1], ("g",)),
+        "d_step (R1)": (lambda: d_step(state, real, gen, alpha, True)[1], ("d", "d_render")),
+        "d_step": (lambda: d_step(state, real, gen, alpha, False)[1], ("d", "d_render")),
+        "g_step": (lambda: g_step(state, gen, alpha)[1], ("g",)),
+        "path_reg_step": (lambda: path_step(state, gen)[1], ("g",)),
+        "ema_update": (lambda: (ema_update(state, tcfg.ema_decay), {})[1], ("g_ema",)),
+    }
+    res = {"steps": {}, "config": "train_r1024 (configs/ffhq.yaml), batch 4, f32"}
+    n_d = 0
+    with counted("training path (3 calls of each step)") as launches:
+        for name, (fn, mods) in steps.items():
+            times, peaks, metrics = [], [], {}
+            for i in range(3):
+                before = {k: snap(getattr(state, k)) for k in mods}
+                k1_before = _lib.LAUNCHES["siren_render"]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                metrics = fn()
+                end.record()
+                torch.cuda.synchronize()
+                k1 = _lib.LAUNCHES["siren_render"] - k1_before
+                want_k1 = b if name.startswith("d_step") else 0
+                if k1 != want_k1:
+                    raise AssertionError(f"{name}: {k1} K1 launches, want {want_k1}")
+                n_d += name.startswith("d_step")
+                for k in mods:
+                    if not moved(getattr(state, k), before[k]):
+                        raise AssertionError(f"{name}: the {k} parameters did not move")
+                bad = {k: float(v) for k, v in metrics.items() if not torch.isfinite(v)}
+                if bad:
+                    raise AssertionError(f"{name}: non-finite losses {bad}")
+                if i:  # the first call warms up
+                    times.append(start.elapsed_time(end))
+                    peaks.append(torch.cuda.max_memory_allocated())
+            ms, peak = sum(times) / len(times), max(peaks)
+            res["steps"][name] = {"ms": ms, "ms_each": times, "peak_bytes": peak,
+                                  "k1_launches_per_call": b if name.startswith("d_step") else 0,
+                                  "metrics": {k: float(v) for k, v in metrics.items()}}
+            log(f"[train] {name}: {ms:.1f} ms a call (CUDA events, calls 2-3: "
+                f"{', '.join(f'{t:.1f}' for t in times)}), peak allocated "
+                f"{peak / 2**30:.2f} GiB, K1 launches a call "
+                f"{res['steps'][name]['k1_launches_per_call']}; losses "
+                f"{ {k: round(float(v), 4) for k, v in metrics.items()} }")
+    if launches != {"siren_render": b * n_d}:
+        raise AssertionError(f"training path: launches {launches}, want {b * n_d} K1")
+    res["launches"] = launches
+    if profile:
+        res["profile"] = {
+            name: profile_calls(steps[name][0], res["steps"][name]["ms"], n=1, what=name,
+                                table=f"profile_{name.split()[0]}{'_r1' if 'R1' in name else ''}.txt")
+            for name in ("d_step (R1)", "d_step", "g_step")}
+
+    # the D step's fakes through K1 against the same fakes through K1's
+    # plain version, with the same draws (the serving frame's bounds for
+    # rgb, K1's own for thumb)
+    draws = draw_inputs(gen, b, cfg, tcfg, dev, decoder=g.decoder)
+    cam = draws.cam
+    fwd = lambda: g(zs=draws.zs, cam_poses=cam.extrinsics, focals=cam.focal, near=cam.near,
+                    far=cam.far, noise_bufs=draws.noise, t_rand=draws.t_rand,
+                    fused_renderer=True)
+    with torch.no_grad():
+        with counted("D-step fakes, K1", {"siren_render": b}):
+            k1_fakes = fwd()
+        with plain_kernels():
+            plain_fakes = fwd()
+        f32_fakes = g(zs=draws.zs, cam_poses=cam.extrinsics, focals=cam.focal, near=cam.near,
+                      far=cam.far, noise_bufs=draws.noise, t_rand=draws.t_rand)
+    fake_gaps = {k: gap(k1_fakes[k], plain_fakes[k]) for k in ("rgb", "thumb_rgb")}
+    f32_gaps = {k: gap(k1_fakes[k], f32_fakes[k]) for k in ("rgb", "thumb_rgb")}
+    log(f"[train] D-step fakes, K1 vs its plain version: rgb max {fake_gaps['rgb'][0]:.3e} "
+        f"mean {fake_gaps['rgb'][1]:.3e} (bounds 0.5, 1e-2), thumb max "
+        f"{fake_gaps['thumb_rgb'][0]:.3e} (bound 1e-3); vs the f32 renderer (no bound): rgb "
+        f"max {f32_gaps['rgb'][0]:.3e} mean {f32_gaps['rgb'][1]:.3e}, thumb max "
+        f"{f32_gaps['thumb_rgb'][0]:.3e}")
+    if not all(torch.isfinite(k1_fakes[k]).all() for k in ("rgb", "thumb_rgb")):
+        raise AssertionError("D-step fakes not finite")
+    if k1_fakes["rgb"].shape != (b, size, size, 3):
+        raise AssertionError(f"D-step fakes {tuple(k1_fakes['rgb'].shape)}")
+    if not (fake_gaps["rgb"][0] <= 0.5 and fake_gaps["rgb"][1] <= 1e-2
+            and fake_gaps["thumb_rgb"][0] <= 1e-3):
+        raise AssertionError(f"D-step fakes disagree with the plain version: {fake_gaps}")
+    res["fake_gaps"], res["fake_gaps_f32_renderer"] = fake_gaps, f32_gaps
+
+    # SirenRender's gradients on the card (K1 forward, replayed backward),
+    # full width, one batch item of those draws, random cotangents: against
+    # autograd through the replayed function (the same arithmetic) and
+    # through the plain f32 renderer (bf16 products against f32 ones)
+    sr = g.map_zs(draws.zs)[0][0].detach().requires_grad_(True)
+    flat = lambda x: x[0].reshape(-1, *x.shape[3:]).contiguous()
+    from cips3dpp_torch.core.rays import prepare_nerf_inputs
+
+    pts, rays_d, viewdirs, z_vals = (flat(x) for x in prepare_nerf_inputs(
+        cam.focal, cfg.img_size, cam.extrinsics, cam.near, cam.far, cfg.n_samples,
+        perturb=True, t_rand=draws.t_rand))
+    pts.requires_grad_(True)
+    rend = g.renderer
+    params = list(rend.parameters())
+    near, far = cam.near.reshape(-1)[0], cam.far.reshape(-1)[0]
+    names = ["styles", "pts"] + [n for n, _ in rend.named_parameters()]
+    with counted("SirenRender forward", {"siren_render": 1}):
+        outs = ksr.SirenRender.apply(rend, sr, pts, viewdirs, z_vals, rays_d, near, far, *params)
+    cots = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
+    got = torch.autograd.grad(outs, [sr, pts] + params, cots)
+    ref = ksr.siren_render_reference(rend, sr, pts, viewdirs, z_vals, rays_d, near, far)
+    want = torch.autograd.grad(ref, [sr, pts] + params, cots)
+    thumb, feat, sdf, maskd, xyz, _ = rend._render_tile(
+        pts[None], rays_d[None], viewdirs[None], z_vals[None], cam.near[:1], cam.far[:1], sr[None])
+    want32 = torch.autograd.grad([thumb[0], feat[0], sdf[0], maskd[0], xyz[0]],
+                                 [sr, pts] + params, cots)
+    rel = lambda x, y: float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+    cos = lambda x, y: float(torch.nn.functional.cosine_similarity(
+        x.flatten().double(), y.flatten().double(), dim=0))
+    rel_ref = {n: rel(x, y) for n, x, y in zip(names, got, want)}
+    rel_32 = {n: rel(x, y) for n, x, y in zip(names, got, want32)}
+    cos_32 = {n: cos(x, y) for n, x, y in zip(names, got, want32)}
+    worst = lambda dct, f: f(dct.items(), key=lambda kv: kv[1])
+    log(f"[train] SirenRender gradients (R={pts.shape[0]}, S={pts.shape[1]}, "
+        f"W={cfg.renderer.hidden_dim}; styles, "
+        f"pts and {len(params)} renderer parameters): vs autograd through the replayed "
+        f"function max relative error {worst(rel_ref, max)} (bound 1e-5); vs the plain f32 "
+        f"renderer max relative error {worst(rel_32, max)} (bound 0.25, bf16 products), "
+        f"least cosine {worst(cos_32, min)} (bound 0.99)")
+    if not all(torch.isfinite(x).all() for x in got):
+        raise AssertionError("SirenRender gradients not finite")
+    if (max(rel_ref.values()) > 1e-5 or max(rel_32.values()) > 0.25
+            or min(cos_32.values()) < 0.99):
+        raise AssertionError(f"SirenRender gradients disagree: {rel_ref}, {rel_32}, {cos_32}")
+    res["siren_grads"] = {"rel_vs_replay": rel_ref, "rel_vs_f32_renderer": rel_32,
+                          "cos_vs_f32_renderer": cos_32}
+    return res
 
 
 def main() -> int:
@@ -709,11 +894,16 @@ def main() -> int:
     report["apps"] = {"project_noise_s": proj_s, "project_noise_gap": proj_gap,
                       "style_mixing_s": mix_s}
 
+    # ---- 7. the training slice ----
+    with torch.inference_mode(False), torch.enable_grad():
+        report["training"] = training_phase(dev, profile="--profile" in sys.argv[1:])
+
     # ---- the kernels line ----
     t32, tbf = report["trajectory_f32"], report["trajectory_bf16"]
+    # K1's launches: the serving path's and the training path's
     entry("siren_render", "cips3dpp_torch/csrc/siren_render.cu",
           "cips3dpp_tpu/kernels/siren_render.py:140", report["K1"],
-          serving_launches["siren_render"])
+          serving_launches["siren_render"] + report["training"]["launches"]["siren_render"])
     entry("decoder_block", K2_SRC, K2_TPU, report["K2"], serving_launches["decoder_block"])
     entry("decoder_block_f32", K2_SRC, K2_TPU, report["K2-f32"],
           t32["launches_buffers"]["decoder_block_f32"])
@@ -729,7 +919,7 @@ def main() -> int:
               "tools/vpu_dtype_probe.py:42", dict(p, err=p["max_abs_err"]), p["launches"])
     report["kernels"] = kernels
     if "--profile" in sys.argv[1:]:
-        report["profile"] = profile_frames(render_one, frame_ms)
+        report["profile"] = profile_calls(render_one, frame_ms)
 
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)

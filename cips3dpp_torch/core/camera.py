@@ -1,4 +1,4 @@
-"""Camera from angles and 8-view sweeps (counterpart of cips3dpp_tpu/core/camera.py).
+"""Camera from angles, random cameras and 8-view sweeps (counterpart of cips3dpp_tpu/core/camera.py).
 
 The camera sits on a unit sphere looking at the origin; azimuth/elevation
 map to a position, a look-at frame gives R, intrinsics come from a fov
@@ -73,6 +73,40 @@ def camera_from_angles(
     extrinsics = torch.cat([r.transpose(1, 2), camera_loc[:, :, None]], dim=-1)
     viewpoint = torch.stack([azim, elev], dim=-1)
     return CameraParams(extrinsics, focal, near, far, viewpoint)
+
+
+def sample_cameras(
+    generator: torch.Generator | None,
+    batch: int,
+    img_size: int,
+    azim_range=0.3,
+    elev_range=0.15,
+    fov_ang: float = 6.0,
+    dist_radius: float = 0.12,
+    uniform: bool = False,
+    dtype=torch.float32,
+    device=None,
+    draws: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> CameraParams:
+    """Random cameras (nerf_utils.py:393-410): angle = range * N(0,1), or
+    with `uniform` U(-range, range) (U(range[0], range[1]) for 2-lists).
+    The unit draws (azim, elev), each (B,), N(0,1) or U(0,1), come from
+    `generator` on its own device, or are given as `draws`."""
+    if draws is None:
+        gdev = generator.device if generator is not None else "cpu"
+        draw = torch.rand if uniform else torch.randn
+        draws = tuple(draw((batch,), generator=generator, dtype=dtype, device=gdev)
+                      for _ in range(2))
+    ua, ue = (d.to(device=device, dtype=dtype) for d in draws)
+    if uniform:
+        (a0, a1) = azim_range if isinstance(azim_range, (list, tuple)) else (-azim_range, azim_range)
+        (e0, e1) = elev_range if isinstance(elev_range, (list, tuple)) else (-elev_range, elev_range)
+        azim, elev = a0 + (a1 - a0) * ua, e0 + (e1 - e0) * ue
+    else:
+        azim, elev = azim_range * ua, elev_range * ue
+    return camera_from_angles(
+        azim, elev, img_size, fov_ang=fov_ang, dist_radius=dist_radius
+    )
 
 
 def sweep_cameras(

@@ -48,9 +48,12 @@ def get_z_vals(
     perturb: bool = False,
     offset_sampling: bool = True,
     generator: torch.Generator | None = None,
+    t_rand: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Depths along each ray, (B, H, W, N) (nerf_utils.py:68-121).
-    With perturb, the jitter is drawn from `generator` on the CPU."""
+    With perturb, the jitter in [0, 1) is `t_rand` ((B, H, W, 1) with
+    offset sampling, else (B, H, W, N)), or is drawn from `generator` on
+    its own device."""
     b, h, w, _ = rays_d.shape
     kw = dict(dtype=rays_d.dtype, device=rays_d.device)
     ones = torch.ones((b, h, w, 1), **kw)
@@ -72,7 +75,10 @@ def get_z_vals(
             upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
             lower = torch.cat([z_vals[..., :1], mids], dim=-1)
             shape = tuple(z_vals.shape)
-        t_rand = torch.rand(shape, generator=generator, dtype=rays_d.dtype)
+        if t_rand is None:
+            gdev = generator.device if generator is not None else "cpu"
+            t_rand = torch.rand(shape, generator=generator, dtype=rays_d.dtype,
+                                device=gdev)
         z_vals = lower + (upper - lower) * t_rand.to(rays_d.device)
     return z_vals
 
@@ -91,6 +97,7 @@ def normalize_points(pts, near, far):
 def prepare_nerf_inputs(
     focal, img_size, cam_poses, near, far, n_samples,
     perturb: bool = False, static_viewdirs: bool = False, generator=None,
+    t_rand=None,
 ):
     """rays -> z_vals -> points. Returns pts (B,H,W,N,3), rays_d (B,H,W,3),
     viewdirs (B,H,W,3), z_vals (B,H,W,N)."""
@@ -99,7 +106,7 @@ def prepare_nerf_inputs(
     )
     z_vals = get_z_vals(
         near, far, rays_d, n_samples, perturb=perturb, offset_sampling=True,
-        generator=generator,
+        generator=generator, t_rand=t_rand,
     )
     pts = get_points(rays_o, rays_d, z_vals)
     return pts, rays_d, viewdirs, z_vals

@@ -1,3 +1,9 @@
-from .jax_params import jax_params_to_state_dict, load_jax_params
+from .jax_params import (
+    jax_d_params_to_state_dict,
+    jax_d_pose_params_to_state_dict,
+    jax_params_to_state_dict,
+    load_jax_params,
+)
 
-__all__ = ["jax_params_to_state_dict", "load_jax_params"]
+__all__ = ["jax_d_params_to_state_dict", "jax_d_pose_params_to_state_dict",
+           "jax_params_to_state_dict", "load_jax_params"]

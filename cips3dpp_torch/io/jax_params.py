@@ -1,5 +1,5 @@
-"""Weight bridge: the JAX package's generator param tree -> this package's
-state dict.
+"""Weight bridge: the JAX package's param trees (generator, image D,
+pose D) -> this package's state dicts.
 
 The input is the nested dict of `variables["params"]` of the flax
 Generator, as numpy arrays (or anything `np.asarray` takes). The output
@@ -9,9 +9,12 @@ package's module names, so `Generator.load_state_dict` takes it as is:
     flax Linear        (in, out)        -> (out, in)
     flax modulated conv (k, k, in, out) -> (1, out, in, k, k)
 
-The mapping is this package's own copy of the JAX package's exporter
-(`io/torch_import.py:export_generator_state_dict`); it imports nothing of
-JAX.
+    flax conv          (kh, kw, in, out) -> (out, in, kh, kw)
+
+The mappings are this package's own copies of the JAX package's exporters
+(`io/torch_import.py:export_generator_state_dict`,
+`export_d_stylegan_state_dict`, `export_d_pose_state_dict`); they import
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -93,11 +96,88 @@ def jax_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
         while f"to_rgbs_{i}" in dec:
             put_torgb(f"decoder.to_rgbs.{i}", dec[f"to_rgbs_{i}"])
             i += 1
+    return _tensors(out)
+
+
+def _conv(w):
+    return np.ascontiguousarray(np.transpose(np.asarray(w, np.float32), (3, 2, 0, 1)))
+
+
+def _vec(v):
+    return np.asarray(v, np.float32)
+
+
+def _tensors(out):
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
-def load_jax_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module:
-    """Copy a JAX generator param tree into `model` (strict: every key and
-    shape must match)."""
-    model.load_state_dict(jax_params_to_state_dict(params), strict=True)
+def _indexed(name: str, stem: str) -> str:
+    """flax "conv_in_64" -> "conv_in.64"; the flat Ds' "conv_in" stays."""
+    return stem + name[len(stem):].replace("_", ".", 1)
+
+
+def jax_d_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """DStyleGANProgressive (or DStyleGAN) params -> `models/discriminator.py`
+    names."""
+    out = {}
+
+    def conv_layer(prefix, node, conv_index):
+        out[f"{prefix}.{conv_index}.weight"] = _conv(node["EqualConv2d_0"]["weight"])
+        if "act_bias" in node:
+            out[f"{prefix}.{conv_index + 1}.bias"] = _vec(node["act_bias"])
+
+    for name, node in params.items():
+        if name.startswith("conv_in"):
+            conv_layer(_indexed(name, "conv_in"), node, 0)
+        elif name.startswith("block_"):
+            res = name[len("block_"):]
+            conv_layer(f"blocks.{res}.conv1", node["conv1"], 0)
+            # behind a Blur at index 0
+            conv_layer(f"blocks.{res}.conv2", node["conv2"], 1)
+            conv_layer(f"blocks.{res}.skip", node["skip"], 1)
+    final = params["final"]
+    conv_layer("final_conv", final["final_conv"], 0)
+    # flax flattens the 4x4 map channel-last (h, w, c), torch (c, h, w)
+    w = np.asarray(final["final_linear_0"]["weight"], np.float32)
+    c = w.shape[0] // 16
+    w = w.reshape(4, 4, c, -1).transpose(2, 0, 1, 3).reshape(16 * c, -1)
+    out["final_linear.0.weight"] = np.ascontiguousarray(w.T)
+    out["final_linear.0.bias"] = _vec(final["final_linear_0"]["bias"])
+    out["final_linear.1.weight"] = np.ascontiguousarray(
+        np.asarray(final["final_linear_1"]["weight"], np.float32).T)
+    out["final_linear.1.bias"] = _vec(final["final_linear_1"]["bias"])
+    return _tensors(out)
+
+
+def jax_d_pose_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """DVolumeRenderProgressive (or DVolumeRender) params ->
+    `models/discriminator_pose.py` names."""
+    out = {}
+    for name, node in params.items():
+        if name.startswith("conv_in"):
+            prefix = _indexed(name, "conv_in")
+            out[f"{prefix}.conv.weight"] = _conv(node["weight"])
+            out[f"{prefix}.activation.bias"] = _vec(node["bias"])
+        elif name.startswith("block_"):
+            res = name[len("block_"):]
+            for cv in ("conv1", "conv2"):
+                out[f"blocks.{res}.{cv}.conv.conv.weight"] = _conv(node[cv]["conv"]["weight"])
+                out[f"blocks.{res}.{cv}.activation.bias"] = _vec(node[cv]["conv"]["bias"])
+            if "skip" in node:
+                out[f"blocks.{res}.skip.conv.weight"] = _conv(node["skip"]["weight"])
+                out[f"blocks.{res}.skip.conv.bias"] = _vec(node["skip"]["bias"])
+    out["final_conv.conv.weight"] = _conv(params["final_conv"]["weight"])
+    out["final_conv.conv.bias"] = _vec(params["final_conv"]["bias"])
+    return _tensors(out)
+
+
+_BRIDGES = {"generator": jax_params_to_state_dict, "d": jax_d_params_to_state_dict,
+            "d_pose": jax_d_pose_params_to_state_dict}
+
+
+def load_jax_params(model: torch.nn.Module, params: Mapping,
+                    kind: str = "generator") -> torch.nn.Module:
+    """Copy a JAX param tree of `kind` ("generator", "d" or "d_pose") into
+    `model` (strict: every key and shape must match)."""
+    model.load_state_dict(_BRIDGES[kind](params), strict=True)
     return model

@@ -207,12 +207,61 @@ def siren_render_prepared(prepared, pts, viewdirs, z_vals, rays_d):
     raise ValueError(f"siren_render: no kernel for device {pts.device}")
 
 
-@torch.no_grad()
+class SirenRender(torch.autograd.Function):
+    """Differentiable fused render of one batch item (the counterpart of
+    JAX's `siren_render` custom_vjp): the forward is the kernel on the card
+    (its plain version on the CPU); the backward replays
+    `siren_render_reference`, the same function layer by layer with
+    torch.sin, under autograd, as JAX's backward replays its jnp reference.
+    There is no backward kernel.
+
+    apply(renderer, styles, pts, viewdirs, z_vals, rays_d, near, far,
+    *params) with params = tuple(renderer.parameters()); gradients reach
+    the renderer's parameters, styles, pts, viewdirs, z_vals, rays_d, near
+    and far, and the replay is itself differentiable under create_graph."""
+
+    @staticmethod
+    def forward(ctx, renderer, styles, pts, viewdirs, z_vals, rays_d, near, far,
+                *params):
+        ctx.renderer = renderer
+        ctx.save_for_backward(styles, pts, viewdirs, z_vals, rays_d, near, far)
+        prepared = siren_prepare(renderer, styles, near, far)
+        return siren_render_prepared(prepared, pts, viewdirs, z_vals, rays_d)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        renderer = ctx.renderer
+        params = tuple(renderer.parameters())
+        create = torch.is_grad_enabled()  # backward under create_graph
+        with torch.enable_grad():
+            # fresh leaves for the saved inputs; the parameters are the
+            # renderer's own, so the FiLM folds replay differentiably
+            ins = [x.detach().requires_grad_(need)
+                   for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad[1:8])]
+            outs = siren_render_reference(renderer, *ins)
+            wrt = [x for x in ins if x.requires_grad] + [
+                p for p, need in zip(params, ctx.needs_input_grad[8:]) if need]
+            grads = iter(torch.autograd.grad(
+                outs, wrt, cotangents, allow_unused=True, create_graph=create))
+        in_grads = [next(grads) if x.requires_grad else None for x in ins]
+        p_grads = [next(grads) if need else None for need in ctx.needs_input_grad[8:]]
+        return (None, *in_grads, *p_grads)
+
+
 def siren_render_fused(renderer, styles, pts, viewdirs, z_vals, rays_d,
                        near, far):
-    """Prepare + render of one batch item."""
-    prepared = siren_prepare(renderer, styles, near, far)
-    return siren_render_prepared(prepared, pts, viewdirs, z_vals, rays_d)
+    """Prepare + render of one batch item. Under grad mode with any input
+    or renderer parameter requiring grad it goes through `SirenRender`
+    (kernel forward, replayed backward); otherwise it is the no-grad
+    serving path."""
+    params = tuple(renderer.parameters())
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (styles, pts, viewdirs, z_vals, rays_d, *params)):
+        return SirenRender.apply(renderer, styles, pts, viewdirs, z_vals, rays_d,
+                                 near, far, *params)
+    with torch.no_grad():
+        prepared = siren_prepare(renderer, styles, near, far)
+        return siren_render_prepared(prepared, pts, viewdirs, z_vals, rays_d)
 
 
 def siren_render_reference(renderer, styles, pts, viewdirs, z_vals, rays_d,

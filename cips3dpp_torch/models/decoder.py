@@ -14,6 +14,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.decoder_block import hash_noise_map, layer_seed
 from .layers import StyledConv, ToRGB, channel_table
@@ -30,8 +31,10 @@ class Decoder(nn.Module):
         upsample_list: Sequence[int] = (),
         dtype=torch.float32,
         skip_dtype=torch.float32,
+        remat: bool = False,
     ):
         super().__init__()
+        self.remat = remat
         self.size_start, self.size_end = size_start, size_end
         self.channel_multiplier = channel_multiplier
         self.upsample_list = tuple(upsample_list)
@@ -83,10 +86,11 @@ class Decoder(nn.Module):
 
     def make_noise(self, generator: torch.Generator | None, start_size: int,
                    batch: int = 1, device=None):
-        """N(0,1) noise buffers drawn from `generator` (on the CPU, then
-        moved to `device`)."""
+        """N(0,1) noise buffers drawn from `generator` (on its own device,
+        the CPU for None), then moved to `device`."""
+        gdev = generator.device if generator is not None else "cpu"
         return [
-            torch.randn((batch,) + s[1:], generator=generator).to(device)
+            torch.randn((batch,) + s[1:], generator=generator, device=gdev).to(device)
             for s in self.noise_shapes(start_size)
         ]
 
@@ -107,13 +111,21 @@ class Decoder(nn.Module):
             raise ValueError(f"{len(noise)} noise buffers, want {self.num_layers}")
         features = features.to(self.dtype)
         noise = [n.to(self.dtype) for n in noise]
-        out = self.conv1(features, styles[:, 0], noise[0])
+        if self.remat and torch.is_grad_enabled():
+            # StyledConv remat: the backward recomputes each conv layer's
+            # insides (upsample, noise, pre-activation)
+            def run(layer, *args):
+                return checkpoint(layer, *args, use_reentrant=False)
+        else:
+            def run(layer, *args):
+                return layer(*args)
+        out = run(self.conv1, features, styles[:, 0], noise[0])
         skip = self.to_rgb1(out, styles[:, 1])
         layer_i = 1
         for block, to_rgb in enumerate(self.to_rgbs):
-            out = self.convs[2 * block](out, styles[:, layer_i], noise[layer_i])
-            out = self.convs[2 * block + 1](out, styles[:, layer_i + 1],
-                                            noise[layer_i + 1])
+            out = run(self.convs[2 * block], out, styles[:, layer_i], noise[layer_i])
+            out = run(self.convs[2 * block + 1], out, styles[:, layer_i + 1],
+                      noise[layer_i + 1])
             skip = to_rgb(out, styles[:, layer_i + 2], skip)
             layer_i += 2
         return skip.float()

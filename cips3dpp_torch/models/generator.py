@@ -15,7 +15,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from ..core.rays import prepare_nerf_inputs
+from ..core.rays import get_points, get_rays_in_world, get_z_vals, prepare_nerf_inputs
 from ..device import resolve_device
 from .decoder import Decoder
 from .layers import EqualLinear, MappingLinear, PixelNorm, init_parameters
@@ -30,7 +30,7 @@ class RendererConfig:
     view_dim: int = 3
     with_sdf: bool = True
     dtype: str = "float32"  # SIREN storage dtype; "bfloat16" for serving
-    remat: bool = False  # training option of the JAX package; unused here
+    remat: bool = False  # recompute the SIREN in the backward (memory)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +53,7 @@ class DecoderConfig:
     mapping_lr_mul: float = 0.01
     dtype: str = "float32"  # conv compute dtype; "bfloat16" for serving
     skip_dtype: str = "float32"
-    remat: bool = False  # training option of the JAX package; unused here
+    remat: bool = False  # recompute each StyledConv in the backward (memory)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +134,10 @@ class Generator(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = c = cfg
+        if c.decoder.kernel_size != 1:
+            raise NotImplementedError(
+                f"decoder kernel_size {c.decoder.kernel_size}: only the 1x1 "
+                f"modulated conv is ported (ROADMAP queue 1, k > 1)")
         m = c.mapping
         self.style = nn.Sequential(*[
             MappingLinear(m.z_dim if i == 0 else m.style_dim, m.style_dim,
@@ -149,12 +153,12 @@ class Generator(nn.Module):
         r = c.renderer
         self.renderer = VolumeFeatureRenderer(
             r.n_layers, r.hidden_dim, r.input_dim, r.view_dim, m.style_dim,
-            r.with_sdf, torch_dtype(r.dtype),
+            r.with_sdf, torch_dtype(r.dtype), remat=r.remat,
         )
         self.decoder = Decoder(
             d.size_start, d.size_end, r.hidden_dim, d.style_dim,
             d.channel_multiplier, d.upsample_list, torch_dtype(d.dtype),
-            torch_dtype(d.skip_dtype),
+            torch_dtype(d.skip_dtype), remat=d.remat,
         )
         gen = torch.Generator().manual_seed(seed)
         init_parameters(self, gen)
@@ -219,8 +223,12 @@ class Generator(nn.Module):
         style_render=None,
         style_decoder=None,
         noise_bufs=None,  # list[num_layers] or None -> drawn from `generator`
-        perturb: bool = False,
+        perturb: bool = True,
+        eikonal_reg: bool = False,
         ray_chunk: int | None = None,  # plain renderer: rays per tile
+        renderer_detach: bool | None = None,  # None -> cfg.renderer_detach
+        path_reg: bool = False,
+        sample_idx: tuple | None = None,  # (idx_h (B,hs), idx_w (B,ws))
         fused_renderer: bool = False,  # SIREN render kernel
         fused_decoder: bool = False,  # decoder block kernels (batch 1)
         inject_index: int | None = None,
@@ -228,29 +236,57 @@ class Generator(nn.Module):
         noise_seed: int | None = None,  # uint32: the hash noise realization
         # of that seed instead of drawn buffers (made in the block kernels
         # with fused_decoder); explicit noise_bufs take priority
+        t_rand: torch.Tensor | None = None,  # (B, H, W, 1) perturb offsets
+        # in [0, 1) instead of draws from `generator`
     ):
+        """Outputs rgb, thumb_rgb, sdf, mask, depth, xyz, eikonal_term
+        (d sdf / d pts with eikonal_reg, else None) and style_decoder (with
+        path_reg, else None). The training switches follow
+        model_v3.py:875-1042: `renderer_detach` cuts the features from the
+        renderer, cfg.freeze_renderer cuts the renderer's styles from the
+        mapping, `path_reg` cuts the decoder styles from the mapping."""
         c = self.cfg
         img_size = img_size or c.img_size
+        if renderer_detach is None:
+            renderer_detach = c.renderer_detach
         if fused_decoder and c.enable_decoder and cam_poses.shape[0] != 1:
             raise ValueError(f"fused_decoder=True: the decoder block kernels "
                              f"serve batch 1, got batch {cam_poses.shape[0]}")
         if style_render is None or style_decoder is None:
-            style_render, style_decoder = self.map_zs(
-                zs, truncation, mean_latents, inject_index
-            )
+            sr, sd = self.map_zs(zs, truncation, mean_latents, inject_index)
+            if c.freeze_renderer:
+                style_render = sr.detach()
+                style_decoder = sd if style_decoder is None else style_decoder
+            else:
+                style_render, style_decoder = sr, sd
+        if path_reg:
+            style_decoder = style_decoder.detach()
         pts, rays_d, viewdirs, z_vals = prepare_nerf_inputs(
             focals, img_size, cam_poses, near, far, c.n_samples,
             perturb=perturb, static_viewdirs=c.static_viewdirs,
-            generator=generator,
+            generator=generator, t_rand=t_rand,
         )
+        if sample_idx is not None:
+            # pixel sub-sampling / patch training (model_v3.py:1061-1097):
+            # a gen_img_size subset of the ray grid
+            idx_h, idx_w = sample_idx
+            bsz = idx_h.shape[0]
+            rows = lambda x: torch.gather(x, 1, idx_h.reshape(bsz, -1, *(1,) * (x.ndim - 2))
+                                          .expand(-1, -1, *x.shape[2:]))
+            cols = lambda x: torch.gather(x, 2, idx_w.reshape(bsz, 1, -1, *(1,) * (x.ndim - 3))
+                                          .expand(-1, x.shape[1], -1, *x.shape[3:]))
+            pts, rays_d, viewdirs, z_vals = (cols(rows(x)) for x in (pts, rays_d, viewdirs, z_vals))
         b, h, w, n, _ = pts.shape
         flat = lambda a: a.reshape(b, h * w, *a.shape[3:])
-        thumb, features, sdf, mask_depth, xyz, _ = self.renderer(
+        thumb, features, sdf, mask_depth, xyz, eik = self.renderer(
             flat(pts), flat(rays_d), flat(viewdirs), flat(z_vals), near, far,
             style_render, fused=fused_renderer, ray_chunk=ray_chunk,
+            return_eikonal=eikonal_reg,
         )
         thumb = thumb.reshape(b, h, w, 3)
         features = features.reshape(b, h, w, -1)
+        if renderer_detach:
+            features = features.detach()
         if c.enable_decoder:
             if noise_bufs is None and noise_seed is None:
                 noise_bufs = self.decoder.make_noise(
@@ -276,4 +312,20 @@ class Generator(nn.Module):
             "mask": mask_depth[..., 0].reshape(b, h, w, 1),
             "depth": mask_depth[..., 1].reshape(b, h, w, 1),
             "xyz": xyz.reshape(b, h, w, 3),
+            "eikonal_term": eik,
+            "style_decoder": style_decoder if path_reg else None,
         }
+
+    def init_forward(self, zs, cam_poses, focals, near, far, img_size=None):
+        """Sphere-init pass (model_v3.py:1449-1470): stratified z-values
+        without offset or perturbation; returns (sdf, target), each
+        (B, H, W, N)."""
+        c = self.cfg
+        img_size = img_size or c.img_size
+        w_render = self.mapping_renderer_w(zs[0])
+        style_render = w_render[:, None, :].repeat(1, c.renderer.n_layers + 1, 1)
+        rays_o, rays_d, viewdirs = get_rays_in_world(focals, img_size, cam_poses)
+        z_vals = get_z_vals(near, far, rays_d, c.n_samples, perturb=False,
+                            offset_sampling=False)
+        pts = get_points(rays_o, rays_d, z_vals)
+        return self.renderer.mlp_init_pass(pts, viewdirs, near, far, style_render)

@@ -1,6 +1,8 @@
-"""StyleGAN2-style layers in NHWC (counterpart of cips3dpp_tpu/models/layers.py).
+"""StyleGAN2-style layers (counterpart of cips3dpp_tpu/models/layers.py).
 
-Parameters are stored under the reference's torch state-dict names and
+The generator's layers take NHWC; the discriminators' conv layers
+(EqualConv2d, Blur, ConvLayer) take NCHW, the layout of torch's
+convolutions and of the reference's modules. Parameters are stored under the reference's torch state-dict names and
 layouts (Linear (out, in), modulated conv (1, out, in, 1, 1)), so a
 reference `G_ema.pth` maps onto these modules by name. Every module that
 owns parameters has `reset_parameters(gen)`, which draws them from the
@@ -13,9 +15,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops import fused_leaky_relu, modulated_matmul, upsample2x
+from ..ops import blur, fused_leaky_relu, modulated_matmul, upsample2x
+from ..ops.upfirdn2d import separable_taps
 
 
 # ---------------------------------------------------------------------------
@@ -45,9 +49,9 @@ def normal_div_(t, gen, lr_mul=1.0):
 def init_parameters(module: nn.Module, gen: torch.Generator) -> nn.Module:
     """Draw every parameter of `module` from its initialiser, in module
     order, from `gen` (a CPU generator, so a seed gives the same weights on
-    every device)."""
+    every device). torch's own modules (nn.Conv2d) are drawn by their owner."""
     for m in module.modules():
-        if hasattr(m, "reset_parameters"):
+        if hasattr(m, "reset_parameters") and not type(m).__module__.startswith("torch."):
             m.reset_parameters(gen)
     return module
 
@@ -195,18 +199,20 @@ class NoiseInjection(nn.Module):
 
 
 class FusedLeakyReLU(nn.Module):
-    """Holds the activation bias under the reference name `activate.bias`."""
+    """Holds the activation bias under the reference name `activate.bias`.
+    channel_axis -1 for NHWC, 1 for NCHW."""
 
-    def __init__(self, channel):
+    def __init__(self, channel, channel_axis=-1):
         super().__init__()
         self.bias = nn.Parameter(torch.zeros(channel))
+        self.channel_axis = channel_axis
 
     def reset_parameters(self, gen):
         with torch.no_grad():
             self.bias.zero_()
 
     def forward(self, x):
-        return fused_leaky_relu(x, self.bias)
+        return fused_leaky_relu(x, self.bias, channel_axis=self.channel_axis)
 
 
 class StyledConv(nn.Module):
@@ -267,3 +273,76 @@ def channel_table(channel_multiplier: int) -> dict:
         512: 32 * channel_multiplier,
         1024: 16 * channel_multiplier,
     }
+
+
+# ---------------------------------------------------------------------------
+# discriminator convolutions (NCHW)
+# ---------------------------------------------------------------------------
+
+
+class EqualConv2d(nn.Module):
+    """Equalised-lr conv (model_v3.py:145-180): weight (out, in, k, k) ~
+    N(0,1), runtime scale 1/sqrt(in*k*k), bias zero-initialised."""
+
+    def __init__(self, in_channel, out_channel, kernel_size, stride=1, padding=0,
+                 bias=True):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(out_channel, in_channel, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channel)) if bias else None
+        self.scale = 1.0 / math.sqrt(in_channel * kernel_size * kernel_size)
+        self.stride, self.padding = stride, padding
+
+    def reset_parameters(self, gen):
+        with torch.no_grad():
+            self.weight.copy_(torch.randn(self.weight.shape, generator=gen))
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight * self.scale, self.bias,
+                        stride=self.stride, padding=self.padding)
+
+
+class Blur(nn.Module):
+    """FIR blur with fixed pads (model_v3.py:126-142), separable: the 1-D
+    taps of a 1-D blur_kernel run axis by axis (ops.upfirdn2d.blur). No
+    state-dict entry, as the JAX package's exporter leaves the reference's
+    `.kernel` out."""
+
+    def __init__(self, pad, blur_kernel=(1, 3, 3, 1), upsample_factor=1):
+        super().__init__()
+        self.pad = tuple(pad)
+        self.taps = separable_taps(blur_kernel, upsample_factor)
+
+    def forward(self, x):
+        return blur(x, self.taps, self.pad)
+
+
+class ConvLayer(nn.Sequential):
+    """[Blur] -> EqualConv2d -> [FusedLeakyReLU] (model_v3.py:485-519),
+    indexed as the reference's Sequential (`.0`, `.1`, `.2`)."""
+
+    def __init__(self, in_channel, out_channel, kernel_size, downsample=False,
+                 blur_kernel=(1, 3, 3, 1), bias=True, activate=True):
+        layers = []
+        if downsample:
+            p = (len(blur_kernel) - 2) + (kernel_size - 1)
+            layers.append(Blur(((p + 1) // 2, p // 2), blur_kernel))
+            stride, padding = 2, 0
+        else:
+            stride, padding = 1, kernel_size // 2
+        layers.append(EqualConv2d(in_channel, out_channel, kernel_size, stride,
+                                  padding, bias=bias and not activate))
+        if activate:
+            layers.append(FusedLeakyReLU(out_channel, channel_axis=1))
+        super().__init__(*layers)
+
+
+def torch_bilinear_downsample(x: torch.Tensor, out_size: int) -> torch.Tensor:
+    """The discriminators' fade-path resize (discriminator.py:231-236):
+    torch bilinear, align_corners=False, not antialiased, NCHW."""
+    if x.shape[-1] == out_size:
+        return x
+    return F.interpolate(x, size=(out_size, out_size), mode="bilinear",
+                         align_corners=False)

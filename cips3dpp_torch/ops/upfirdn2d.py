@@ -1,8 +1,12 @@
-"""StyleGAN2 2x upsample as separable 4-tap shift-adds
-(counterpart of the upsample half of cips3dpp_tpu/ops/upfirdn2d.py). NHWC.
+"""upfirdn2d -- upsample, FIR filter, downsample -- and the StyleGAN2
+blur, downsample and upsample built on it (counterpart of
+cips3dpp_tpu/ops/upfirdn2d.py).
 
-For up=2 with the [1,3,3,1] kernel and the Upsample pad schedule, even/odd
-output rows are 2-tap blends of input rows:
+`upfirdn2d`, `blur` and `downsample2x` take NCHW, the reference's torch
+layout (exp/op/upfirdn2d.py), and serve the discriminators, which run
+NCHW; `blur` and `downsample2x` run separably, axis by axis. `upsample2x` takes NHWC and serves the decoder: for up=2 with the
+[1,3,3,1] kernel and the Upsample pad schedule, even/odd output rows are
+2-tap blends of input rows
     even[t] = k0*x[t-1] + k2*x[t]     odd[t] = k1*x[t] + k3*x[t+1]
 with zero edges; the same along columns.
 """
@@ -11,6 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def make_blur_kernel(kernel=(1, 3, 3, 1), upsample_factor: int = 1) -> torch.Tensor:
@@ -53,3 +58,61 @@ def upsample2x(x: torch.Tensor, blur_kernel=(1, 3, 3, 1)) -> torch.Tensor:
     k1d = np.asarray(blur_kernel, np.float32)
     k1d = k1d / k1d.sum() * 2  # sqrt of the 4x 2-D gain per axis
     return _upsample2x_separable_4tap(x, k1d)
+
+
+def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1, down: int = 1,
+              pad: tuple = (0, 0)) -> torch.Tensor:
+    """NCHW upfirdn (exp/op/upfirdn2d.py:160-201): insert up-1 zeros after
+    every sample, zero-pad both spatial axes by pad = (pad0, pad1),
+    convolve (a true convolution) with the 2-D FIR `kernel` shared by all
+    channels, keep every down-th sample. Per axis
+    out = (in * up + pad0 + pad1 - k) // down + 1. Pads are >= 0."""
+    b, c, h, w = x.shape
+    pad0, pad1 = pad
+    if up > 1:
+        x = F.pad(x.reshape(b, c, h, 1, w, 1), (0, up - 1, 0, 0, 0, up - 1))
+        x = x.reshape(b, c, h * up, w * up)
+    x = F.pad(x, (pad0, pad1, pad0, pad1))
+    k = torch.flip(kernel, (0, 1)).to(device=x.device, dtype=x.dtype)
+    weight = k[None, None].expand(c, 1, *k.shape)
+    return F.conv2d(x, weight, stride=down, groups=c)
+
+
+def separable_taps(blur_kernel, upsample_factor: int = 1) -> tuple:
+    """1-D taps whose outer product is make_blur_kernel(blur_kernel,
+    upsample_factor): k / sum(k) * upsample_factor per axis."""
+    k = np.asarray(blur_kernel, np.float64)
+    return tuple(float(v) for v in k / k.sum() * upsample_factor)
+
+
+def _fir_axis(x: torch.Tensor, dim: int, taps, pad0: int, pad1: int,
+              down: int = 1) -> torch.Tensor:
+    """1-D FIR along `dim` with zero pads and decimation: a true
+    convolution (the taps reversed), as shifted slices times taps."""
+    x = F.pad(x, [0, 0] * (x.ndim - dim - 1) + [pad0, pad1])
+    n = (x.shape[dim] - len(taps)) // down + 1
+    step = (slice(None),) * dim + (slice(None, None, down),)
+    out = None
+    for j, tap in enumerate(reversed(taps)):
+        part = x.narrow(dim, j, down * (n - 1) + 1)[step]
+        out = tap * part if out is None else out + tap * part
+    return out
+
+
+def blur(x: torch.Tensor, taps, pad: tuple) -> torch.Tensor:
+    """Blur module (model_v3.py:126-142): the separable FIR filter of 1-D
+    `taps` (separable_taps) with given pads, NCHW, axis by axis as shifted
+    slices; in exact arithmetic upfirdn2d with the 2-D kernel. Not one
+    depthwise convolution: its double backward, which the discriminator's
+    R1 penalty takes, runs on the card as one cuDNN convolution per channel
+    group (`python -m cips3dpp_torch.tools.blur_r1_ab` times both)."""
+    return _fir_axis(_fir_axis(x, 2, taps, *pad), 3, taps, *pad)
+
+
+def downsample2x(x: torch.Tensor, blur_kernel=(1, 3, 3, 1)) -> torch.Tensor:
+    """StyleGAN2 Downsample (model_v3.py:105-123): blur + stride-2
+    decimation, NCHW, axis by axis."""
+    taps = separable_taps(blur_kernel)
+    p = len(taps) - 2
+    pads = ((p + 1) // 2, p // 2)
+    return _fir_axis(_fir_axis(x, 2, taps, *pads, down=2), 3, taps, *pads, down=2)

@@ -1,0 +1,180 @@
+"""Train state and per-module optimizers (counterpart of
+cips3dpp_tpu/train/state.py; contract train_v10.py:1091-1132).
+
+Adam with per-module groups, each clipped by its own global norm first:
+
+  G renderer + style mapping : lr g_lr_render (2e-5), betas (0, 0.9)
+  G decoder + style_decoder  : lr g_lr_decoder (2e-3), betas (0, 0.99)
+  D (image)                  : lr d_lr_decoder * r, betas (0, 0.99^r),
+                               r = d_reg_every / (d_reg_every + 1)
+  D (pose)                   : lr d_lr_render (2e-4), betas (0, 0.9)
+
+and an EMA copy of the generator. The clip is optax's
+`clip_by_global_norm`: a group whose norm is at least `grad_clip` is scaled
+by grad_clip / norm, with no epsilon (torch's clip_grad_norm_ divides by
+norm + 1e-6). Adam is torch's, whose update with b1 = 0 is optax's
+g / (sqrt(nu / (1 - b2^t)) + eps), eps 1e-8.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    # optim (train_cips3d_ffhq_v10.yaml:169-176)
+    g_lr_render: float = 2e-5
+    g_lr_decoder: float = 2e-3
+    d_lr_render: float = 2e-4
+    d_lr_decoder: float = 2e-3
+    grad_clip: float = 20.0
+    # schedule
+    batch: int = 4
+    total_iters: int = 800_000
+    ema_start: int = 1000
+    ema_decay: float = 0.5 ** (32 / (10 * 1000))
+    d_reg_every: int = 15
+    g_reg_every: int = 5
+    fade_steps: int = 10_000
+    warmup_iters: int = 10_000
+    # loss weights (train_cips3d_ffhq_v10.yaml:205-210)
+    lambda_gp: float = 10.0
+    lambda_pose: float = 15.0
+    lambda_eikonal: float = 0.1
+    lambda_min_surf: float = 0.05
+    min_surf_beta: float = 100.0
+    path_regularize: float = 2.0
+    path_batch_shrink: int = 2
+    # sizes: pixel sub-sampling when gen_img_size < cam_img_size
+    # (train_v10.py:177-199); sample_mode 'default' (sorted random subset)
+    # or 'patch' (contiguous window)
+    cam_img_size: int = 64
+    gen_img_size: int = 1024
+    data_img_size: int = 1024
+    sample_mode: str = "default"
+    # toggles
+    eikonal_reg: bool = True
+    sdf_reg: bool = True
+    init_renderer: bool = True
+    init_iters: int = 10_000
+    # memory / layout options of the JAX package that leave the result
+    # unchanged; only their defaults are ported (ROADMAP queue 1)
+    remat_d: bool = False
+    # the SIREN render kernel for the D step's generator forward (no grad)
+    fused_renderer_d: bool = True
+    # the kernel (forward) + replayed backward in the G step
+    fused_renderer_g: bool = False
+    d_dtype: str = "float32"
+    d_r1_chunk: int | None = None
+    d_seq: bool = False
+    d_cat: bool = False
+
+
+# the memory and layout options that are not ported, with their defaults
+_NOT_PORTED = {"remat_d": False, "d_dtype": "float32", "d_r1_chunk": None,
+               "d_seq": False, "d_cat": False}
+
+
+def check_config(cfg: TrainConfig) -> None:
+    """Raise on an option of the JAX package this port does not have."""
+    for name, default in _NOT_PORTED.items():
+        if getattr(cfg, name) != default:
+            raise NotImplementedError(
+                f"TrainConfig.{name}={getattr(cfg, name)!r}: only the default "
+                f"{default!r} is ported (ROADMAP queue 1; it changes memory or "
+                f"layout, not the result)")
+
+
+def g_param_groups(g: nn.Module) -> dict[str, list[nn.Parameter]]:
+    """renderer | decoder groups by top-level module name (the reference
+    split, train_v10.py:1104-1113): decoder and style_decoder are the
+    decoder group; renderer, style (mapping) and the rest the renderer's."""
+    groups = {"renderer": [], "decoder": []}
+    for name, p in g.named_parameters():
+        top = name.split(".")[0]
+        groups["decoder" if top in ("decoder", "style_decoder") else "renderer"].append(p)
+    return groups
+
+
+class ClippedAdam:
+    """Adam over named parameter groups, each clipped by its own global
+    norm (optax.multi_transform of clip_by_global_norm + adam)."""
+
+    def __init__(self, groups: dict[str, list[nn.Parameter]], lrs: dict, b2s: dict,
+                 max_norm: float):
+        self.groups = groups
+        self.max_norm = max_norm
+        self.adam = torch.optim.Adam(
+            [{"params": ps, "lr": lrs[k], "betas": (0.0, b2s[k]), "name": k}
+             for k, ps in groups.items()], eps=1e-8)
+
+    def clip(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
+        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        keep = norm < self.max_norm
+        return [torch.where(keep, g, g / norm * self.max_norm) for g in grads]
+
+    def step(self, grads: dict[str, list[torch.Tensor | None]]) -> None:
+        """One update from per-group gradient lists aligned with the
+        groups' parameters. A missing gradient is a zero, which still
+        advances Adam's state, as in optax."""
+        for k, ps in self.groups.items():
+            gs = [torch.zeros_like(p) if g is None else g for p, g in zip(ps, grads[k])]
+            for p, g in zip(ps, self.clip(gs)):
+                p.grad = g
+        self.adam.step()
+        for ps in self.groups.values():
+            for p in ps:
+                p.grad = None
+
+
+def make_g_optimizer(cfg: TrainConfig, g: nn.Module) -> ClippedAdam:
+    return ClippedAdam(g_param_groups(g),
+                       {"renderer": cfg.g_lr_render, "decoder": cfg.g_lr_decoder},
+                       {"renderer": 0.9, "decoder": 0.99}, cfg.grad_clip)
+
+
+def make_d_optimizer(cfg: TrainConfig, d: nn.Module) -> ClippedAdam:
+    # lazy-R1 ratio; d_reg_every <= 0 turns lazy regularisation off
+    r = 1.0 if cfg.d_reg_every <= 0 else cfg.d_reg_every / (cfg.d_reg_every + 1)
+    return ClippedAdam({"d": list(d.parameters())}, {"d": cfg.d_lr_decoder * r},
+                       {"d": 0.99**r}, cfg.grad_clip)
+
+
+def make_d_render_optimizer(cfg: TrainConfig, d_render: nn.Module) -> ClippedAdam:
+    return ClippedAdam({"d": list(d_render.parameters())}, {"d": cfg.d_lr_render},
+                       {"d": 0.9}, cfg.grad_clip)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Everything a training run carries from step to step. The modules
+    and optimizers are updated in place."""
+
+    g: nn.Module
+    d: nn.Module
+    d_render: nn.Module
+    g_ema: nn.Module
+    opt_g: ClippedAdam
+    opt_d: ClippedAdam
+    opt_d_render: ClippedAdam
+    mean_path_length: torch.Tensor
+    step: int = 0
+
+
+def create_train_state(cfg: TrainConfig, g: nn.Module, d: nn.Module,
+                       d_render: nn.Module) -> TrainState:
+    """A state around built modules (weights already drawn or loaded); the
+    EMA generator starts as a copy of `g`."""
+    check_config(cfg)
+    g_ema = copy.deepcopy(g).requires_grad_(False)
+    return TrainState(
+        g=g, d=d, d_render=d_render, g_ema=g_ema,
+        opt_g=make_g_optimizer(cfg, g), opt_d=make_d_optimizer(cfg, d),
+        opt_d_render=make_d_render_optimizer(cfg, d_render),
+        mean_path_length=torch.zeros((), device=g.device),
+    )

@@ -1,0 +1,328 @@
+"""Train steps: D update (with lazy R1), G update (with eikonal and
+minimal-surface terms), path-length regulariser, sphere init, EMA
+(counterpart of cips3dpp_tpu/train/steps.py; contract
+train_v10.py:58-494, 595-668).
+
+`make_train_steps(gen_cfg, cfg)` returns (d_step, g_step, path_reg_step,
+sphere_init_step). Each step updates the modules and optimizers of a
+`TrainState` in place and returns (state, metrics), metrics as 0-d
+tensors on the state's device (read them with float()). Each takes its
+random draws as a `Draws` (`draws=`), or makes them from a
+`torch.Generator`; the draws of the JAX package (threefry) cannot be
+reproduced by torch, so parity tests hand the same draws to both.
+
+The D step's generator forward runs under no_grad (JAX's stop_gradient on
+its fakes) and, with cfg.fused_renderer_d (the default), through the SIREN
+render kernel: one launch per batch item. Gradients are taken with
+torch.autograd.grad with respect to the updated module only, so no
+`.grad` of another module is touched.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.camera import CameraParams, sample_cameras
+from ..models.diffaug import diffaug_draws
+from .losses import (
+    d_logistic_loss,
+    eikonal_loss,
+    g_nonsaturating_loss,
+    minimal_surface_loss,
+    path_length_penalty,
+    path_noise,
+    r1_penalty,
+    viewpoint_loss,
+)
+from .state import TrainConfig, TrainState, check_config
+
+
+def lanczos3_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(in, out) weights of jax.image.resize(method="lanczos3") along one
+    axis (jax/_src/image/scale.py compute_weight_mat, antialiased: the
+    kernel is widened by the downscale factor)."""
+    inv_scale = in_size / out_size
+    kernel_scale = max(inv_scale, 1.0)
+    sample_f = (np.arange(out_size) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample_f[None, :] - np.arange(in_size)[:, None]) / kernel_scale
+    y = 3.0 * np.sin(np.pi * x) * np.sin(np.pi * x / 3.0)
+    w = np.where(x > 1e-3, y / np.where(x != 0, np.pi**2 * x**2, 1.0), 1.0)
+    w = np.where(x > 3.0, 0.0, w)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return np.where(inside[None, :], w, 0.0).astype(np.float32)
+
+
+def downsample_to(imgs: torch.Tensor, size: int) -> torch.Tensor:
+    """Real images (B, H, W, C) -> (B, size, size, C) thumbnails for the
+    pose D: the lanczos3 resize of the JAX package (the reference uses a
+    PIL-Lanczos conv, train_v10.py:65-74)."""
+    b, h, w, c = imgs.shape
+    if h == size:
+        return imgs
+    kw = dict(device=imgs.device, dtype=imgs.dtype)
+    wh = torch.from_numpy(lanczos3_matrix(h, size)).to(**kw)
+    ww = torch.from_numpy(lanczos3_matrix(w, size)).to(**kw)
+    return torch.einsum("bhwc,hi,wj->bijc", imgs, wh, ww)
+
+
+def sample_pixel_idx(generator, batch: int, cam_size: int, gen_size: int, mode: str,
+                     device=None):
+    """Per-sample ray-subset indices (train_v10.py:177-199): 'patch' is a
+    random window, 'default' a sorted random subset without replacement.
+    Returns (idx_h, idx_w), each (batch, gen_size) int64."""
+    gdev = generator.device if generator is not None else "cpu"
+
+    def one_axis():
+        if mode == "patch":
+            off = torch.randint(0, cam_size - gen_size + 1, (batch, 1),
+                                generator=generator, device=gdev)
+            return off + torch.arange(gen_size, device=gdev)[None]
+        r = torch.rand((batch, cam_size), generator=generator, device=gdev)
+        return torch.sort(torch.argsort(r, dim=1)[:, :gen_size], dim=1).values
+
+    return one_axis().to(device), one_axis().to(device)
+
+
+def gather_image_pixels(imgs, idx_h, idx_w, factor: int = 1):
+    """Real pixels matching a generator ray subset: ray i of the camera grid
+    owns the pixels [i*factor, (i+1)*factor) of the full image.
+    imgs (B, cam*f, cam*f, C) -> (B, gen*f, gen*f, C)."""
+    b, _, w, c = imgs.shape
+
+    def expand(idx):
+        px = idx[..., None] * factor + torch.arange(factor, device=idx.device)
+        return px.reshape(b, -1)
+
+    ph, pw = expand(idx_h), expand(idx_w)
+    out = torch.gather(imgs, 1, ph[:, :, None, None].expand(-1, -1, w, c))
+    return torch.gather(out, 2, pw[:, None, :, None].expand(-1, out.shape[1], -1, c))
+
+
+@dataclasses.dataclass
+class Draws:
+    """The random inputs of one step. zs: two (B, z_dim) latents; cam: the
+    sampled cameras; t_rand: (B, H, W, 1) perturbation offsets in [0, 1)
+    (zeros give the unperturbed z-values); noise: the decoder's noise
+    buffers, (B, h, w, 1) each; sample_idx: pixel sub-sampling indices;
+    aug: diffaug draws by D pass ("fake", "real", "r1", "g"); path_noise:
+    the path-length step's image-shaped noise, already / sqrt(H*W)."""
+
+    zs: tuple
+    cam: CameraParams
+    t_rand: torch.Tensor
+    noise: list | None = None
+    sample_idx: tuple | None = None
+    aug: dict | None = None
+    path_noise: torch.Tensor | None = None
+
+
+def draw_inputs(generator, batch, gen_cfg, cfg: TrainConfig, device, decoder=None,
+                aug_passes=(), sample_idx=False) -> Draws:
+    """The draws of one step from `generator` (on its own device), in this
+    order: zs, camera, perturbation, pixel indices, noise buffers, diffaug."""
+    gdev = generator.device if generator is not None else "cpu"
+    zs = tuple(torch.randn((batch, gen_cfg.mapping.z_dim), generator=generator,
+                           device=gdev).to(device) for _ in range(2))
+    cam = sample_cameras(
+        generator, batch, gen_cfg.img_size, azim_range=gen_cfg.azim_range,
+        elev_range=gen_cfg.elev_range, fov_ang=gen_cfg.fov_ang,
+        dist_radius=gen_cfg.dist_radius, uniform=gen_cfg.uniform_camera, device=device)
+    size = gen_cfg.img_size
+    t_rand = torch.rand((batch, size, size, 1), generator=generator,
+                        device=gdev).to(device)
+    idx = None
+    if sample_idx:
+        idx = sample_pixel_idx(generator, batch, cfg.cam_img_size, cfg.gen_img_size,
+                               cfg.sample_mode, device)
+        size = cfg.gen_img_size
+    noise = (None if decoder is None
+             else decoder.make_noise(generator, size, batch=batch, device=device))
+    aug = None
+    if aug_passes:
+        out = size * 2 ** len(gen_cfg.decoder.upsample_list)
+        aug = {p: diffaug_draws(generator, batch, out, out, device=device)
+               for p in aug_passes}
+    return Draws(zs, cam, t_rand, noise, idx, aug)
+
+
+def make_train_steps(gen_cfg, cfg: TrainConfig):
+    """(d_step, g_step, path_reg_step, sphere_init_step) for a generator of
+    `gen_cfg` trained under `cfg`."""
+    check_config(cfg)
+    # pixel sub-sampling / patch training (train_v10.py:156-199, 339-353)
+    sub_pixels = gen_cfg.enable_decoder and cfg.gen_img_size < cfg.cam_img_size
+    if sub_pixels and cfg.cam_img_size != gen_cfg.img_size:
+        raise ValueError("patch training expects cam_img_size == the generator's "
+                         "NeRF resolution")
+    up_factor = 2 ** len(gen_cfg.decoder.upsample_list)
+
+    def inputs(state, generator, batch, draws, aug_passes=(), decoder=True):
+        if draws is not None:
+            return draws
+        diffaug = getattr(state.d, "diffaug", False) and gen_cfg.enable_decoder
+        return draw_inputs(
+            generator, batch, gen_cfg, cfg, state.g.device,
+            decoder=state.g.decoder if decoder and gen_cfg.enable_decoder else None,
+            aug_passes=aug_passes if diffaug else (), sample_idx=sub_pixels)
+
+    def g_forward(g, draws, eikonal_reg, renderer_detach, fused):
+        cam = draws.cam
+        return g(zs=draws.zs, cam_poses=cam.extrinsics, focals=cam.focal,
+                 near=cam.near, far=cam.far, noise_bufs=draws.noise,
+                 t_rand=draws.t_rand, eikonal_reg=eikonal_reg,
+                 renderer_detach=renderer_detach, sample_idx=draws.sample_idx,
+                 fused_renderer=fused)
+
+    def d_step(state: TrainState, real_imgs, generator, alpha, d_regularize: bool,
+               draws: Draws | None = None):
+        """update_D (train_v10.py:136-241): the pose D (R1 every step, pose
+        loss) and the image D (lazy R1 when d_regularize) on fakes of the
+        current G."""
+        draws = inputs(state, generator, real_imgs.shape[0], draws, ("fake", "real", "r1"))
+        with torch.no_grad():
+            ret = g_forward(state.g, draws, False, None, cfg.fused_renderer_d)
+        fake_rgb, fake_thumb = ret["rgb"], ret["thumb_rgb"]
+        if draws.sample_idx is not None:
+            real_imgs = gather_image_pixels(real_imgs, *draws.sample_idx, up_factor)
+        real_thumb = downsample_to(real_imgs, fake_thumb.shape[1]).detach().requires_grad_(True)
+        aug = draws.aug or {}
+        zero = torch.zeros((), device=fake_thumb.device)
+
+        fake_pred_r, fake_view = state.d_render(fake_thumb, alpha)
+        real_pred_r, _ = state.d_render(real_thumb, alpha)
+        d_gan_r = d_logistic_loss(real_pred_r, fake_pred_r)
+        r1_r = cfg.lambda_gp * 0.5 * r1_penalty(real_pred_r, real_thumb)
+        pose = (cfg.lambda_pose * viewpoint_loss(fake_view, draws.cam.viewpoint)
+                if cfg.lambda_pose > 0 else zero)
+        if gen_cfg.enable_decoder:
+            real = real_imgs.detach().requires_grad_(d_regularize)
+            fake_pred = state.d(fake_rgb, alpha, aug=aug.get("fake"))
+            real_pred = state.d(real, alpha, aug=aug.get("real"))
+            d_gan = d_logistic_loss(real_pred, fake_pred)
+            r1_d = zero
+            if d_regularize:
+                # with diffaug the penalty sees its own augmentation; without,
+                # its pass is the real pass itself (the same function)
+                r1_pred = state.d(real, alpha, aug=aug["r1"]) if aug else real_pred
+                r1_d = cfg.lambda_gp * 0.5 * cfg.d_reg_every * r1_penalty(r1_pred, real)
+        else:  # decoder-less (StyleSDF stage 1): no image D
+            fake_pred = real_pred = torch.zeros((1, 1), device=zero.device)
+            d_gan = r1_d = zero
+        total = d_gan_r + r1_r + pose + d_gan + r1_d
+
+        pd, pr = list(state.d.parameters()), list(state.d_render.parameters())
+        grads = torch.autograd.grad(total, pd + pr, allow_unused=True)
+        state.opt_d.step({"d": grads[:len(pd)]})
+        state.opt_d_render.step({"d": grads[len(pd):]})
+        metrics = {
+            "d_loss_gan_render": d_gan_r, "d_loss_r1_render": r1_r,
+            "d_loss_pose_render": pose, "d_loss_gan_decoder": d_gan,
+            "d_loss_gp_decoder": r1_d, "d_logits_real_decoder": real_pred.mean(),
+            "d_logits_fake_decoder": fake_pred.mean(),
+            "d_logits_real_render": real_pred_r.mean(),
+            "d_logits_fake_render": fake_pred_r.mean(), "d_loss_total": total,
+        }
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    def g_step(state: TrainState, generator, alpha, renderer_detach: bool | None = None,
+               draws: Draws | None = None):
+        """update_G (train_v10.py:303-405): GAN + pose + eikonal +
+        minimal surface on the thumbnail, GAN on the image."""
+        draws = inputs(state, generator, cfg.batch, draws, ("g",))
+        ret = g_forward(state.g, draws, cfg.eikonal_reg, renderer_detach,
+                        cfg.fused_renderer_g)
+        zero = torch.zeros((), device=ret["rgb"].device)
+        fake_pred_r, fake_view = state.d_render(ret["thumb_rgb"], alpha)
+        g_gan_r = g_nonsaturating_loss(fake_pred_r)
+        pose = (cfg.lambda_pose * viewpoint_loss(fake_view, draws.cam.viewpoint)
+                if cfg.lambda_pose > 0 else zero)
+        eik = (cfg.lambda_eikonal * eikonal_loss(ret["eikonal_term"])
+               if cfg.lambda_eikonal > 0 and ret["eikonal_term"] is not None else zero)
+        min_surf = (cfg.lambda_min_surf * minimal_surface_loss(ret["sdf"], cfg.min_surf_beta)
+                    if cfg.lambda_min_surf > 0 and cfg.sdf_reg else zero)
+        g_gan = zero
+        if gen_cfg.enable_decoder:
+            aug = (draws.aug or {}).get("g")
+            g_gan = g_nonsaturating_loss(state.d(ret["rgb"], alpha, aug=aug))
+        total = g_gan_r + pose + eik + min_surf + g_gan
+
+        groups = state.opt_g.groups
+        n = len(groups["renderer"])
+        grads = torch.autograd.grad(total, groups["renderer"] + groups["decoder"],
+                                    allow_unused=True)
+        state.opt_g.step({"renderer": grads[:n], "decoder": grads[n:]})
+        state.step += 1
+        metrics = {
+            "g_loss_gan_render": g_gan_r, "g_loss_pose_render": pose,
+            "g_loss_eikonal_render": eik, "g_loss_minimal_surface_render": min_surf,
+            "g_loss_gan_decoder": g_gan, "g_loss_total": total,
+        }
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    def path_reg_step(state: TrainState, generator, draws: Draws | None = None):
+        """Path-length regularisation (train_v10.py:408-480) with respect to
+        the decoder styles (cut from the mapping, model_v3.py:1334-1341);
+        the renderer group's gradients are zero (the reference clips them
+        to norm 0), so only the decoder group moves."""
+        batch = max(1, cfg.batch // cfg.path_batch_shrink)
+        draws = inputs(state, generator, batch, draws)
+        g, cam = state.g, draws.cam
+        sr, sd = g.map_zs(draws.zs)
+        sd = sd.detach().requires_grad_(True)
+        rgb = g(style_render=sr, style_decoder=sd, cam_poses=cam.extrinsics,
+                focals=cam.focal, near=cam.near, far=cam.far, noise_bufs=draws.noise,
+                t_rand=draws.t_rand)["rgb"]
+        noise = draws.path_noise if draws.path_noise is not None else path_noise(generator, rgb)
+        (latents_grad,) = torch.autograd.grad((rgb * noise).sum(), sd, create_graph=True)
+        penalty, new_mean, plens = path_length_penalty(rgb, latents_grad,
+                                                       state.mean_path_length)
+        weighted = cfg.path_regularize * cfg.g_reg_every * penalty
+        groups = state.opt_g.groups
+        grads = torch.autograd.grad(weighted, groups["decoder"], allow_unused=True)
+        state.opt_g.step({"renderer": [torch.zeros_like(p) for p in groups["renderer"]],
+                          "decoder": grads})
+        state.mean_path_length = new_mean
+        return state, {"g_loss_weighted_path": weighted.detach(),
+                       "path_length_mean": plens.mean().detach()}
+
+    def sphere_init_step(state: TrainState, generator, draws: Draws | None = None):
+        """SDF sphere initialisation (train_v10.py:595-668): L1 between the
+        renderer's sdf and |pts| - (far - near)/4 at stratified samples of 4
+        random cameras."""
+        draws = inputs(state, generator, 4, draws, decoder=False)
+        cam = draws.cam
+        sdf, target = state.g.init_forward(draws.zs, cam.extrinsics, cam.focal,
+                                           cam.near, cam.far)
+        loss = (sdf - target).abs().mean()
+        groups = state.opt_g.groups
+        n = len(groups["renderer"])
+        grads = torch.autograd.grad(loss, groups["renderer"] + groups["decoder"],
+                                    allow_unused=True)
+        state.opt_g.step({"renderer": grads[:n], "decoder": grads[n:]})
+        return state, {"sphere_init_l1": loss.detach()}
+
+    return d_step, g_step, path_reg_step, sphere_init_step
+
+
+@torch.no_grad()
+def ema_update(state: TrainState, decay: float) -> TrainState:
+    """g_ema = decay * g_ema + (1 - decay) * g (cips3d/utils.py:63-79);
+    decay is 0 before ema_start (train_v10.py:933-936)."""
+    ema = list(state.g_ema.parameters())
+    new = torch._foreach_add(torch._foreach_mul(ema, decay),
+                             torch._foreach_mul(list(state.g.parameters()), 1.0 - decay))
+    torch._foreach_copy_(ema, new)
+    return state
+
+
+def fade_alpha(step: int, fade_steps: int, fade: bool = True) -> float:
+    """Progressive fade-in schedule (train_v10.py:895-898)."""
+    if not fade:
+        return 1.0
+    return min(1.0, step / fade_steps)

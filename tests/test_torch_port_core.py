@@ -143,7 +143,8 @@ def test_port_imports_no_jax():
 
     names = {m.name for m in pkgutil.walk_packages(cips3dpp_torch.__path__, "cips3dpp_torch.")}
     for mod in ("apps.sample", "apps.cli", "utils.mesh", "utils.rasterize", "io.config",
-                "tools.elem_dtype_probe"):
+                "tools.elem_dtype_probe", "models.discriminator", "models.discriminator_pose",
+                "models.diffaug", "train.losses", "train.state", "train.steps"):
         assert f"cips3dpp_torch.{mod}" in names, mod
 
 

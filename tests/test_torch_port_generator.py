@@ -101,7 +101,7 @@ def test_forward_matches_flax(models, truncation):
             [t(z) for z in zs], c.extrinsics, c.focal, c.near, c.far,
             truncation=truncation,
             mean_latents=None if mean is None else tuple(t(m) for m in mean),
-            noise_bufs=[t(n) for n in noise],
+            noise_bufs=[t(n) for n in noise], perturb=False,
         )
     assert got["rgb"].shape == (2, 64, 64, 3)
     for k in ("rgb", "thumb_rgb", "sdf", "mask", "depth", "xyz"):

@@ -121,7 +121,7 @@ def test_decoder_block_kernel_matches_plain(dev, c, shape, mode):
                     ("bf16", "hash"): "decoder_block_hash",
                     ("f32", "hash"): "decoder_block_hash_f32"}[mode]
     for emit_feat in (True, False):
-        before = dict(_lib.LAUNCHES)
+        before = _lib.LAUNCHES.copy()  # a Counter: 0 for a kernel not launched yet
         got = decoder_block_packed(y1, prepared=prep, emit_feat=emit_feat, frames=frames)
         assert _lib.LAUNCHES[name] == before.get(name, 0) + 1
         assert sum(_lib.LAUNCHES.values()) == sum(before.values()) + 1
@@ -169,10 +169,11 @@ def test_generator_fused_route_matches_render_frame(dev):
     elev = torch.full((1,), -0.1, device=dev)
     cam = camera_from_angles(azim, elev, cfg.img_size, fov_ang=cfg.fov_ang,
                              dist_radius=cfg.dist_radius)
-    before = dict(_lib.LAUNCHES)
+    before = _lib.LAUNCHES.copy()  # a Counter: 0 for a kernel not launched yet
     with torch.no_grad():
         got = model(zs, cam.extrinsics, cam.focal, cam.near, cam.far,
-                    noise_bufs=noise, fused_renderer=True, fused_decoder=True)
+                    noise_bufs=noise, perturb=False, fused_renderer=True,
+                    fused_decoder=True)
     torch.cuda.synchronize()
     assert _lib.LAUNCHES["siren_render"] == before["siren_render"] + 1
     assert _lib.LAUNCHES["decoder_block"] == before["decoder_block"] + 2
@@ -332,3 +333,75 @@ def test_f32_fused_trajectory_with_hash_noise(dev):
     # the same realization: tests/test_kernels.py:387's bound
     torch.testing.assert_close(torch.from_numpy(by_seed["rgb"]),
                                torch.from_numpy(by_bufs["rgb"]), rtol=0, atol=1e-2)
+
+
+# the serving shape and one ragged against the 8-ray tile
+@pytest.mark.parametrize("r", [4096, 1001])
+def test_siren_render_gradients_kernel_forward(dev, r):
+    """SirenRender on the card: K1's forward (one launch, its outputs) and
+    the replayed backward, whose gradients with respect to styles, pts and
+    every renderer parameter equal autograd's through the replayed
+    function (the same arithmetic on the same inputs)."""
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.kernels.siren_render import (
+        SirenRender, siren_prepare, siren_render_prepared, siren_render_reference,
+    )
+    from cips3dpp_torch.models.layers import init_parameters
+    from cips3dpp_torch.models.renderer import VolumeFeatureRenderer
+
+    gen = torch.Generator().manual_seed(1)
+    rend = init_parameters(VolumeFeatureRenderer(depth=2), gen).to(dev)
+    s = 24
+    styles = torch.randn((3, 256), generator=gen).to(dev).requires_grad_(True)
+    pts = (0.1 * torch.randn((r, s, 3), generator=gen)).to(dev).requires_grad_(True)
+    vd = torch.nn.functional.normalize(torch.randn((r, 3), generator=gen), dim=-1).to(dev)
+    z = (torch.linspace(0.88, 1.12, s)[None] + 1e-3 * torch.randn((r, 1), generator=gen)).to(dev)
+    rd = 1.05 * vd
+    near, far = torch.tensor(0.88, device=dev), torch.tensor(1.12, device=dev)
+    params = list(rend.parameters())
+    before = _lib.LAUNCHES["siren_render"]
+    outs = SirenRender.apply(rend, styles, pts, vd, z, rd, near, far, *params)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["siren_render"] == before + 1
+    with torch.no_grad():
+        kernel = siren_render_prepared(siren_prepare(rend, styles, near, far), pts, vd, z, rd)
+    for o, k in zip(outs, kernel):
+        assert torch.equal(o, k)  # K1 sums in a fixed order
+    cots = [torch.randn(o.shape, generator=gen).to(dev) for o in outs]
+    got = torch.autograd.grad(outs, [styles, pts] + params, cots)
+    want = torch.autograd.grad(siren_render_reference(rend, styles, pts, vd, z, rd, near, far),
+                               [styles, pts] + params, cots)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()))
+
+
+def test_d_step_launches_k1_once_per_item(dev):
+    """The D step renders its fakes through K1, one launch per batch item,
+    and moves both discriminators (a width-256, 24-sample generator at 16^2
+    rays with one upsample block)."""
+    import dataclasses
+
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.models.discriminator import DStyleGANProgressive
+    from cips3dpp_torch.models.discriminator_pose import DVolumeRenderProgressive
+    from cips3dpp_torch.models.generator import Generator, preset_r1024
+    from cips3dpp_torch.train import TrainConfig, create_train_state, make_train_steps
+
+    base = preset_r1024()
+    cfg = dataclasses.replace(base, img_size=16, decoder=dataclasses.replace(
+        base.decoder, upsample_list=(128,)))
+    tcfg = TrainConfig(batch=3)
+    state = create_train_state(tcfg, Generator(cfg, device=dev, seed=2),
+                               DStyleGANProgressive(1024, 1, device=dev, seed=3),
+                               DVolumeRenderProgressive(64, device=dev, seed=4))
+    d_step = make_train_steps(cfg, tcfg)[0]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    real = torch.rand((3, 32, 32, 3), generator=gen, device=dev) * 2 - 1
+    before = [p.clone() for p in state.d.parameters()]
+    launches = _lib.LAUNCHES["siren_render"]
+    state, metrics = d_step(state, real, gen, 1.0, True)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["siren_render"] == launches + 3
+    assert all(torch.isfinite(v) for v in metrics.values())
+    assert any(not torch.equal(p, q) for p, q in zip(state.d.parameters(), before))

@@ -132,7 +132,7 @@ def test_generator_fused_route_matches_render_frame(served):
                              dist_radius=cfg.dist_radius)
     with torch.no_grad():
         got = tmodel([t(z) for z in zs], cam.extrinsics, cam.focal, cam.near,
-                     cam.far, noise_bufs=[t(n) for n in noise],
+                     cam.far, noise_bufs=[t(n) for n in noise], perturb=False,
                      fused_renderer=True, fused_decoder=True)
     want = render_frame(tmodel, tp, azim, elev, device="cpu")
     for k in ("rgb", "thumb_rgb"):
@@ -151,7 +151,7 @@ def test_fused_flags_raise_where_the_kernels_cannot_run(served):
     zs2 = [t(np.repeat(z, 2, axis=0)) for z in zs]
     with pytest.raises(ValueError, match="batch 1"):
         tmodel(zs2, cam.extrinsics, cam.focal, cam.near, cam.far,
-               noise_bufs=[t(n) for n in noise], fused_decoder=True)
+               noise_bufs=[t(n) for n in noise], perturb=False, fused_decoder=True)
     rend = VolumeFeatureRenderer(depth=3, hidden_dim=16)
     r, n = 4, 8
     with pytest.raises(ValueError, match="depth-2"):
@@ -185,5 +185,6 @@ def test_noise_seed_serving_matches_jax(served):
     cam = camera_from_angles(t(azim), t(elev), tmodel.cfg.img_size)
     with torch.no_grad():
         fwd = tmodel([t(z) for z in zs], cam.extrinsics, cam.focal, cam.near, cam.far,
-                     fused_renderer=True, fused_decoder=True, noise_seed=9)
+                     perturb=False, fused_renderer=True, fused_decoder=True,
+                     noise_seed=9)
     torch.testing.assert_close(fwd["rgb"], got["rgb"], rtol=0, atol=1e-5)
