@@ -41,7 +41,22 @@ Phases, each fatal on failure:
      version, and SirenRender's gradients (K1 forward, replayed backward)
      against autograd through the replayed function and through the plain
      f32 renderer;
-  8. with --profile only: torch.profiler over 10 serving frames (phase 5)
+  8. the training loop through the command line, in-process
+     (cips3dpp_torch.apps.cli.main) at train_r1024, batch 4, f32, with
+     configs/ffhq.yaml read by the standard-library YAML reader (PyYAML
+     hidden): `sphere-init --n-iters 20` (finite loss, a step-0
+     checkpoint), `train --total-iters 8 --no-sphere-init` on a synthetic
+     npy shard of 8 seeded 1024^2 images, then `train --resume
+     --total-iters 16` (starts at step 8 from tensors bit-equal to those
+     saved; lazy R1 at idx 14, path reg at 4, 9 and 14; exactly 4 K1
+     launches an iteration, none elsewhere), every logged loss finite,
+     checkpoints 8 and 16 with config_command.yaml; then
+     `sample-multi-view --fused` of 2 frames from the trained checkpoint's
+     G_ema (1 K1 + 4 f32 K2 launches a frame). Seconds an iteration (the
+     logger's iters_per_sec, and each iteration's wall time to a
+     synchronise at its end, the first apart), checkpoint save and restore
+     seconds and bytes, peak allocated memory;
+  9. with --profile only: torch.profiler over 10 serving frames (phase 5)
      and over one call each of d_step with and without R1 and g_step
      (phase 7): device time per kernel and kernel group and the device idle
      share (tables in chiprun_out/profile_*.txt).
@@ -58,10 +73,12 @@ chiprun_out/chip_smoke.json. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -637,6 +654,280 @@ def training_phase(dev, profile=False):
     return res
 
 
+@contextlib.contextmanager
+def patched(obj, name, wrap):
+    """obj.name replaced by wrap(original) inside the block."""
+    orig = getattr(obj, name)
+    setattr(obj, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+@contextlib.contextmanager
+def hidden_module(name):
+    """Imports of `name` raise ImportError inside the block."""
+    missing = object()
+    saved = sys.modules.get(name, missing)
+    sys.modules[name] = None
+    try:
+        yield
+    finally:
+        if saved is missing:
+            del sys.modules[name]
+        else:
+            sys.modules[name] = saved
+
+
+def cli_json(argv):
+    """Run one command of the port's CLI in this process; its last stdout
+    line is a JSON object."""
+    from cips3dpp_torch.apps import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"{argv[0]} returned {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def training_loop_phase(dev, smi, cfg_path=os.path.join(ROOT, "configs", "ffhq.yaml")):
+    """Phase 8: sphere-init, train 8 iterations, train --resume to 16, and
+    sampling from the trained checkpoint, through the command line, with
+    the sections train_base and sample_multi_view of `cfg_path`."""
+    import numpy as np
+
+    from cips3dpp_torch.apps import cli
+    from cips3dpp_torch.io import checkpoint as ckpt_mod
+    from cips3dpp_torch.io.config import load_command_config
+    from cips3dpp_torch.train import train_loop as tl
+
+    res = {"config": "train_r1024 (configs/ffhq.yaml train_base), batch 4, f32", "card": smi}
+    probe = {"iter_s": [], "flags": [], "saves": [], "restores": [], "snap": None,
+             "resumed": None}
+
+    def stamped_prefetch(orig):
+        def prefetch(data, device=None, size=2):  # the loop starts here
+            torch.cuda.synchronize()
+            probe["t"] = time.perf_counter()
+            return orig(data, device, size)
+        return prefetch
+
+    def timed_ema(orig):
+        def ema(state, decay):  # the end of an iteration: wait for the card
+            out = orig(state, decay)
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            probe["iter_s"].append(now - probe["t"])
+            probe["t"] = now
+            return out
+        return ema
+
+    def flagged_steps(orig):
+        def make(gen_cfg, cfg):
+            d_step, g_step, path_step, sphere_step = orig(gen_cfg, cfg)
+
+            def d(state, real, generator, alpha, d_regularize):
+                probe["flags"].append(("d", bool(d_regularize)))
+                return d_step(state, real, generator, alpha, d_regularize=d_regularize)
+
+            def p(state, generator):
+                probe["flags"].append(("path_reg",))
+                return path_step(state, generator)
+            return d, g_step, p, sphere_step
+        return make
+
+    def flat(sd):
+        out = {}
+        for k, v in sd.items():
+            if isinstance(v, torch.Tensor):
+                out[k] = v
+            elif isinstance(v, dict) and "state" in v and "param_groups" in v:
+                for i, st in v["state"].items():
+                    out.update({f"{k}.{i}.{n}": t for n, t in st.items()})
+            elif isinstance(v, dict):
+                out.update({f"{k}.{n}": t for n, t in v.items()})
+        return out
+
+    def timed_save(orig):
+        def save(self, step, state, config=None, metrics=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = orig(self, step, state, config=config, metrics=metrics)
+            probe["saves"].append({"step": step, "s": time.perf_counter() - t0,
+                                   "bytes": os.path.getsize(path)})
+            if step == 8:  # what the resumed run must start from
+                probe["snap"] = {k: v.detach().to("cpu", copy=True)
+                                 for k, v in flat(state.state_dict()).items()}
+            return path
+        return save
+
+    def timed_restore(orig):
+        def restore(self, state, step=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(self, state, step)
+            torch.cuda.synchronize()
+            probe["restores"].append({"s": time.perf_counter() - t0})
+            return out
+        return restore
+
+    def checked_resume(orig):
+        def resume(self, state):
+            restored, step = orig(self, state)
+            got = flat(restored.state_dict())
+            want = probe["snap"]
+            if step != 8 or restored.step != 8 or got.keys() != want.keys():
+                raise AssertionError(f"resume: step {step}, state step {restored.step}")
+            bad = [k for k in want if not torch.equal(got[k].cpu(), want[k])]
+            if bad:
+                raise AssertionError(f"resume: {len(bad)} tensors differ from those saved, "
+                                     f"e.g. {bad[:5]}")
+            probe["resumed"] = {"step": step, "tensors": len(want),
+                                "values": sum(v.numel() for v in want.values())}
+            return restored, step
+        return resume
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+        # the card has no PyYAML; hide it where it exists, so --cfg is
+        # always read by the standard-library reader here
+        stack.enter_context(hidden_module("yaml"))
+        for obj, name, wrap in ((tl, "ema_update", timed_ema),
+                                (tl, "prefetch_to_device", stamped_prefetch),
+                                (tl, "make_train_steps", flagged_steps),
+                                (ckpt_mod.CheckpointManager, "save", timed_save),
+                                (ckpt_mod.CheckpointManager, "restore", timed_restore),
+                                (tl.Trainer, "resume", checked_resume)):
+            stack.enter_context(patched(obj, name, wrap))
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        size = load_command_config(cfg_path, "train_base")["data_img_size"]
+        rng = np.random.default_rng(SEED)
+        np.save(os.path.join(data, f"images-{size}-0000.npy"),
+                rng.integers(0, 256, (8, size, size, 3), dtype=np.uint8))
+        base = ["--cfg", cfg_path, "--section", "train_base"]
+
+        with counted("sphere-init (20 iterations)", {}):
+            t0 = time.perf_counter()
+            out = cli_json(["sphere-init", *base, "--outdir", f"{tmp}/si", "--n-iters", "20"])
+            torch.cuda.synchronize()
+            res["sphere_init_s"] = time.perf_counter() - t0
+        losses = [r["sphere_init_l1"] for r in read_jsonl(f"{tmp}/si/logs/sphere_init.jsonl")]
+        if out["step"] != 0 or ckpt_mod.checkpoint_steps(out["ckpt"]) != [0] or \
+                not all(np.isfinite(losses)):
+            raise AssertionError(f"sphere-init: {out}, losses {losses}")
+        log(f"[loop] sphere-init: 20 iterations in {res['sphere_init_s']:.2f} s (set-up "
+            f"included), sphere_init_l1 at step 0 {losses[0]:.4f}, step-0 checkpoint written")
+
+        run = f"{tmp}/run"
+        train = ["train", *base, "--data", data, "--outdir", run]
+        peaks, k1 = [], 0
+        for label, extra in (("train 0-8", ["--total-iters", "8", "--no-sphere-init"]),
+                             ("train --resume 8-16", ["--total-iters", "16", "--resume"])):
+            n_before = len(probe["iter_s"])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with counted(label, {"siren_render": 4 * 8}) as launches:
+                t0 = time.perf_counter()
+                out = cli_json(train + extra)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            k1 += launches["siren_render"]
+            peaks.append(torch.cuda.max_memory_allocated())
+            if out != {"outdir": run, "done": True}:
+                raise AssertionError(f"{label}: {out}")
+            its = probe["iter_s"][n_before:]
+            if len(its) != 8:
+                raise AssertionError(f"{label}: {len(its)} iterations, want 8")
+            log(f"[loop] {label}: {wall:.2f} s with set-up and checkpoints; iteration wall "
+                f"times (s, to a synchronise at each end) {', '.join(f'{x:.3f}' for x in its)}; "
+                f"peak allocated {peaks[-1] / 2**30:.2f} GiB; {smi}")
+            res[label] = {"wall_s": wall, "iter_s": its, "peak_bytes": peaks[-1]}
+        want_flags = []
+        for idx in range(16):
+            want_flags.append(("d", (idx + 1) % 15 == 0))
+            if (idx + 1) % 5 == 0:
+                want_flags.append(("path_reg",))
+        if probe["flags"] != want_flags:
+            raise AssertionError(f"step flags {probe['flags']}, want {want_flags}")
+        if probe["resumed"] is None:
+            raise AssertionError("train --resume did not restore a checkpoint")
+        log(f"[loop] train --resume started at step {probe['resumed']['step']} from "
+            f"{probe['resumed']['tensors']} tensors ({probe['resumed']['values']} values) "
+            f"bit-equal to those saved at step 8")
+        records = read_jsonl(f"{run}/logs/metrics.jsonl")
+        if [r["step"] for r in records] != [7, 9, 15]:
+            raise AssertionError(f"log points {[r['step'] for r in records]}")
+        bad = {(r["step"], k): v for r in records for k, v in r.items() if not np.isfinite(v)}
+        if bad:
+            raise AssertionError(f"non-finite logged values {bad}")
+        if ckpt_mod.checkpoint_steps(f"{run}/ckpt") != [8, 16] or \
+                not os.path.exists(f"{run}/ckpt/config_command.yaml"):
+            raise AssertionError(f"checkpoints {os.listdir(f'{run}/ckpt')}")
+        its = probe["iter_s"]  # idx 0-15 in order
+        plain = [its[i] for i in range(16) if i not in (0, 8) and (i + 1) % 5 and (i + 1) % 15]
+        res["iteration_s"] = {"first_of_each_run": [its[0], its[8]],
+                              "plain_mean": sum(plain) / len(plain), "plain_n": len(plain),
+                              "path_reg": [its[4], its[9]], "r1_and_path_reg": its[14]}
+        res["iters_per_sec"] = {r["step"]: r["iters_per_sec"] for r in records}
+        res["checkpoint_saves"] = probe["saves"]
+        res["checkpoint_restores"] = probe["restores"]
+        res["resumed"] = probe["resumed"]
+        res["peak_bytes"] = max(peaks)
+        res["logged"] = records
+        it = res["iteration_s"]
+        log(f"[loop] iteration wall times (s, to a synchronise at each end): first of each "
+            f"run {it['first_of_each_run'][0]:.3f} / {it['first_of_each_run'][1]:.3f}, plain "
+            f"{it['plain_mean']:.3f} (mean of {len(plain)}), with path reg (idx 4, 9) "
+            f"{it['path_reg'][0]:.3f} / {it['path_reg'][1]:.3f}, with lazy R1 and path reg "
+            f"(idx 14) {it['r1_and_path_reg']:.3f}; the logger's iters_per_sec by log point "
+            f"{res['iters_per_sec']}; {smi}")
+        for sv in probe["saves"]:
+            log(f"[loop] checkpoint step {sv['step']}: {sv['bytes']} bytes saved in "
+                f"{sv['s']:.3f} s; {smi}")
+        for rs in probe["restores"]:
+            log(f"[loop] checkpoint restored in {rs['s']:.3f} s; {smi}")
+        log(f"[loop] logged losses finite at steps {[r['step'] for r in records]}; "
+            f"checkpoints {ckpt_mod.checkpoint_steps(f'{run}/ckpt')} with config_command.yaml; "
+            f"peak allocated {res['peak_bytes'] / 2**30:.2f} GiB")
+
+        # sampling from the trained checkpoint: G_ema of step 16
+        opts = ["--opts", "ckpt", f"{run}/ckpt"]
+        model, _ = cli._build_generator(
+            {**load_command_config(cfg_path, "sample_multi_view"), "ckpt": f"{run}/ckpt"}, dev)
+        want = ckpt_mod.CheckpointManager(f"{run}/ckpt").restore_raw()["state"]["g_ema"]
+        got = model.state_dict()
+        if not all(torch.equal(got[k].cpu(), want[k]) for k in want):
+            raise AssertionError("the sampling generator is not the checkpoint's G_ema")
+        del model
+        with counted("sample-multi-view --fused from the checkpoint (2 frames)",
+                     {"siren_render": 2, "decoder_block_f32": 8}) as l_sample:
+            t0 = time.perf_counter()
+            out = cli_json(["sample-multi-view", "--fused", "--cfg", cfg_path, "--section",
+                            "sample_multi_view", "--outdir", f"{tmp}/mv", "--n-frames", "2",
+                            *opts])
+            sample_s = time.perf_counter() - t0
+        if out["frames"] != 2 or not os.path.exists(out["grid"]):
+            raise AssertionError(f"sample-multi-view: {out}")
+        import shutil
+
+        shutil.copy(out["grid"], os.path.join(OUT, "trained_checkpoint_frames.png"))
+        log(f"[loop] sample-multi-view --fused from the step-16 checkpoint: 2 frames in "
+            f"{sample_s:.2f} s (set-up and depth video included), G_ema equal to the "
+            f"checkpoint's")
+        res["sampling"] = {"launches": l_sample, "s": sample_s}
+        res["launches"] = {"siren_render": k1 + l_sample["siren_render"],
+                           "decoder_block_f32": l_sample["decoder_block_f32"]}
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
@@ -898,15 +1189,22 @@ def main() -> int:
     with torch.inference_mode(False), torch.enable_grad():
         report["training"] = training_phase(dev, profile="--profile" in sys.argv[1:])
 
+    # ---- 8. the training loop through the command line ----
+    with torch.inference_mode(False), torch.enable_grad():
+        report["training_loop"] = training_loop_phase(dev, smi)
+
     # ---- the kernels line ----
     t32, tbf = report["trajectory_f32"], report["trajectory_bf16"]
-    # K1's launches: the serving path's and the training path's
+    # K1's launches: the serving path's, the training steps' and the
+    # training loop's (with its sampling from the checkpoint)
+    loop = report["training_loop"]["launches"]
     entry("siren_render", "cips3dpp_torch/csrc/siren_render.cu",
           "cips3dpp_tpu/kernels/siren_render.py:140", report["K1"],
-          serving_launches["siren_render"] + report["training"]["launches"]["siren_render"])
+          serving_launches["siren_render"] + report["training"]["launches"]["siren_render"]
+          + loop["siren_render"])
     entry("decoder_block", K2_SRC, K2_TPU, report["K2"], serving_launches["decoder_block"])
     entry("decoder_block_f32", K2_SRC, K2_TPU, report["K2-f32"],
-          t32["launches_buffers"]["decoder_block_f32"])
+          t32["launches_buffers"]["decoder_block_f32"] + loop["decoder_block_f32"])
     entry("decoder_block_hash", K2_SRC, K2_TPU, report["K2-hash"],
           tbf["launches_seed"]["decoder_block_hash"])
     entry("decoder_block_hash_f32", K2_SRC, K2_TPU, report["K2-hash-f32"],

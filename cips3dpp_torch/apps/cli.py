@@ -1,18 +1,21 @@
-"""Command-line launchers of the sampling apps (counterpart of the sampling
+"""Command-line launchers (counterpart of the training and sampling
 commands of cips3dpp_tpu/apps/cli.py):
 
     python -m cips3dpp_torch.apps.cli <command> [--cfg configs/ffhq.yaml
         --section sample_multi_view] [--opts key.path value ...]
         [--device cuda|cpu] [--outdir DIR] [--seed N]
 
-Commands: sample-multi-view, fixed-zs-multi-view, interpolate-z,
-style-mixing, interpolate-decoder. Everything runs on the card unless
-`--device cpu` is given. The generator is randomly initialised from a
-fixed seed, or loaded from a reference `.pth` state dict named by the
-config's `network_pkl` (the port's module names are the reference's
-state-dict names). Only `sample-multi-view --fused` reaches the kernels
-(batch 1); the other commands run the plain modules. `--cfg` needs PyYAML;
-`--opts` alone does not.
+Commands: train, sphere-init, sample-multi-view, fixed-zs-multi-view,
+interpolate-z, style-mixing, interpolate-decoder. Everything runs on the
+card unless `--device cpu` is given. `--cfg` is read by PyYAML where it
+imports and by the standard-library reader `io/yaml_lite.py` where it does
+not. The sampling commands' generator is randomly initialised from a
+fixed seed, or loaded from what the config's `network_pkl` (or `ckpt`)
+names: a reference `.pth` state dict (the port's module names are the
+reference's state-dict names) or a checkpoint directory that `train`
+wrote (its latest step's G_ema). `train` and the D step reach K1; of the
+sampling commands only `sample-multi-view --fused` reaches the kernels
+(batch 1), the others run the plain modules.
 """
 
 from __future__ import annotations
@@ -48,17 +51,28 @@ def _load_cfg(args) -> dict:
 
 
 def _load_state_dict(path: str) -> dict:
+    """A generator state dict: a reference `.pth`, or the G_ema of the
+    latest step in a checkpoint directory of this package."""
+    if os.path.isdir(path):
+        from ..io.checkpoint import CheckpointManager, checkpoint_steps
+
+        if not checkpoint_steps(path):
+            raise NotImplementedError(
+                f"{path}: no checkpoint of this package (<step>.pt); a JAX orbax "
+                "checkpoint is read once `import-torch` is ported (ROADMAP queue 1 "
+                "item 6)")
+        return CheckpointManager(path).restore_raw()["state"]["g_ema"]
     if not path.endswith(".pth"):
         raise NotImplementedError(
-            f"{path}: the port reads reference .pth state dicts only; orbax "
-            "checkpoint directories wait for its io slice")
+            f"{path}: the port reads reference .pth state dicts and its own "
+            "checkpoint directories")
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def _build_generator(cfg: dict, device, ckpt=None):
-    """The generator of cfg["G_cfg"] on `device`: weights from the .pth
-    named by `ckpt` (default: the config's network_pkl), else random from
-    seed 0."""
+    """The generator of cfg["G_cfg"] on `device`: weights from what `ckpt`
+    (default: the config's network_pkl or ckpt) names, a reference .pth or
+    a checkpoint directory of `train`, else random from seed 0."""
     from ..io.config import generator_config_from_dict
     from ..models.generator import Generator
 
@@ -289,7 +303,44 @@ def cmd_interpolate_decoder(argv):
     print(json.dumps({"grid": path, "gammas": args.gammas}))
 
 
+def cmd_train(argv):
+    p = _base_parser("GAN training")
+    p.add_argument("--data", type=str, required=True,
+                   help="a directory of uint8 npy shards (N, H, W, 3), or of images")
+    p.add_argument("--total-iters", type=int, default=None)
+    p.add_argument("--no-sphere-init", action="store_true")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="not ported above 1 (ROADMAP queue 1 item 2)")
+    p.add_argument("--finetune-dir", type=str, default=None,
+                   help="checkpoint dir of this package to initialise G/G_ema/Ds "
+                        "from (reference tl_finetune, train_v10.py:1225-1245)")
+    p.add_argument("--init-renderer-from", type=str, default=None,
+                   help="not ported (ROADMAP queue 1 item 7)")
+    p.add_argument("--fid-data", type=str, default=None,
+                   help="not ported (ROADMAP queue 1 item 5)")
+    p.add_argument("--inception", type=str, default=None,
+                   help="not ported (ROADMAP queue 1 item 5)")
+    args = p.parse_args(argv)
+    cfg = _load_cfg(args)
+    from .cli_train_impl import run_training
+
+    run_training(args, cfg)
+
+
+def cmd_sphere_init(argv):
+    p = _base_parser("SDF sphere initialisation only")
+    p.add_argument("--n-iters", type=int, default=10000)
+    args = p.parse_args(argv)
+    cfg = _load_cfg(args)
+    from .cli_train_impl import run_sphere_init
+
+    run_sphere_init(args, cfg)
+
+
 COMMANDS = {
+    "train": cmd_train,
+    "sphere-init": cmd_sphere_init,
     "sample-multi-view": cmd_sample_multi_view,
     "fixed-zs-multi-view": cmd_fixed_zs_multi_view,
     "interpolate-z": cmd_interpolate_z,

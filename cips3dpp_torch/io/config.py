@@ -2,11 +2,16 @@
 
 The reference's YAML convention (SURVEY.md §5): one file per experiment,
 one section per command, `base:` inheritance between sections, and dotted
-`key.path value` overrides on the command line. `load_command_config`
-resolves a section through its `base:` chain, `apply_overrides` applies
-the overrides, `generator_config_from_dict` builds the port's
-GeneratorConfig. PyYAML is imported only to read a file: overrides alone
-need nothing beyond the standard library.
+`key.path value` overrides on the command line, and a
+`config_command.yaml` snapshot written next to every checkpoint.
+`load_command_config` resolves a section through its `base:` chain,
+`apply_overrides` applies the overrides, `save_snapshot` /
+`load_snapshot` write and read the snapshot, and
+`generator_config_from_dict` / `train_config_from_dict` build the port's
+configs. Files are read by PyYAML where it imports and by the standard-
+library reader `yaml_lite` where it does not (the two give the same dict
+for the repo's configs); snapshots are written by `yaml_lite.dump`, which
+both read back.
 """
 
 from __future__ import annotations
@@ -14,7 +19,10 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import os
 from typing import Any, Mapping, Sequence
+
+from . import yaml_lite
 
 
 def _deep_merge(base: dict, override: Mapping) -> dict:
@@ -41,16 +49,21 @@ def _resolve_section(doc: Mapping, name: str, _stack=()) -> dict:
     return _deep_merge(_resolve_section(doc, base_name, _stack + (name,)), section)
 
 
-def load_command_config(path: str, command: str) -> dict:
-    """Read a YAML file and resolve section `command` through its base: chain."""
+def read_yaml(path: str) -> Any:
+    """The document of a YAML file: PyYAML's safe_load where PyYAML
+    imports, else `yaml_lite.load` (which raises on what it does not read)."""
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
     try:
         import yaml
-    except ImportError as e:
-        raise RuntimeError(f"reading {path} needs PyYAML, which is not installed; "
-                           "pass the settings with --opts instead") from e
-    with open(path) as f:
-        doc = yaml.safe_load(f)
-    return _resolve_section(doc, command)
+    except ImportError:
+        return yaml_lite.load(text)
+    return yaml.safe_load(text)
+
+
+def load_command_config(path: str, command: str) -> dict:
+    """Read a YAML file and resolve section `command` through its base: chain."""
+    return _resolve_section(read_yaml(path), command)
 
 
 def _parse_value(s: str) -> Any:
@@ -81,6 +94,20 @@ def apply_overrides(cfg: dict, opts: Sequence[str]) -> dict:
     return cfg
 
 
+def save_snapshot(cfg: Mapping, outdir: str, name: str = "config_command.yaml") -> str:
+    """Write the resolved config next to checkpoints (the reference's
+    config_command.yaml); PyYAML and `yaml_lite` read it back equal."""
+    os.makedirs(outdir, exist_ok=True)
+    path = os.path.join(outdir, name)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(yaml_lite.dump(dict(cfg)))
+    return path
+
+
+def load_snapshot(ckpt_dir: str, name: str = "config_command.yaml") -> dict:
+    return read_yaml(os.path.join(ckpt_dir, name))
+
+
 def generator_config_from_dict(d: Mapping):
     """GeneratorConfig from a (possibly partial) nested dict; dataclass
     defaults for everything unspecified, unknown keys ignored."""
@@ -98,3 +125,12 @@ def generator_config_from_dict(d: Mapping):
     top = {f.name for f in dataclasses.fields(GeneratorConfig)}
     kwargs.update({k: v for k, v in d.items() if k in top and k not in parts})
     return GeneratorConfig(**kwargs)
+
+
+def train_config_from_dict(d: Mapping):
+    """TrainConfig from a config section's top-level keys; unknown keys
+    ignored, dataclass defaults for the rest."""
+    from ..train.state import TrainConfig
+
+    fields = {f.name for f in dataclasses.fields(TrainConfig)}
+    return TrainConfig(**{k: v for k, v in d.items() if k in fields})

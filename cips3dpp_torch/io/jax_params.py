@@ -14,7 +14,10 @@ package's module names, so `Generator.load_state_dict` takes it as is:
 The mappings are this package's own copies of the JAX package's exporters
 (`io/torch_import.py:export_generator_state_dict`,
 `export_d_stylegan_state_dict`, `export_d_pose_state_dict`); they import
-nothing of JAX.
+nothing of JAX. Each is a permutation of the values (plus the zero
+StyledConv.bias the reference carries), so it carries Adam's moments as
+it carries the weights: `load_jax_train_state` turns a whole JAX
+TrainState (weights, EMA, optax states, counters) into the port's.
 """
 
 from __future__ import annotations
@@ -181,3 +184,93 @@ def load_jax_params(model: torch.nn.Module, params: Mapping,
     `model` (strict: every key and shape must match)."""
     model.load_state_dict(_BRIDGES[kind](params), strict=True)
     return model
+
+
+def _adam_states(tree, path=()):
+    """(path, node) of each Adam state (a node with count, mu and nu) in an
+    optax state tree, walked through named tuples, mappings and tuples."""
+    if all(hasattr(tree, a) for a in ("count", "mu", "nu")):
+        yield path, tree
+        return
+    if hasattr(tree, "_asdict"):
+        items = tree._asdict().items()
+    elif isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return
+    for k, v in items:
+        yield from _adam_states(v, path + (k,))
+
+
+def _merge_masked(trees):
+    """One tree from trees that each hold some of its arrays and a masked
+    node (optax.masked's MaskedNode, which holds none) in place of the rest."""
+    live = [t for t in trees if isinstance(t, Mapping) or hasattr(t, "shape")]
+    if not live:
+        raise ValueError("no group holds this subtree")
+    if not isinstance(live[0], Mapping):
+        if len(live) != 1:
+            raise ValueError("a leaf held by two groups")
+        return live[0]
+    keys = dict.fromkeys(k for t in live for k in t)
+    return {k: _merge_masked([t.get(k) for t in live]) for k in keys}
+
+
+def _unwrap(variables):
+    return variables["params"] if "params" in variables else variables
+
+
+def _load_adam(opt, named_params, opt_state, to_state_dict):
+    """Moments and counts of the optax Adam state(s) in `opt_state` into the
+    ClippedAdam `opt`, whose groups take their state by label (a G group
+    label appears on the optax path; a single-group D has one state)."""
+    found = list(_adam_states(opt_state))
+    labels = list(opt.groups)
+    by_label = {}
+    for path, node in found:
+        hit = [k for k in path if k in labels]
+        by_label[hit[0] if hit else labels[0]] = node
+    if sorted(by_label) != sorted(labels) or len(found) != len(labels):
+        raise ValueError(f"optax state holds Adam states {[p for p, _ in found]}, "
+                         f"expected one for each of {labels}")
+    mu = to_state_dict(_unwrap(_merge_masked([n.mu for n in by_label.values()])))
+    nu = to_state_dict(_unwrap(_merge_masked([n.nu for n in by_label.values()])))
+    names = {id(p): n for n, p in named_params}
+    sd = opt.state_dict()
+    state, i = {}, 0
+    for label, ps in opt.groups.items():
+        count = float(np.asarray(by_label[label].count))
+        for p in ps:
+            name = names[id(p)]
+            state[i] = {"step": torch.tensor(count),
+                        "exp_avg": mu[name].reshape(p.shape),
+                        "exp_avg_sq": nu[name].reshape(p.shape)}
+            i += 1
+    opt.load_state_dict({"state": state, "param_groups": sd["param_groups"]})
+
+
+def load_jax_train_state(state, jax_state):
+    """Copy a JAX `TrainState` (cips3dpp_tpu/train/state.py), its arrays as
+    numpy (e.g. `jax.tree.map(np.asarray, s)`), into the port's
+    `TrainState` `state`, in place: params_g, params_g_ema, params_d and
+    params_d_render into g, g_ema, d and d_render; the optax Adam states
+    (mu -> exp_avg, nu -> exp_avg_sq, count -> step) of each G group and
+    each D into opt_g, opt_d and opt_d_render; mean_path_length and step.
+    Then both packages go on from the same state."""
+    def get(name):
+        return getattr(jax_state, name) if hasattr(jax_state, name) else jax_state[name]
+
+    for mod, name, kind in (("g", "params_g", "generator"), ("g_ema", "params_g_ema", "generator"),
+                            ("d", "params_d", "d"), ("d_render", "params_d_render", "d_pose")):
+        load_jax_params(getattr(state, mod), _unwrap(get(name)), kind)
+    for opt, mod, name, kind in (("opt_g", "g", "opt_g", "generator"),
+                                 ("opt_d", "d", "opt_d", "d"),
+                                 ("opt_d_render", "d_render", "opt_d_render", "d_pose")):
+        _load_adam(getattr(state, opt), list(getattr(state, mod).named_parameters()),
+                   get(name), _BRIDGES[kind])
+    state.mean_path_length = torch.tensor(float(np.asarray(get("mean_path_length"))),
+                                          device=state.mean_path_length.device)
+    state.step = int(np.asarray(get("step")))
+    return state

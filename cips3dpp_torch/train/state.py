@@ -131,6 +131,22 @@ class ClippedAdam:
             for p in ps:
                 p.grad = None
 
+    def state_dict(self) -> dict:
+        """Adam's moments and step counts by group (torch.optim's layout)."""
+        return self.adam.state_dict()
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore the moments and step counts of `state_dict()`. The
+        learning rates and betas stay this optimizer's, as an optax state
+        holds no hyperparameters."""
+        names = [g["name"] for g in sd["param_groups"]]
+        if names != list(self.groups):
+            raise ValueError(f"optimizer groups {names}, expected {list(self.groups)}")
+        keep = [{k: v for k, v in g.items() if k != "params"} for g in self.adam.param_groups]
+        self.adam.load_state_dict(sd)
+        for group, hyper in zip(self.adam.param_groups, keep):
+            group.update(hyper)
+
 
 def make_g_optimizer(cfg: TrainConfig, g: nn.Module) -> ClippedAdam:
     return ClippedAdam(g_param_groups(g),
@@ -164,6 +180,29 @@ class TrainState:
     opt_d_render: ClippedAdam
     mean_path_length: torch.Tensor
     step: int = 0
+
+    MODULES = ("g", "g_ema", "d", "d_render")
+    OPTIMIZERS = ("opt_g", "opt_d", "opt_d_render")
+
+    def state_dict(self) -> dict:
+        """Every tensor and counter of the run, by name: the modules' state
+        dicts, the optimizers', mean_path_length and step."""
+        out = {k: getattr(self, k).state_dict() for k in self.MODULES + self.OPTIMIZERS}
+        out["mean_path_length"] = self.mean_path_length
+        out["step"] = self.step
+        return out
+
+    def load_state_dict(self, sd: dict) -> "TrainState":
+        """Copy `sd` (from `state_dict()`, on any device) into this state's
+        modules and optimizers, on their own devices."""
+        for k in self.MODULES:
+            getattr(self, k).load_state_dict(sd[k])
+        for k in self.OPTIMIZERS:
+            getattr(self, k).load_state_dict(sd[k])
+        self.mean_path_length = sd["mean_path_length"].to(
+            self.mean_path_length.device, copy=True)
+        self.step = int(sd["step"])
+        return self
 
 
 def create_train_state(cfg: TrainConfig, g: nn.Module, d: nn.Module,

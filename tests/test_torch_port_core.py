@@ -124,14 +124,15 @@ def test_fused_leaky_relu_upsample_modulated_match_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing the port and every submodule leaves jax, flax and
-    cips3dpp_tpu out of sys.modules (fresh interpreter)."""
+    """Importing the port and every submodule leaves jax, flax, optax, orbax
+    and cips3dpp_tpu out of sys.modules (fresh interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cips3dpp_torch\n"
         "for m in pkgutil.walk_packages(cips3dpp_torch.__path__, 'cips3dpp_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'cips3dpp_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', "
+        "'cips3dpp_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok', len([m for m in sys.modules if m.startswith('cips3dpp_torch')]))\n"
     )
@@ -144,7 +145,9 @@ def test_port_imports_no_jax():
     names = {m.name for m in pkgutil.walk_packages(cips3dpp_torch.__path__, "cips3dpp_torch.")}
     for mod in ("apps.sample", "apps.cli", "utils.mesh", "utils.rasterize", "io.config",
                 "tools.elem_dtype_probe", "models.discriminator", "models.discriminator_pose",
-                "models.diffaug", "train.losses", "train.state", "train.steps"):
+                "models.diffaug", "train.losses", "train.state", "train.steps",
+                "train.train_loop", "io.yaml_lite", "io.checkpoint", "io.dataset",
+                "io.jax_params", "parallel.prefetch", "utils.logging", "apps.cli_train_impl"):
         assert f"cips3dpp_torch.{mod}" in names, mod
 
 

@@ -405,3 +405,87 @@ def test_d_step_launches_k1_once_per_item(dev):
     assert _lib.LAUNCHES["siren_render"] == launches + 3
     assert all(torch.isfinite(v) for v in metrics.values())
     assert any(not torch.equal(p, q) for p, q in zip(state.d.parameters(), before))
+
+
+def test_prefetch_to_device_delivers_every_batch_intact(dev):
+    """50 batches through the side-stream prefetcher while the consuming
+    stream is kept busy: each batch is read on the consumer only after
+    queued work and after its last Python reference is dropped, so a batch
+    whose memory were reused too early would arrive changed."""
+    import numpy as np
+
+    from cips3dpp_torch.parallel import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    batches = [rng.standard_normal((4, 128, 128, 3)).astype(np.float32) for _ in range(50)]
+    a = torch.randn((2048, 2048), device=dev)
+    clones = []
+    for batch in prefetch_to_device(iter(batches), dev, size=2):
+        assert batch.device == dev
+        for _ in range(4):  # queued work ahead of the read
+            a = torch.tanh(a @ a * 1e-3)
+        clones.append(batch * 1)
+        del batch
+    torch.cuda.synchronize()
+    assert len(clones) == 50
+    for i, (c, b) in enumerate(zip(clones, batches)):
+        assert np.array_equal(c.cpu().numpy(), b), i
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """A TrainState of CUDA tensors saved and restored into fresh modules
+    on the same device: every tensor equal, and the restored optimizers'
+    next update equal to the saved ones'."""
+    from cips3dpp_torch.io.checkpoint import CheckpointManager
+    from cips3dpp_torch.models.discriminator import DStyleGANProgressive
+    from cips3dpp_torch.models.discriminator_pose import DVolumeRenderProgressive
+    from cips3dpp_torch.models.generator import (
+        DecoderConfig, Generator, GeneratorConfig, RendererConfig,
+    )
+    from cips3dpp_torch.train import TrainConfig, create_train_state
+
+    cfg = GeneratorConfig(renderer=RendererConfig(hidden_dim=16),
+                          decoder=DecoderConfig(upsample_list=(16,), style_dim=32,
+                                                mapping_n_layers=1),
+                          img_size=8, n_samples=4)
+
+    def state(seed):
+        return create_train_state(
+            TrainConfig(), Generator(cfg, device=dev, seed=seed),
+            DStyleGANProgressive(16, 1, device=dev, seed=seed + 1),
+            DVolumeRenderProgressive(8, device=dev, seed=seed + 2))
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def step(s):
+        for name in ("opt_g", "opt_d", "opt_d_render"):
+            opt = getattr(s, name)
+            opt.step({k: [torch.randn(p.shape, generator=gen, device=dev) for p in ps]
+                      for k, ps in opt.groups.items()})
+
+    def flat(s):
+        out = {}
+        for k in s.MODULES:
+            out.update({f"{k}.{n}": t for n, t in getattr(s, k).state_dict().items()})
+        for k in s.OPTIMIZERS:
+            for i, st in getattr(s, k).state_dict()["state"].items():
+                out.update({f"{k}.{i}.{n}": t for n, t in st.items()})
+        out["mean_path_length"] = s.mean_path_length
+        return out
+
+    a = state(1)
+    step(a)
+    a.mean_path_length = torch.tensor(0.25, device=dev)
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    mgr.save(1, a)
+    b = state(5)
+    mgr.restore(b)
+    fa, fb = flat(a), flat(b)
+    for k, t in fa.items():
+        assert fb[k].device == t.device and torch.equal(fb[k], t), k
+    gen_state = gen.get_state()
+    step(a)
+    gen.set_state(gen_state)
+    step(b)
+    fa, fb = flat(a), flat(b)
+    assert all(torch.equal(fb[k], fa[k]) for k in fa)
