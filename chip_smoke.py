@@ -56,10 +56,35 @@ Phases, each fatal on failure:
      logger's iters_per_sec, and each iteration's wall time to a
      synchronise at its end, the first apart), checkpoint save and restore
      seconds and bytes, peak allocated memory;
-  9. with --profile only: torch.profiler over 10 serving frames (phase 5)
-     and over one call each of d_step with and without R1 and g_step
-     (phase 7): device time per kernel and kernel group and the device idle
-     share (tables in chiprun_out/profile_*.txt).
+  9. flip-inversion at r1024 through the command line, in-process, with
+     the flip_inversion section of configs/ffhq.yaml (PyYAML hidden), a
+     seeded full-width generator (a .pth named by network_pkl), the
+     random VGG and LPIPS, the schedule cut to 6 pose + 10 appearance + 2
+     multiview steps (width and w_avg_samples not cut): `invert` of a
+     frame the generator renders from its mean latents at azim 0.25,
+     starting from azim 0.02 (every logged loss finite, the perceptual loss
+     lower at the last step than at the first, exactly 2 K1 launches a
+     step and 2 for the final render, no K2), `render-inverted --n-frames
+     4` from the port's artifact and from the same artifact written in the
+     JAX package's w.pkl format (bit-equal frames), a second `invert` of a
+     target at azim -0.25 and `lerp-inversions --n-interp 3` over both;
+     one appearance step's gradients with respect to the camera, w_render
+     and w_decoder through K1 against K1's plain version's, the bf16
+     plain renderer's (siren_render_reference under autograd) and the
+     plain f32 renderer's, and the f32 stand-in on the fused route's
+     against the plain f32 renderer's (cosine and max relative difference
+     within INV_GRAD_BOUNDS), with the sample points or the view
+     directions detached before K1 as planted faults that must fail
+     them; the inverted views through K1 + f32 K2 at F = 1 against the
+     plain kernels' (phase 6's f32 bounds). Step ms by kind (CUDA events, the
+     first apart), the extrapolated time of the full 1200-step schedule,
+     peak allocated memory, each command's wall seconds, PSNR and
+     |azim - azim*| at step 0 and at the end (findings, not gates);
+ 10. with --profile only: torch.profiler over 10 serving frames (phase 5),
+     over one call each of d_step with and without R1 and g_step (phase 7)
+     and over one projector step (phase 9): device time per kernel and
+     kernel group and the device idle share (tables in
+     chiprun_out/profile_*.txt).
 Each path that launches kernels runs with the launch counts set to 0
 just before it and read just after. A kernel's "ms" is its device time a
 launch (torch.profiler), beside the time a call takes back to back (CUDA
@@ -73,6 +98,7 @@ chiprun_out/chip_smoke.json. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -928,6 +954,443 @@ def training_loop_phase(dev, smi, cfg_path=os.path.join(ROOT, "configs", "ffhq.y
     return res
 
 
+INV_CUT = {"n_steps_pose": 6, "n_steps_app": 10, "n_steps_multiview": 2}
+INV_AZIM = 0.25  # the target's azimuth, azim*
+# One projector step's gradients through K1, held by group (camera,
+# w_render, w_decoder) to (least cosine, largest max|diff| /
+# max|reference|) against the same step computed other ways:
+#   "kernel": K1's plain version in K1's place; the backward is the same
+#     replay, so only the forward's f32 summation order differs;
+#   "bf16": siren_render_reference, the function K1 computes (bf16 matmul
+#     inputs, f32 sums; JAX's custom_vjp replays the same), in place of
+#     SirenRender, differentiated by autograd. It checks the replayed
+#     backward and that SirenRender's inputs carry every camera path. Its
+#     forward has torch.sin and the bias unfolded where K1 has a polynomial
+#     sine and the bias folded, so the cotangents differ more than under
+#     "kernel";
+#   "route": the same stand-in with f32 matmul inputs against the plain
+#     f32 renderer (fused=False). It checks the renderer's fused branch
+#     (near and far of item 0, one call an item) against the plain one;
+#   "f32": K1 against the plain f32 renderer, which "bf16" and "route"
+#     split: the styles keep phase 7's bounds. The camera's gradient (four
+#     numbers, each a sum over every sample point) has no bound here: what
+#     parts K1 from the f32 renderer is the bf16 rounding of the matmul
+#     inputs, and "bf16" and "route" hold each side of it.
+# With the sample points or the view directions detached before K1, the
+# camera's gradient must fail "bf16" (INV_PLANTED), or that gate sees no
+# dropped path. rays_d is detached too, as a finding: it enters only
+# through its norm, which the camera's rotation keeps.
+INV_GROUPS = {"camera": ("azim", "elev"), "w_render": ("w_render",),
+              "w_decoder": ("w_decoder",)}
+INV_GRAD_BOUNDS = {
+    "kernel": dict.fromkeys(INV_GROUPS, (0.999, 0.05)),
+    "bf16": dict.fromkeys(INV_GROUPS, (0.999, 0.1)),
+    "route": dict.fromkeys(INV_GROUPS, (0.999, 0.05)),
+    "f32": {"camera": None, "w_render": (0.99, 0.25), "w_decoder": (0.99, 0.25)},
+}
+# siren_render_fused(renderer, styles, pts, viewdirs, z_vals, rays_d, near,
+# far): the argument detached, and whether "bf16" must see it
+INV_PLANTED = {"pts": (2, True), "viewdirs": (3, True), "rays_d": (5, False)}
+
+
+def write_jax_inversion(path: str, blob: dict) -> str:
+    """The port's inversion artifact (`Projector.save_inversion`'s dict)
+    written as the JAX package writes one (cips3dpp_tpu/apps/inversion.py:
+    445-451), with numpy and pickle only: numpy arrays under flax names
+    and layouts, which the port's `load_jax_inversion` and JAX's
+    `Projector.load_inversion` read. The reference's unused StyledConv.bias
+    is dropped, as the JAX tree has none. Phase 9 renders from it; the CPU
+    tests hold it against the JAX package's reader."""
+    import pickle
+
+    import numpy as np
+
+    sd = {f"decoder.{k}": v.numpy() for k, v in blob["decoder_params"].items()}
+    sd.update({f"renderer.{k}": v.numpy() for k, v in blob["renderer_params"].items()})
+
+    def lin(p):
+        return {"weight": np.ascontiguousarray(sd[f"{p}.weight"].T), "bias": sd[f"{p}.bias"]}
+
+    def film(p):
+        return {**lin(p), "gamma": lin(f"{p}.gamma"), "beta": lin(f"{p}.beta")}
+
+    def modconv(p):
+        return {"weight": np.ascontiguousarray(sd[f"{p}.weight"][0].transpose(2, 3, 1, 0)),
+                "modulation": lin(f"{p}.modulation")}
+
+    def styled(p):
+        return {"conv": modconv(f"{p}.conv"), "noise": {"weight": sd[f"{p}.noise.weight"]},
+                "act_bias": sd[f"{p}.activate.bias"]}
+
+    def torgb(p):
+        return {"conv": modconv(f"{p}.conv"), "bias": sd[f"{p}.bias"].reshape(-1)}
+
+    count = lambda prefix, leaf: sum(k.startswith(prefix) and k.endswith(leaf)
+                                     and k[len(prefix):-len(leaf)].isdigit() for k in sd)
+    n_convs = count("decoder.convs.", ".noise.weight")
+    n_rgbs = count("decoder.to_rgbs.", ".conv.weight")
+    decoder = {"conv1": styled("decoder.conv1"), "to_rgb1": torgb("decoder.to_rgb1")}
+    decoder.update({f"convs_{i}": styled(f"decoder.convs.{i}") for i in range(n_convs)})
+    decoder.update({f"to_rgbs_{i}": torgb(f"decoder.to_rgbs.{i}") for i in range(n_rgbs)})
+    n_pts = count("renderer.network.pts_linears.", ".gamma.weight")
+    network = {f"pts_{i}": film(f"renderer.network.pts_linears.{i}") for i in range(n_pts)}
+    network.update(views=film("renderer.network.views_linears"),
+                   rgb_head=lin("renderer.network.rgb_linear"),
+                   sigma_head=lin("renderer.network.sigma_linear"))
+    a = lambda x: np.asarray(x, np.float32)
+    out = {"azim": a(blob["azim"]), "elev": a(blob["elev"]),
+           "w_render_opt": a(blob["w_render_opt"]), "w_decoder_opt": a(blob["w_decoder_opt"]),
+           "decoder_params": decoder,
+           "renderer_params": {"sigmoid_beta": sd["renderer.sigmoid_beta"], "network": network},
+           "noise_bufs": [a(b) for b in blob["noise_bufs"]]}
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+    return path
+
+
+def _step_kind(step, cfg):
+    """pose, appearance, appearance with the decoder styles flipped, or
+    multiview: the four kinds of projector step."""
+    from cips3dpp_torch.apps.inversion import step_plan
+
+    if step < cfg.n_steps_pose:
+        return "pose"
+    if step < cfg.n_steps_pose + cfg.n_steps_app:
+        return "appearance, flip" if step_plan(step, cfg)[1] else "appearance"
+    return "multiview"
+
+
+def inversion_phase(dev, smi, profile=False,
+                    cfg_path=os.path.join(ROOT, "configs", "ffhq.yaml")):
+    """Phase 9: flip-inversion at r1024 through the command line, with the
+    flip_inversion section of `cfg_path` read by the standard-library YAML
+    reader, a full-width seeded generator (saved as a .pth and named by
+    network_pkl) and the random VGG and LPIPS. The target is a frame the
+    same generator renders from its mean latents at azim* (the JAX
+    package's self-recovery gate, tests/test_apps.py:201-245); `invert`
+    starts near the front. Then render-inverted of 4 frames from the port's
+    artifact and from the same artifact in JAX's w.pkl format (bit-equal
+    frames), a second invert of a target at -azim*, and lerp-inversions
+    over both. Beside the commands: one appearance step's gradients
+    through K1 against the same step computed four other ways
+    (INV_GRAD_BOUNDS) and with planted faults (INV_PLANTED), and the
+    inverted views through the kernels (F = 1) against the plain frames. With `profile`, the
+    device time of one appearance step by kernel group."""
+    import shutil
+
+    import numpy as np
+
+    from cips3dpp_torch.apps import inversion as inv
+    from cips3dpp_torch.apps import sample as sample_mod
+    from cips3dpp_torch.core.camera import camera_from_angles
+    from cips3dpp_torch.io.config import generator_config_from_dict, load_command_config
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.kernels import siren_render as ksr
+    from cips3dpp_torch.models.generator import Generator
+    from cips3dpp_torch.models.layers import randomize_zero_init_
+    from cips3dpp_torch.models.vgg import init_vgg
+    from cips3dpp_torch.utils.metrics import psnr
+
+    res = {"card": smi, "schedule": dict(INV_CUT, full=1200), "azim_true": INV_AZIM}
+    probe = {"steps": [], "first_rgb": None}
+
+    def timed_step(orig):
+        def step(self, state, targets, t_rand, lrs, flip, mask_bg):
+            k1 = _lib.LAUNCHES["siren_render"]
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(self, state, targets, t_rand, lrs, flip, mask_bg)
+            end.record()
+            torch.cuda.synchronize()
+            probe["steps"].append({"ms": start.elapsed_time(end),
+                                   "k1": _lib.LAUNCHES["siren_render"] - k1,
+                                   "metrics": {k: float(v) for k, v in out[1].items()}})
+            return out
+        return step
+
+    def first_render(orig):
+        def forward(self, leaves, t_rand, flip):
+            out = orig(self, leaves, t_rand, flip)
+            if probe["first_rgb"] is None:
+                probe["first_rgb"] = out["rgb"][0].detach().clone()
+            return out
+        return forward
+
+    def kept_frames(orig):
+        def save_video(frames, path, fps=30):
+            probe["frames"] = np.array(frames)
+            return orig(frames, path, fps)
+        return save_video
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+        stack.enter_context(hidden_module("yaml"))  # the card has no PyYAML
+        section = load_command_config(cfg_path, "flip_inversion")
+        gcfg = generator_config_from_dict(section["G_cfg"])
+        fields = {f.name for f in dataclasses.fields(inv.InversionConfig)}
+        icfg = inv.InversionConfig(**{k: v for k, v in {**section, **INV_CUT}.items()
+                                      if k in fields})
+        full_steps = {k: section[k] for k in INV_CUT}
+        log(f"[inversion] {os.path.relpath(cfg_path, ROOT)} flip_inversion at full width "
+            f"(r{gcfg.out_size}, {gcfg.img_size}^2 rays x {gcfg.n_samples} samples, SIREN width "
+            f"{gcfg.renderer.hidden_dim}, w_avg_samples {icfg.w_avg_samples}); the schedule "
+            f"cut to {INV_CUT} of {full_steps}, {sum(full_steps.values())} steps; random "
+            f"weights, VGG and LPIPS from seeds")
+        model = Generator(gcfg, device=dev, seed=SEED + 30)
+        randomize_zero_init_(model, torch.Generator().manual_seed(SEED + 30))
+        ckpt = os.path.join(tmp, "g.pth")
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+        size = gcfg.out_size
+
+        # targets: the generator's mean latents at +-azim*, the projector's
+        # noise buffers (seed 0), through the kernels at F = 1
+        means = model.mean_latents(torch.Generator().manual_seed(SEED + 31), 10_000)
+        sr = means[0][:, None, :].repeat(1, gcfg.renderer.n_layers + 1, 1)
+        sd = means[1][:, None, :].repeat(1, model.decoder.n_latent, 1)
+        noise0 = model.decoder.make_noise(torch.Generator().manual_seed(0), gcfg.img_size,
+                                          device=dev)
+        frame = sample_mod.make_frame_renderer(model, fused=True)
+        targets = {}
+        with counted("inversion targets (2 frames)",
+                     {"siren_render": 2, "decoder_block_f32": 8}) as l_targets:
+            for sign in (1, -1):
+                cam = camera_from_angles(
+                    torch.tensor([sign * INV_AZIM], device=dev), torch.zeros(1, device=dev),
+                    gcfg.img_size, fov_ang=gcfg.fov_ang, dist_radius=gcfg.dist_radius)
+                rgb = frame(sr, sd, cam.extrinsics, cam.focal, cam.near, cam.far, noise0)[0]
+                u8 = sample_mod._to_u8(rgb[0].float().cpu().numpy())
+                path = os.path.join(tmp, f"target_{'+' if sign > 0 else '-'}.png")
+                sample_mod.write_png(path, u8)
+                targets[sign] = (path, torch.from_numpy(u8.astype(np.float32) / 127.5 - 1.0))
+        shutil.copy(targets[1][0], os.path.join(OUT, "inversion_target.png"))
+
+        base = ["--cfg", cfg_path, "--section", "flip_inversion"]
+        opts = ["--opts", "network_pkl", ckpt] + [x for k, v in INV_CUT.items()
+                                                   for x in (k, str(v))]
+        for obj, name, wrap in ((inv.Projector, "step", timed_step),
+                                (inv.Projector, "forward", first_render),
+                                (sample_mod, "save_video", kept_frames)):
+            stack.enter_context(patched(obj, name, wrap))
+        n_steps = sum(INV_CUT.values())
+        runs = {}
+        for sign in (1, -1):
+            probe["steps"], probe["first_rgb"] = [], None
+            outdir = os.path.join(tmp, f"inv_{'+' if sign > 0 else '-'}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with counted(f"invert, target at azim {sign * INV_AZIM}",
+                         {"siren_render": 2 * n_steps + 2}) as launches:
+                t0 = time.perf_counter()
+                report = cli_json(["invert", *base, "--image", targets[sign][0], "--outdir",
+                                   outdir, "--azim-init", "0.02", "-0.02", *opts])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            steps = probe["steps"]
+            if len(steps) != n_steps or any(st["k1"] != 2 for st in steps):
+                raise AssertionError(f"invert: {len(steps)} steps, K1 launches a step "
+                                     f"{[st['k1'] for st in steps]}, want {n_steps} x 2")
+            losses = [st["metrics"]["loss"] for st in steps]
+            if not np.all(np.isfinite(losses)):
+                raise AssertionError(f"invert: non-finite losses {losses}")
+            percep = [st["metrics"]["percep"] for st in steps]
+            if not percep[-1] < percep[0]:
+                raise AssertionError(f"invert: percep {percep[0]} -> {percep[-1]} did not fall")
+            target_t = targets[sign][1].to(dev)
+            psnr0 = float(psnr(probe["first_rgb"], target_t))
+            by_kind = {}
+            for i, st in enumerate(steps[1:], start=1):
+                by_kind.setdefault(_step_kind(i, icfg), []).append(st["ms"])
+            kind_ms = {k: sum(v) / len(v) for k, v in by_kind.items()}
+            full = dataclasses.replace(icfg, **full_steps)
+            n_full = full.n_steps_pose + full.n_steps_app + full.n_steps_multiview
+            extrap_s = sum(kind_ms[_step_kind(i, full)] for i in range(n_full)) / 1e3
+            az = report["azim"][0]
+            run = {"wall_s": wall, "launches": launches, "peak_bytes":
+                   torch.cuda.max_memory_allocated(), "first_step_ms": steps[0]["ms"],
+                   "ms_by_kind": kind_ms, "n_by_kind": {k: len(v) for k, v in by_kind.items()},
+                   "extrapolated_full_s": extrap_s, "losses": losses, "percep": percep,
+                   "psnr_step0": psnr0, "psnr_final": report["psnr"],
+                   "azim_err_step0": abs(0.02 - sign * INV_AZIM),
+                   "azim_err_final": abs(az - sign * INV_AZIM), "report": report}
+            runs[sign] = run
+            log(f"[inversion] invert, target at azim {sign * INV_AZIM}: {wall:.2f} s wall "
+                f"(set-up, {n_steps} steps, final render and report); step ms (CUDA events) "
+                f"first {steps[0]['ms']:.1f}, then by kind "
+                f"{ {k: round(v, 1) for k, v in kind_ms.items()} } (steps "
+                f"{run['n_by_kind']}); peak allocated {run['peak_bytes'] / 2**30:.2f} GiB; "
+                f"K1 {launches['siren_render']} launches (2 a step + 2 for the final render), "
+                f"no K2; {smi}")
+            log(f"[inversion] percep {percep[0]:.5g} -> {percep[-1]:.5g}, loss {losses[0]:.6g} "
+                f"-> {losses[-1]:.6g}; PSNR against the target at step 0 {psnr0:.3f} dB, final "
+                f"{report['psnr']:.3f} dB; |azim - azim*| 0.02 start {run['azim_err_step0']:.4f}"
+                f" -> {run['azim_err_final']:.4f} (findings, not gates: a random VGG in "
+                f"{n_steps} steps); extrapolated full {n_full}-step schedule "
+                f"{extrap_s:.1f} s ({extrap_s / 60:.2f} min)")
+            shutil.copy(os.path.join(outdir, "proj.png"),
+                        os.path.join(OUT, f"inversion_proj_{'+' if sign > 0 else '-'}.png"))
+        res["invert"] = {str(k): v for k, v in runs.items()}
+        art = os.path.join(tmp, "inv_+", "w.pt")
+
+        # one appearance step's gradients through K1 (SirenRender) against
+        # the same step computed other ways (INV_GRAD_BOUNDS), on the card
+        vgg = init_vgg(torch.Generator().manual_seed(0), device=dev)
+        proj_k1, proj_plain = inv.Projector(model, vgg, icfg), inv.Projector(model, vgg, icfg,
+                                                                              fused=False)
+        state = proj_k1.init_state(torch.Generator().manual_seed(SEED + 32), (0.02, -0.02))
+        tg = proj_k1.prepare_targets(targets[1][1].numpy())
+        t_rand = torch.rand((2, gcfg.img_size, gcfg.img_size, 1),
+                            generator=torch.Generator().manual_seed(SEED + 33))
+        step_i = icfg.n_steps_pose + 1
+        _, flip, mask_bg = inv.step_plan(step_i, icfg)
+        k1_fused = ksr.siren_render_fused
+
+        def step_grads(name, proj, stand_in=None, want=None):
+            """(metrics, gradients) of the step; `stand_in` takes the place
+            of siren_render_fused, the renderer's fused call."""
+            with contextlib.ExitStack() as st:
+                if stand_in is not None:
+                    st.enter_context(patched(ksr, "siren_render_fused", lambda _: stand_in))
+                launches = st.enter_context(counted(f"appearance step, {name}", want or {}))
+                out = proj.loss_and_grads(state, tg, t_rand, flip, mask_bg)
+            return out, launches
+
+        def reference(dtype):
+            return lambda *args: ksr.siren_render_reference(*args, matmul_dtype=dtype)
+
+        def detached(index):
+            def call(*args):
+                args = list(args)
+                args[index] = args[index].detach()
+                return k1_fused(*args)
+            return call
+
+        def gap_of(x, y, group):
+            x = torch.cat([x[k].flatten() for k in INV_GROUPS[group]]).double()
+            y = torch.cat([y[k].flatten() for k in INV_GROUPS[group]]).double()
+            return {"cos": float(torch.nn.functional.cosine_similarity(x, y, dim=0)),
+                    "max_rel": float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))}
+
+        def within(got, bound):
+            return got["cos"] > bound[0] and got["max_rel"] <= bound[1]
+
+        (m_k1, g_k1), l_grad = step_grads("K1", proj_k1, want={"siren_render": 2})
+        with plain_kernels():
+            (m_kp, g_kp), _ = step_grads("K1's plain version", proj_k1)
+        (m_b16, g_b16), _ = step_grads("bf16 plain renderer", proj_k1,
+                                       reference(torch.bfloat16))
+        (m_r32, g_r32), _ = step_grads("f32 stand-in on the fused route", proj_k1,
+                                       reference(torch.float32))
+        (m_pl, g_pl), _ = step_grads("plain f32 renderer", proj_plain)
+        if not all(torch.isfinite(g).all() for g in g_k1.values()):
+            raise AssertionError("inversion gradients through K1 not finite")
+        grads = {}
+        for kind, name, x, y in (("kernel", "K1 vs K1's plain version", g_k1, g_kp),
+                                 ("bf16", "K1 vs the bf16 plain renderer", g_k1, g_b16),
+                                 ("route", "the f32 stand-in on the fused route vs the "
+                                  "plain f32 renderer", g_r32, g_pl),
+                                 ("f32", "K1 vs the plain f32 renderer", g_k1, g_pl)):
+            for group in INV_GROUPS:
+                got = gap_of(x, y, group)
+                grads[f"{group}: {name}"] = got
+                bound = INV_GRAD_BOUNDS[kind][group]
+                held = (f"bound cosine > {bound[0]}, max relative difference <= {bound[1]}"
+                        if bound else "no bound: the bf16 rounding, held by 'bf16' and 'route'")
+                log(f"[inversion] appearance step {step_i} (mask on, no flip), {group} "
+                    f"gradient, {name}: cosine {got['cos']:.6f}, max relative difference "
+                    f"{got['max_rel']:.3e} ({held})")
+                if bound and not within(got, bound):
+                    raise AssertionError(f"inversion gradients disagree: {group}, {name}: "
+                                         f"{got}")
+        log(f"[inversion] loss through K1 {float(m_k1['loss']):.6g}, K1's plain version "
+            f"{float(m_kp['loss']):.6g}, bf16 plain renderer {float(m_b16['loss']):.6g}, "
+            f"f32 stand-in {float(m_r32['loss']):.6g}, plain f32 renderer "
+            f"{float(m_pl['loss']):.6g}")
+        for arg, (index, must_fail) in INV_PLANTED.items():
+            (_, g_bad), _ = step_grads(f"K1 with {arg} detached (planted fault)", proj_k1,
+                                       detached(index), want={"siren_render": 2})
+            got = gap_of(g_bad, g_b16, "camera")
+            grads[f"camera: K1 with {arg} detached vs the bf16 plain renderer"] = got
+            caught = not within(got, INV_GRAD_BOUNDS["bf16"]["camera"])
+            log(f"[inversion] planted fault, {arg} detached before K1: camera gradient vs "
+                f"the bf16 plain renderer cosine {got['cos']:.6f}, max relative difference "
+                f"{got['max_rel']:.3e}: {'fails' if caught else 'passes'} the 'bf16' bounds"
+                + ("" if must_fail else " (|rays_d| does not depend on the camera)"))
+            if must_fail and not caught:
+                raise AssertionError(f"the 'bf16' gradient bounds do not see {arg} detached")
+        res["grads"] = grads
+        if profile:
+            lrs = inv.step_plan(step_i, icfg)[0]
+            res["profile"] = profile_calls(
+                lambda: proj_k1.step(state, tg, t_rand, lrs, flip, mask_bg),
+                runs[1]["ms_by_kind"]["appearance"], n=1, what="projector step",
+                table="profile_inversion_step.txt")
+        del proj_k1, proj_plain, tg
+
+        # the inverted views through the kernels (F = 1) against the plain frames
+        blob = inv.Projector.load_inversion(art)
+        inv.restore_inverted(model, blob)
+        azim0 = float(blob["azim"][0, 0])
+        cams = sample_mod.yaw_trajectory(4, gcfg.img_size, azim_range=(azim0 - 0.3, azim0 + 0.3),
+                                         elev=float(blob["elev"][0, 0]), fov_ang=gcfg.fov_ang,
+                                         dist_radius=gcfg.dist_radius, device=dev)
+        views_noise = [b.to(dev) for b in blob["noise_bufs"]]
+        wr, wd = blob["w_render_opt"].to(dev), blob["w_decoder_opt"].to(dev)
+
+        def views():
+            f = sample_mod.make_frame_renderer(model, fused=True)
+            return torch.cat([f(wr, wd, *(c[i:i + 1] for c in cams[:4]), views_noise)[0]
+                              for i in range(4)])
+
+        with counted("inverted views, kernels (4 frames at F = 1)",
+                     {"siren_render": 4, "decoder_block_f32": 16}) as l_views:
+            fused_views = views()
+        with plain_kernels():
+            with counted("inverted views, plain kernels", {}):
+                plain_views = views()
+        v_max, v_mean = gap(fused_views, plain_views)
+        log(f"[inversion] inverted views through K1 + f32 K2 vs the plain kernels: max "
+            f"{v_max:.3e}, mean {v_mean:.3e} (bounds 0.1, 1e-3)")
+        if not torch.isfinite(fused_views).all() or not (v_max <= 0.1 and v_mean <= 1e-3):
+            raise AssertionError(f"inverted views disagree: {v_max}, {v_mean}")
+        res["views_gap"] = [v_max, v_mean]
+
+        # render-inverted from the port's artifact and from it in JAX's format
+        jax_art = write_jax_inversion(os.path.join(tmp, "w.pkl"), blob)
+        rendered = {}
+        for name, path in (("w.pt", art), ("w.pkl", jax_art)):
+            with counted(f"render-inverted --n-frames 4 ({name}, plain modules)", {}):
+                t0 = time.perf_counter()
+                out = cli_json(["render-inverted", *base, "--inversion", path, "--outdir",
+                                os.path.join(tmp, f"views_{name}"), "--n-frames", "4",
+                                "--opts", "network_pkl", ckpt])
+                res[f"render_inverted_s ({name})"] = time.perf_counter() - t0
+            rendered[name] = probe["frames"]
+            if rendered[name].shape != (4, size, size, 3) or not os.path.exists(out["grid"]):
+                raise AssertionError(f"render-inverted {name}: {out}")
+        if not np.array_equal(rendered["w.pt"], rendered["w.pkl"]):
+            raise AssertionError("render-inverted: the JAX-format artifact renders other frames")
+        shutil.copy(out["grid"], os.path.join(OUT, "inversion_views.png"))
+        log(f"[inversion] render-inverted: 4 frames from w.pt in "
+            f"{res['render_inverted_s (w.pt)']:.2f} s, from the JAX-format w.pkl in "
+            f"{res['render_inverted_s (w.pkl)']:.2f} s, bit-equal")
+
+        with counted("lerp-inversions --n-interp 3 (plain modules)", {}):
+            t0 = time.perf_counter()
+            out = cli_json(["lerp-inversions", *base, "--inversions", art,
+                            os.path.join(tmp, "inv_-", "w.pt"), "--outdir",
+                            os.path.join(tmp, "lerp"), "--n-interp", "3", "--opts",
+                            "network_pkl", ckpt])
+            res["lerp_s"] = time.perf_counter() - t0
+        if out["frames"] != 6 or probe["frames"].shape != (6, size, size, 3) or \
+                not np.isfinite(probe["frames"]).all():
+            raise AssertionError(f"lerp-inversions: {out}")
+        log(f"[inversion] lerp-inversions: 6 frames in {res['lerp_s']:.2f} s; {smi}")
+    res["launches"] = {"siren_render": l_targets["siren_render"] + sum(
+        r["launches"]["siren_render"] for r in runs.values()) + l_grad["siren_render"]
+        + l_views["siren_render"],
+        "decoder_block_f32": l_targets["decoder_block_f32"] + l_views["decoder_block_f32"]}
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
@@ -1193,18 +1656,24 @@ def main() -> int:
     with torch.inference_mode(False), torch.enable_grad():
         report["training_loop"] = training_loop_phase(dev, smi)
 
+    # ---- 9. flip-inversion at r1024 through the command line ----
+    with torch.inference_mode(False):
+        report["inversion"] = inversion_phase(dev, smi, profile="--profile" in sys.argv[1:])
+
     # ---- the kernels line ----
     t32, tbf = report["trajectory_f32"], report["trajectory_bf16"]
-    # K1's launches: the serving path's, the training steps' and the
-    # training loop's (with its sampling from the checkpoint)
-    loop = report["training_loop"]["launches"]
+    # K1's launches: the serving path's, the training steps', the
+    # training loop's (with its sampling from the checkpoint) and the
+    # inversion's
+    loop, inversion = report["training_loop"]["launches"], report["inversion"]["launches"]
     entry("siren_render", "cips3dpp_torch/csrc/siren_render.cu",
           "cips3dpp_tpu/kernels/siren_render.py:140", report["K1"],
           serving_launches["siren_render"] + report["training"]["launches"]["siren_render"]
-          + loop["siren_render"])
+          + loop["siren_render"] + inversion["siren_render"])
     entry("decoder_block", K2_SRC, K2_TPU, report["K2"], serving_launches["decoder_block"])
     entry("decoder_block_f32", K2_SRC, K2_TPU, report["K2-f32"],
-          t32["launches_buffers"]["decoder_block_f32"] + loop["decoder_block_f32"])
+          t32["launches_buffers"]["decoder_block_f32"] + loop["decoder_block_f32"]
+          + inversion["decoder_block_f32"])
     entry("decoder_block_hash", K2_SRC, K2_TPU, report["K2-hash"],
           tbf["launches_seed"]["decoder_block_hash"])
     entry("decoder_block_hash_f32", K2_SRC, K2_TPU, report["K2-hash-f32"],

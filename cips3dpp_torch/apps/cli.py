@@ -5,9 +5,10 @@ commands of cips3dpp_tpu/apps/cli.py):
         --section sample_multi_view] [--opts key.path value ...]
         [--device cuda|cpu] [--outdir DIR] [--seed N]
 
-Commands: train, sphere-init, sample-multi-view, fixed-zs-multi-view,
-interpolate-z, style-mixing, interpolate-decoder. Everything runs on the
-card unless `--device cpu` is given. `--cfg` is read by PyYAML where it
+Commands (10 of the JAX package's 16): train, sphere-init,
+sample-multi-view, fixed-zs-multi-view, interpolate-z, style-mixing,
+interpolate-decoder, invert, render-inverted, lerp-inversions. Everything
+runs on the card unless `--device cpu` is given. `--cfg` is read by PyYAML where it
 imports and by the standard-library reader `io/yaml_lite.py` where it does
 not. The sampling commands' generator is randomly initialised from a
 fixed seed, or loaded from what the config's `network_pkl` (or `ckpt`)
@@ -15,12 +16,16 @@ names: a reference `.pth` state dict (the port's module names are the
 reference's state-dict names) or a checkpoint directory that `train`
 wrote (its latest step's G_ema). `train` and the D step reach K1; of the
 sampling commands only `sample-multi-view --fused` reaches the kernels
-(batch 1), the others run the plain modules.
+(batch 1), the others run the plain modules. `invert` renders through
+K1 under grad (`SirenRender`, batch 2) with the plain decoder, and writes
+its artifact `w.pt`; `render-inverted` and `lerp-inversions` read that or
+a `w.pkl` the JAX package wrote, and render plainly.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -338,6 +343,156 @@ def cmd_sphere_init(argv):
     run_sphere_init(args, cfg)
 
 
+def _load_inversion(path: str) -> dict:
+    """An inversion artifact: the port's (a torch zip archive) or the JAX
+    package's w.pkl."""
+    import zipfile
+
+    from ..io.jax_params import load_jax_inversion
+    from .inversion import Projector
+
+    return Projector.load_inversion(path) if zipfile.is_zipfile(path) else \
+        load_jax_inversion(path)
+
+
+def cmd_invert(argv):
+    p = _base_parser("flip inversion")
+    p.add_argument("--image", type=str, required=True)
+    p.add_argument("--vgg", type=str, default=None,
+                   help="torchvision vgg16 .pth for the perceptual loss")
+    p.add_argument("--lpips", type=str, default=None,
+                   help="lpips package vgg.pth lin weights (needs --vgg too)")
+    p.add_argument("--azim-init", type=float, nargs=2, default=[0.0, 0.0])
+    p.add_argument("--cam-param", choices=["angles", "axis_angle"], default=None,
+                   help="camera parameterisation (axis_angle = the reference's "
+                        "_flip_inversion_axis_angle_web mode)")
+    args = p.parse_args(argv)
+    cfg = _load_cfg(args)
+    if args.cam_param:
+        cfg["cam_param"] = args.cam_param
+    dev = resolve_device(args.device)
+
+    from ..io.weights import load_lpips, load_vgg
+    from ..ops.resize import center_crop, pil_lanczos_resize
+    from .inversion import InversionConfig, Projector
+    from .sample import _to_u8, read_image_rgb, write_png
+
+    model, gcfg = _build_generator(cfg, dev)
+    # --vgg / --lpips win; otherwise $CIPS3DPP_WEIGHTS_DIR is consulted
+    vgg, vgg_prov = load_vgg(path=args.vgg, device=dev)
+    lpips = load_lpips(vgg_path=args.vgg, lin_path=args.lpips, device=dev)
+    fields = {f.name for f in dataclasses.fields(InversionConfig)}
+    icfg = InversionConfig(**{k: v for k, v in cfg.items() if k in fields})
+    size = gcfg.out_size
+    img = pil_lanczos_resize(center_crop(read_image_rgb(args.image)), (size, size))
+    target = img.astype(np.float32) / 127.5 - 1.0
+
+    proj = Projector(model, vgg, icfg, lpips=lpips)
+    os.makedirs(args.outdir, exist_ok=True)
+    state, proj_img, report = proj.project(
+        target, generator=torch.Generator().manual_seed(args.seed),
+        azim_init=tuple(args.azim_init),
+        logger=lambda s, m: print(f"step {s}: {m}", file=sys.stderr))
+    # the weights' provenance, so random-VGG runs are never taken for
+    # quality numbers
+    report["vgg_weights"] = vgg_prov
+    write_png(f"{args.outdir}/proj.png", _to_u8(proj_img[0]))
+    proj.save_inversion(f"{args.outdir}/w.pt", state)
+    with open(f"{args.outdir}/report.json", "w") as f:
+        json.dump(report, f, indent=2)
+    print(json.dumps(report))
+
+
+def cmd_render_inverted(argv):
+    p = _base_parser("multi-view rendering from a saved inversion")
+    p.add_argument("--inversion", type=str, required=True,
+                   help="the artifact of invert (w.pt) or a JAX w.pkl")
+    p.add_argument("--n-frames", type=int, default=36)
+    p.add_argument("--fps", type=int, default=12)
+    args = p.parse_args(argv)
+    cfg = _load_cfg(args)
+    dev = resolve_device(args.device)
+
+    from .inversion import restore_inverted
+    from .sample import make_frame_renderer, save_image_grid, save_video, yaw_trajectory
+
+    model, gcfg = _build_generator(cfg, dev)
+    blob = _load_inversion(args.inversion)
+    # the fitted decoder and the renderer the inversion ran against
+    # (render_video_web_v10.py:1039-1048)
+    restore_inverted(model, blob)
+    azim0 = float(blob["azim"][0, 0])
+    cams = yaw_trajectory(args.n_frames, gcfg.img_size, azim_range=(azim0 - 0.3, azim0 + 0.3),
+                          elev=float(blob["elev"][0, 0]), fov_ang=gcfg.fov_ang,
+                          dist_radius=gcfg.dist_radius, device=dev)
+    frame = make_frame_renderer(model)
+    sr, sd = blob["w_render_opt"].to(dev), blob["w_decoder_opt"].to(dev)
+    noise = [b.to(dev) for b in blob["noise_bufs"]]
+    frames = []
+    for i in range(args.n_frames):
+        rgb, *_ = frame(sr, sd, cams.extrinsics[i:i + 1], cams.focal[i:i + 1],
+                        cams.near[i:i + 1], cams.far[i:i + 1], noise)
+        frames.append(rgb[0].float().cpu().numpy())
+    os.makedirs(args.outdir, exist_ok=True)
+    vp = save_video(np.stack(frames), f"{args.outdir}/inverted_views.mp4", args.fps)
+    gp = save_image_grid(np.stack(frames), f"{args.outdir}/inverted_views.png")
+    print(json.dumps({"video": vp, "grid": gp}))
+
+
+def _lerp(x, y, t: float):
+    if isinstance(x, dict):
+        return {k: _lerp(v, y[k], t) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_lerp(u, v, t) for u, v in zip(x, y)]
+    return (1.0 - t) * x + t * y
+
+
+def cmd_lerp_inversions(argv):
+    """Interpolation gallery over saved inversions: the w's, decoder (and
+    renderer) weights and noise buffers lerped between consecutive
+    artifacts, cycling (lerp_image_list, projector_v10.py:732-821)."""
+    p = _base_parser("video lerping between saved inversion artifacts")
+    p.add_argument("--inversions", nargs="+", required=True,
+                   help="two or more artifacts (w.pt or JAX w.pkl)")
+    p.add_argument("--n-interp", type=int, default=12, help="frames per pair")
+    p.add_argument("--fps", type=int, default=10)
+    args = p.parse_args(argv)
+    cfg = _load_cfg(args)
+    dev = resolve_device(args.device)
+
+    from ..core.camera import camera_from_angles
+    from .inversion import restore_inverted
+    from .sample import make_frame_renderer, save_video
+
+    model, gcfg = _build_generator(cfg, dev)
+    blobs = [_load_inversion(pth) for pth in args.inversions]
+    base_renderer = {k: v.clone() for k, v in model.renderer.state_dict().items()}
+    frame = make_frame_renderer(model)
+    keys = ("w_render_opt", "w_decoder_opt", "decoder_params", "noise_bufs")
+    frames = []
+    for idx, cur in enumerate(blobs):
+        nxt = blobs[(idx + 1) % len(blobs)]
+        for t in np.linspace(0.0, 1.0, args.n_interp, endpoint=False):
+            t = float(t)
+            mix = {k: _lerp(cur[k], nxt[k], t) for k in keys}
+            both = "renderer_params" in cur and "renderer_params" in nxt
+            mix["renderer_params"] = (_lerp(cur["renderer_params"], nxt["renderer_params"], t)
+                                      if both else base_renderer)
+            restore_inverted(model, mix)
+            azim = _lerp(float(cur["azim"][0, 0]), float(nxt["azim"][0, 0]), t)
+            elev = _lerp(float(cur["elev"][0, 0]), float(nxt["elev"][0, 0]), t)
+            cam = camera_from_angles(torch.tensor([azim], device=dev),
+                                     torch.tensor([elev], device=dev), gcfg.img_size,
+                                     fov_ang=gcfg.fov_ang, dist_radius=gcfg.dist_radius)
+            rgb, *_ = frame(mix["w_render_opt"].to(dev), mix["w_decoder_opt"].to(dev),
+                            cam.extrinsics, cam.focal, cam.near, cam.far,
+                            [b.to(dev) for b in mix["noise_bufs"]])
+            frames.append(rgb[0].float().cpu().numpy())
+    os.makedirs(args.outdir, exist_ok=True)
+    vp = save_video(np.stack(frames), f"{args.outdir}/gallery.mp4", fps=args.fps)
+    print(json.dumps({"video": vp, "frames": len(frames)}))
+
+
 COMMANDS = {
     "train": cmd_train,
     "sphere-init": cmd_sphere_init,
@@ -346,6 +501,9 @@ COMMANDS = {
     "interpolate-z": cmd_interpolate_z,
     "style-mixing": cmd_style_mixing,
     "interpolate-decoder": cmd_interpolate_decoder,
+    "invert": cmd_invert,
+    "render-inverted": cmd_render_inverted,
+    "lerp-inversions": cmd_lerp_inversions,
 }
 
 

@@ -12,8 +12,9 @@ and the decoder block kernel once per upsample block (`render_camera`).
 
 Trajectories are built on the card unless `device="cpu"` is passed; the
 renderers run where the model lives. Random draws take a
-`torch.Generator`; the frame and grid writers need nothing outside the
-standard library and numpy (imageio is used for videos when it imports).
+`torch.Generator`; the frame and grid writers and the PNG reader need
+nothing outside the standard library and numpy (imageio is used for
+videos and PIL for reading other image formats when they import).
 """
 
 from __future__ import annotations
@@ -332,6 +333,83 @@ def write_png(path: str, img_u8: np.ndarray) -> str:
         fh.write(chunk(b"IDAT", zlib.compress(raw, 6)))
         fh.write(chunk(b"IEND", b""))
     return path
+
+
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    if pa <= pb and pa <= pc:
+        return a
+    return b if pb <= pc else c
+
+
+def read_png(path: str) -> np.ndarray:
+    """An 8-bit, non-interlaced gray, gray+alpha, RGB or RGBA PNG ->
+    (H, W, C) uint8, standard library only (zlib and the five row
+    filters). Other PNGs raise ValueError."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, color_type, _, _, interlace = header
+    channels = {0: 1, 4: 2, 2: 3, 6: 4}.get(color_type)
+    if depth != 8 or channels is None or interlace:
+        raise ValueError(f"{path}: bit depth {depth}, color type {color_type}, interlace "
+                         f"{interlace}; this reader takes 8-bit gray/RGB(A), not interlaced")
+    raw = zlib.decompress(b"".join(idat))
+    stride = w * channels
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.int64)
+    for y in range(h):
+        ftype = raw[y * (stride + 1)]
+        line = np.frombuffer(raw, np.uint8, stride, y * (stride + 1) + 1).astype(np.int64)
+        if ftype == 0:
+            rec = line
+        elif ftype == 1:  # Sub: a running sum per channel
+            rec = np.cumsum(line.reshape(w, channels), axis=0).reshape(-1) % 256
+        elif ftype == 2:  # Up
+            rec = (line + prior) % 256
+        elif ftype in (3, 4):  # Average, Paeth: each byte needs its left one
+            rec_b, up, filt = bytearray(stride), prior.tolist(), line.tolist()
+            for x in range(stride):
+                left = rec_b[x - channels] if x >= channels else 0
+                if ftype == 3:
+                    pred = (left + up[x]) // 2
+                else:
+                    pred = _paeth(left, up[x], up[x - channels] if x >= channels else 0)
+                rec_b[x] = (filt[x] + pred) & 0xFF
+            rec = np.frombuffer(bytes(rec_b), np.uint8).astype(np.int64)
+        else:
+            raise ValueError(f"{path}: row {y} has filter type {ftype}")
+        out[y] = rec
+        prior = rec
+    return out.reshape(h, w, channels)
+
+
+def read_image_rgb(path: str) -> np.ndarray:
+    """(H, W, 3) uint8: read by PIL where it imports (any format), else by
+    `read_png`; gray is repeated to RGB and alpha dropped, as PIL's
+    convert("RGB") does."""
+    try:
+        from PIL import Image
+    except ImportError:
+        img = read_png(path)
+        return img[..., :3] if img.shape[-1] >= 3 else np.repeat(img[..., :1], 3, axis=-1)
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
 
 
 def save_video(frames: np.ndarray, path: str, fps: int = 30) -> str:

@@ -1,4 +1,5 @@
-"""Camera from angles, random cameras and 8-view sweeps (counterpart of cips3dpp_tpu/core/camera.py).
+"""Camera from angles, random cameras, 8-view sweeps and axis-angle
+cameras (counterpart of cips3dpp_tpu/core/camera.py).
 
 The camera sits on a unit sphere looking at the origin; azimuth/elevation
 map to a position, a look-at frame gives R, intrinsics come from a fov
@@ -141,3 +142,32 @@ def sweep_cameras(
     return camera_from_angles(
         azim, elev, img_size, fov_ang=fov_ang, dist_radius=dist_radius
     )
+
+
+def axis_angle_to_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
+    """Rodrigues rotation: (..., 3) axis-angle -> (..., 3, 3) matrix, with
+    the series forms of sin(t)/t and (1-cos(t))/t^2 near t = 0."""
+    # double where: the sqrt never sees t^2 = 0, so the gradient at the
+    # zero rotation (the axis_angle inversion's start) stays finite
+    t2_raw = torch.sum(axis_angle * axis_angle, dim=-1, keepdim=True)
+    small = t2_raw < 1e-12
+    t2 = torch.where(small, torch.ones_like(t2_raw), t2_raw)
+    theta = torch.sqrt(t2)
+    sinc = torch.where(small, 1.0 - t2_raw / 6.0, torch.sin(theta) / theta)
+    cosc = torch.where(small, 0.5 - t2_raw / 24.0, (1.0 - torch.cos(theta)) / t2)
+    x, y, z = axis_angle.unbind(-1)
+    zero = torch.zeros_like(x)
+    k = torch.stack([
+        torch.stack([zero, -z, y], dim=-1),
+        torch.stack([z, zero, -x], dim=-1),
+        torch.stack([-y, x, zero], dim=-1),
+    ], dim=-2)  # (..., 3, 3) skew matrix
+    eye = torch.eye(3, dtype=axis_angle.dtype, device=axis_angle.device).expand(k.shape)
+    return eye + sinc[..., None] * k + cosc[..., None] * (k @ k)
+
+
+def camera2world_from_axis_angle(rot: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
+    """(B, 3) axis-angle + (B, 3) translation -> (B, 3, 4) camera-to-world
+    (nerf_utils.py:438-463), differentiable in both."""
+    prefix = rot.shape[:-1]
+    return torch.cat([axis_angle_to_matrix(rot), trans.reshape(*prefix, 3, 1)], dim=-1)

@@ -1,5 +1,6 @@
 """Weight bridge: the JAX package's param trees (generator, image D,
-pose D) -> this package's state dicts.
+pose D, VGG16 and LPIPS) and artifacts (a TrainState, an inversion's
+w.pkl) -> this package's state dicts.
 
 The input is the nested dict of `variables["params"]` of the flax
 Generator, as numpy arrays (or anything `np.asarray` takes). The output
@@ -22,6 +23,7 @@ TrainState (weights, EMA, optax states, counters) into the port's.
 
 from __future__ import annotations
 
+import pickle
 from typing import Mapping
 
 import numpy as np
@@ -274,3 +276,57 @@ def load_jax_train_state(state, jax_state):
                                           device=state.mean_path_length.device)
     state.step = int(np.asarray(get("step")))
     return state
+
+
+def jax_vgg_params_to_state_dict(tree: Mapping) -> dict[str, torch.Tensor]:
+    """A flax VGG16Features tree (`{"params": {"conv_{i}": {"kernel" HWIO,
+    "bias"}}}` or its params) -> `models/vgg.py` names `features.{i}.*`
+    (OIHW); an LPIPS tree (`{"vgg": ..., "lin": {i: (C,)}}`) -> the LPIPS
+    module's `vgg.features.{i}.*` and `lin.{i}`."""
+    if "vgg" in tree:
+        out = {f"vgg.{k}": v for k, v in jax_vgg_params_to_state_dict(tree["vgg"]).items()}
+        out.update(_tensors({f"lin.{i}": _vec(w) for i, w in tree["lin"].items()}))
+        return out
+    params = _unwrap(tree)
+    out = {}
+    for name, node in params.items():
+        idx = name[len("conv_"):]
+        out[f"features.{idx}.weight"] = _conv(node["kernel"])
+        out[f"features.{idx}.bias"] = _vec(node["bias"])
+    return _tensors(out)
+
+
+class _ArrayUnpickler(pickle.Unpickler):
+    """Unpickles dicts, lists and numpy arrays, and nothing that runs code."""
+
+    _ALLOWED = {("numpy", "ndarray"), ("numpy", "dtype"),
+                ("numpy.core.multiarray", "_reconstruct"),
+                ("numpy._core.multiarray", "_reconstruct")}
+
+    def find_class(self, module, name):
+        if (module, name) not in self._ALLOWED:
+            raise pickle.UnpicklingError(f"{module}.{name} is not allowed in an inversion "
+                                         "artifact")
+        return super().find_class(module, name)
+
+
+def load_jax_inversion(path: str) -> dict:
+    """An inversion artifact the JAX package wrote (`Projector.save_inversion`:
+    a pickle of numpy trees under flax names, cips3dpp_tpu/apps/
+    inversion.py:445-451) in the port's artifact layout
+    (`apps/inversion.py` `Projector.save_inversion`)."""
+    with open(path, "rb") as f:
+        blob = _ArrayUnpickler(f).load()
+    t = lambda x: torch.from_numpy(np.array(x, np.float32))
+
+    def strip(sd, prefix):
+        return {k[len(prefix):]: v for k, v in sd.items()}
+
+    out = {k: t(blob[k]) for k in ("azim", "elev", "w_render_opt", "w_decoder_opt")}
+    out["decoder_params"] = strip(jax_params_to_state_dict(
+        {"decoder": blob["decoder_params"]}), "decoder.")
+    if "renderer_params" in blob:
+        out["renderer_params"] = strip(jax_params_to_state_dict(
+            {"renderer": blob["renderer_params"]}), "renderer.")
+    out["noise_bufs"] = [t(b) for b in blob["noise_bufs"]]
+    return out

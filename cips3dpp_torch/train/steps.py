@@ -22,11 +22,11 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from ..core.camera import CameraParams, sample_cameras
 from ..models.diffaug import diffaug_draws
+from ..ops.resize import resize
 from .losses import (
     d_logistic_loss,
     eikonal_loss,
@@ -40,35 +40,11 @@ from .losses import (
 from .state import TrainConfig, TrainState, check_config
 
 
-def lanczos3_matrix(in_size: int, out_size: int) -> np.ndarray:
-    """(in, out) weights of jax.image.resize(method="lanczos3") along one
-    axis (jax/_src/image/scale.py compute_weight_mat, antialiased: the
-    kernel is widened by the downscale factor)."""
-    inv_scale = in_size / out_size
-    kernel_scale = max(inv_scale, 1.0)
-    sample_f = (np.arange(out_size) + 0.5) * inv_scale - 0.5
-    x = np.abs(sample_f[None, :] - np.arange(in_size)[:, None]) / kernel_scale
-    y = 3.0 * np.sin(np.pi * x) * np.sin(np.pi * x / 3.0)
-    w = np.where(x > 1e-3, y / np.where(x != 0, np.pi**2 * x**2, 1.0), 1.0)
-    w = np.where(x > 3.0, 0.0, w)
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
-                 w / np.where(total != 0, total, 1.0), 0.0)
-    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return np.where(inside[None, :], w, 0.0).astype(np.float32)
-
-
 def downsample_to(imgs: torch.Tensor, size: int) -> torch.Tensor:
     """Real images (B, H, W, C) -> (B, size, size, C) thumbnails for the
     pose D: the lanczos3 resize of the JAX package (the reference uses a
     PIL-Lanczos conv, train_v10.py:65-74)."""
-    b, h, w, c = imgs.shape
-    if h == size:
-        return imgs
-    kw = dict(device=imgs.device, dtype=imgs.dtype)
-    wh = torch.from_numpy(lanczos3_matrix(h, size)).to(**kw)
-    ww = torch.from_numpy(lanczos3_matrix(w, size)).to(**kw)
-    return torch.einsum("bhwc,hi,wj->bijc", imgs, wh, ww)
+    return resize(imgs, (size, size), "lanczos3")
 
 
 def sample_pixel_idx(generator, batch: int, cam_size: int, gen_size: int, mode: str,

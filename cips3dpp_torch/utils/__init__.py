@@ -1,1 +1,2 @@
-"""Mesh extraction and the software rasterizer of the sampling apps."""
+"""Mesh extraction, the software rasterizer, logging, and the inversion
+report's metrics (LPIPS, PSNR, SSIM)."""

@@ -376,6 +376,60 @@ def test_siren_render_gradients_kernel_forward(dev, r):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()))
 
 
+def test_siren_render_camera_gradients_batch2(dev):
+    """The projector's camera path: VolumeFeatureRenderer.forward(fused=
+    True) at batch 2, width 256, R = 4096 rays x 24 samples, with pts,
+    rays_d (viewdirs are its normalisation), z_vals and the styles as
+    leaves. K1 launches once per item; the gradients equal autograd's
+    through the replayed function (siren_render_reference, the same bf16
+    products; 1e-5 of each gradient's largest value) and agree with
+    autograd through the plain f32 renderer (bf16 products against f32
+    ones: cosine above 0.99, max error within 0.25 of the largest value,
+    chip_smoke.py phase 7's bounds)."""
+    from cips3dpp_torch.core.camera import camera_from_angles
+    from cips3dpp_torch.core.rays import prepare_nerf_inputs
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.kernels.siren_render import siren_render_reference
+    from cips3dpp_torch.models.layers import init_parameters
+    from cips3dpp_torch.models.renderer import VolumeFeatureRenderer
+
+    gen = torch.Generator().manual_seed(7)
+    rend = init_parameters(VolumeFeatureRenderer(depth=2), gen).to(dev).requires_grad_(False)
+    cam = camera_from_angles(torch.tensor([0.25, -0.25], device=dev),
+                             torch.tensor([0.05, 0.05], device=dev), 64)
+    pts, rays_d, _, z_vals = prepare_nerf_inputs(cam.focal, 64, cam.extrinsics, cam.near,
+                                                 cam.far, 24, perturb=True,
+                                                 t_rand=torch.rand((2, 64, 64, 1),
+                                                                   generator=gen).to(dev))
+    flat = lambda x: x.reshape(2, 4096, *x.shape[3:]).detach().requires_grad_(True)
+    pts, rays_d, z_vals = flat(pts), flat(rays_d), flat(z_vals)
+    styles = torch.randn((2, 3, 256), generator=gen).to(dev).requires_grad_(True)
+    leaves = [pts, rays_d, z_vals, styles]
+
+    def render(fused):
+        vd = torch.nn.functional.normalize(rays_d, dim=-1)
+        return rend(pts, rays_d, vd, z_vals, cam.near, cam.far, styles, fused=fused)[:5]
+
+    _lib.reset_launches()
+    outs = render(True)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["siren_render"] == 2
+    cots = [torch.randn(o.shape, generator=gen).to(dev) for o in outs]
+    got = torch.autograd.grad(outs, leaves, cots)
+    vd = torch.nn.functional.normalize(rays_d, dim=-1)
+    ref = [siren_render_reference(rend, styles[i], pts[i], vd[i], z_vals[i], rays_d[i],
+                                  cam.near[0, 0, 0], cam.far[0, 0, 0]) for i in range(2)]
+    want = torch.autograd.grad([torch.stack(o) for o in zip(*ref)], leaves, cots)
+    want32 = torch.autograd.grad(render(False), leaves, cots)
+    for name, g, w, w32 in zip(("pts", "rays_d", "z_vals", "styles"), got, want, want32):
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * float(w.abs().max()))
+        cos = torch.nn.functional.cosine_similarity(g.flatten().double(),
+                                                    w32.flatten().double(), dim=0)
+        assert float(cos) > 0.99, (name, float(cos))
+        assert float((g - w32).abs().max()) <= 0.25 * float(w32.abs().max()), name
+
+
 def test_d_step_launches_k1_once_per_item(dev):
     """The D step renders its fakes through K1, one launch per batch item,
     and moves both discriminators (a width-256, 24-sample generator at 16^2
