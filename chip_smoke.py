@@ -42,7 +42,9 @@ Phases, each fatal on failure:
      against autograd through the replayed function and through the plain
      f32 renderer;
   8. the training loop through the command line, in-process
-     (cips3dpp_torch.apps.cli.main) at train_r1024, batch 4, f32, with
+     (cips3dpp_torch.apps.cli.main), with cuDNN's deterministic
+     algorithms (phase 10 reproduces its state), at train_r1024, batch 4,
+     f32, with
      configs/ffhq.yaml read by the standard-library YAML reader (PyYAML
      hidden): `sphere-init --n-iters 20` (finite loss, a step-0
      checkpoint), `train --total-iters 8 --no-sphere-init` on a synthetic
@@ -80,7 +82,23 @@ Phases, each fatal on failure:
      first apart), the extrapolated time of the full 1200-step schedule,
      peak allocated memory, each command's wall seconds, PSNR and
      |azim - azim*| at step 0 and at the end (findings, not gates);
- 10. with --profile only: torch.profiler over 10 serving frames (phase 5),
+ 10. data-parallel training and FID at train_r1024, full width, f32:
+     (a) `prepare-data` of 8 seeded 1100x1000 PNGs to sizes 1024 and 64
+     with PIL hidden (shard shapes, dtype, count; data_iterator and the
+     native loader give the shard's pixels at the indices of their own
+     orders); (b) `train --n-devices 1 --fid-data` over 8 iterations,
+     checkpoints every 4, on phase 8's shard and seed: a one-rank NCCL
+     group whose step-8 state equals phase 8's bit for bit, one gradient
+     all-reduce an optimizer step, 4 K1 launches an iteration, FID logged
+     finite at steps 4 and 8, best_fid.pt; (c) two gloo ranks on the one
+     card, global batch 4 split 2 + 2, one D step with lazy R1 and one G
+     step against one process at batch 4 (DP_BOUNDS), and a planted
+     per-rank minibatch stddev that must fail them; (d) `eval-fid` of the
+     step-8 checkpoint, 64 images, batch 8, with KID (finite, Inception
+     weights "random"). Seconds an iteration against phase 8's, FID and
+     prepare-data seconds an image, generation and Inception seconds an
+     image, peak memory;
+ 11. with --profile only: torch.profiler over 10 serving frames (phase 5),
      over one call each of d_step with and without R1 and g_step (phase 7)
      and over one projector step (phase 9): device time per kernel and
      kernel group and the device idle share (tables in
@@ -706,6 +724,18 @@ def hidden_module(name):
             sys.modules[name] = saved
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block: with its default
+    backward algorithms the training steps do not repeat themselves bit for
+    bit on the card (tests/test_torch_port_gpu.py::
+    test_one_rank_nccl_steps_bit_equal_unsharded runs them twice)."""
+    c = torch.backends.cudnn
+    with c.flags(enabled=c.enabled, benchmark=False, deterministic=True,
+                 allow_tf32=c.allow_tf32):
+        yield
+
+
 def cli_json(argv):
     """Run one command of the port's CLI in this process; its last stdout
     line is a JSON object."""
@@ -722,6 +752,21 @@ def cli_json(argv):
 def read_jsonl(path):
     with open(path) as f:
         return [json.loads(line) for line in f]
+
+
+def flat_state(sd):
+    """A TrainState's state_dict() as {name: tensor}: module tensors,
+    Adam moments and step counts by parameter index, mean_path_length."""
+    out = {}
+    for k, v in sd.items():
+        if isinstance(v, torch.Tensor):
+            out[k] = v
+        elif isinstance(v, dict) and "state" in v and "param_groups" in v:
+            for i, st in v["state"].items():
+                out.update({f"{k}.{i}.{n}": t for n, t in st.items()})
+        elif isinstance(v, dict):
+            out.update({f"{k}.{n}": t for n, t in v.items()})
+    return out
 
 
 def training_loop_phase(dev, smi, cfg_path=os.path.join(ROOT, "configs", "ffhq.yaml")):
@@ -757,8 +802,8 @@ def training_loop_phase(dev, smi, cfg_path=os.path.join(ROOT, "configs", "ffhq.y
         return ema
 
     def flagged_steps(orig):
-        def make(gen_cfg, cfg):
-            d_step, g_step, path_step, sphere_step = orig(gen_cfg, cfg)
+        def make(gen_cfg, cfg, mesh=None):
+            d_step, g_step, path_step, sphere_step = orig(gen_cfg, cfg, mesh)
 
             def d(state, real, generator, alpha, d_regularize):
                 probe["flags"].append(("d", bool(d_regularize)))
@@ -770,18 +815,6 @@ def training_loop_phase(dev, smi, cfg_path=os.path.join(ROOT, "configs", "ffhq.y
             return d, g_step, p, sphere_step
         return make
 
-    def flat(sd):
-        out = {}
-        for k, v in sd.items():
-            if isinstance(v, torch.Tensor):
-                out[k] = v
-            elif isinstance(v, dict) and "state" in v and "param_groups" in v:
-                for i, st in v["state"].items():
-                    out.update({f"{k}.{i}.{n}": t for n, t in st.items()})
-            elif isinstance(v, dict):
-                out.update({f"{k}.{n}": t for n, t in v.items()})
-        return out
-
     def timed_save(orig):
         def save(self, step, state, config=None, metrics=None):
             torch.cuda.synchronize()
@@ -791,7 +824,7 @@ def training_loop_phase(dev, smi, cfg_path=os.path.join(ROOT, "configs", "ffhq.y
                                    "bytes": os.path.getsize(path)})
             if step == 8:  # what the resumed run must start from
                 probe["snap"] = {k: v.detach().to("cpu", copy=True)
-                                 for k, v in flat(state.state_dict()).items()}
+                                 for k, v in flat_state(state.state_dict()).items()}
             return path
         return save
 
@@ -808,7 +841,7 @@ def training_loop_phase(dev, smi, cfg_path=os.path.join(ROOT, "configs", "ffhq.y
     def checked_resume(orig):
         def resume(self, state):
             restored, step = orig(self, state)
-            got = flat(restored.state_dict())
+            got = flat_state(restored.state_dict())
             want = probe["snap"]
             if step != 8 or restored.step != 8 or got.keys() != want.keys():
                 raise AssertionError(f"resume: step {step}, state step {restored.step}")
@@ -951,7 +984,8 @@ def training_loop_phase(dev, smi, cfg_path=os.path.join(ROOT, "configs", "ffhq.y
         res["sampling"] = {"launches": l_sample, "s": sample_s}
         res["launches"] = {"siren_render": k1 + l_sample["siren_render"],
                            "decoder_block_f32": l_sample["decoder_block_f32"]}
-    return res
+    # the step-8 state, which phase 10's one-rank run must reproduce bit for bit
+    return res, probe["snap"]
 
 
 INV_CUT = {"n_steps_pose": 6, "n_steps_app": 10, "n_steps_multiview": 2}
@@ -1391,6 +1425,402 @@ def inversion_phase(dev, smi, profile=False,
     return res
 
 
+# Phase 10c: two gloo ranks on the one card against one process. Gates on
+# the first D step (lazy R1) and G step at train_r1024, global batch 4,
+# each rank's values against the one-process run's: every logged loss, and
+# every gradient the optimizers took (Adam's exp_avg after its first step,
+# b1 = 0), by the largest |difference| over the largest |reference| of each
+# tensor. The updated parameters are read as the share of values whose
+# update differs by more than half a learning rate: Adam's first update is
+# lr * g / (|g| + 1e-8), so a gradient within f32 noise of 0 may move its
+# parameter by +-lr in either run. A per-rank minibatch stddev (the planted
+# fault) must fail the gradient gate.
+# Measured on the H100 (run 1, PR 9): losses 1.75e-7, gradients 2.6e-5,
+# share 7.9e-8; the planted fault 1.6e-2, 1.6e-1, 7.5e-3.
+DP_BOUNDS = {"loss_rel": 1e-5, "grad_rel": 1e-3, "flipped_share": 1e-5}
+
+
+def _dp_build(mesh, dev, seed):
+    """train_r1024's modules and steps (configs/ffhq.yaml train_base),
+    seeded; the state replicated over `mesh`."""
+    from cips3dpp_torch.io.config import (
+        generator_config_from_dict, load_command_config, train_config_from_dict,
+    )
+    from cips3dpp_torch.models.discriminator import DStyleGANProgressive
+    from cips3dpp_torch.models.discriminator_pose import DVolumeRenderProgressive
+    from cips3dpp_torch.models.generator import Generator
+    from cips3dpp_torch.models.layers import randomize_zero_init_
+    from cips3dpp_torch.parallel import replicate
+    from cips3dpp_torch.train import create_train_state, make_train_steps
+
+    cfg = load_command_config(os.path.join(ROOT, "configs", "ffhq.yaml"), "train_base")
+    gcfg, tcfg = generator_config_from_dict(cfg["G_cfg"]), train_config_from_dict(cfg)
+    g = Generator(gcfg, device=dev, seed=seed)
+    randomize_zero_init_(g, torch.Generator().manual_seed(seed))
+    d = DStyleGANProgressive(cfg["D_cfg"]["input_size"], cfg["D_cfg"]["channel_multiplier"],
+                             device=dev, seed=seed + 1)
+    dr = DVolumeRenderProgressive(cfg["D_renderer_cfg"]["input_size"], device=dev, seed=seed + 2)
+    state = replicate(create_train_state(tcfg, g, d, dr, mesh), mesh)
+    return state, make_train_steps(gcfg, tcfg, mesh)
+
+
+def _dp_steps(mesh, dev, planted=False):
+    """One D step with lazy R1 and (unless `planted`) one G step from the
+    seeded state: ({loss: value}, {gradient name: CPU tensor}, {parameter
+    name: CPU tensor}, {parameter name: its learning rate}, {step: ms}).
+    The draws are the global batch's from one CUDA generator on every
+    rank."""
+    from cips3dpp_torch.parallel import shard_batch
+
+    state, (d_step, g_step, _, _) = _dp_build(mesh, dev, SEED + 60)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    size = state.g.cfg.out_size
+    real = torch.rand((4, size, size, 3), generator=gen, device=dev) * 2 - 1
+    real = shard_batch(real, mesh).contiguous()
+    losses, ms = {}, {}
+    plan = [("d_step_r1", lambda: d_step(state, real, gen, 0.5, d_regularize=True))]
+    if not planted:
+        plan.append(("g_step", lambda: g_step(state, gen, 0.5)))
+    for name, run in plan:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = run()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        losses.update({k: float(v) for k, v in m.items()})
+    grads, params, lrs = {}, {}, {}
+    for opt_name, mod_name in (("opt_d", "d"), ("opt_d_render", "d_render"), ("opt_g", "g")):
+        names = {id(p): n for n, p in getattr(state, mod_name).named_parameters()}
+        for group in getattr(state, opt_name).adam.param_groups:
+            for p in group["params"]:
+                st = getattr(state, opt_name).adam.state.get(p)
+                if st:
+                    key = f"{mod_name}.{names[id(p)]}"
+                    grads[key], params[key] = st["exp_avg"].cpu(), p.detach().cpu()
+                    lrs[key] = group["lr"]
+    return losses, grads, params, lrs, ms
+
+
+def _dp_compare(got, want):
+    """(largest loss gap relative to the loss, (largest gradient gap relative
+    to its tensor's largest |gradient|, that tensor), share of parameter
+    values whose updates differ by more than half their learning rate)."""
+    (gl, gg, gp, lrs, _), (wl, wg, wp, _, _) = got, want
+    loss_rel = max(abs(gl[k] - wl[k]) / max(abs(wl[k]), 1e-12) for k in gl)
+    rel = {k: float((gg[k] - wg[k]).abs().max() / max(float(wg[k].abs().max()), 1e-30))
+           for k in gg}
+    worst = max(rel, key=rel.get)
+    flipped = sum(int(((gp[k] - wp[k]).abs() > 0.5 * lrs[k]).sum()) for k in gp)
+    total = sum(v.numel() for v in gp.values())
+    return loss_rel, (rel[worst], worst), flipped / total
+
+
+def _dp_rank(mesh):
+    """One of the two gloo ranks of phase 10c, on cuda:0: the sharded steps,
+    the one-process steps (this rank again, the whole batch, no mesh), and
+    the sharded D step with the planted fault; returns the comparisons."""
+    from cips3dpp_torch.kernels import siren_render as ksr
+    from cips3dpp_torch.models import discriminator
+
+    ksr.plain_precision()  # as the parent process: f32 products, TF32 off
+    dev = mesh.device
+    sharded = _dp_steps(mesh, dev)
+    torch.cuda.empty_cache()
+    # the reference: the same seeds, the whole batch, no collectives
+    one = _dp_steps(None, dev)
+    torch.cuda.empty_cache()
+    orig = discriminator.minibatch_stddev
+    discriminator.minibatch_stddev = lambda x, group_size=4, num_features=1, split=None, \
+        mesh=None: orig(x, group_size, num_features, split)
+    try:
+        planted = _dp_steps(mesh, dev, planted=True)
+    finally:
+        discriminator.minibatch_stddev = orig
+    d_only = lambda res: (res[0],) + tuple(
+        {k: v for k, v in part.items() if not k.startswith("g.")} for part in res[1:4]) + res[4:]
+    loss_rel, grad_rel, flipped = _dp_compare(sharded, one)
+    p_loss, p_grad, p_flipped = _dp_compare(d_only(planted), d_only(one))
+    return {"rank": mesh.rank, "ms": sharded[4], "one_process_ms": one[4],
+            "loss_rel": loss_rel, "grad_rel": grad_rel[0], "grad_worst": grad_rel[1],
+            "flipped_share": flipped, "planted_loss_rel": p_loss, "planted_grad_rel": p_grad[0],
+            "planted_grad_worst": p_grad[1], "planted_flipped_share": p_flipped,
+            "counts": dict(mesh.counts)}
+
+
+def data_parallel_phase(dev, smi, step8, plain_iter_s,
+                        cfg_path=os.path.join(ROOT, "configs", "ffhq.yaml")):
+    """Phase 10 at train_r1024, full width, f32: (a) prepare-data of 8
+    seeded 1100x1000 PNGs to sizes 1024 and 64 with PIL hidden, and the
+    shards read by data_iterator and the native loader; (b) `train
+    --n-devices 1 --fid-data` over 8 iterations (checkpoints every 4) on
+    phase 8's shard and seed, equal to phase 8's step-8 state bit for bit;
+    (c) two gloo ranks on the card against one process (_dp_rank); (d)
+    `eval-fid` of the step-8 checkpoint. Every check is collected and the
+    phase raises at its end if any failed."""
+    import numpy as np
+
+    from cips3dpp_torch.apps import eval_fid as fid_mod
+    from cips3dpp_torch.apps.sample import write_png
+    from cips3dpp_torch.io import checkpoint as ckpt_mod
+    from cips3dpp_torch.io.config import load_command_config
+    from cips3dpp_torch.io.dataset import data_iterator, open_dataset
+    from cips3dpp_torch.io.native_loader import NativeLoader, sample_order
+    from cips3dpp_torch.parallel import mesh as mesh_mod
+    from cips3dpp_torch.parallel import run_ranks
+    from cips3dpp_torch.train import state as state_mod
+    from cips3dpp_torch.train import train_loop as tl
+
+    res = {"config": "train_r1024 (configs/ffhq.yaml train_base), f32", "card": smi}
+    failed = []
+
+    def check(ok, what):
+        log(f"[dp] {'ok' if ok else 'FAILED'}: {what}")
+        if not ok:
+            failed.append(what)
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+        stack.enter_context(hidden_module("yaml"))
+        # ---- a. prepare-data ----
+        src = os.path.join(tmp, "src")
+        os.makedirs(src)
+        rng = np.random.default_rng(SEED + 50)
+        for i in range(8):
+            img = rng.integers(0, 256, (1000, 1100, 3), dtype=np.uint8)
+            img[:400] //= 2  # a band of other statistics, so the crop shows
+            write_png(os.path.join(src, f"face_{i}.png"), img)
+        prep = os.path.join(tmp, "prepared")
+        train_cfg = load_command_config(cfg_path, "train_base")
+        # the training images and the pose D's thumbnails: 1024 and 64
+        size, thumb = train_cfg["data_img_size"], train_cfg["G_cfg"]["img_size"]
+        with hidden_module("PIL"):
+            t0 = time.perf_counter()
+            out = cli_json(["prepare-data", "--src", src, "--outdir", prep,
+                            "--sizes", str(size), str(thumb)])
+            prep_s = time.perf_counter() - t0
+        names = sorted(os.listdir(prep))
+        check(out == {"outdir": prep, "format": "npy"} and
+              names == sorted(f"images-{s}-0000.npy" for s in (size, thumb)),
+              f"prepare-data wrote {names}")
+        for size_ in (size, thumb):
+            arr = np.load(os.path.join(prep, f"images-{size_}-0000.npy"), mmap_mode="r")
+            check(arr.shape == (8, size_, size_, 3) and arr.dtype == np.uint8,
+                  f"shard {size_}: {arr.shape} {arr.dtype}")
+        res["prepare_s_per_image"] = prep_s / 8
+        log(f"[dp] prepare-data: 8 PNGs of 1100x1000 (PIL hidden) to {size} and {thumb} in "
+            f"{prep_s:.2f} s, {prep_s / 8:.3f} s an image; {smi}")
+        shard = os.path.join(prep, f"images-{size}-0000.npy")
+        ds = open_dataset(prep, size, hflip=False)
+        it = data_iterator(open_dataset(prep, size, hflip=False), 4, seed=SEED)
+        first = next(it)
+        it.close()
+        order = np.random.default_rng(SEED).permutation(8)[:4]
+        check(np.array_equal(first, np.stack([ds.get(int(i), None) for i in order])),
+              "data_iterator's first batch holds the shard's pixels at its permutation")
+        loader = NativeLoader([shard], 4, seed=SEED, n_threads=1)
+        t0 = time.perf_counter()
+        batches = [next(loader) for _ in range(6)]
+        native_s = time.perf_counter() - t0
+        loader.close()
+        same = all(np.array_equal(b, np.stack([ds.get(i, None)[:, ::-1] if f else ds.get(i, None)
+                                               for i, f in sample_order(k, 4, 8, seed=SEED)]))
+                   for k, b in enumerate(batches))
+        check(same, "NativeLoader's 6 batches hold the shard's pixels at its sample_order")
+        res["native_loader_s_per_batch"] = native_s / 6
+        log(f"[dp] NativeLoader: 6 batches of 4 x {size}^2 in {native_s:.3f} s")
+
+        # ---- b. train --n-devices 1 --fid-data ----
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        np.save(os.path.join(data, f"images-{size}-0000.npy"),  # phase 8's shard
+                np.random.default_rng(SEED).integers(0, 256, (8, size, size, 3), dtype=np.uint8))
+        probe = {"meshes": [], "opt_steps": 0, "iter": [], "fid": [], "sync": []}
+        init = tl.Trainer.__init__
+
+        def every_4(self, *a, **k):
+            init(self, *a, **{**k, "ckpt_every": 4})
+
+        def recorded_mesh(orig):
+            def make(*a, **k):
+                m = orig(*a, **k)
+                probe["meshes"].append(m)
+                return m
+            return make
+
+        def counted_step(orig):
+            def step(self, grads):
+                probe["opt_steps"] += 1
+                return orig(self, grads)
+            return step
+
+        def timed_ema(orig):
+            def ema(state, decay):
+                out = orig(state, decay)
+                torch.cuda.synchronize()
+                probe["iter"].append(time.perf_counter())
+                return out
+            return ema
+
+        def timed_sync(orig):
+            def sync(grads, mesh):  # device time on the stream, no host wait
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = orig(grads, mesh)
+                end.record()
+                probe["sync"].append((start, end, sum(g.numel() for g in grads)))
+                return out
+            return sync
+
+        def timed_fid(orig):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = orig(*a, **k)
+                probe["fid"].append({"s": time.perf_counter() - t0, "fid": out.fid,
+                                     "images": out.n_real + out.n_fake})
+                return out
+            return run
+
+        run = os.path.join(tmp, "run")
+        with contextlib.ExitStack() as patches:
+            for obj, name, wrap in ((tl.Trainer, "__init__", lambda _: every_4),
+                                    (mesh_mod, "make_mesh", recorded_mesh),
+                                    (state_mod.ClippedAdam, "step", counted_step),
+                                    (tl, "ema_update", timed_ema),
+                                    (mesh_mod, "sync_grads", timed_sync),
+                                    (fid_mod, "eval_fid", timed_fid)):
+                patches.enter_context(patched(obj, name, wrap))
+            patches.enter_context(deterministic_cudnn())  # as phase 8's run
+            torch.cuda.reset_peak_memory_stats()
+            with counted("train --n-devices 1 --fid-data (8 iterations)",
+                         {"siren_render": 4 * 8}) as launches:
+                t0 = time.perf_counter()
+                out = cli_json(["train", "--cfg", cfg_path, "--section", "train_base", "--data",
+                                data, "--outdir", run, "--total-iters", "8",
+                                "--no-sphere-init", "--n-devices", "1", "--fid-data", prep])
+                wall = time.perf_counter() - t0
+        check(out == {"outdir": run, "done": True}, f"train: {out}")
+        mesh = probe["meshes"][0] if probe["meshes"] else None
+        check(mesh is not None and mesh.backend == "nccl" and mesh.world == 1,
+              "a one-rank NCCL group")
+        n_ar = mesh.counts["grad_all_reduce"] if mesh else -1
+        # 8 iterations: D and pose D, G; path reg at idx 4
+        check(n_ar == probe["opt_steps"] == 8 * 3 + 1,
+              f"{n_ar} gradient all-reduces for {probe['opt_steps']} optimizer steps (want 25)")
+        fids = read_jsonl(os.path.join(run, "logs", "fid.jsonl"))
+        check([r["step"] for r in fids] == [4, 8] and all(np.isfinite(r["fid"]) for r in fids),
+              f"FID logged at {[(r['step'], r['fid']) for r in fids]}")
+        check(os.path.exists(os.path.join(run, "ckpt", "best_fid.pt")), "best_fid.pt written")
+        got = flat_state(ckpt_mod.CheckpointManager(os.path.join(run, "ckpt"))
+                         .restore_raw(8)["state"])
+        bad = [k for k in step8 if k not in got or not torch.equal(got[k], step8[k])]
+        gaps = sorted(((float((got[k].double() - step8[k].double()).abs().max()), k)
+                       for k in bad if k in got), reverse=True)[:5]
+        check(not bad and got.keys() == step8.keys(),
+              f"step-8 state equal to phase 8's: {len(step8) - len(bad)} of {len(step8)} "
+              f"tensors bit-equal; largest gaps {gaps}")
+        stamps = probe["iter"]  # the end of each iteration
+        iters = [b - a for a, b in zip(stamps, stamps[1:])]  # iterations 1-7
+        # iteration 4 holds the checkpoint and FID after iteration 3, and path
+        # reg; the others are plain (the one after 7's checkpoint is not timed)
+        plain = [iters[j - 1] for j in (1, 2, 3, 5, 6, 7)]
+        torch.cuda.synchronize()
+        sync_ms = [a.elapsed_time(b) for a, b, _ in probe["sync"]]
+        sync_values = sum(n for _, _, n in probe["sync"])
+        res["sync_grads"] = {"calls": len(sync_ms), "ms": sync_ms, "values": sync_values}
+        res["train"] = {"wall_s": wall, "launches": launches, "iteration_s": iters,
+                        "plain_iteration_s": sum(plain) / len(plain),
+                        "phase8_plain_iteration_s": plain_iter_s, "fid": probe["fid"],
+                        "grad_all_reduce": n_ar, "peak_bytes": torch.cuda.max_memory_allocated()}
+        for f in probe["fid"]:
+            log(f"[dp] FID {f['fid']:.6g} over {f['images']} images in {f['s']:.2f} s "
+                f"({f['s'] / f['images']:.4f} s an image, generation and Inception)")
+        log(f"[dp] sync_grads (flatten, all-reduce, divide, copy back): {len(sync_ms)} calls, "
+            f"{sum(sync_ms):.2f} ms of device time in all, {sum(sync_ms) / 8:.2f} ms an "
+            f"iteration, {sync_values / 8 / 1e6:.1f} M gradient values an iteration")
+        log(f"[dp] train --n-devices 1: {wall:.2f} s with set-up; plain iterations "
+            f"{res['train']['plain_iteration_s']:.3f} s (phase 8, no mesh: {plain_iter_s:.3f}); "
+            f"all iteration wall times {', '.join(f'{x:.3f}' for x in iters)}; peak "
+            f"{res['train']['peak_bytes'] / 2**30:.2f} GiB; {smi}")
+
+        # ---- c. two gloo ranks on the one card ----
+        t0 = time.perf_counter()
+        ranks = run_ranks(_dp_rank, 2, device="cuda:0", backend="gloo")
+        res["two_ranks"] = {"wall_s": time.perf_counter() - t0, "ranks": ranks,
+                            "bounds": DP_BOUNDS}
+        for r in ranks:
+            log(f"[dp] gloo rank {r['rank']} of 2 on cuda:0, global batch 4: d_step (R1) "
+                f"{r['ms']['d_step_r1']:.1f} ms, g_step {r['ms']['g_step']:.1f} ms (one process, "
+                f"batch 4, beside it: {r['one_process_ms']['d_step_r1']:.1f} / "
+                f"{r['one_process_ms']['g_step']:.1f}); against one process: losses "
+                f"{r['loss_rel']:.3e}, gradients {r['grad_rel']:.3e} ({r['grad_worst']}), "
+                f"updates off by > lr/2 {r['flipped_share']:.3e}; planted per-rank stddev: "
+                f"losses {r['planted_loss_rel']:.3e}, gradients {r['planted_grad_rel']:.3e} "
+                f"({r['planted_grad_worst']}), updates {r['planted_flipped_share']:.3e}; "
+                f"bounds {DP_BOUNDS}")
+            check(r["loss_rel"] <= DP_BOUNDS["loss_rel"] and
+                  r["grad_rel"] <= DP_BOUNDS["grad_rel"] and
+                  r["flipped_share"] <= DP_BOUNDS["flipped_share"],
+                  f"rank {r['rank']}: two ranks equal one process within {DP_BOUNDS}")
+            check(r["planted_grad_rel"] > DP_BOUNDS["grad_rel"] and
+                  r["planted_loss_rel"] > DP_BOUNDS["loss_rel"],
+                  f"rank {r['rank']}: the planted per-rank stddev fails the loss and "
+                  f"gradient bounds")
+            check(r["counts"].get("grad_all_reduce") == 3 + 2,
+                  f"rank {r['rank']}: gradient all-reduces {r['counts']}")
+
+        # ---- d. eval-fid of the step-8 checkpoint ----
+        timing = {"gen_s": 0.0, "real_s": 0.0}
+
+        def timed_generate(orig):
+            def gen(*a, **k):
+                it = orig(*a, **k)
+                while True:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    torch.cuda.synchronize()
+                    timing["gen_s"] += time.perf_counter() - t0
+                    yield batch
+            return gen
+
+        def timed_extract(orig):
+            def call(self, images, mesh=None):
+                t0 = time.perf_counter()
+                out = orig(self, images, mesh)
+                timing.setdefault("calls", []).append(time.perf_counter() - t0)
+                return out
+            return call
+
+        torch.cuda.reset_peak_memory_stats()
+        with patched(fid_mod, "generate_images", timed_generate), \
+                patched(fid_mod.InceptionExtractor, "__call__", timed_extract), \
+                counted("eval-fid (64 images, plain renderer)", {}):
+            t0 = time.perf_counter()
+            out = cli_json(["eval-fid", "--cfg", cfg_path, "--section", "train_base", "--data",
+                            prep, "--n-images", "64", "--batch", "8", "--kid", "--opts", "ckpt",
+                            os.path.join(run, "ckpt")])
+            wall = time.perf_counter() - t0
+        real_s, fake_s = timing["calls"]
+        res["eval_fid"] = {**out, "wall_s": wall, "generation_s_per_image": timing["gen_s"] / 64,
+                           "inception_s_per_image": real_s / 64,
+                           "peak_bytes": torch.cuda.max_memory_allocated()}
+        check(out["inception_weights"] == "random" and out["n_real"] == out["n_fake"] == 64
+              and all(np.isfinite(out[k]) for k in ("fid", "kid_mean", "kid_std")),
+              f"eval-fid: {out}")
+        log(f"[dp] eval-fid of the step-8 checkpoint: FID {out['fid']:.6g}, KID "
+            f"{out['kid_mean']:.6g} +- {out['kid_std']:.3g} (random Inception), {wall:.2f} s; "
+            f"generation {timing['gen_s'] / 64:.4f} s an image, Inception {real_s / 64:.4f} s an "
+            f"image (the reals), the fakes' pass {fake_s:.2f} s; peak "
+            f"{res['eval_fid']['peak_bytes'] / 2**30:.2f} GiB; {smi}")
+    res["launches"] = {"siren_render": launches.get("siren_render", 0)}
+    if failed:
+        raise AssertionError(f"phase 10: {len(failed)} checks failed: {failed}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
@@ -1653,23 +2083,33 @@ def main() -> int:
         report["training"] = training_phase(dev, profile="--profile" in sys.argv[1:])
 
     # ---- 8. the training loop through the command line ----
-    with torch.inference_mode(False), torch.enable_grad():
-        report["training_loop"] = training_loop_phase(dev, smi)
+    # deterministic: the step-8 state is what phase 10's one-rank run must
+    # reproduce bit for bit
+    with torch.inference_mode(False), torch.enable_grad(), deterministic_cudnn():
+        report["training_loop"], step8 = training_loop_phase(dev, smi)
 
     # ---- 9. flip-inversion at r1024 through the command line ----
     with torch.inference_mode(False):
         report["inversion"] = inversion_phase(dev, smi, profile="--profile" in sys.argv[1:])
 
+    # ---- 10. data-parallel training and FID ----
+    torch.cuda.empty_cache()  # room for phase 10c's two rank processes
+    with torch.inference_mode(False), torch.enable_grad():
+        report["data_parallel"] = data_parallel_phase(
+            dev, smi, step8, report["training_loop"]["iteration_s"]["plain_mean"])
+    del step8
+
     # ---- the kernels line ----
     t32, tbf = report["trajectory_f32"], report["trajectory_bf16"]
     # K1's launches: the serving path's, the training steps', the
-    # training loop's (with its sampling from the checkpoint) and the
-    # inversion's
+    # training loop's (with its sampling from the checkpoint), the
+    # inversion's and the data-parallel training loop's
     loop, inversion = report["training_loop"]["launches"], report["inversion"]["launches"]
     entry("siren_render", "cips3dpp_torch/csrc/siren_render.cu",
           "cips3dpp_tpu/kernels/siren_render.py:140", report["K1"],
           serving_launches["siren_render"] + report["training"]["launches"]["siren_render"]
-          + loop["siren_render"] + inversion["siren_render"])
+          + loop["siren_render"] + inversion["siren_render"]
+          + report["data_parallel"]["launches"]["siren_render"])
     entry("decoder_block", K2_SRC, K2_TPU, report["K2"], serving_launches["decoder_block"])
     entry("decoder_block_f32", K2_SRC, K2_TPU, report["K2-f32"],
           t32["launches_buffers"]["decoder_block_f32"] + loop["decoder_block_f32"]

@@ -6,8 +6,11 @@ integration (CUDA kernel, `kernels/siren_render.py`) -> CIPS decoder whose
 upsample blocks are one CUDA kernel each (`kernels/decoder_block.py`);
 the sampling apps (`apps/`), the training steps (`train/`: both
 discriminators, the losses, the per-group optimizers, the D step
-rendering its fakes through the SIREN kernel) and flip-inversion
-(`apps/inversion.py`: the camera's gradient through the SIREN kernel).
+rendering its fakes through the SIREN kernel), flip-inversion
+(`apps/inversion.py`: the camera's gradient through the SIREN kernel),
+data-parallel training over rank processes (`parallel/mesh.py`), FID
+(`models/inception.py`, `apps/eval_fid.py`) and dataset preparation
+(`io/dataset.py`, `io/native_loader.py`).
 
 Layout follows the JAX package: NHWC at every public function, the same
 module and function names. Entry points run on the card unless the caller

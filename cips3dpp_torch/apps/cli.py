@@ -5,10 +5,11 @@ commands of cips3dpp_tpu/apps/cli.py):
         --section sample_multi_view] [--opts key.path value ...]
         [--device cuda|cpu] [--outdir DIR] [--seed N]
 
-Commands (10 of the JAX package's 16): train, sphere-init,
+Commands (12 of the JAX package's 16): train, sphere-init,
 sample-multi-view, fixed-zs-multi-view, interpolate-z, style-mixing,
-interpolate-decoder, invert, render-inverted, lerp-inversions. Everything
-runs on the card unless `--device cpu` is given. `--cfg` is read by PyYAML where it
+interpolate-decoder, invert, render-inverted, lerp-inversions, eval-fid,
+prepare-data. Everything runs on the card unless `--device cpu` is given
+(prepare-data runs on the host). `--cfg` is read by PyYAML where it
 imports and by the standard-library reader `io/yaml_lite.py` where it does
 not. The sampling commands' generator is randomly initialised from a
 fixed seed, or loaded from what the config's `network_pkl` (or `ckpt`)
@@ -19,7 +20,9 @@ sampling commands only `sample-multi-view --fused` reaches the kernels
 (batch 1), the others run the plain modules. `invert` renders through
 K1 under grad (`SirenRender`, batch 2) with the plain decoder, and writes
 its artifact `w.pt`; `render-inverted` and `lerp-inversions` read that or
-a `w.pkl` the JAX package wrote, and render plainly.
+a `w.pkl` the JAX package wrote, and render plainly. `train --n-devices`
+trains data-parallel (`parallel/mesh.py`); `eval-fid` generates with the
+plain renderer and tags its Inception weights "imported" or "random".
 """
 
 from __future__ import annotations
@@ -316,16 +319,17 @@ def cmd_train(argv):
     p.add_argument("--no-sphere-init", action="store_true")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--n-devices", type=int, default=None,
-                   help="not ported above 1 (ROADMAP queue 1 item 2)")
+                   help="data-parallel ranks, one a GPU (default: every visible GPU "
+                        "when there is more than one)")
     p.add_argument("--finetune-dir", type=str, default=None,
                    help="checkpoint dir of this package to initialise G/G_ema/Ds "
                         "from (reference tl_finetune, train_v10.py:1225-1245)")
     p.add_argument("--init-renderer-from", type=str, default=None,
                    help="not ported (ROADMAP queue 1 item 7)")
     p.add_argument("--fid-data", type=str, default=None,
-                   help="not ported (ROADMAP queue 1 item 5)")
+                   help="real-image dataset for in-training FID at every checkpoint")
     p.add_argument("--inception", type=str, default=None,
-                   help="not ported (ROADMAP queue 1 item 5)")
+                   help="pt_inception .pth for that FID (default: random, seed 0)")
     args = p.parse_args(argv)
     cfg = _load_cfg(args)
     from .cli_train_impl import run_training
@@ -341,6 +345,77 @@ def cmd_sphere_init(argv):
     from .cli_train_impl import run_sphere_init
 
     run_sphere_init(args, cfg)
+
+
+def cmd_eval_fid(argv):
+    p = _base_parser("FID/KID evaluation")
+    p.add_argument("--data", type=str, required=True)
+    # the reference protocol: 50k real / 50k fake, KID on
+    # (train_cips3d_ffhq_v10.yaml:801-806); the config or the flags override
+    p.add_argument("--n-images", type=int, default=None)
+    p.add_argument("--batch", type=int, default=16)
+    p.add_argument("--inception", type=str, default=None, help="pt_inception .pth weights")
+    p.add_argument("--kid", action="store_true", default=None)
+    args = p.parse_args(argv)
+    cfg = _load_cfg(args)
+    if args.n_images is None:
+        args.n_images = int(cfg.get("n_images", 50_000))
+    if args.kid is None:
+        args.kid = bool(cfg.get("kid", True))
+    dev = resolve_device(args.device)
+
+    from ..io.dataset import data_iterator, open_dataset
+    from ..io.weights import load_inception
+    from .eval_fid import eval_fid
+
+    model, gcfg = _build_generator(cfg, dev)
+    # --inception wins; otherwise $CIPS3DPP_WEIGHTS_DIR is consulted
+    incep, incep_prov = load_inception(path=args.inception, device=dev)
+    ds = open_dataset(args.data, resolution=gcfg.out_size)
+    it = data_iterator(ds, args.batch, seed=args.seed)
+    try:
+        real = (next(it) for _ in range(args.n_images // args.batch))
+        res = eval_fid(model, real, incep, n_fake=args.n_images, batch_size=args.batch,
+                       generator=torch.Generator(dev).manual_seed(args.seed),
+                       with_kid=args.kid)
+    finally:
+        it.close()
+    out = dataclasses.asdict(res)
+    out["inception_weights"] = incep_prov
+    print(json.dumps(out))
+
+
+def cmd_prepare_data(argv):
+    p = _base_parser("dataset preparation (images -> npy shards or LMDB)")
+    p.add_argument("--src", type=str, required=True)
+    p.add_argument("--sizes", type=int, nargs="*", default=[1024])
+    p.add_argument("--format", choices=["npy", "lmdb"], default="npy",
+                   help="lmdb = the reference's multi-size format "
+                        "(prepare_data.py:23-80), readable by both packages")
+    p.add_argument("--n-workers", type=int, default=0,
+                   help="multiprocessing resize workers (0 = in-process)")
+    p.add_argument("--crop-size", type=int, nargs="*", default=None,
+                   help="explicit centred crop W [H] before resizing "
+                        "(the crop_data.py tool); default = the largest square")
+    p.add_argument("--codec", choices=["png", "jpeg"], default="png",
+                   help="lmdb image codec; png = lossless, byte-compatible "
+                        "with the reference (prepare_data.py:44); jpeg needs PIL")
+    p.add_argument("--quality", type=int, default=100,
+                   help="jpeg quality (only with --codec jpeg)")
+    args = p.parse_args(argv)
+    from ..io.dataset import prepare_images, prepare_images_lmdb
+
+    crop = args.crop_size
+    if crop is not None:
+        crop = tuple(crop) if len(crop) == 2 else int(crop[0])
+    if args.format == "lmdb":
+        out = prepare_images_lmdb(args.src, args.outdir, sizes=args.sizes,
+                                  n_workers=args.n_workers, crop_size=crop,
+                                  codec=args.codec, quality=args.quality)
+    else:
+        out = prepare_images(args.src, args.outdir, sizes=args.sizes,
+                             n_workers=args.n_workers, crop_size=crop)
+    print(json.dumps({"outdir": out, "format": args.format}))
 
 
 def _load_inversion(path: str) -> dict:
@@ -504,6 +579,8 @@ COMMANDS = {
     "invert": cmd_invert,
     "render-inverted": cmd_render_inverted,
     "lerp-inversions": cmd_lerp_inversions,
+    "eval-fid": cmd_eval_fid,
+    "prepare-data": cmd_prepare_data,
 }
 
 

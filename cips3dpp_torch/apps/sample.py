@@ -314,24 +314,62 @@ def _to_u8(frames: np.ndarray) -> np.ndarray:
     return ((np.clip(frames, -1, 1) + 1) * 127.5).astype(np.uint8)
 
 
-def write_png(path: str, img_u8: np.ndarray) -> str:
-    """(H, W, 3|1) uint8 -> PNG, standard library only (zlib)."""
-    img = np.ascontiguousarray(img_u8)
+def _png_filtered(img: np.ndarray) -> bytes:
+    """The filtered scanlines of an (H, W, C) uint8 image, each row's filter
+    chosen as PIL's PNG encoder chooses it (ZipEncode.c without optimize):
+    None, Up, Sub and Paeth in that order, the first with the least sum of
+    |byte| read as signed, Average never."""
+    h, w, c = img.shape
+    rows = img.reshape(h, w * c).astype(np.int64)
+    prior = np.zeros(w * c, np.int64)
+    pad = np.zeros(c, np.int64)
+    out = bytearray()
+    for line in rows:
+        left = np.concatenate([pad, line[:-c]])
+        upleft = np.concatenate([pad, prior[:-c]])
+        p = left + prior - upleft
+        pa, pb, pc = np.abs(p - left), np.abs(p - prior), np.abs(p - upleft)
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prior, upleft))
+        best = None
+        for ftype, pred in ((0, 0), (2, prior), (1, left), (4, paeth)):
+            v = (line - pred) % 256
+            cost = int(np.where(v < 128, v, 256 - v).sum())
+            if best is None or cost < best[0]:
+                best = (cost, ftype, v)
+        out.append(best[1])
+        out += best[2].astype(np.uint8).tobytes()
+        prior = line
+    return bytes(out)
+
+
+def encode_png(img_u8: np.ndarray) -> bytes:
+    """(H, W), (H, W, 1|3|4) uint8 -> the PNG bytes PIL's
+    `Image.save(format="png")` writes (its row filters, zlib level 6 with
+    memLevel 9 and Z_FILTERED, IDAT chunks of 64 KiB), standard library
+    only."""
+    img = np.ascontiguousarray(img_u8, np.uint8)
     if img.ndim == 2:
         img = img[..., None]
     h, w, c = img.shape
     color_type = {1: 0, 3: 2, 4: 6}[c]
-    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
 
     def chunk(tag, data):
         body = tag + data
         return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body))
 
+    z = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
+    data = z.compress(_png_filtered(img)) + z.flush()
+    out = [b"\x89PNG\r\n\x1a\n",
+           chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))]
+    out += [chunk(b"IDAT", data[i:i + 65536]) for i in range(0, len(data), 65536)]
+    out.append(chunk(b"IEND", b""))
+    return b"".join(out)
+
+
+def write_png(path: str, img_u8: np.ndarray) -> str:
+    """(H, W, 1|3|4) uint8 -> a PNG file (`encode_png`)."""
     with open(path, "wb") as fh:
-        fh.write(b"\x89PNG\r\n\x1a\n")
-        fh.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)))
-        fh.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        fh.write(chunk(b"IEND", b""))
+        fh.write(encode_png(img_u8))
     return path
 
 
@@ -344,11 +382,16 @@ def _paeth(a: int, b: int, c: int) -> int:
 
 
 def read_png(path: str) -> np.ndarray:
+    """An 8-bit, non-interlaced gray, gray+alpha, RGB or RGBA PNG file ->
+    (H, W, C) uint8 (`decode_png`)."""
+    with open(path, "rb") as fh:
+        return decode_png(fh.read(), path)
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """An 8-bit, non-interlaced gray, gray+alpha, RGB or RGBA PNG ->
     (H, W, C) uint8, standard library only (zlib and the five row
     filters). Other PNGs raise ValueError."""
-    with open(path, "rb") as fh:
-        data = fh.read()
     if data[:8] != b"\x89PNG\r\n\x1a\n":
         raise ValueError(f"{path}: not a PNG file")
     pos, idat, header = 8, [], None

@@ -1,5 +1,5 @@
 """Weight bridge: the JAX package's param trees (generator, image D,
-pose D, VGG16 and LPIPS) and artifacts (a TrainState, an inversion's
+pose D, VGG16, LPIPS and the FID Inception) and artifacts (a TrainState, an inversion's
 w.pkl) -> this package's state dicts.
 
 The input is the nested dict of `variables["params"]` of the flax
@@ -293,6 +293,29 @@ def jax_vgg_params_to_state_dict(tree: Mapping) -> dict[str, torch.Tensor]:
         idx = name[len("conv_"):]
         out[f"features.{idx}.weight"] = _conv(node["kernel"])
         out[f"features.{idx}.bias"] = _vec(node["bias"])
+    return _tensors(out)
+
+
+def jax_inception_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's InceptionV3Features variables (`{"params": ...,
+    "batch_stats": ...}`, each `{block: {branch: {"conv"|"bn": ...}}}` or
+    `{stem: ...}`) -> pt_inception's state-dict names, the port's
+    `models/inception.py` (the inverse of the JAX package's
+    `import_torch_inception`)."""
+    out = {}
+
+    def walk(pnode, snode, prefix):
+        if "conv" in pnode:
+            out[f"{prefix}.conv.weight"] = _conv(pnode["conv"]["kernel"])
+            out[f"{prefix}.bn.weight"] = _vec(pnode["bn"]["scale"])
+            out[f"{prefix}.bn.bias"] = _vec(pnode["bn"]["bias"])
+            out[f"{prefix}.bn.running_mean"] = _vec(snode["bn"]["mean"])
+            out[f"{prefix}.bn.running_var"] = _vec(snode["bn"]["var"])
+            return
+        for name, child in pnode.items():
+            walk(child, snode[name], f"{prefix}.{name}" if prefix else name)
+
+    walk(variables["params"], variables["batch_stats"], "")
     return _tensors(out)
 
 

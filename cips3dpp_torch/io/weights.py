@@ -11,9 +11,9 @@ for comparable ones.
 
   vgg16-397923af.pth          torchvision VGG16 (perceptual loss and LPIPS trunk)
   lpips_vgg.pth  (or vgg.pth) LPIPS v0.1 vgg lin weights
+  pt_inception-2015-12-05-6726825d.pth  torch-fidelity pt_inception (FID, KID)
 
-The files are torch state dicts, read with `weights_only=True`. The FID
-Inception loader waits for FID (ROADMAP queue 1).
+The files are torch state dicts, read with `weights_only=True`.
 """
 
 from __future__ import annotations
@@ -23,10 +23,13 @@ import sys
 
 import torch
 
+from ..device import resolve_device
+
 WEIGHTS_DIR_ENV = "CIPS3DPP_WEIGHTS_DIR"
 
 VGG16_FILENAMES = ("vgg16-397923af.pth", "vgg16.pth")
 LPIPS_FILENAMES = ("lpips_vgg.pth", "vgg.pth")
+INCEPTION_FILENAMES = ("pt_inception-2015-12-05-6726825d.pth", "pt_inception.pth")
 
 
 def find_weight(filenames, explicit: str | None = None) -> str | None:
@@ -57,7 +60,6 @@ def load_vgg(generator: torch.Generator | None = None, path: str | None = None,
     """(VGG16Features, provenance): torchvision's VGG16 if a file is
     found, else `init_vgg(generator)` (default seed 0), the reference's
     'vgg16_conv_random' mode."""
-    from ..device import resolve_device
     from ..models.vgg import VGG16Features, init_vgg
 
     p = find_weight(VGG16_FILENAMES, path)
@@ -87,3 +89,24 @@ def load_lpips(generator: torch.Generator | None = None, vgg_path: str | None = 
     _note("no LPIPS weights (set $CIPS3DPP_WEIGHTS_DIR): random fallback")
     gen = torch.Generator().manual_seed(0) if generator is None else generator
     return init_lpips(gen, device), "random"
+
+
+def load_inception(generator: torch.Generator | None = None, path: str | None = None,
+                   device=None):
+    """(InceptionV3Features, provenance): torch-fidelity's pt_inception if
+    a file is found (the reference's FID protocol, eval_fid.py:52-63), else
+    `init_inception(generator)` (default seed 0), tagged "random": its FID
+    and KID are comparable only with each other."""
+    from ..models.inception import InceptionV3Features, init_inception
+
+    p = find_weight(INCEPTION_FILENAMES, path)
+    if p:
+        _note(f"Inception (FID) <- {p}")
+        model = InceptionV3Features(device="cpu")
+        sd = _state_dict(p)
+        # the file also holds the classifier (fc.*), which FID does not use
+        model.load_state_dict({k: v for k, v in sd.items() if not k.startswith("fc.")})
+        return model.to(resolve_device(device)), "imported"
+    _note("no Inception weights (set $CIPS3DPP_WEIGHTS_DIR): FID/KID numbers are NOT "
+          "comparable to published values")
+    return init_inception(generator, device), "random"

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..parallel.mesh import all_gather_batch, shard_batch
 from .diffaug import diff_augment
 from .layers import ConvLayer, EqualLinear, channel_table, init_parameters, \
     torch_bilinear_downsample
@@ -40,21 +41,28 @@ class ResBlock(nn.Module):
 
 
 def minibatch_stddev(x, group_size: int = 4, num_features: int = 1,
-                     split: int | None = None):
+                     split: int | None = None, mesh=None):
     """Append the per-group feature stddev as an extra channel
     (discriminator.py:106-118), NCHW. With `split=k` the statistic is taken
-    over x[:k] and x[k:] apart."""
+    over x[:k] and x[k:] apart. Under a data mesh the statistic is taken
+    over the global batch, as under the JAX package's mesh: the features
+    are gathered from every rank (a group holds samples j, j + B/group, ...
+    of the global batch) and each rank keeps its rows of the channel."""
     if split is not None:
+        if mesh is not None:
+            raise ValueError("split= (the concatenated fake/real pass) is not "
+                             "taken under a mesh")
         return torch.cat([minibatch_stddev(x[:split], group_size, num_features),
                           minibatch_stddev(x[split:], group_size, num_features)])
-    b, c, h, w = x.shape
+    xg = all_gather_batch(x, mesh)
+    b, c, h, w = xg.shape
     group = min(b, group_size)
     if b % group != 0:
         group = 3 if b % 3 == 0 else 2
-    y = x.reshape(group, b // group, num_features, c // num_features, h, w)
+    y = xg.reshape(group, b // group, num_features, c // num_features, h, w)
     std = torch.sqrt(y.var(dim=0, unbiased=False) + 1e-8)
     std = std.mean(dim=(2, 3, 4)).reshape(b // group, num_features, 1, 1)
-    return torch.cat([x, std.repeat(group, 1, h, w)], dim=1)
+    return torch.cat([x, shard_batch(std.repeat(group, 1, h, w), mesh)], dim=1)
 
 
 class _DHead(nn.Module):
@@ -68,8 +76,8 @@ class _DHead(nn.Module):
             EqualLinear(channel, 1),
         )
 
-    def head(self, out, stddev_split=None):
-        out = self.final_conv(minibatch_stddev(out, split=stddev_split))
+    def head(self, out, stddev_split=None, mesh=None):
+        out = self.final_conv(minibatch_stddev(out, split=stddev_split, mesh=mesh))
         return self.final_linear(out.reshape(out.shape[0], -1))
 
 
@@ -122,9 +130,11 @@ class DStyleGANProgressive(_DHead):
         self.to(resolve_device(device))
 
     def forward(self, x, alpha=1.0, stddev_split: int | None = None,
-                aug: dict | None = None):
+                aug: dict | None = None, mesh=None):
         """x (B, H, W, 3), H a power of two <= input_size. With diffaug the
-        augmentation draws `aug` (models/diffaug.py) are required."""
+        augmentation draws `aug` (models/diffaug.py) are required. Under a
+        data `mesh` x holds this rank's rows and the minibatch stddev is
+        the global batch's."""
         if self.diffaug:
             if aug is None:
                 raise ValueError("a diffaug discriminator needs its draws (aug=)")
@@ -149,4 +159,4 @@ class DStyleGANProgressive(_DHead):
             out = (1.0 - alpha) * x_down + alpha * out
         for ls in range(log_pre, 2, -1):
             out = self.blocks[str(2**ls)](out)
-        return self.head(out, stddev_split)
+        return self.head(out, stddev_split, mesh)

@@ -12,8 +12,9 @@ has no Lanczos kernel, and its edges differ.
 `pil_lanczos_resize` is PIL's `Image.resize(size, Image.LANCZOS)` on a
 uint8 image (Resample.c): support 3, each window clipped to the image,
 fixed-point coefficients with 22 fractional bits, the horizontal pass
-first, rounded to uint8 between the passes. `center_crop` is the square
-crop the `invert` command takes before it.
+first, rounded to uint8 between the passes. `center_crop` is PIL's crop
+of a centred window, the square the `invert` command takes before the
+resize or the window of `prepare-data --crop-size`.
 """
 
 from __future__ import annotations
@@ -140,9 +141,20 @@ def pil_lanczos_resize(img: np.ndarray, size) -> np.ndarray:
     return out
 
 
-def center_crop(img: np.ndarray) -> np.ndarray:
-    """The centred square of an (H, W, C) image, with PIL's crop box
-    ((w - s) // 2, (h - s) // 2, (w + s) // 2, (h + s) // 2)."""
+def center_crop(img: np.ndarray, size=None) -> np.ndarray:
+    """The centred (crop_h, crop_w) window of an (H, W, C) image, as PIL's
+    `crop((left, upper, left + crop_w, upper + crop_h))` with left =
+    (W - crop_w) // 2, upper = (H - crop_h) // 2 gives it (zeros where the
+    window leaves the image). `size` is (crop_w, crop_h), an int for a
+    square, or None for the largest square."""
     h, w = img.shape[:2]
-    s = min(w, h)
-    return img[(h - s) // 2:(h + s) // 2, (w - s) // 2:(w + s) // 2]
+    if size is None:
+        size = min(w, h)
+    cw, ch = (size, size) if isinstance(size, int) else size
+    left, upper = (w - cw) // 2, (h - ch) // 2
+    out = np.zeros((ch, cw) + img.shape[2:], img.dtype)
+    y0, x0 = max(upper, 0), max(left, 0)
+    y1, x1 = min(upper + ch, h), min(left + cw, w)
+    if y1 > y0 and x1 > x0:
+        out[y0 - upper:y1 - upper, x0 - left:x1 - left] = img[y0:y1, x0:x1]
+    return out

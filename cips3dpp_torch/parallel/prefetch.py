@@ -8,7 +8,9 @@ copied from page-locked host memory by a `non_blocking` copy on a side
 stream, and the stream that consumes it waits on the copy's event, so the
 copy overlaps the steps already queued. `record_stream` tells the caching
 allocator that the consuming stream uses the batch, so its memory is not
-handed out again before the consumer's work on it has run.
+handed out again before the consumer's work on it has run. Under a data
+mesh each rank prefetches its own rows to its own device (the Trainer
+passes the rank's device).
 """
 
 from __future__ import annotations

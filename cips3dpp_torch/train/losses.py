@@ -48,22 +48,26 @@ def viewpoint_loss(pred, target):
     return torch.where(diff < 1.0, 0.5 * diff * diff, diff - 0.5).mean()
 
 
-def path_length_penalty(fake_img, latents_grad, mean_path_length, decay=0.01):
+def path_length_penalty(fake_img, latents_grad, mean_path_length, decay=0.01, mesh=None):
     """StyleGAN2 path-length regulariser (losses.py:49-69). latents_grad:
     d(sum(fake * noise)) / d(style_decoder), (B, L, D), taken by the
     caller with create_graph. Returns (penalty, new mean path length
-    (detached), path lengths (B,))."""
+    (detached), path lengths (B,)). Under a data `mesh` the batch mean of
+    the path lengths is the global batch's."""
+    from ..parallel.mesh import global_mean
+
     path_lengths = torch.sqrt(latents_grad.square().sum(dim=2).mean(dim=1))
-    path_mean = mean_path_length + decay * (path_lengths.mean() - mean_path_length)
+    batch_mean = global_mean(path_lengths.mean(), mesh)
+    path_mean = mean_path_length + decay * (batch_mean - mean_path_length)
     penalty = (path_lengths - path_mean).square().mean()
     return penalty, path_mean.detach(), path_lengths
 
 
-def path_noise(generator: torch.Generator | None, fake_img):
+def path_noise(generator: torch.Generator | None, fake_img, batch: int | None = None):
     """randn / sqrt(H*W), image-shaped (B, H, W, C) (losses.py:53-55),
-    drawn from `generator` on its own device."""
-    _, h, w, _ = fake_img.shape
+    drawn from `generator` on its own device; `batch` rows instead of B."""
+    b, h, w, c = fake_img.shape
     gdev = generator.device if generator is not None else "cpu"
-    noise = torch.randn(fake_img.shape, generator=generator, dtype=fake_img.dtype,
-                        device=gdev)
+    noise = torch.randn((b if batch is None else batch, h, w, c), generator=generator,
+                        dtype=fake_img.dtype, device=gdev)
     return noise.to(fake_img.device) / math.sqrt(h * w)

@@ -103,12 +103,15 @@ def g_param_groups(g: nn.Module) -> dict[str, list[nn.Parameter]]:
 
 class ClippedAdam:
     """Adam over named parameter groups, each clipped by its own global
-    norm (optax.multi_transform of clip_by_global_norm + adam)."""
+    norm (optax.multi_transform of clip_by_global_norm + adam). Under a
+    data `mesh` the gradients are first averaged over the ranks by one
+    all-reduce, so the clip sees the global gradient on every rank."""
 
     def __init__(self, groups: dict[str, list[nn.Parameter]], lrs: dict, b2s: dict,
-                 max_norm: float):
+                 max_norm: float, mesh=None):
         self.groups = groups
         self.max_norm = max_norm
+        self.mesh = mesh
         self.adam = torch.optim.Adam(
             [{"params": ps, "lr": lrs[k], "betas": (0.0, b2s[k]), "name": k}
              for k, ps in groups.items()], eps=1e-8)
@@ -122,9 +125,16 @@ class ClippedAdam:
         """One update from per-group gradient lists aligned with the
         groups' parameters. A missing gradient is a zero, which still
         advances Adam's state, as in optax."""
+        gs = {k: [torch.zeros_like(p) if g is None else g for p, g in zip(ps, grads[k])]
+              for k, ps in self.groups.items()}
+        if self.mesh is not None:
+            from ..parallel.mesh import sync_grads
+
+            flat = sync_grads([g for k in gs for g in gs[k]], self.mesh)
+            for k in gs:
+                gs[k], flat = flat[:len(gs[k])], flat[len(gs[k]):]
         for k, ps in self.groups.items():
-            gs = [torch.zeros_like(p) if g is None else g for p, g in zip(ps, grads[k])]
-            for p, g in zip(ps, self.clip(gs)):
+            for p, g in zip(ps, self.clip(gs[k])):
                 p.grad = g
         self.adam.step()
         for ps in self.groups.values():
@@ -148,22 +158,22 @@ class ClippedAdam:
             group.update(hyper)
 
 
-def make_g_optimizer(cfg: TrainConfig, g: nn.Module) -> ClippedAdam:
+def make_g_optimizer(cfg: TrainConfig, g: nn.Module, mesh=None) -> ClippedAdam:
     return ClippedAdam(g_param_groups(g),
                        {"renderer": cfg.g_lr_render, "decoder": cfg.g_lr_decoder},
-                       {"renderer": 0.9, "decoder": 0.99}, cfg.grad_clip)
+                       {"renderer": 0.9, "decoder": 0.99}, cfg.grad_clip, mesh)
 
 
-def make_d_optimizer(cfg: TrainConfig, d: nn.Module) -> ClippedAdam:
+def make_d_optimizer(cfg: TrainConfig, d: nn.Module, mesh=None) -> ClippedAdam:
     # lazy-R1 ratio; d_reg_every <= 0 turns lazy regularisation off
     r = 1.0 if cfg.d_reg_every <= 0 else cfg.d_reg_every / (cfg.d_reg_every + 1)
     return ClippedAdam({"d": list(d.parameters())}, {"d": cfg.d_lr_decoder * r},
-                       {"d": 0.99**r}, cfg.grad_clip)
+                       {"d": 0.99**r}, cfg.grad_clip, mesh)
 
 
-def make_d_render_optimizer(cfg: TrainConfig, d_render: nn.Module) -> ClippedAdam:
+def make_d_render_optimizer(cfg: TrainConfig, d_render: nn.Module, mesh=None) -> ClippedAdam:
     return ClippedAdam({"d": list(d_render.parameters())}, {"d": cfg.d_lr_render},
-                       {"d": 0.9}, cfg.grad_clip)
+                       {"d": 0.9}, cfg.grad_clip, mesh)
 
 
 @dataclasses.dataclass
@@ -206,14 +216,16 @@ class TrainState:
 
 
 def create_train_state(cfg: TrainConfig, g: nn.Module, d: nn.Module,
-                       d_render: nn.Module) -> TrainState:
+                       d_render: nn.Module, mesh=None) -> TrainState:
     """A state around built modules (weights already drawn or loaded); the
-    EMA generator starts as a copy of `g`."""
+    EMA generator starts as a copy of `g`. Under a data `mesh` the
+    optimizers average the gradients over the ranks (the state is made
+    equal on every rank by `parallel.replicate`)."""
     check_config(cfg)
     g_ema = copy.deepcopy(g).requires_grad_(False)
     return TrainState(
         g=g, d=d, d_render=d_render, g_ema=g_ema,
-        opt_g=make_g_optimizer(cfg, g), opt_d=make_d_optimizer(cfg, d),
-        opt_d_render=make_d_render_optimizer(cfg, d_render),
+        opt_g=make_g_optimizer(cfg, g, mesh), opt_d=make_d_optimizer(cfg, d, mesh),
+        opt_d_render=make_d_render_optimizer(cfg, d_render, mesh),
         mean_path_length=torch.zeros((), device=g.device),
     )

@@ -3,12 +3,12 @@ minimal-surface terms), path-length regulariser, sphere init, EMA
 (counterpart of cips3dpp_tpu/train/steps.py; contract
 train_v10.py:58-494, 595-668).
 
-`make_train_steps(gen_cfg, cfg)` returns (d_step, g_step, path_reg_step,
-sphere_init_step). Each step updates the modules and optimizers of a
-`TrainState` in place and returns (state, metrics), metrics as 0-d
-tensors on the state's device (read them with float()). Each takes its
-random draws as a `Draws` (`draws=`), or makes them from a
-`torch.Generator`; the draws of the JAX package (threefry) cannot be
+`make_train_steps(gen_cfg, cfg, mesh=None)` returns (d_step, g_step,
+path_reg_step, sphere_init_step). Each step updates the modules and
+optimizers of a `TrainState` in place and returns (state, metrics),
+metrics as 0-d tensors on the state's device (read them with float()).
+Each takes its random draws as a `Draws` (`draws=`), or makes them from
+a `torch.Generator`; the draws of the JAX package (threefry) cannot be
 reproduced by torch, so parity tests hand the same draws to both.
 
 The D step's generator forward runs under no_grad (JAX's stop_gradient on
@@ -16,6 +16,15 @@ its fakes) and, with cfg.fused_renderer_d (the default), through the SIREN
 render kernel: one launch per batch item. Gradients are taken with
 torch.autograd.grad with respect to the updated module only, so no
 `.grad` of another module is touched.
+
+Under a data `mesh` (parallel/mesh.py) a step on N ranks is the step on
+one process at the same global batch, as under the JAX package's mesh
+(its `_sample_inputs` with `constrain_batch`, cips3dpp_tpu/train/steps.py:
+94-116): every rank draws the global batch's inputs (or takes the same
+`Draws`) and keeps its rows; the image D's minibatch stddev is the global
+batch's; the optimizers average the gradients over the ranks before the
+clip; the path-length mean and the metrics are global means. `real_imgs`
+is then the rank's rows, and `TrainConfig.batch` the global batch.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import torch
 from ..core.camera import CameraParams, sample_cameras
 from ..models.diffaug import diffaug_draws
 from ..ops.resize import resize
+from ..parallel.mesh import global_means, shard_batch
 from .losses import (
     d_logistic_loss,
     eikonal_loss,
@@ -127,9 +137,28 @@ def draw_inputs(generator, batch, gen_cfg, cfg: TrainConfig, device, decoder=Non
     return Draws(zs, cam, t_rand, noise, idx, aug)
 
 
-def make_train_steps(gen_cfg, cfg: TrainConfig):
+def shard_draws(draws: Draws, mesh) -> Draws:
+    """The rank's rows of every batch-leading draw of the global batch."""
+    if mesh is None:
+        return draws
+
+    def rows(x):
+        if isinstance(x, torch.Tensor):
+            return shard_batch(x, mesh)
+        if isinstance(x, dict):
+            return {k: rows(v) for k, v in x.items()}
+        if isinstance(x, CameraParams):
+            return CameraParams(*map(rows, x))
+        if isinstance(x, (list, tuple)):
+            return type(x)(map(rows, x))
+        return x
+
+    return Draws(**{f.name: rows(getattr(draws, f.name)) for f in dataclasses.fields(draws)})
+
+
+def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
     """(d_step, g_step, path_reg_step, sphere_init_step) for a generator of
-    `gen_cfg` trained under `cfg`."""
+    `gen_cfg` trained under `cfg`, data-parallel over `mesh` if given."""
     check_config(cfg)
     # pixel sub-sampling / patch training (train_v10.py:156-199, 339-353)
     sub_pixels = gen_cfg.enable_decoder and cfg.gen_img_size < cfg.cam_img_size
@@ -137,15 +166,18 @@ def make_train_steps(gen_cfg, cfg: TrainConfig):
         raise ValueError("patch training expects cam_img_size == the generator's "
                          "NeRF resolution")
     up_factor = 2 ** len(gen_cfg.decoder.upsample_list)
+    world = 1 if mesh is None else mesh.world
 
     def inputs(state, generator, batch, draws, aug_passes=(), decoder=True):
-        if draws is not None:
-            return draws
-        diffaug = getattr(state.d, "diffaug", False) and gen_cfg.enable_decoder
-        return draw_inputs(
-            generator, batch, gen_cfg, cfg, state.g.device,
-            decoder=state.g.decoder if decoder and gen_cfg.enable_decoder else None,
-            aug_passes=aug_passes if diffaug else (), sample_idx=sub_pixels)
+        """The draws of the global `batch` (given, or from `generator`),
+        this rank's rows."""
+        if draws is None:
+            diffaug = getattr(state.d, "diffaug", False) and gen_cfg.enable_decoder
+            draws = draw_inputs(
+                generator, batch, gen_cfg, cfg, state.g.device,
+                decoder=state.g.decoder if decoder and gen_cfg.enable_decoder else None,
+                aug_passes=aug_passes if diffaug else (), sample_idx=sub_pixels)
+        return shard_draws(draws, mesh)
 
     def g_forward(g, draws, eikonal_reg, renderer_detach, fused):
         cam = draws.cam
@@ -160,7 +192,8 @@ def make_train_steps(gen_cfg, cfg: TrainConfig):
         """update_D (train_v10.py:136-241): the pose D (R1 every step, pose
         loss) and the image D (lazy R1 when d_regularize) on fakes of the
         current G."""
-        draws = inputs(state, generator, real_imgs.shape[0], draws, ("fake", "real", "r1"))
+        draws = inputs(state, generator, real_imgs.shape[0] * world, draws,
+                       ("fake", "real", "r1"))
         with torch.no_grad():
             ret = g_forward(state.g, draws, False, None, cfg.fused_renderer_d)
         fake_rgb, fake_thumb = ret["rgb"], ret["thumb_rgb"]
@@ -178,14 +211,14 @@ def make_train_steps(gen_cfg, cfg: TrainConfig):
                 if cfg.lambda_pose > 0 else zero)
         if gen_cfg.enable_decoder:
             real = real_imgs.detach().requires_grad_(d_regularize)
-            fake_pred = state.d(fake_rgb, alpha, aug=aug.get("fake"))
-            real_pred = state.d(real, alpha, aug=aug.get("real"))
+            fake_pred = state.d(fake_rgb, alpha, aug=aug.get("fake"), mesh=mesh)
+            real_pred = state.d(real, alpha, aug=aug.get("real"), mesh=mesh)
             d_gan = d_logistic_loss(real_pred, fake_pred)
             r1_d = zero
             if d_regularize:
                 # with diffaug the penalty sees its own augmentation; without,
                 # its pass is the real pass itself (the same function)
-                r1_pred = state.d(real, alpha, aug=aug["r1"]) if aug else real_pred
+                r1_pred = state.d(real, alpha, aug=aug["r1"], mesh=mesh) if aug else real_pred
                 r1_d = cfg.lambda_gp * 0.5 * cfg.d_reg_every * r1_penalty(r1_pred, real)
         else:  # decoder-less (StyleSDF stage 1): no image D
             fake_pred = real_pred = torch.zeros((1, 1), device=zero.device)
@@ -204,7 +237,7 @@ def make_train_steps(gen_cfg, cfg: TrainConfig):
             "d_logits_real_render": real_pred_r.mean(),
             "d_logits_fake_render": fake_pred_r.mean(), "d_loss_total": total,
         }
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, global_means({k: v.detach() for k, v in metrics.items()}, mesh)
 
     def g_step(state: TrainState, generator, alpha, renderer_detach: bool | None = None,
                draws: Draws | None = None):
@@ -225,7 +258,7 @@ def make_train_steps(gen_cfg, cfg: TrainConfig):
         g_gan = zero
         if gen_cfg.enable_decoder:
             aug = (draws.aug or {}).get("g")
-            g_gan = g_nonsaturating_loss(state.d(ret["rgb"], alpha, aug=aug))
+            g_gan = g_nonsaturating_loss(state.d(ret["rgb"], alpha, aug=aug, mesh=mesh))
         total = g_gan_r + pose + eik + min_surf + g_gan
 
         groups = state.opt_g.groups
@@ -239,7 +272,7 @@ def make_train_steps(gen_cfg, cfg: TrainConfig):
             "g_loss_eikonal_render": eik, "g_loss_minimal_surface_render": min_surf,
             "g_loss_gan_decoder": g_gan, "g_loss_total": total,
         }
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, global_means({k: v.detach() for k, v in metrics.items()}, mesh)
 
     def path_reg_step(state: TrainState, generator, draws: Draws | None = None):
         """Path-length regularisation (train_v10.py:408-480) with respect to
@@ -254,18 +287,20 @@ def make_train_steps(gen_cfg, cfg: TrainConfig):
         rgb = g(style_render=sr, style_decoder=sd, cam_poses=cam.extrinsics,
                 focals=cam.focal, near=cam.near, far=cam.far, noise_bufs=draws.noise,
                 t_rand=draws.t_rand)["rgb"]
-        noise = draws.path_noise if draws.path_noise is not None else path_noise(generator, rgb)
+        noise = draws.path_noise
+        if noise is None:  # the global batch's, this rank's rows
+            noise = shard_batch(path_noise(generator, rgb, batch=batch), mesh)
         (latents_grad,) = torch.autograd.grad((rgb * noise).sum(), sd, create_graph=True)
         penalty, new_mean, plens = path_length_penalty(rgb, latents_grad,
-                                                       state.mean_path_length)
+                                                       state.mean_path_length, mesh=mesh)
         weighted = cfg.path_regularize * cfg.g_reg_every * penalty
         groups = state.opt_g.groups
         grads = torch.autograd.grad(weighted, groups["decoder"], allow_unused=True)
         state.opt_g.step({"renderer": [torch.zeros_like(p) for p in groups["renderer"]],
                           "decoder": grads})
         state.mean_path_length = new_mean
-        return state, {"g_loss_weighted_path": weighted.detach(),
-                       "path_length_mean": plens.mean().detach()}
+        return state, global_means({"g_loss_weighted_path": weighted.detach(),
+                                    "path_length_mean": plens.mean().detach()}, mesh)
 
     def sphere_init_step(state: TrainState, generator, draws: Draws | None = None):
         """SDF sphere initialisation (train_v10.py:595-668): L1 between the
@@ -281,7 +316,7 @@ def make_train_steps(gen_cfg, cfg: TrainConfig):
         grads = torch.autograd.grad(loss, groups["renderer"] + groups["decoder"],
                                     allow_unused=True)
         state.opt_g.step({"renderer": grads[:n], "decoder": grads[n:]})
-        return state, {"sphere_init_l1": loss.detach()}
+        return state, global_means({"sphere_init_l1": loss.detach()}, mesh)
 
     return d_step, g_step, path_reg_step, sphere_init_step
 

@@ -9,6 +9,13 @@ evaluation hook and best-FID tracking, resume. The cadence is the JAX
 loop's, index for index. The steps update the state's modules and
 optimizers in place; their random draws come from one `torch.Generator`
 that the caller passes in place of JAX's key.
+
+Under a data `mesh` (parallel/mesh.py) every rank runs this loop on its
+own device: the state is replicated from rank 0 at init and on resume,
+each rank reads the global batch stream and keeps its rows (the images
+JAX's mesh puts on each device, cips3dpp_tpu/train/train_loop.py:183-191),
+the steps are data-parallel, and rank 0 alone writes checkpoints,
+best_fid.pt and logs while the others wait at a barrier.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import Callable, Iterable
 import torch
 
 from ..models.layers import init_parameters
+from ..parallel.mesh import barrier, replicate, shard_batch
 from ..parallel.prefetch import prefetch_to_device
 from ..utils.logging import MetricLogger
 from .state import TrainConfig, TrainState, create_train_state
@@ -52,9 +60,6 @@ class Trainer:
         config_snapshot: dict | None = None,
         auto_remat: bool = False,
     ):
-        if mesh is not None:
-            raise NotImplementedError("data-parallel training (mesh=) is not ported "
-                                      "(ROADMAP queue 1 item 2, parallel)")
         if auto_remat:
             raise NotImplementedError("auto_remat switches on remat_d, which is not "
                                       "ported (ROADMAP queue 1)")
@@ -68,12 +73,17 @@ class Trainer:
         self.ckpt_every = ckpt_every
         self.config_snapshot = config_snapshot
         self.device = generator.device
+        self.mesh = mesh
+        # the rank that writes (every process off the mesh)
+        self.main = mesh is None or mesh.is_main
 
-        os.makedirs(outdir, exist_ok=True)
-        self.logger = MetricLogger(os.path.join(outdir, "logs"))
+        self.logger = None
+        if self.main:
+            os.makedirs(outdir, exist_ok=True)
+            self.logger = MetricLogger(os.path.join(outdir, "logs"))
         self._ckpt = None
         self._keep = keep_ckpts
-        self.steps = make_train_steps(gen_cfg, train_cfg)
+        self.steps = make_train_steps(gen_cfg, train_cfg, mesh)
 
     # ----- setup ----------------------------------------------------------
 
@@ -81,13 +91,15 @@ class Trainer:
         """A fresh TrainState around the trainer's modules: with
         `generator` (a CPU generator), G, D and the pose D are drawn anew
         from it, in that order; without, they keep their weights. The EMA
-        generator starts as a copy of G. (The JAX package's second
-        argument, an example batch shape, has no use here: the modules are
-        built.)"""
+        generator starts as a copy of G. Under a mesh the state is then
+        broadcast from rank 0. (The JAX package's second argument, an
+        example batch shape, has no use here: the modules are built.)"""
         if generator is not None:
             for m in (self.generator, self.d_decoder, self.d_render):
                 init_parameters(m, generator)
-        return create_train_state(self.cfg, self.generator, self.d_decoder, self.d_render)
+        state = create_train_state(self.cfg, self.generator, self.d_decoder, self.d_render,
+                                   self.mesh)
+        return replicate(state, self.mesh)
 
     def checkpointer(self):
         if self._ckpt is None:
@@ -96,6 +108,18 @@ class Trainer:
             self._ckpt = CheckpointManager(os.path.join(self.outdir, "ckpt"),
                                            keep=self._keep)
         return self._ckpt
+
+    def save(self, step: int, state: TrainState, metrics=None, best: bool = False) -> None:
+        """Checkpoint `step` with the config snapshot (and the best-FID slot
+        when `best`), written by rank 0 while the other ranks wait."""
+        if self.main:
+            self.checkpointer().save(step, state, config=self.config_snapshot,
+                                     metrics=metrics)
+            if best:
+                from ..io.checkpoint import save_best
+
+                save_best(os.path.join(self.outdir, "ckpt"), state)
+        barrier(self.mesh)
 
     # ----- phases ---------------------------------------------------------
 
@@ -106,7 +130,7 @@ class Trainer:
         n = n_iters if n_iters is not None else self.cfg.init_iters
         for i in range(n):
             state, m = sphere_step(state, generator)
-            if i % log_every == 0:
+            if i % log_every == 0 and self.main:
                 self.logger.log_jsonl(i, m, name="sphere_init")
         return state
 
@@ -122,8 +146,8 @@ class Trainer:
         sphere_init_done: bool = True,
     ) -> TrainState:
         """Main GAN loop (train_v10.py:892-1060); `data` yields (B, H, W, 3)
-        batches in [-1, 1], `generator` (on the state's device) gives every
-        step's draws."""
+        batches of the global batch in [-1, 1], `generator` (on the state's
+        device, seeded alike on every rank) gives every step's draws."""
         cfg = self.cfg
         hooks = hooks or TrainHooks()
         d_step, g_step, path_step, _ = self.steps
@@ -132,13 +156,16 @@ class Trainer:
         t0 = time.time()
 
         # batches are copied to the device ahead of the step that takes them
-        batches = prefetch_to_device(data, self.device)
+        batches = prefetch_to_device((shard_batch(b, self.mesh) for b in data),
+                                     self.device)
         # Metrics stay on the device until the NEXT log point: reading them
         # at once would stall the host on the step just issued and drain
         # the queue of work ahead of the device.
         pending = None  # (idx, alpha, device metrics, dispatch time)
 
         def emit(p):
+            if not self.main:
+                return
             p_idx, p_alpha, dev, p_time = p
             metrics = {k: float(v) for k, v in dev.items()}
             metrics["alpha"] = p_alpha
@@ -176,30 +203,33 @@ class Trainer:
                 pending = (idx, alpha, {**dm, **gm, **pm}, time.time())
 
             if (idx + 1) % self.ckpt_every == 0:
+                # every rank evaluates (the hook may gather across ranks)
                 fid = hooks.eval_fid(state) if hooks.eval_fid else None
                 metrics = {"fid": fid} if fid is not None else None
-                self.checkpointer().save(idx + 1, state, config=self.config_snapshot,
-                                         metrics=metrics)
-                if fid is not None and fid < best_fid:
+                best = fid is not None and fid < best_fid
+                if best:
                     best_fid = fid
-                    from ..io.checkpoint import save_best
-
-                    save_best(os.path.join(self.outdir, "ckpt"), state)
+                if fid is not None and self.main:
+                    self.logger.log_jsonl(idx + 1, metrics, name="fid")
+                self.save(idx + 1, state, metrics=metrics, best=best)
                 if hooks.on_checkpoint:
                     hooks.on_checkpoint(idx, state)
-                self.logger.save_figures()
+                if self.main:
+                    self.logger.save_figures()
 
         if pending is not None:
             emit(pending)
-        self.logger.flush()
+        if self.main:
+            self.logger.flush()
         return state
 
     def resume(self, state: TrainState):
         """Restore the latest checkpoint into `state`, if there is one:
-        (state, step), or (None, 0)."""
+        (state, step), or (None, 0). Every rank reads the file; under a
+        mesh the state is then broadcast from rank 0."""
         mgr = self.checkpointer()
         step = mgr.latest_step()
         if step is None:
             return None, 0
-        return mgr.restore(state, step), step
+        return replicate(mgr.restore(state, step), self.mesh), step
 

@@ -171,10 +171,11 @@ def test_interpolate_decoder_params_matches_jax(tiny):
 
 def test_writers(tmp_path):
     """PNG grids from the standard library decode to the frames; videos
-    fall back to what can be written."""
-    import zlib
-
-    from cips3dpp_torch.apps.sample import save_image_grid, save_video, tile_grid
+    fall back to what can be written. (The writer chooses each row's
+    filter as PIL does, so the rows are read back through the reader of
+    the five filters, `read_png`, which tests/test_torch_port_inversion_cli.py
+    holds to PIL.)"""
+    from cips3dpp_torch.apps.sample import read_png, save_image_grid, save_video, tile_grid
 
     rng = np.random.default_rng(1)
     frames = rng.uniform(-1, 1, (3, 4, 5, 3)).astype(np.float32)
@@ -183,10 +184,7 @@ def test_writers(tmp_path):
     assert raw[:8] == b"\x89PNG\r\n\x1a\n"
     w, h = np.frombuffer(raw[16:24], ">u4")
     assert (h, w) == (8, 10)
-    idat = raw.index(b"IDAT")
-    n = int.from_bytes(raw[idat - 4:idat], "big")
-    rows = np.frombuffer(zlib.decompress(raw[idat + 4:idat + 4 + n]), np.uint8)
-    img = rows.reshape(8, 1 + 10 * 3)[:, 1:].reshape(8, 10, 3)
+    img = read_png(path)
     want = ((np.clip(frames, -1, 1) + 1) * 127.5).astype(np.uint8)
     np.testing.assert_array_equal(img[:4, :5], want[0])
     np.testing.assert_array_equal(img[4:, 5:], 127)  # the empty cell, 0 in [-1, 1]

@@ -147,7 +147,9 @@ def test_port_imports_no_jax():
                 "tools.elem_dtype_probe", "models.discriminator", "models.discriminator_pose",
                 "models.diffaug", "train.losses", "train.state", "train.steps",
                 "train.train_loop", "io.yaml_lite", "io.checkpoint", "io.dataset",
-                "io.jax_params", "parallel.prefetch", "utils.logging", "apps.cli_train_impl"):
+                "io.jax_params", "parallel.prefetch", "utils.logging", "apps.cli_train_impl",
+                "parallel.mesh", "models.inception", "apps.eval_fid", "io.native_loader",
+                "io.weights"):
         assert f"cips3dpp_torch.{mod}" in names, mod
 
 

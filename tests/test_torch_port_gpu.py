@@ -543,3 +543,97 @@ def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
     step(b)
     fa, fb = flat(a), flat(b)
     assert all(torch.equal(fb[k], fa[k]) for k in fa)
+
+
+def _small_train(dev, seed=1):
+    from cips3dpp_torch.models.discriminator import DStyleGANProgressive
+    from cips3dpp_torch.models.discriminator_pose import DVolumeRenderProgressive
+    from cips3dpp_torch.models.generator import (
+        DecoderConfig, Generator, GeneratorConfig, RendererConfig,
+    )
+    from cips3dpp_torch.train import TrainConfig
+
+    cfg = GeneratorConfig(renderer=RendererConfig(hidden_dim=16),
+                          decoder=DecoderConfig(upsample_list=(16,), style_dim=32,
+                                                mapping_n_layers=1),
+                          img_size=8, n_samples=4)
+    tcfg = TrainConfig(batch=4, data_img_size=16, cam_img_size=8, gen_img_size=16,
+                       fused_renderer_d=False)
+    return cfg, tcfg, (Generator(cfg, device=dev, seed=seed),
+                       DStyleGANProgressive(16, 1, device=dev, seed=seed + 1),
+                       DVolumeRenderProgressive(8, device=dev, seed=seed + 2))
+
+
+def test_one_rank_nccl_steps_bit_equal_unsharded(dev):
+    """A D step with lazy R1, a G step and a path-length step on a one-rank
+    NCCL group end on the same tensors as without a mesh, bit for bit (the
+    all-reduce of one rank divides by 1; the gathered stddev batch is the
+    batch). With cuDNN's deterministic algorithms: its default backward
+    algorithms do not repeat themselves on the card. The unsharded steps
+    are run twice first: they must repeat, or bit-equality says nothing."""
+    from cips3dpp_torch.parallel import make_mesh, replicate
+    from cips3dpp_torch.train import create_train_state, make_train_steps
+
+    def run(mesh):
+        cfg, tcfg, mods = _small_train(dev)
+        state = replicate(create_train_state(tcfg, *mods, mesh), mesh)
+        d_step, g_step, path_step, _ = make_train_steps(cfg, tcfg, mesh)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        real = torch.rand((4, 16, 16, 3), generator=gen, device=dev) * 2 - 1
+        d_step(state, real, gen, 0.5, True)
+        g_step(state, gen, 0.5)
+        path_step(state, gen)
+        torch.cuda.synchronize()
+        return [t.clone() for k in state.MODULES for t in getattr(state, k).state_dict().values()]
+
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        plain = run(None)
+        assert all(torch.equal(a, b) for a, b in zip(plain, run(None))), "not repeatable"
+        mesh = make_mesh(1)
+        try:
+            assert mesh.backend == "nccl" and mesh.device == torch.device("cuda", 0)
+            got = run(mesh)
+            assert mesh.counts["grad_all_reduce"] == 4  # D, pose D, G, G (path reg)
+        finally:
+            mesh.close()
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+def test_inception_on_the_card_matches_cpu(dev):
+    """The FID Inception on cuDNN (TF32 off) against the CPU, same seeded
+    weights, batch 2 at 64^2 in both input protocols: within 1e-5 of the
+    largest |feature| (f32 sums in other orders)."""
+    from cips3dpp_torch.models.inception import init_inception
+
+    gpu = init_inception(torch.Generator().manual_seed(0), device=dev)
+    cpu = init_inception(torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    for u8, x in ((True, torch.randint(0, 256, (2, 64, 64, 3), generator=gen).float()),
+                  (False, torch.rand((2, 64, 64, 3), generator=gen) * 2 - 1)):
+        with torch.no_grad():
+            got, want = gpu(x.to(dev), fidelity_u8=u8).cpu(), cpu(x, fidelity_u8=u8)
+        assert got.shape == (2, 2048) and torch.isfinite(got).all()
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+def test_native_loader_into_the_prefetcher(dev, tmp_path):
+    """The native loader's batches through the side-stream prefetcher arrive
+    on the card unchanged (a second loader of the same seed gives the
+    reference)."""
+    import numpy as np
+
+    from cips3dpp_torch.io.native_loader import open_native_loader
+    from cips3dpp_torch.parallel import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    np.save(tmp_path / "images-64-0000.npy", rng.integers(0, 256, (16, 64, 64, 3), np.uint8))
+    fed = open_native_loader(str(tmp_path), 4, seed=2, n_threads=1)
+    ref = open_native_loader(str(tmp_path), 4, seed=2, n_threads=1)
+    try:
+        for i, batch in zip(range(10), prefetch_to_device(fed, dev)):
+            assert batch.device == dev
+            assert np.array_equal(batch.cpu().numpy(), next(ref)), i
+    finally:
+        fed.close()
+        ref.close()

@@ -313,7 +313,10 @@ def test_not_ported_options_raise(tmp_path):
     _, gen_cfg = tiny_configs()
     dev = types.SimpleNamespace(device=torch.device("cpu"))
 
-    with pytest.raises(NotImplementedError, match="item 2"):
-        Trainer(dev, None, None, gen_cfg, TrainConfig(), str(tmp_path), mesh=object())
+    from cips3dpp_torch.parallel import make_mesh
+
+    # the mesh is ported; its ray axis is not
+    with pytest.raises(NotImplementedError, match="item 7"):
+        make_mesh(ray=2, device="cpu")
     with pytest.raises(NotImplementedError, match="remat_d"):
         Trainer(dev, None, None, gen_cfg, TrainConfig(), str(tmp_path), auto_remat=True)
