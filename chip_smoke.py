@@ -103,6 +103,30 @@ Phases, each fatal on failure:
      and over one projector step (phase 9): device time per kernel and
      kernel group and the device idle share (tables in
      chiprun_out/profile_*.txt).
+ 12. the rest of the command line and the shipped configs, full width,
+     through cips3dpp_torch.apps.cli.main in-process with PyYAML hidden:
+     (a) `import-torch` of a seeded G_ema .pth (with the reference's FIR
+     and noise buffers, ignored), an image D and a pose D, each checked
+     strictly and written bit-equal; `verify-import --save-golden` at
+     r1024, `--golden` passing, and one renderer weight x1.01 failing with
+     exit code 1; (b) `extract-shape --n-shapes 1 --resolution 128`; (c)
+     `rendering-time --n-frames 128` as a user runs it (an untimed sweep
+     and 3 timed, each exactly 128 K1 + 512 K2; fps and ms a frame); (d)
+     `train_r1024` (the reference, under the same cuDNN algorithms),
+     `train_r1024_fast` (batch 4) and `train_r1024_b8` (batch 8) for 5
+     iterations with lazy R1 and path reg forced at idx 1 and 3 (--opts
+     d_reg_every 2 g_reg_every 2): K1 launches a D step = batch, every
+     loss finite, seconds an iteration and peak memory; then d_cat's and
+     d_seq's image-D gradients against the two-pass form's at full width,
+     f32, batch 8, with and without R1, on one state and one set of draws
+     (SPLIT_BOUNDS), with each form's time and added peak; (e) StyleSDF
+     `train_volume_renderer` (depth 8, 64^2, 10 sphere-init iterations,
+     3 iterations, 0 K1, the plain route said) and `train_full_pipeline
+     --init-renderer-from` (3 iterations at r1024: the renderer and its
+     mapping bit-equal to stage 1's G_ema at step 0, the decoder fresh);
+     (f) `train_r64` for 3 iterations (depth 8, 0 K1); (g) the web form's
+     argv for sample_multi_view run through cli.main (after phase 10,
+     before the --profile phase).
 Each path that launches kernels runs with the launch counts set to 0
 just before it and read just after. A kernel's "ms" is its device time a
 launch (torch.profiler), beside the time a call takes back to back (CUDA
@@ -137,6 +161,7 @@ PEAK_F32_APART = PEAK_F32 / 2
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 SEED = 1234
 NOISE_SEED = 20240607
+T_START = time.perf_counter()
 K2_SRC, K2_TPU = "cips3dpp_torch/csrc/decoder_block.cu", "cips3dpp_tpu/kernels/decoder_block.py:362"
 # Kernel against plain version by storage dtype. bf16: a bf16 activation
 # that rounds the other way (the f32 sums differ in order) moves a stored
@@ -1821,6 +1846,408 @@ def data_parallel_phase(dev, smi, step8, plain_iter_s,
     return res
 
 
+# Phase 12's D-gradient bound: d_cat and d_seq against the two-pass form on
+# one state and one set of draws at full width, f32. JAX calls both forms
+# exact; here the image D runs batch 16 (d_cat) or one pass at a time
+# (d_seq), and cuDNN picks its f32 algorithms by shape, so sums run in
+# other orders: every gradient within 1e-3 of its tensor's largest value
+# and at cosine 0.9999 or above.
+SPLIT_BOUNDS = {"grad_rel": 1e-3, "cos": 0.9999}
+
+
+def _train_probe(tl):
+    """Patches of the training loop that record each iteration's wall time
+    (to a synchronise at its end), each step's metrics and the K1 launches
+    of each D step; returns (probe, [(obj, name, wrap)])."""
+    from cips3dpp_torch.kernels import _lib
+
+    probe = {"iter_s": [], "metrics": [], "d_k1": [], "flags": []}
+
+    def stamped_prefetch(orig):
+        def prefetch(data, device=None, size=2):
+            torch.cuda.synchronize()
+            probe["t"] = time.perf_counter()
+            return orig(data, device, size)
+        return prefetch
+
+    def timed_ema(orig):
+        def ema(state, decay):
+            out = orig(state, decay)
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            probe["iter_s"].append(now - probe["t"])
+            probe["t"] = now
+            return out
+        return ema
+
+    def recorded_steps(orig):
+        def make(gen_cfg, cfg, mesh=None):
+            d_step, g_step, path_step, sphere_step = orig(gen_cfg, cfg, mesh)
+
+            def keep(kind, out):
+                probe["metrics"].append((kind, {k: float(v) for k, v in out[1].items()}))
+                return out
+
+            def d(state, real, generator, alpha, d_regularize):
+                k0 = _lib.LAUNCHES["siren_render"]
+                out = d_step(state, real, generator, alpha, d_regularize=d_regularize)
+                probe["d_k1"].append(_lib.LAUNCHES["siren_render"] - k0)
+                probe["flags"].append(("d", bool(d_regularize)))
+                return keep("d", out)
+
+            def g(state, generator, alpha, renderer_detach=None):
+                return keep("g", g_step(state, generator, alpha, renderer_detach=renderer_detach))
+
+            def path(state, generator):
+                probe["flags"].append(("path_reg",))
+                return keep("path_reg", path_step(state, generator))
+
+            def sphere(state, generator):
+                return keep("sphere_init", sphere_step(state, generator))
+            return d, g, path, sphere
+        return make
+
+    return probe, [(tl, "ema_update", timed_ema), (tl, "prefetch_to_device", stamped_prefetch),
+                   (tl, "make_train_steps", recorded_steps)]
+
+
+def _split_grads(dev, smi):
+    """d_cat's and d_seq's image-D gradients against the two-pass form's at
+    full width, f32, batch 8 (train_r1024_b8's), with and without lazy R1,
+    on one state and one set of draws (SPLIT_BOUNDS); each step's time and
+    the peak memory it adds to what was allocated before it."""
+    import copy
+
+    from cips3dpp_torch.models.discriminator import DStyleGANProgressive
+    from cips3dpp_torch.models.discriminator_pose import DVolumeRenderProgressive
+    from cips3dpp_torch.models.generator import Generator, preset_r1024
+    from cips3dpp_torch.models.layers import randomize_zero_init_
+    from cips3dpp_torch.train import TrainConfig, create_train_state, draw_inputs
+    from cips3dpp_torch.train.steps import make_train_steps
+
+    cfg, base = preset_r1024(), TrainConfig(batch=8)
+    g = Generator(cfg, device=dev, seed=SEED + 60)
+    d = DStyleGANProgressive(1024, 2, device=dev, seed=SEED + 61)
+    dr = DVolumeRenderProgressive(1024, device=dev, seed=SEED + 62)
+    for i, m in enumerate((g, d)):
+        randomize_zero_init_(m, torch.Generator().manual_seed(SEED + 63 + i))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 65)
+    draws = draw_inputs(gen, base.batch, cfg, base, dev, decoder=g.decoder)
+    real = torch.rand((base.batch, 1024, 1024, 3), generator=gen, device=dev) * 2 - 1
+    forms = (("two-pass", {}), ("d_cat", {"d_cat": True}), ("d_seq", {"d_seq": True}))
+    grads, ms, peak = {}, {}, {}
+    with counted("d_cat / d_seq / two-pass D steps, with and without R1 (6 calls)",
+                 {"siren_render": 6 * base.batch}) as launches:
+        for r1 in (True, False):
+            for name, opts in forms:
+                tcfg = dataclasses.replace(base, **opts)
+                state = create_train_state(tcfg, copy.deepcopy(g), copy.deepcopy(d),
+                                           copy.deepcopy(dr))
+                seen = {}
+                step = state.opt_d.step
+                state.opt_d.step = lambda gs, step=step: (seen.update(
+                    g=[None if x is None else x.detach().clone() for x in gs["d"]]), step(gs))
+                d_step = make_train_steps(cfg, tcfg)[0]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                before = torch.cuda.memory_allocated(dev)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                d_step(state, real, None, 0.5, r1, draws=draws)
+                end.record()
+                torch.cuda.synchronize()
+                key = (name, r1)
+                ms[key] = start.elapsed_time(end)
+                peak[key] = torch.cuda.max_memory_allocated(dev) - before
+                grads[key] = seen["g"]
+                del state, seen
+                torch.cuda.empty_cache()
+    names = [n for n, _ in d.named_parameters()]
+    out = {"ms": {f"{n} {'r1' if r else 'plain'}": v for (n, r), v in ms.items()},
+           "peak_bytes": {f"{n} {'r1' if r else 'plain'}": v for (n, r), v in peak.items()}}
+    for name in ("d_cat", "d_seq"):
+        for r1 in (True, False):
+            # the parameters off the 1024^2 input's path have no gradient in any form
+            pairs = [(n, x, y) for n, x, y in zip(names, grads[name, r1], grads["two-pass", r1])
+                     if not (x is None and y is None)]
+            if any(x is None or y is None for _, x, y in pairs):
+                raise AssertionError(f"{name}: a parameter has a gradient in one form only")
+            rel = {n: float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                   for n, x, y in pairs}
+            cos = {n: float(torch.nn.functional.cosine_similarity(
+                x.flatten().double(), y.flatten().double(), dim=0))
+                for n, x, y in pairs if y.abs().max() > 0}
+            worst_rel = max(rel.items(), key=lambda kv: kv[1])
+            worst_cos = min(cos.items(), key=lambda kv: kv[1])
+            tag = "lazy R1" if r1 else "no R1"
+            out[f"{name} {'r1' if r1 else 'plain'}"] = {"grad_rel": worst_rel, "cos": worst_cos}
+            log(f"[cli-rest] {name} against the two-pass D step (f32, batch 8, {tag}, one "
+                f"state and one set of draws): image-D gradients within {worst_rel[1]:.3e} of "
+                f"their tensor's largest ({worst_rel[0]}), least cosine {worst_cos[1]:.7f} "
+                f"({worst_cos[0]}); bounds {SPLIT_BOUNDS}; {ms[name, r1]:.1f} ms against "
+                f"{ms['two-pass', r1]:.1f} ms (first calls, set-up included); peak added "
+                f"{peak[name, r1] / 2**30:.2f} GiB against {peak['two-pass', r1] / 2**30:.2f} "
+                f"GiB; {smi}")
+            if not (worst_rel[1] <= SPLIT_BOUNDS["grad_rel"]
+                    and worst_cos[1] >= SPLIT_BOUNDS["cos"]):
+                raise AssertionError(f"{name}: D gradients off the two-pass form's: "
+                                     f"{worst_rel}, {worst_cos}")
+    out["launches"] = launches
+    return out
+
+
+def cli_rest_phase(dev, smi, cfg_path=os.path.join(ROOT, "configs", "ffhq.yaml"),
+                   sdf_path=os.path.join(ROOT, "configs", "stylesdf.yaml")):
+    """Phase 12: the rest of the command line and the shipped configs at
+    full width, through cips3dpp_torch.apps.cli.main in-process with PyYAML
+    hidden: (a) import-torch and verify-import, (b) extract-shape, (c)
+    rendering-time, (d) train_r1024_fast and train_r1024_b8 with lazy R1
+    forced, and d_cat / d_seq against the two-pass form, (e) the StyleSDF
+    stages with the handoff, (f) train_r64, (g) the web form's argv."""
+    import numpy as np
+
+    from cips3dpp_torch.apps import cli, web
+    from cips3dpp_torch.io import checkpoint as ckpt_mod
+    from cips3dpp_torch.models.discriminator import DStyleGANProgressive
+    from cips3dpp_torch.models.discriminator_pose import DVolumeRenderProgressive
+    from cips3dpp_torch.models.generator import Generator, preset_r1024
+    from cips3dpp_torch.models.layers import randomize_zero_init_
+    from cips3dpp_torch.train import train_loop as tl
+
+    res = {"card": smi, "wall_s": {}}
+    t_phase = time.perf_counter()
+    k1 = k2 = 0
+
+    def timed(label, argv, want_launches=None, rc=0):
+        """(result, seconds) of one command; its launches checked."""
+        nonlocal k1, k2
+        from cips3dpp_torch.apps import cli as cli_mod
+
+        buf, err = io.StringIO(), io.StringIO()
+        with counted(label, want_launches) as launches:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+                got_rc = cli_mod.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if got_rc != rc:
+            raise AssertionError(f"{label}: exit code {got_rc}, want {rc}; {err.getvalue()[-2000:]}")
+        k1 += launches.get("siren_render", 0)
+        k2 += launches.get("decoder_block", 0)
+        res["wall_s"][label] = wall
+        return json.loads(buf.getvalue().strip().splitlines()[-1]), wall, err.getvalue()
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+        stack.enter_context(hidden_module("yaml"))
+        sample = ["--cfg", cfg_path, "--section", "sample_multi_view"]
+
+        # ---- a. import-torch and verify-import ----
+        gcfg = preset_r1024()
+        g = Generator(gcfg, device=dev, seed=SEED + 40)
+        randomize_zero_init_(g, torch.Generator().manual_seed(SEED + 40))
+        models = {"g_ema": g, "d": DStyleGANProgressive(1024, 2, device=dev, seed=SEED + 41),
+                  "d_pose": DVolumeRenderProgressive(gcfg.img_size, device=dev, seed=SEED + 42)}
+        for name, module in models.items():
+            sd = {k: v.cpu() for k, v in module.state_dict().items()}
+            if name == "g_ema":  # the reference's FIR and noise buffers, ignored
+                sd["decoder.convs.0.conv.blur.kernel"] = torch.ones(4, 4)
+                sd["decoder.noises.noise_0"] = torch.zeros(1, 1, 64, 64)
+            torch.save(sd, f"{tmp}/{name}_ref.pth")
+            out, wall, _ = timed(f"import-torch --model {name}",
+                                 ["import-torch", *sample, "--pth", f"{tmp}/{name}_ref.pth",
+                                  "--model", name, "--outdir", f"{tmp}/imp"], {})
+            got = torch.load(out["ckpt"], weights_only=True)
+            want = module.state_dict()
+            if out["n_matched"] != out["n_expected"] or out["n_unexpected"] or \
+                    got.keys() != want.keys() or \
+                    not all(torch.equal(got[k], want[k].cpu()) for k in want):
+                raise AssertionError(f"import-torch {name}: {out}")
+            log(f"[cli-rest] import-torch --model {name}: {out['n_matched']} of "
+                f"{out['n_expected']} tensors, {out['n_ignored']} ignored, strict check, "
+                f"written bit-equal in {wall:.2f} s")
+        del models
+        pkl = ["--opts", "network_pkl", f"{tmp}/imp/g_ema.pth"]
+        golden = f"{tmp}/golden.npz"
+        out, wall, _ = timed("verify-import --save-golden",
+                             ["verify-import", *sample, "--save-golden", golden, *pkl], {})
+        rep, wall2, _ = timed("verify-import --golden",
+                              ["verify-import", *sample, "--golden", golden, *pkl], {})
+        if not rep["pass"]:
+            raise AssertionError(f"verify-import: {rep}")
+        sd = torch.load(f"{tmp}/imp/g_ema.pth", weights_only=True)
+        sd["renderer.network.pts_linears.1.weight"] *= 1.01
+        torch.save(sd, f"{tmp}/planted.pth")
+        bad, _, _ = timed("verify-import --golden, planted weight",
+                          ["verify-import", *sample, "--golden", golden, "--opts",
+                           "network_pkl", f"{tmp}/planted.pth"], {}, rc=1)
+        if bad["pass"]:
+            raise AssertionError(f"verify-import passed a planted weight: {bad}")
+        log(f"[cli-rest] verify-import at r1024 ({out['n_images']} images): golden saved in "
+            f"{wall:.2f} s; the same checkpoint passes (max |err| {rep['rgb']['max_abs_err']}, "
+            f"{wall2:.2f} s); one renderer weight x1.01 fails with exit code 1 (rgb max |err| "
+            f"{bad['rgb']['max_abs_err']:.4f}, PSNR {bad['rgb']['psnr']:.2f} dB)")
+        res["verify_import"] = {"pass": rep, "planted": bad}
+
+        # ---- b. extract-shape ----
+        shapes, wall, _ = timed("extract-shape --n-shapes 1 --resolution 128",
+                                ["extract-shape", *sample, "--outdir", f"{tmp}/shape",
+                                 "--n-shapes", "1", "--resolution", "128", *pkl], {})
+        with open(shapes[0]["obj"]) as fh:
+            n_v = sum(line.startswith("v ") for line in fh)
+        if n_v == 0 or n_v != shapes[0]["n_verts"] or not os.path.exists(shapes[0]["img"]):
+            raise AssertionError(f"extract-shape: {shapes}")
+        import shutil
+
+        shutil.copy(shapes[0]["img"], os.path.join(OUT, "extract_shape.png"))
+        log(f"[cli-rest] extract-shape at r1024, 128^3 grid: {n_v} vertices, an image, "
+            f"{wall:.2f} s")
+        res["extract_shape"] = {"n_verts": n_v, "s": wall}
+
+        # ---- c. rendering-time ----
+        # the command as a user runs it: an untimed sweep and RENDER_REPS
+        # timed ones, each 128 K1 + 512 K2
+        sweeps = cli.RENDER_REPS + 1
+        rt, wall, _ = timed("rendering-time --n-frames 128", ["rendering-time", "--n-frames",
+                                                               "128"],
+                            {"siren_render": 128 * sweeps, "decoder_block": 512 * sweeps})
+        log(f"[cli-rest] rendering-time, preset_serving, batch 1, 128 frames: {sweeps} sweeps "
+            f"of 128 K1 + 512 K2 counted; best {rt['value']:.2f} fps "
+            f"({rt['ms_per_frame']:.3f} ms a frame, mean {rt['mean_ms_per_frame']:.3f}), "
+            f"vs_baseline {rt['vs_baseline']:.3f} (46.93 fps, a V100-class GPU), peak "
+            f"{rt['peak_bytes'] / 2**20:.1f} MiB, {wall:.2f} s with set-up; card "
+            f"{rt['card']}")
+        res["rendering_time"] = rt
+
+        # ---- d. the fast training sections ----
+        data = f"{tmp}/data"
+        os.makedirs(data)
+        rng = np.random.default_rng(SEED)
+        np.save(f"{data}/images-1024-0000.npy",
+                rng.integers(0, 256, (8, 1024, 1024, 3), dtype=np.uint8))
+        d64 = f"{tmp}/data64"
+        os.makedirs(d64)
+        np.save(f"{d64}/images-64-0000.npy", rng.integers(0, 256, (8, 64, 64, 3), dtype=np.uint8))
+
+        def train_run(label, cfg, section, data_dir, batch, iters, extra=(), opts=()):
+            probe, patches = _train_probe(tl)
+            with contextlib.ExitStack() as ps:
+                for obj, name, wrap in patches:
+                    ps.enter_context(patched(obj, name, wrap))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                out, wall, err = timed(label, ["train", "--cfg", cfg, "--section", section,
+                                               "--data", data_dir, "--outdir",
+                                               f"{tmp}/{section}", "--total-iters", str(iters),
+                                               *extra, "--opts", *opts])
+            peak = torch.cuda.max_memory_allocated()
+            bad = [(k, m) for k, m in probe["metrics"]
+                   if not all(np.isfinite(v) for v in m.values())]
+            if out.get("done") is not True or bad or len(probe["iter_s"]) != iters:
+                raise AssertionError(f"{label}: {out}, non-finite {bad[:2]}, "
+                                     f"{len(probe['iter_s'])} iterations")
+            its = probe["iter_s"]
+            flags = probe["flags"]
+            log(f"[cli-rest] {label}: {wall:.2f} s with set-up; iteration wall times (s, to a "
+                f"synchronise at each end) {', '.join(f'{x:.3f}' for x in its)}; step flags "
+                f"{flags}; K1 launches a D step {probe['d_k1']}; peak allocated "
+                f"{peak / 2**30:.2f} GiB; every loss finite; {smi}")
+            return {"wall_s": wall, "iter_s": its, "flags": flags, "d_k1": probe["d_k1"],
+                    "peak_bytes": peak, "batch": batch}, probe, err
+
+        # lazy R1 forced: d_reg_every 2 puts R1 at idx 1 and 3 (the JAX loop's
+        # (idx + 1) % d_reg_every), g_reg_every 2 path reg at the same idx;
+        # it also sets the image D's Adam ratio r = 2/3
+        forced = ("d_reg_every", "2", "g_reg_every", "2")
+        res["fast"] = {}
+        # train_r1024 first: the like-for-like reference (the same cuDNN
+        # algorithms, the same forced regularisation)
+        for section, batch in (("train_r1024", 4), ("train_r1024_fast", 4),
+                               ("train_r1024_b8", 8)):
+            run, probe, _ = train_run(f"train {section}", cfg_path, section, data, batch, 5,
+                                      ("--no-sphere-init",), forced)
+            if run["d_k1"] != [batch] * 5 or ("d", True) not in run["flags"]:
+                raise AssertionError(f"{section}: K1 a D step {run['d_k1']}, flags {run['flags']}")
+            its = run["iter_s"]
+            run["plain_iter_s"] = [its[i] for i in (2, 4)]
+            run["r1_path_iter_s"] = [its[i] for i in (1, 3)]
+            res["fast"][section] = run
+            ref = res["fast"]["train_r1024"]
+            if section == "train_r1024":
+                continue
+            log(f"[cli-rest] {section} (batch {batch}): plain iterations "
+                f"{', '.join(f'{x:.3f}' for x in run['plain_iter_s'])} s, with lazy R1 and path "
+                f"reg {', '.join(f'{x:.3f}' for x in run['r1_path_iter_s'])} s; train_r1024's "
+                f"in this phase {', '.join(f'{x:.3f}' for x in ref['plain_iter_s'])} / "
+                f"{', '.join(f'{x:.3f}' for x in ref['r1_path_iter_s'])} s (cuDNN's default "
+                f"algorithms in both); peak {run['peak_bytes'] / 2**30:.2f} GiB against "
+                f"{ref['peak_bytes'] / 2**30:.2f}; {smi}")
+        torch.cuda.empty_cache()
+        res["split"] = _split_grads(dev, smi)
+        k1 += res["split"]["launches"]["siren_render"]
+        torch.cuda.empty_cache()
+
+        # ---- e. StyleSDF: stage 1, then the handoff into stage 2 ----
+        s1, _, err1 = train_run("train stylesdf train_volume_renderer", sdf_path,
+                                "train_volume_renderer", d64, 4, 3, (),
+                                ("init_iters", "10"))
+        if any(s1["d_k1"]) or "renders with the plain renderer" not in err1:
+            raise AssertionError(f"stage 1: K1 a D step {s1['d_k1']}, stderr {err1[-500:]}")
+        stage1 = ckpt_mod.CheckpointManager(f"{tmp}/train_volume_renderer/ckpt").restore_raw()
+        stage1 = stage1["state"]["g_ema"]
+        seen = {}
+        train = tl.Trainer.train
+
+        def spy(self, state, *a, **k):
+            seen.update(g={n: v.detach().cpu().clone() for n, v in state.g.state_dict().items()},
+                        g_ema={n: v.detach().cpu().clone()
+                               for n, v in state.g_ema.state_dict().items()})
+            return train(self, state, *a, **k)
+
+        with patched(tl.Trainer, "train", lambda orig: spy):
+            s2, _, err2 = train_run("train stylesdf train_full_pipeline --init-renderer-from",
+                                    sdf_path, "train_full_pipeline", data, 4, 3,
+                                    ("--init-renderer-from",
+                                     f"{tmp}/train_volume_renderer/ckpt", "--seed", "1"))
+        render_keys = [k for k in stage1 if k.split(".")[0] in ("renderer", "style")]
+        dec_keys = [k for k in stage1 if k.startswith("decoder.")]
+        same = all(torch.equal(seen[w][k], stage1[k]) for w in ("g", "g_ema") for k in render_keys)
+        # the decoder's drawn tensors (not its constant-initialised ones)
+        fresh = all(not torch.equal(seen["g"][k], stage1[k]) for k in dec_keys
+                    if stage1[k].numel() > 1 and float(stage1[k].float().std()) > 0)
+        if not same or not fresh or any(s2["d_k1"]) or "renderer grafted" not in err2:
+            raise AssertionError(f"stage 2: renderer equal {same}, decoder fresh {fresh}, "
+                                 f"K1 {s2['d_k1']}")
+        log(f"[cli-rest] StyleSDF: stage 1 (depth 8, 64^2, pose D only, 10 sphere-init "
+            f"iterations) {', '.join(f'{x:.3f}' for x in s1['iter_s'])} s an iteration, 0 K1, "
+            f"the plain route said once; stage 2 at r1024 from --init-renderer-from: "
+            f"{len(render_keys)} renderer and mapping tensors of G and G_ema at step 0 "
+            f"bit-equal to stage 1's G_ema, the decoder fresh (--seed 1), "
+            f"{', '.join(f'{x:.3f}' for x in s2['iter_s'])} s an iteration, 0 K1; {smi}")
+        res["stylesdf"] = {"stage1": s1, "stage2": s2, "grafted_tensors": len(render_keys)}
+
+        # ---- f. depth 8 at 64^2 ----
+        r64, _, err = train_run("train train_r64", cfg_path, "train_r64", d64, 4, 3,
+                                ("--no-sphere-init",))
+        if any(r64["d_k1"]) or "renders with the plain renderer" not in err:
+            raise AssertionError(f"train_r64: K1 a D step {r64['d_k1']}")
+        log(f"[cli-rest] train_r64 (depth 8, no upsample): "
+            f"{', '.join(f'{x:.3f}' for x in r64['iter_s'])} s an iteration, 0 K1, losses "
+            f"finite; {smi}")
+        res["train_r64"] = r64
+
+        # ---- g. the web form ----
+        argv = web.build_argv("sample_multi_view", {"n-frames": 2}, cfg_path,
+                              "sample_multi_view", f"{tmp}/web", 0)
+        mv, wall, _ = timed("web sample_multi_view argv", argv, {})
+        if mv["frames"] != 2 or not os.path.exists(mv["grid"]):
+            raise AssertionError(f"web argv: {mv}")
+        log(f"[cli-rest] the web form's argv {argv[:1] + argv[3:]}: 2 frames in {wall:.2f} s")
+    res["launches"] = {"siren_render": k1, "decoder_block": k2}
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[cli-rest] phase 12: {res['phase_s']:.1f} s; launches {res['launches']}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
@@ -2099,18 +2526,26 @@ def main() -> int:
             dev, smi, step8, report["training_loop"]["iteration_s"]["plain_mean"])
     del step8
 
+    # ---- 12. the rest of the command line and the shipped configs ----
+    torch.cuda.empty_cache()
+    with torch.inference_mode(False), torch.enable_grad():
+        report["cli_rest"] = cli_rest_phase(dev, smi)
+
     # ---- the kernels line ----
     t32, tbf = report["trajectory_f32"], report["trajectory_bf16"]
     # K1's launches: the serving path's, the training steps', the
     # training loop's (with its sampling from the checkpoint), the
-    # inversion's and the data-parallel training loop's
+    # inversion's, the data-parallel training loop's and phase 12's
+    # (rendering-time, the fast training sections, the split D steps)
     loop, inversion = report["training_loop"]["launches"], report["inversion"]["launches"]
+    rest = report["cli_rest"]["launches"]
     entry("siren_render", "cips3dpp_torch/csrc/siren_render.cu",
           "cips3dpp_tpu/kernels/siren_render.py:140", report["K1"],
           serving_launches["siren_render"] + report["training"]["launches"]["siren_render"]
           + loop["siren_render"] + inversion["siren_render"]
-          + report["data_parallel"]["launches"]["siren_render"])
-    entry("decoder_block", K2_SRC, K2_TPU, report["K2"], serving_launches["decoder_block"])
+          + report["data_parallel"]["launches"]["siren_render"] + rest["siren_render"])
+    entry("decoder_block", K2_SRC, K2_TPU, report["K2"],
+          serving_launches["decoder_block"] + rest["decoder_block"])
     entry("decoder_block_f32", K2_SRC, K2_TPU, report["K2-f32"],
           t32["launches_buffers"]["decoder_block_f32"] + loop["decoder_block_f32"]
           + inversion["decoder_block_f32"])
@@ -2128,6 +2563,9 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         report["profile"] = profile_calls(render_one, frame_ms)
 
+    report["script_s"] = time.perf_counter() - T_START
+    log(f"[smoke] the whole script: {report['script_s']:.1f} s (phase 12: "
+        f"{report['cli_rest']['phase_s']:.1f} s)")
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     name = torch.cuda.get_device_name(0)

@@ -1,28 +1,35 @@
-"""Command-line launchers (counterpart of the training and sampling
-commands of cips3dpp_tpu/apps/cli.py):
+"""Command-line launchers (counterpart of cips3dpp_tpu/apps/cli.py):
 
     python -m cips3dpp_torch.apps.cli <command> [--cfg configs/ffhq.yaml
         --section sample_multi_view] [--opts key.path value ...]
         [--device cuda|cpu] [--outdir DIR] [--seed N]
 
-Commands (12 of the JAX package's 16): train, sphere-init,
-sample-multi-view, fixed-zs-multi-view, interpolate-z, style-mixing,
-interpolate-decoder, invert, render-inverted, lerp-inversions, eval-fid,
-prepare-data. Everything runs on the card unless `--device cpu` is given
-(prepare-data runs on the host). `--cfg` is read by PyYAML where it
-imports and by the standard-library reader `io/yaml_lite.py` where it does
-not. The sampling commands' generator is randomly initialised from a
-fixed seed, or loaded from what the config's `network_pkl` (or `ckpt`)
-names: a reference `.pth` state dict (the port's module names are the
-reference's state-dict names) or a checkpoint directory that `train`
-wrote (its latest step's G_ema). `train` and the D step reach K1; of the
-sampling commands only `sample-multi-view --fused` reaches the kernels
-(batch 1), the others run the plain modules. `invert` renders through
-K1 under grad (`SirenRender`, batch 2) with the plain decoder, and writes
-its artifact `w.pt`; `render-inverted` and `lerp-inversions` read that or
-a `w.pkl` the JAX package wrote, and render plainly. `train --n-devices`
-trains data-parallel (`parallel/mesh.py`); `eval-fid` generates with the
-plain renderer and tags its Inception weights "imported" or "random".
+Commands (the JAX package's 16): train, sphere-init, sample-multi-view,
+fixed-zs-multi-view, interpolate-z, lerp-inversions, style-mixing,
+interpolate-decoder, invert, render-inverted, eval-fid, verify-import,
+extract-shape, prepare-data, rendering-time, import-torch. Everything runs
+on the card unless `--device cpu` is given (prepare-data runs on the
+host). `--cfg` is read by PyYAML where it imports and by the
+standard-library reader `io/yaml_lite.py` where it does not. The
+generator is randomly initialised from a fixed seed, or loaded from what
+the config's `network_pkl` (or `ckpt`) names: a reference `.pth` state
+dict, checked strictly against the architecture first
+(io/torch_import.py; the port's module names are the reference's), or a
+checkpoint directory that `train` wrote (its latest step's G_ema).
+`import-torch` checks a reference `.pth` of G_ema, the image D or the pose
+D and writes the port's state dict; `verify-import` renders the
+checkpoint-parity grid and compares it with a golden `.npz` (one the JAX
+command wrote included); `rendering-time` times r1024 frames on the
+serving path (1 K1 + 4 K2 launches a frame). `train` and the D step reach
+K1 where it takes the renderer; of the sampling commands only
+`sample-multi-view --fused` reaches the kernels (batch 1), the others run
+the plain modules. `invert` renders through K1 under grad (`SirenRender`,
+batch 2) with the plain decoder, and writes its artifact `w.pt`;
+`render-inverted` and `lerp-inversions` read that or a `w.pkl` the JAX
+package wrote, and render plainly. `train --n-devices` trains
+data-parallel (`parallel/mesh.py`), `train --init-renderer-from` starts a
+StyleSDF stage 2 from a stage-1 run; `eval-fid` generates with the plain
+renderer and tags its Inception weights "imported" or "random".
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import dataclasses
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -66,37 +74,39 @@ def _load_state_dict(path: str) -> dict:
 
         if not checkpoint_steps(path):
             raise NotImplementedError(
-                f"{path}: no checkpoint of this package (<step>.pt); a JAX orbax "
-                "checkpoint is read once `import-torch` is ported (ROADMAP queue 1 "
-                "item 6)")
+                f"{path}: no checkpoint of this package (<step>.pt). The port reads "
+                "reference .pth state dicts and its own checkpoint directories; a "
+                "JAX orbax checkpoint becomes a .pth on a host with JAX through "
+                "cips3dpp_tpu.io.torch_import.export_generator_state_dict")
         return CheckpointManager(path).restore_raw()["state"]["g_ema"]
     if not path.endswith(".pth"):
         raise NotImplementedError(
             f"{path}: the port reads reference .pth state dicts and its own "
             "checkpoint directories")
-    return torch.load(path, map_location="cpu", weights_only=True)
+    from ..io.torch_import import load_torch_checkpoint
+
+    return load_torch_checkpoint(path)
 
 
-def _build_generator(cfg: dict, device, ckpt=None):
-    """The generator of cfg["G_cfg"] on `device`: weights from what `ckpt`
-    (default: the config's network_pkl or ckpt) names, a reference .pth or
-    a checkpoint directory of `train`, else random from seed 0."""
+def _build_generator(cfg: dict, device, ckpt=None, gcfg=None):
+    """The generator of cfg["G_cfg"] (or `gcfg`) on `device`: weights from
+    what `ckpt` (default: the config's network_pkl or ckpt) names, a
+    reference .pth or a checkpoint directory of `train`, checked strictly
+    against the architecture, else random from seed 0."""
     from ..io.config import generator_config_from_dict
+    from ..io.torch_import import load_validated
     from ..models.generator import Generator
 
-    gcfg = generator_config_from_dict(cfg.get("G_cfg", {}))
+    gcfg = gcfg or generator_config_from_dict(cfg.get("G_cfg", {}))
     model = Generator(gcfg, device=device, seed=0)
     ckpt = ckpt or cfg.get("network_pkl") or cfg.get("ckpt")
     if ckpt is None:
         print("[cli] no checkpoint given: using random init", file=sys.stderr)
     else:
-        res = model.load_state_dict(_load_state_dict(ckpt), strict=False)
-        if res.missing_keys:
-            raise KeyError(f"{ckpt}: missing {len(res.missing_keys)} keys, "
-                           f"e.g. {res.missing_keys[:5]}")
-        if res.unexpected_keys:
-            print(f"[cli] {len(res.unexpected_keys)} unexpected state-dict keys "
-                  f"ignored: {res.unexpected_keys[:5]} ...", file=sys.stderr)
+        report = load_validated(model, _load_state_dict(ckpt))
+        if report["unexpected"]:
+            print(f"[cli] {len(report['unexpected'])} unexpected state-dict keys "
+                  f"ignored: {report['unexpected'][:5]} ...", file=sys.stderr)
     model.eval()
     return model, gcfg
 
@@ -289,6 +299,8 @@ def cmd_interpolate_decoder(argv):
     p = _base_parser("decoder weight interpolation (stylization)")
     p.add_argument("--ckpt-b", type=str, required=True, help="style model .pth")
     p.add_argument("--gammas", type=float, nargs="*", default=[0, 0.25, 0.5, 0.75, 1.0])
+    p.add_argument("--n-frames", type=int, default=1,
+                   help="taken and unused, as by the JAX command (the web form sends it)")
     args = p.parse_args(argv)
     cfg = _load_cfg(args)
     dev = resolve_device(args.device)
@@ -325,7 +337,9 @@ def cmd_train(argv):
                    help="checkpoint dir of this package to initialise G/G_ema/Ds "
                         "from (reference tl_finetune, train_v10.py:1225-1245)")
     p.add_argument("--init-renderer-from", type=str, default=None,
-                   help="not ported (ROADMAP queue 1 item 7)")
+                   help="stage-1 (enable_decoder=False) checkpoint dir: graft its "
+                        "trained volume renderer + mapping into the fresh full "
+                        "pipeline (the StyleSDF train_full_pipeline.py:484 handoff)")
     p.add_argument("--fid-data", type=str, default=None,
                    help="real-image dataset for in-training FID at every checkpoint")
     p.add_argument("--inception", type=str, default=None,
@@ -568,19 +582,219 @@ def cmd_lerp_inversions(argv):
     print(json.dumps({"video": vp, "frames": len(frames)}))
 
 
-COMMANDS = {
+def cmd_extract_shape(argv):
+    """Marching-tetrahedra shape export and an image a seed (reference
+    generate_shapes_and_images.py)."""
+    p = _base_parser("SDF iso-surface .obj export")
+    p.add_argument("--n-shapes", type=int, default=1)
+    p.add_argument("--resolution", type=int, default=128)
+    p.add_argument("--truncation", type=float, default=0.7)
+    p.add_argument("--frustum-align", action="store_true")
+    args = p.parse_args(argv)
+    cfg = _load_cfg(args)
+    dev = resolve_device(args.device)
+
+    from ..utils.mesh import align_volume, marching_tetrahedra, sample_sdf_grid, save_obj
+    from .sample import render_trajectory, save_image_grid
+
+    model, gcfg = _build_generator(cfg, dev)
+    means = model.mean_latents(torch.Generator().manual_seed(2), 10_000)
+    cam = _front_camera(gcfg, dev)
+    os.makedirs(args.outdir, exist_ok=True)
+    results = []
+    for i in range(args.n_shapes):
+        zs = _zs(gcfg, args.seed * 100_003 + i, dev)
+        with torch.no_grad():
+            sr, _ = model.map_zs(zs, args.truncation, means)
+        vol, lin = sample_sdf_grid(model, sr, resolution=args.resolution)
+        if args.frustum_align:
+            vol = align_volume(vol)
+        verts, faces = marching_tetrahedra(vol, 0.0, coords=[lin, lin, lin])
+        obj = save_obj(verts, faces, f"{args.outdir}/shape_{i}.obj")
+        out = render_trajectory(model, zs, cam, truncation=args.truncation,
+                                mean_latents=means, zero_noise=True)
+        img = save_image_grid(out["rgb"], f"{args.outdir}/shape_{i}.png", n_cols=1)
+        results.append({"obj": obj, "img": img, "n_verts": int(len(verts))})
+    print(json.dumps(results))
+
+
+def render_parity_grid(model, n_seeds: int = 2, n_views: int = 3, zs=None, azim=None):
+    """The checkpoint-parity grid of the JAX command
+    (cips3dpp_tpu/apps/cli.py:607-653): for each seed a yaw sweep over
+    +-azim_range, perturb off, zero noise buffers, the plain modules.
+    JAX's threefry draws (seeds 1000 + s) cannot be made here: the port
+    draws its zs from torch seeds 1000 + s, or renders the given `zs`
+    (S, 2, z_dim) and `azim` (V,), a golden's own. Returns dict(rgb
+    (S*V, H, W, 3), thumb_rgb, zs (S, 2, z_dim), azim (V,)), numpy f32."""
+    from ..core.camera import camera_from_angles
+
+    gcfg, dev = model.cfg, model.device
+    if azim is None:
+        azim = np.linspace(-gcfg.azim_range, gcfg.azim_range, n_views)
+    azim = np.asarray(azim, np.float32)
+    cams = camera_from_angles(torch.from_numpy(azim).to(dev),
+                              torch.zeros(len(azim), device=dev), gcfg.img_size,
+                              fov_ang=gcfg.fov_ang, dist_radius=gcfg.dist_radius)
+    noise = [torch.zeros(s, device=dev) for s in model.decoder.noise_shapes(gcfg.img_size)]
+    if zs is None:
+        zs = np.stack([np.concatenate([
+            torch.randn((1, gcfg.mapping.z_dim), generator=g).numpy() for _ in range(2)])
+            for g in (torch.Generator().manual_seed(1000 + s) for s in range(n_seeds))])
+    zs = np.asarray(zs, np.float32)
+    rgbs, thumbs = [], []
+    with torch.no_grad():
+        for pair in zs:
+            z = [torch.from_numpy(pair[i:i + 1]).to(dev) for i in range(2)]
+            for v in range(len(azim)):
+                out = model(zs=z, cam_poses=cams.extrinsics[v:v + 1],
+                            focals=cams.focal[v:v + 1], near=cams.near[v:v + 1],
+                            far=cams.far[v:v + 1], noise_bufs=noise, perturb=False)
+                rgbs.append(out["rgb"][0].float().cpu().numpy())
+                thumbs.append(out["thumb_rgb"][0].float().cpu().numpy())
+    return {"rgb": np.stack(rgbs), "thumb_rgb": np.stack(thumbs), "zs": zs, "azim": azim}
+
+
+def cmd_verify_import(argv):
+    """Checkpoint-parity harness: render a fixed (z, camera) grid from an
+    imported G_ema.pth and compare it pixel by pixel with a stored golden.
+    Run once with --save-golden on a trusted setup; a golden the JAX
+    command wrote works too (its zs and azimuths are rendered). Exit code
+    0 on a pass, 1 on a failure."""
+    p = _base_parser("verify imported checkpoint against golden renders")
+    p.add_argument("--golden", type=str, default=None, help="golden .npz to compare against")
+    p.add_argument("--save-golden", type=str, default=None,
+                   help="write the golden .npz instead of comparing")
+    p.add_argument("--tol", type=float, default=1e-3,
+                   help="max abs per-pixel tolerance in [-1,1] units")
+    p.add_argument("--n-seeds", type=int, default=2)
+    p.add_argument("--n-views", type=int, default=3)
+    args = p.parse_args(argv)
+    cfg = _load_cfg(args)
+    if not (args.golden or args.save_golden):
+        p.error("one of --golden / --save-golden is required")
+    dev = resolve_device(args.device)
+    model, _ = _build_generator(cfg, dev)
+    ref = None if args.save_golden else np.load(args.golden)
+    grid = render_parity_grid(model, args.n_seeds, args.n_views,
+                              zs=None if ref is None else ref["zs"],
+                              azim=None if ref is None else ref["azim"])
+    if args.save_golden:
+        os.makedirs(os.path.dirname(os.path.abspath(args.save_golden)), exist_ok=True)
+        np.savez_compressed(args.save_golden, **grid)
+        print(json.dumps({"saved": args.save_golden, "n_images": int(grid["rgb"].shape[0])}))
+        return 0
+    report, ok = {}, True
+    for k in ("rgb", "thumb_rgb"):
+        if ref[k].shape != grid[k].shape:
+            report[k] = {"shape_mismatch": [list(ref[k].shape), list(grid[k].shape)]}
+            ok = False
+            continue
+        err = np.abs(ref[k] - grid[k])
+        mse = float(np.mean(np.square(ref[k] - grid[k])))
+        report[k] = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+                     "psnr": float(10 * np.log10(4.0 / max(mse, 1e-12)))}
+        ok = ok and err.max() <= args.tol
+    report["tol"] = args.tol
+    report["pass"] = bool(ok)
+    print(json.dumps(report))
+    return 0 if ok else 1
+
+
+RENDER_REPS = 3  # timed sweeps of rendering-time, after one untimed
+
+
+def cmd_rendering_time(argv):
+    """r1024 rendering throughput on the serving path (the work bench.py
+    times for the JAX package, which imports JAX and is not called):
+    preset_serving (or the config's G_cfg), batch 1, a yaw sweep of
+    --n-frames frames, fixed noise, perturb off, 1 K1 + 4 K2 launches a
+    frame, CUDA events, the checksum read once a repetition; an untimed
+    sweep, then RENDER_REPS timed ones (the best is 'value', as bench.py's
+    best of reps). One JSON line with bench.py's keys."""
+    p = _base_parser("rendering throughput benchmark")
+    p.add_argument("--n-frames", type=int, default=128)
+    args = p.parse_args(argv)
+    cfg = _load_cfg(args)
+    dev = resolve_device(args.device)
+
+    from ..models.generator import preset_serving
+    from ..utils.profiling import BASELINE_FPS, card, rendering_time
+
+    gcfg = None if "G_cfg" in cfg else preset_serving()
+    model, gcfg = _build_generator(cfg, dev, gcfg=gcfg)
+    t0 = time.perf_counter()
+    res = rendering_time(model, n_frames=args.n_frames, reps=RENDER_REPS)
+    print(json.dumps({
+        "metric": "r1024_multiview_render_throughput", "value": res["best_fps"],
+        "unit": "fps", "vs_baseline": res["best_fps"] / BASELINE_FPS,
+        "ms_per_frame": res["best_ms_per_frame"], "mean_ms_per_frame": res["ms_per_frame"],
+        "n_frames": args.n_frames, "reps": RENDER_REPS, "out_size": gcfg.out_size,
+        "peak_bytes": res["memory"]["peak_bytes_in_use"],
+        "card": card() if dev.type == "cuda" else None, "device": str(dev),
+        "wall_s": time.perf_counter() - t0,
+    }))
+
+
+def cmd_import_torch(argv):
+    """Check a reference .pth (G_ema, D_StyleGAN_Progressive or
+    D_VolumeRender_Progressive) strictly against the module the config
+    builds and write it as the port's state dict, `<outdir>/<model>.pth`,
+    with the reference's ignored keys (FIR and noise buffers) dropped; the
+    file loads as `network_pkl`."""
+    p = _base_parser("check a reference .pth (G_ema / D / D_renderer) and write "
+                     "the port's state dict")
+    p.add_argument("--pth", type=str, required=True)
+    p.add_argument("--model", choices=["g_ema", "d", "d_pose"], default="g_ema",
+                   help="which reference model the state dict holds: g_ema (the "
+                        "released inversion ckpts), d = D_StyleGAN_Progressive or "
+                        "d_pose = D_VolumeRender_Progressive (training ckpts)")
+    args = p.parse_args(argv)
+    cfg = _load_cfg(args)
+    dev = resolve_device(args.device)
+
+    from ..io.config import generator_config_from_dict
+    from ..io.torch_import import load_torch_checkpoint, load_validated
+
+    gcfg = generator_config_from_dict(cfg.get("G_cfg", {}))
+    if args.model == "g_ema":
+        from ..models.generator import Generator
+
+        module = Generator(gcfg, device=dev)
+    elif args.model == "d":
+        from ..models.discriminator import DStyleGANProgressive
+
+        module = DStyleGANProgressive(gcfg.out_size, gcfg.decoder.channel_multiplier,
+                                      device=dev)
+    else:
+        from ..models.discriminator_pose import DVolumeRenderProgressive
+
+        module = DVolumeRenderProgressive(gcfg.img_size, device=dev)
+    report = load_validated(module, load_torch_checkpoint(args.pth))
+    os.makedirs(args.outdir, exist_ok=True)
+    out = os.path.abspath(os.path.join(args.outdir, f"{args.model}.pth"))
+    torch.save({k: v.cpu() for k, v in module.state_dict().items()}, out)
+    print(json.dumps({"ckpt": out, "model": args.model, "n_expected": report["n_expected"],
+                      "n_matched": report["n_matched"], "n_ignored": len(report["ignored"]),
+                      "n_unexpected": len(report["unexpected"])}))
+
+
+COMMANDS = {  # the JAX package's order (cips3dpp_tpu/apps/cli.py:906-923)
     "train": cmd_train,
     "sphere-init": cmd_sphere_init,
     "sample-multi-view": cmd_sample_multi_view,
     "fixed-zs-multi-view": cmd_fixed_zs_multi_view,
     "interpolate-z": cmd_interpolate_z,
+    "lerp-inversions": cmd_lerp_inversions,
     "style-mixing": cmd_style_mixing,
     "interpolate-decoder": cmd_interpolate_decoder,
     "invert": cmd_invert,
     "render-inverted": cmd_render_inverted,
-    "lerp-inversions": cmd_lerp_inversions,
     "eval-fid": cmd_eval_fid,
+    "verify-import": cmd_verify_import,
+    "extract-shape": cmd_extract_shape,
     "prepare-data": cmd_prepare_data,
+    "rendering-time": cmd_rendering_time,
+    "import-torch": cmd_import_torch,
 }
 
 

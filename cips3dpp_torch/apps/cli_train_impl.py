@@ -14,7 +14,9 @@ process. Every rank seeds alike and takes its rows of the global batch.
 `--fid-data` adds the in-training FID at every checkpoint, with the JAX
 command's settings (cli_train_impl.py:119-141): 8 a batch, min(len, 512)
 images, seed 1 for the reals, the generator's draws from seed 0 on a
-generator of their own.
+generator of their own. `--init-renderer-from` grafts a StyleSDF stage-1
+renderer (io/checkpoint.py:graft_renderer) into G and G_ema and skips the
+sphere init, as the JAX command does.
 """
 
 from __future__ import annotations
@@ -26,13 +28,6 @@ import sys
 import torch
 
 from ..device import resolve_device
-
-
-def _not_ported(args):
-    """Flags of the JAX command whose paths the port does not have yet."""
-    if getattr(args, "init_renderer_from", None):
-        raise NotImplementedError("--init-renderer-from: the StyleSDF stage handoff "
-                                  "(graft_renderer) is not ported (ROADMAP queue 1 item 7)")
 
 
 def _setup(args, cfg, mesh=None):
@@ -108,7 +103,6 @@ def _fid_hook(args, tcfg, dev, mesh):
 
 def run_training(args, cfg):
     """`train` on one process, on a one-rank group, or spawned over N ranks."""
-    _not_ported(args)
     n_dev = getattr(args, "n_devices", None)
     dev = resolve_device(args.device)
     if n_dev is None and dev.type == "cuda" and torch.cuda.device_count() > 1:
@@ -135,7 +129,7 @@ def _train_rank(mesh, args, cfg):
 
 
 def _train(args, cfg, mesh):
-    from ..io.checkpoint import CheckpointManager
+    from ..io.checkpoint import CheckpointManager, checkpoint_steps
     from ..io.dataset import data_iterator, open_dataset
 
     trainer, state, tcfg, dev = _setup(args, cfg, mesh)
@@ -165,8 +159,26 @@ def _train(args, cfg, mesh):
         if trainer.main:
             print(f"[train] finetuning from {args.finetune_dir}", file=sys.stderr)
 
+    graft_from = getattr(args, "init_renderer_from", None)
+    if graft_from and start == 0:
+        # the StyleSDF stage-1 -> stage-2 handoff (train_full_pipeline.py:484):
+        # the trained volume renderer and its mapping (stage 1's G_ema) seed G
+        # and G_ema; the decoder, the discriminators and the optimizers stay
+        # fresh (cips3dpp_tpu/apps/cli_train_impl.py:89-113)
+        from ..io.checkpoint import graft_renderer
+
+        raw = CheckpointManager(graft_from).restore_raw() \
+            if checkpoint_steps(graft_from) else None
+        if raw is None:
+            raise FileNotFoundError(f"no checkpoint found in {graft_from}")
+        src = raw["state"]["g_ema"]
+        for module in (state.g, state.g_ema):
+            module.load_state_dict(graft_renderer(module.state_dict(), src))
+        if trainer.main:
+            print(f"[train] renderer grafted from {graft_from}", file=sys.stderr)
+
     if tcfg.init_renderer and start == 0 and not args.no_sphere_init \
-            and not getattr(args, "finetune_dir", None):
+            and not getattr(args, "finetune_dir", None) and not graft_from:
         state = trainer.sphere_init(state, _loop_generator(dev, args.seed + 1))
 
     it = data_iterator(ds, tcfg.batch, seed=args.seed)

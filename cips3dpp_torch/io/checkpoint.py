@@ -1,5 +1,5 @@
-"""Checkpoint and resume (counterpart of cips3dpp_tpu/io/checkpoint.py,
-without `graft_renderer`).
+"""Checkpoint and resume, and the StyleSDF stage handoff
+(counterpart of cips3dpp_tpu/io/checkpoint.py).
 
 The reference saves per-model state dicts (G, D, D_render, G_ema and the
 counters), keeps a rotation and snapshots the config next to the weights
@@ -10,7 +10,8 @@ snapshot is `<dir>/config_command.yaml`. A checkpoint is written to a
 temporary name and renamed, so a reader never sees half of one; the last
 `keep` steps are kept. A `best_fid` slot (`<dir>/best_fid.pt`) sits beside
 them. Everything is read on the CPU and copied into the state's own
-tensors, on their devices.
+tensors, on their devices. `graft_renderer` carries a stage-1 volume
+renderer into a full pipeline.
 """
 
 from __future__ import annotations
@@ -101,3 +102,36 @@ def load_best(directory: str, state, tag: str = "best_fid"):
     """Load the best-FID slot into `state`, in place."""
     return state.load_state_dict(_read(os.path.join(os.path.abspath(directory),
                                                     f"{tag}.pt"))["state"])
+
+
+def _is_render_key(key: str) -> bool:
+    """The volume renderer and its mapping (`style.*`), not the decoder's
+    mapping (`style_decoder.*`)."""
+    top = key.split(".")[0]
+    return top in ("renderer", "style")
+
+
+def graft_renderer(dst_state_dict: Mapping, src_state_dict: Mapping) -> dict:
+    """The StyleSDF stage-1 -> stage-2 handoff (train_full_pipeline.py:484,
+    train_volume_renderer.py:494-511): a copy of the generator state dict
+    `dst_state_dict` (a fresh full pipeline) with the trained volume
+    renderer and its mapping (`renderer.*`, `style.*`) of a stage-1
+    (enable_decoder=False) generator's `src_state_dict`; the decoder and
+    its mapping (`decoder.*`, `style_decoder.*`) keep the fresh weights.
+    Raises ValueError when the source has no renderer or a key is missing
+    from the target or has another shape there: a partial graft would
+    train from garbage."""
+    keys = [k for k in src_state_dict if _is_render_key(k)]
+    if not any(k.startswith("renderer.") for k in keys):
+        raise ValueError(f"source checkpoint has no 'renderer' tensors, not a generator "
+                         f"checkpoint? keys: {sorted(src_state_dict)[:8]}")
+    out = {k: v.clone() for k, v in dst_state_dict.items()}
+    for k in keys:
+        if k not in out:
+            raise ValueError(f"target generator has no tensor {k!r}")
+        src, dst = src_state_dict[k], out[k]
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{k}: shape {tuple(src.shape)} in the stage-1 checkpoint, "
+                             f"{tuple(dst.shape)} in the target model")
+        out[k] = src.detach().to(device=dst.device, dtype=dst.dtype, copy=True)
+    return out

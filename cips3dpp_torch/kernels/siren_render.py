@@ -137,6 +137,29 @@ def siren_render_plain(prepared, pts, viewdirs, z_vals, dnorm):
     return thumb, feat, sdf[..., None], maskd, xyz
 
 
+# the one geometry the CUDA kernel is built for
+KERNEL_WIDTH, KERNEL_SAMPLES = 256, 24
+
+
+def kernel_route_refusal(depth: int, width: int, n_samples: int, with_sdf: bool,
+                         device) -> str | None:
+    """Why a renderer of this geometry cannot render through K1 on
+    `device`, or None if it can. K1 renders a depth-2 SDF SIREN; on the
+    card its kernel is built for width 256 and 24 samples, on the CPU its
+    plain version takes any width. The training steps decide their route
+    with it once, from the configuration (the JAX package's gate,
+    cips3dpp_tpu/models/renderer.py:86-90)."""
+    if not with_sdf:
+        return "the renderer has no SDF"
+    if depth != 2:
+        return f"the renderer has depth {depth}, K1 renders depth 2"
+    if torch.device(device).type == "cuda" and (width, n_samples) != (
+            KERNEL_WIDTH, KERNEL_SAMPLES):
+        return (f"the renderer has width {width} and {n_samples} samples, K1 is built "
+                f"for width {KERNEL_WIDTH} and {KERNEL_SAMPLES} samples")
+    return None
+
+
 def _launch(prepared, pts, viewdirs, z_vals, dnorm, defines=()):
     """The kernel on the card; `defines` selects an instrumented build
     (`_lib.load`)."""
@@ -144,7 +167,7 @@ def _launch(prepared, pts, viewdirs, z_vals, dnorm, defines=()):
     r, s, _ = pts.shape
     weights = prepared["weights"]
     width = weights[3].shape[1]
-    if width != 256 or s != 24:
+    if width != KERNEL_WIDTH or s != KERNEL_SAMPLES:
         raise ValueError(f"siren_render kernel is built for width 256 and 24 "
                          f"samples, got width {width}, {s} samples")
     f32 = torch.float32

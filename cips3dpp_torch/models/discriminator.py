@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..ops.fused_act import scalar_as
 from ..parallel.mesh import all_gather_batch, shard_batch
 from .diffaug import diff_augment
 from .layers import ConvLayer, EqualLinear, channel_table, init_parameters, \
@@ -37,31 +38,35 @@ class ResBlock(nn.Module):
                               activate=False, bias=False)
 
     def forward(self, x):
-        return (self.conv2(self.conv1(x)) + self.skip(x)) / SQRT2
+        out = self.conv2(self.conv1(x)) + self.skip(x)
+        return out / scalar_as(SQRT2, out)
 
 
 def minibatch_stddev(x, group_size: int = 4, num_features: int = 1,
                      split: int | None = None, mesh=None):
     """Append the per-group feature stddev as an extra channel
     (discriminator.py:106-118), NCHW. With `split=k` the statistic is taken
-    over x[:k] and x[k:] apart. Under a data mesh the statistic is taken
-    over the global batch, as under the JAX package's mesh: the features
-    are gathered from every rank (a group holds samples j, j + B/group, ...
-    of the global batch) and each rank keeps its rows of the channel."""
+    over x[:k] and x[k:] apart (the concatenated fake/real pass). Under a
+    data mesh the statistic is taken over the global batch, as under the
+    JAX package's mesh: the features are gathered from every rank (a group
+    holds samples j, j + B/group, ... of the global batch) and each rank
+    keeps its rows of the channel; with `split` each half's statistic is
+    its global half's."""
     if split is not None:
-        if mesh is not None:
-            raise ValueError("split= (the concatenated fake/real pass) is not "
-                             "taken under a mesh")
-        return torch.cat([minibatch_stddev(x[:split], group_size, num_features),
-                          minibatch_stddev(x[split:], group_size, num_features)])
+        return torch.cat([minibatch_stddev(x[:split], group_size, num_features, mesh=mesh),
+                          minibatch_stddev(x[split:], group_size, num_features, mesh=mesh)])
     xg = all_gather_batch(x, mesh)
     b, c, h, w = xg.shape
     group = min(b, group_size)
     if b % group != 0:
         group = 3 if b % 3 == 0 else 2
     y = xg.reshape(group, b // group, num_features, c // num_features, h, w)
-    std = torch.sqrt(y.var(dim=0, unbiased=False) + 1e-8)
-    std = std.mean(dim=(2, 3, 4)).reshape(b // group, num_features, 1, 1)
+    # the variance and the mean in f32, each rounded once to x's dtype (JAX
+    # upcasts bf16 inside jnp.var and jnp.mean), so a bf16 backward rounds
+    # where JAX's does
+    var = y.float().var(dim=0, unbiased=False).to(y.dtype)
+    std = torch.sqrt(var + scalar_as(1e-8, var))
+    std = std.float().mean(dim=(2, 3, 4)).to(y.dtype).reshape(b // group, num_features, 1, 1)
     return torch.cat([x, shard_batch(std.repeat(group, 1, h, w), mesh)], dim=1)
 
 
@@ -130,12 +135,15 @@ class DStyleGANProgressive(_DHead):
         self.to(resolve_device(device))
 
     def forward(self, x, alpha=1.0, stddev_split: int | None = None,
-                aug: dict | None = None, mesh=None):
+                aug: dict | None = None, mesh=None, skip_augment: bool = False):
         """x (B, H, W, 3), H a power of two <= input_size. With diffaug the
-        augmentation draws `aug` (models/diffaug.py) are required. Under a
-        data `mesh` x holds this rank's rows and the minibatch stddev is
-        the global batch's."""
-        if self.diffaug:
+        augmentation draws `aug` (models/diffaug.py) are required, unless
+        `skip_augment` (the caller augmented x, as the concatenated
+        fake/real pass does per half). Under a data `mesh` x holds this
+        rank's rows and the minibatch stddev is the global batch's. Every
+        layer computes in x's dtype (bf16 for TrainConfig.d_dtype) with its
+        parameters rounded to it, and the JAX package's rounding points."""
+        if self.diffaug and not skip_augment:
             if aug is None:
                 raise ValueError("a diffaug discriminator needs its draws (aug=)")
             x = diff_augment(x, aug)
@@ -156,7 +164,7 @@ class DStyleGANProgressive(_DHead):
         if log_pre < log_in and str(2**log_pre) in self.conv_in:
             x_down = torch_bilinear_downsample(x, h // 2 ** (log_in - log_pre))
             x_down = self.conv_in[str(2**log_pre)](x_down)
-            out = (1.0 - alpha) * x_down + alpha * out
+            out = scalar_as(1.0 - alpha, x_down) * x_down + scalar_as(alpha, out) * out
         for ls in range(log_pre, 2, -1):
             out = self.blocks[str(2**ls)](out)
         return self.head(out, stddev_split, mesh)

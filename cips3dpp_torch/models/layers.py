@@ -115,7 +115,11 @@ class EqualLinear(nn.Module):
                 self.bias.fill_(self.bias_init)
 
     def forward(self, x):
-        out = x @ (self.weight * self.scale).t().to(x.dtype)
+        w = (self.weight * self.scale).t()
+        if x.dtype == w.dtype:
+            out = x @ w
+        else:  # JAX's dot promotes both operands to f32, then rounds to x's dtype
+            out = (x.float() @ w).to(x.dtype)
         b = self.bias * self.lr_mul if self.bias is not None else None
         if self.activation == "fused_lrelu":
             return fused_leaky_relu(out, b)
@@ -300,8 +304,13 @@ class EqualConv2d(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
-        return F.conv2d(x, self.weight * self.scale, self.bias,
-                        stride=self.stride, padding=self.padding)
+        w = self.weight * self.scale
+        if x.dtype == w.dtype:
+            return F.conv2d(x, w, self.bias, stride=self.stride, padding=self.padding)
+        # a bf16 input: the weight rounded to its dtype, the f32 bias added
+        # after (the sum promotes to f32, as in JAX)
+        out = F.conv2d(x, w.to(x.dtype), stride=self.stride, padding=self.padding)
+        return out if self.bias is None else out + self.bias[:, None, None]
 
 
 class Blur(nn.Module):
@@ -316,6 +325,10 @@ class Blur(nn.Module):
         self.taps = separable_taps(blur_kernel, upsample_factor)
 
     def forward(self, x):
+        if x.dtype != torch.float32:
+            # one rounding to x's dtype, as the JAX package's depthwise
+            # convolution (the taps are exact in bf16)
+            return blur(x.float(), self.taps, self.pad).to(x.dtype)
         return blur(x, self.taps, self.pad)
 
 
@@ -344,5 +357,23 @@ def torch_bilinear_downsample(x: torch.Tensor, out_size: int) -> torch.Tensor:
     torch bilinear, align_corners=False, not antialiased, NCHW."""
     if x.shape[-1] == out_size:
         return x
-    return F.interpolate(x, size=(out_size, out_size), mode="bilinear",
-                         align_corners=False)
+    if x.dtype == torch.float32:
+        return F.interpolate(x, size=(out_size, out_size), mode="bilinear",
+                             align_corners=False)
+    # another dtype: the JAX package's two-tap form axis by axis, rounding
+    # where it rounds (cips3dpp_tpu/models/layers.py:489-521)
+    f = x.shape[-1] // out_size
+    src = (torch.arange(out_size, dtype=torch.float64) + 0.5) * f - 0.5
+    i0 = src.floor().clamp(0, x.shape[-1] - 1).long()
+    i1 = (i0 + 1).clamp(max=x.shape[-1] - 1)
+    tt = (src - src.floor()).to(x.dtype).to(x.device)
+
+    def axis(arr, dim):
+        shape = [1] * arr.ndim
+        shape[dim] = out_size
+        t = tt.reshape(shape)
+        a0 = arr.index_select(dim, i0.to(arr.device))
+        a1 = arr.index_select(dim, i1.to(arr.device))
+        return a0 * (1 - t) + a1 * t
+
+    return axis(axis(x, 2), 3)

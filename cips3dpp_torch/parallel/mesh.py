@@ -37,6 +37,7 @@ import dataclasses
 import os
 import shutil
 import tempfile
+import time
 
 import torch
 import torch.distributed as dist
@@ -126,21 +127,29 @@ def _rank_main(rank, fn, world, tmp, device, backend, args):
 
 
 def run_ranks(fn, world: int, *args, device=None, backend: str | None = None,
-              workdir: str | None = None) -> list:
+              workdir: str | None = None, timeout: float | None = None) -> list:
     """Run `fn(mesh, *args)` on `world` ranks, one spawned process each,
     and return their results in rank order. `fn` must be importable by
     name (it is pickled by reference) and return tensors, numbers, strings
     and containers of them. The rendezvous file and the results (removed
     once read) go to `workdir` (default: a temporary directory, removed
-    after)."""
+    after). With `timeout` (seconds), ranks still running then are killed
+    and TimeoutError is raised."""
     import torch.multiprocessing as tmp_mp
 
     with contextlib.ExitStack() as stack:
         if workdir is None:
             workdir = stack.enter_context(tempfile.TemporaryDirectory(prefix="cips3dpp_ranks_"))
         os.makedirs(workdir, exist_ok=True)
-        tmp_mp.spawn(_rank_main, args=(fn, world, workdir, device, backend, args),
-                     nprocs=world, join=True)
+        ctx = tmp_mp.spawn(_rank_main, args=(fn, world, workdir, device, backend, args),
+                           nprocs=world, join=False)
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while not ctx.join(None if deadline is None else 1.0):
+            if deadline is not None and time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                    p.join()
+                raise TimeoutError(f"{world} ranks of {fn.__name__} ran past {timeout} s")
         results = []
         for r in range(world):
             path = os.path.join(workdir, f"result-{r}.pt")

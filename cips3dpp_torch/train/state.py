@@ -62,32 +62,45 @@ class TrainConfig:
     sdf_reg: bool = True
     init_renderer: bool = True
     init_iters: int = 10_000
-    # memory / layout options of the JAX package that leave the result
-    # unchanged; only their defaults are ported (ROADMAP queue 1)
-    remat_d: bool = False
-    # the SIREN render kernel for the D step's generator forward (no grad)
+    # the SIREN render kernel (K1) for the D step's generator forward (no
+    # grad) and, with fused_renderer_g, in the G step (the kernel forward +
+    # replayed backward). Taken only where K1 takes the renderer's
+    # geometry (kernels/siren_render.py:kernel_route_refusal); elsewhere
+    # the steps render plainly and say so once.
     fused_renderer_d: bool = True
-    # the kernel (forward) + replayed backward in the G step
     fused_renderer_g: bool = False
+    # The image D's options (cips3dpp_tpu/train/steps.py:144-400).
+    # remat_d: recompute the image D's activations in the backward
+    # (torch.utils.checkpoint); the same result.
+    remat_d: bool = False
+    # compute dtype of the image D: "bfloat16" casts its input to bf16 at
+    # entry and its logit back to f32, so every layer computes in bf16 (a
+    # different result, at the bf16 floor). Only the image D: the JAX
+    # TrainConfig's comment says "both discriminators", but its steps cast
+    # only the image D (dd_apply); the port follows the code.
     d_dtype: str = "float32"
+    # lazy R1 over real-batch chunks of this size, the mean of the chunk
+    # means; the minibatch stddev then runs over each chunk, as in JAX
     d_r1_chunk: int | None = None
+    # the fake and real image-D passes one after the other, their
+    # gradients summed (same result, one pass's activations alive at once)
     d_seq: bool = False
+    # one batch-2n image-D pass over [fake; real] with a per-half minibatch
+    # stddev and sign-split loss (same result with diffaug off; takes
+    # precedence over d_seq)
     d_cat: bool = False
 
 
-# the memory and layout options that are not ported, with their defaults
-_NOT_PORTED = {"remat_d": False, "d_dtype": "float32", "d_r1_chunk": None,
-               "d_seq": False, "d_cat": False}
+D_DTYPES = ("float32", "bfloat16")
 
 
 def check_config(cfg: TrainConfig) -> None:
-    """Raise on an option of the JAX package this port does not have."""
-    for name, default in _NOT_PORTED.items():
-        if getattr(cfg, name) != default:
-            raise NotImplementedError(
-                f"TrainConfig.{name}={getattr(cfg, name)!r}: only the default "
-                f"{default!r} is ported (ROADMAP queue 1; it changes memory or "
-                f"layout, not the result)")
+    """Raise on option values the steps do not take."""
+    if cfg.d_dtype not in D_DTYPES:
+        raise ValueError(f"TrainConfig.d_dtype={cfg.d_dtype!r}: one of {D_DTYPES}")
+    if cfg.d_r1_chunk is not None and cfg.d_r1_chunk < 1:
+        raise ValueError(f"TrainConfig.d_r1_chunk={cfg.d_r1_chunk}: a positive chunk "
+                         f"size or None")
 
 
 def g_param_groups(g: nn.Module) -> dict[str, list[nn.Parameter]]:

@@ -13,9 +13,24 @@ reproduced by torch, so parity tests hand the same draws to both.
 
 The D step's generator forward runs under no_grad (JAX's stop_gradient on
 its fakes) and, with cfg.fused_renderer_d (the default), through the SIREN
-render kernel: one launch per batch item. Gradients are taken with
+render kernel: one launch per batch item. The route is decided once from
+the configuration (`kernel_route_refusal`): a renderer K1 does not take
+(depth 8, another width) renders plainly, and the steps say so once, as
+the JAX package's renderer gates its kernel on depth 2; the same rule
+holds for cfg.fused_renderer_g. Gradients are taken with
 torch.autograd.grad with respect to the updated module only, so no
 `.grad` of another module is touched.
+
+The image D's options of the JAX steps (cips3dpp_tpu/train/steps.py:
+144-400): `d_dtype` (its input cast at entry, its logit back to f32, in
+the D and G steps), `remat_d` (torch.utils.checkpoint around each image-D
+apply), `d_r1_chunk` (lazy R1 over real-batch chunks, the mean of the
+chunk means), `d_seq` (the fake and real passes one after the other, their
+gradients summed) and `d_cat` (one batch-2n pass with a per-half
+minibatch stddev and a sign-split loss). With `d_seq` or `d_cat`, R1 runs
+as one chunk of the whole batch after the GAN passes, as in JAX. With
+diffaug, `d_cat` augments each half with the fake and real passes' draws
+and the chunks take their rows of the R1 pass's draws.
 
 Under a data `mesh` (parallel/mesh.py) a step on N ranks is the step on
 one process at the same global batch, as under the JAX package's mesh
@@ -30,13 +45,18 @@ is then the rank's rows, and `TrainConfig.batch` the global batch.
 from __future__ import annotations
 
 import dataclasses
+import sys
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core.camera import CameraParams, sample_cameras
-from ..models.diffaug import diffaug_draws
+from ..kernels.siren_render import kernel_route_refusal
+from ..models.diffaug import diff_augment, diffaug_draws
+from ..models.generator import torch_dtype
 from ..ops.resize import resize
-from ..parallel.mesh import global_means, shard_batch
+from ..parallel.mesh import all_gather_batch, global_means, shard_batch
 from .losses import (
     d_logistic_loss,
     eikonal_loss,
@@ -156,6 +176,11 @@ def shard_draws(draws: Draws, mesh) -> Draws:
     return Draws(**{f.name: rows(getattr(draws, f.name)) for f in dataclasses.fields(draws)})
 
 
+def _add(grads, more):
+    """Elementwise sum of two gradient lists (None for an unused parameter)."""
+    return [b if a is None else a if b is None else a + b for a, b in zip(grads, more)]
+
+
 def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
     """(d_step, g_step, path_reg_step, sphere_init_step) for a generator of
     `gen_cfg` trained under `cfg`, data-parallel over `mesh` if given."""
@@ -167,6 +192,27 @@ def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
                          "NeRF resolution")
     up_factor = 2 ** len(gen_cfg.decoder.upsample_list)
     world = 1 if mesh is None else mesh.world
+    d_dt = torch_dtype(cfg.d_dtype)
+    # d_cat takes precedence over d_seq; both need the image D
+    d_cat = cfg.d_cat and gen_cfg.enable_decoder
+    d_seq = cfg.d_seq and gen_cfg.enable_decoder and not d_cat
+    routes = {}
+
+    def fused_route(flag: bool, step: str, device) -> bool:
+        """K1 for this step's render when `flag` asks for it and K1 takes
+        the renderer; decided once a device, said once when refused."""
+        if not flag:
+            return False
+        key = (step, torch.device(device).type)
+        if key not in routes:
+            r = gen_cfg.renderer
+            why = kernel_route_refusal(r.n_layers, r.hidden_dim, gen_cfg.n_samples,
+                                       r.with_sdf, device)
+            routes[key] = why is None
+            if why is not None and (mesh is None or mesh.rank == 0):
+                print(f"[train] the {step} step renders with the plain renderer, not K1: "
+                      f"{why}", file=sys.stderr)
+        return routes[key]
 
     def inputs(state, generator, batch, draws, aug_passes=(), decoder=True):
         """The draws of the global `batch` (given, or from `generator`),
@@ -187,21 +233,77 @@ def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
                  renderer_detach=renderer_detach, sample_idx=draws.sample_idx,
                  fused_renderer=fused)
 
+    def remat(fn, *args):
+        """fn(*args), its activations recomputed in the backward with remat_d."""
+        if cfg.remat_d and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def image_d(d, x, alpha, aug=None, on=mesh):
+        """The image D's logit in f32, computed in cfg.d_dtype: the input
+        is cast at entry (cips3dpp_tpu/train/steps.py:144-152); `on` is the
+        mesh its minibatch stddev gathers over."""
+        return remat(lambda v: d(v.to(d_dt), alpha, aug=aug, mesh=on).float(), x)
+
+    def r1_chunks(d, real, aug, alpha, chunk):
+        """Lazy R1 of the image D over chunks of `chunk` rows of the global
+        batch, the mean of the chunk means, each chunk's minibatch stddev
+        over its own rows (cips3dpp_tpu/train/steps.py:346-380). Returns
+        (value, gradients); one chunk of the whole batch is the plain
+        penalty. Under a mesh with several chunks every rank gathers the
+        batch and takes chunks rank, rank + world, ..., scaled by
+        world / chunks, so the ranks' mean is the one-process value."""
+        coef = cfg.lambda_gp * 0.5 * cfg.d_reg_every
+        b = real.shape[0] * world
+        if b % chunk:
+            raise ValueError(f"d_r1_chunk {chunk} does not divide the batch {b}")
+        nc = b // chunk
+        pd = list(d.parameters())
+        if nc == 1:
+            parts, scale, on = [(real, aug)], 1.0, mesh
+        else:
+            if world > 1:
+                with torch.no_grad():
+                    real = all_gather_batch(real.detach(), mesh)
+                    aug = None if aug is None else {k: all_gather_batch(v, mesh)
+                                                    for k, v in aug.items()}
+            rows = lambda x, i: x[i * chunk:(i + 1) * chunk]
+            mine = range(mesh.rank if world > 1 else 0, nc, world)
+            parts = [(rows(real, i), None if aug is None else
+                      {k: rows(v, i) for k, v in aug.items()}) for i in mine]
+            scale, on = world / nc, None
+        value, grads = torch.zeros((), device=real.device), [None] * len(pd)
+        for x, a in parts:
+            x = x.detach().requires_grad_(True)
+            v = coef * scale * r1_penalty(image_d(d, x, alpha, a, on=on), x)
+            grads = _add(grads, torch.autograd.grad(v, pd, allow_unused=True))
+            value = value + v.detach()
+        return value, grads
+
     def d_step(state: TrainState, real_imgs, generator, alpha, d_regularize: bool,
                draws: Draws | None = None):
         """update_D (train_v10.py:136-241): the pose D (R1 every step, pose
         loss) and the image D (lazy R1 when d_regularize) on fakes of the
         current G."""
-        draws = inputs(state, generator, real_imgs.shape[0] * world, draws,
-                       ("fake", "real", "r1"))
+        batch = real_imgs.shape[0] * world
+        draws = inputs(state, generator, batch, draws, ("fake", "real", "r1"))
         with torch.no_grad():
-            ret = g_forward(state.g, draws, False, None, cfg.fused_renderer_d)
+            ret = g_forward(state.g, draws, False, None,
+                            fused_route(cfg.fused_renderer_d, "D", state.g.device))
         fake_rgb, fake_thumb = ret["rgb"], ret["thumb_rgb"]
         if draws.sample_idx is not None:
             real_imgs = gather_image_pixels(real_imgs, *draws.sample_idx, up_factor)
         real_thumb = downsample_to(real_imgs, fake_thumb.shape[1]).detach().requires_grad_(True)
         aug = draws.aug or {}
         zero = torch.zeros((), device=fake_thumb.device)
+        # R1 in chunks (d_r1_chunk below the batch), or as one chunk after
+        # the GAN passes when they are split (d_cat, d_seq)
+        chunk = None
+        if gen_cfg.enable_decoder and d_regularize:
+            if cfg.d_r1_chunk is not None and cfg.d_r1_chunk < batch:
+                chunk = cfg.d_r1_chunk
+            elif d_cat or d_seq:
+                chunk = batch
 
         fake_pred_r, fake_view = state.d_render(fake_thumb, alpha)
         real_pred_r, _ = state.d_render(real_thumb, alpha)
@@ -209,26 +311,58 @@ def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
         r1_r = cfg.lambda_gp * 0.5 * r1_penalty(real_pred_r, real_thumb)
         pose = (cfg.lambda_pose * viewpoint_loss(fake_view, draws.cam.viewpoint)
                 if cfg.lambda_pose > 0 else zero)
-        if gen_cfg.enable_decoder:
-            real = real_imgs.detach().requires_grad_(d_regularize)
-            fake_pred = state.d(fake_rgb, alpha, aug=aug.get("fake"), mesh=mesh)
-            real_pred = state.d(real, alpha, aug=aug.get("real"), mesh=mesh)
+        d_gan = r1_d = zero
+        if not gen_cfg.enable_decoder:  # StyleSDF stage 1: no image D
+            fake_pred = real_pred = torch.zeros((1, 1), device=zero.device)
+        elif not (d_cat or d_seq):
+            real = real_imgs.detach().requires_grad_(d_regularize and chunk is None)
+            fake_pred = image_d(state.d, fake_rgb, alpha, aug.get("fake"))
+            real_pred = image_d(state.d, real, alpha, aug.get("real"))
             d_gan = d_logistic_loss(real_pred, fake_pred)
-            r1_d = zero
-            if d_regularize:
+            if d_regularize and chunk is None:
                 # with diffaug the penalty sees its own augmentation; without,
                 # its pass is the real pass itself (the same function)
-                r1_pred = state.d(real, alpha, aug=aug["r1"], mesh=mesh) if aug else real_pred
+                r1_pred = image_d(state.d, real, alpha, aug["r1"]) if aug else real_pred
                 r1_d = cfg.lambda_gp * 0.5 * cfg.d_reg_every * r1_penalty(r1_pred, real)
-        else:  # decoder-less (StyleSDF stage 1): no image D
-            fake_pred = real_pred = torch.zeros((1, 1), device=zero.device)
-            d_gan = r1_d = zero
         total = d_gan_r + r1_r + pose + d_gan + r1_d
 
         pd, pr = list(state.d.parameters()), list(state.d_render.parameters())
         grads = torch.autograd.grad(total, pd + pr, allow_unused=True)
-        state.opt_d.step({"d": grads[:len(pd)]})
-        state.opt_d_render.step({"d": grads[len(pd):]})
+        gd, gr = list(grads[:len(pd)]), grads[len(pd):]
+        total = total.detach()
+        if d_cat:
+            bf = fake_rgb.shape[0]
+
+            def cat_forward(fake, real):
+                xf, xr = fake.to(d_dt), real.to(d_dt)
+                if aug:  # each half with its pass's draws
+                    xf, xr = diff_augment(xf, aug["fake"]), diff_augment(xr, aug["real"])
+                return state.d(torch.cat([xf, xr]), alpha, stddev_split=bf,
+                               skip_augment=True, mesh=mesh).float()
+
+            pred = remat(cat_forward, fake_rgb, real_imgs.detach())
+            fake_pred, real_pred = pred[:bf], pred[bf:]
+            d_gan = F.softplus(fake_pred).mean() + F.softplus(-real_pred).mean()
+            gd = _add(gd, torch.autograd.grad(d_gan, pd, allow_unused=True))
+            total = total + d_gan.detach()
+        elif d_seq:
+            preds, vals = [], []
+            for img, sign, a in ((fake_rgb, 1.0, aug.get("fake")),
+                                 (real_imgs.detach(), -1.0, aug.get("real"))):
+                pred = image_d(state.d, img, alpha, a)
+                v = F.softplus(sign * pred).mean()
+                gd = _add(gd, torch.autograd.grad(v, pd, allow_unused=True))
+                preds.append(pred.detach())
+                vals.append(v.detach())
+            fake_pred, real_pred = preds
+            d_gan = vals[0] + vals[1]
+            total = total + d_gan
+        if chunk is not None:
+            r1_d, g1 = r1_chunks(state.d, real_imgs, aug.get("r1"), alpha, chunk)
+            gd = _add(gd, g1)
+            total = total + r1_d
+        state.opt_d.step({"d": gd})
+        state.opt_d_render.step({"d": gr})
         metrics = {
             "d_loss_gan_render": d_gan_r, "d_loss_r1_render": r1_r,
             "d_loss_pose_render": pose, "d_loss_gan_decoder": d_gan,
@@ -245,7 +379,7 @@ def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
         minimal surface on the thumbnail, GAN on the image."""
         draws = inputs(state, generator, cfg.batch, draws, ("g",))
         ret = g_forward(state.g, draws, cfg.eikonal_reg, renderer_detach,
-                        cfg.fused_renderer_g)
+                        fused_route(cfg.fused_renderer_g, "G", state.g.device))
         zero = torch.zeros((), device=ret["rgb"].device)
         fake_pred_r, fake_view = state.d_render(ret["thumb_rgb"], alpha)
         g_gan_r = g_nonsaturating_loss(fake_pred_r)
@@ -258,7 +392,7 @@ def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
         g_gan = zero
         if gen_cfg.enable_decoder:
             aug = (draws.aug or {}).get("g")
-            g_gan = g_nonsaturating_loss(state.d(ret["rgb"], alpha, aug=aug, mesh=mesh))
+            g_gan = g_nonsaturating_loss(image_d(state.d, ret["rgb"], alpha, aug))
         total = g_gan_r + pose + eik + min_surf + g_gan
 
         groups = state.opt_g.groups

@@ -61,8 +61,11 @@ class Trainer:
         auto_remat: bool = False,
     ):
         if auto_remat:
-            raise NotImplementedError("auto_remat switches on remat_d, which is not "
-                                      "ported (ROADMAP queue 1)")
+            raise NotImplementedError(
+                "auto_remat (switch remat_d on when the R1 step's memory would not fit) "
+                "is not ported: its JAX form reads XLA's ahead-of-time memory analysis, "
+                "which PyTorch has no counterpart of short of running the step; set "
+                "remat_d in the config instead (ROADMAP queue 1 item 7)")
         self.generator = generator
         self.d_decoder = d_decoder
         self.d_render = d_render

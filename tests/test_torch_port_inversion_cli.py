@@ -75,7 +75,7 @@ def test_invert_render_inverted_and_lerp(tmp_path, capsys, monkeypatch):
     assert res["frames"] == 4  # 2 pairs x 2 frames, cycling
     assert os.path.exists(res["video"])
     main([])
-    assert capsys.readouterr().out.count(",") == 11  # 12 commands
+    assert capsys.readouterr().out.count(",") == 15  # the JAX CLI's 16 commands
 
 
 def test_jax_inversion_artifacts_render_alike(tmp_path):

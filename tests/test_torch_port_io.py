@@ -361,13 +361,13 @@ def test_cli_train_sphere_init_and_sampling_from_the_checkpoint(tmp_path, capsys
     (["--device", "cuda", "--n-devices", "64"], RuntimeError, "GPU|CUDA"),
     (["--fid-data", "missing"], FileNotFoundError, "missing"),
     (["--fid-data", "DATA", "--inception", "missing.pth"], FileNotFoundError, "missing"),
-    (["--init-renderer-from", "x"], NotImplementedError, "ROADMAP queue 1 item 7"),
+    (["--init-renderer-from", "missing"], FileNotFoundError, "missing"),
 ], ids=["n-devices", "fid-data", "inception", "init-renderer-from"])
 def test_cli_train_flags_not_ported_raise(flags, error, match, tmp_path):
-    """--init-renderer-from is still not ported and raises, naming its
-    ROADMAP item. The three flags ported since raise before any step where
-    they cannot be met: more ranks than GPUs, a missing FID dataset, a
-    missing Inception file."""
+    """Every flag of the JAX command is ported; each raises before any step
+    where it cannot be met: more ranks than GPUs, a missing FID dataset, a
+    missing Inception file, a missing stage-1 checkpoint directory
+    (tests/test_torch_port_stylesdf.py runs the handoff)."""
     from cips3dpp_torch.apps.cli import main
 
     data = tmp_path / "data"

@@ -256,7 +256,7 @@ def runs(tmp_path_factory):
     with ThreadPoolExecutor(1) as pool:
         single = pool.submit(_one_process, tmp)
         ranks = run_ranks(_on_rank, 2, str(tmp / "ranks"), device="cpu",
-                          workdir=str(tmp / "rendezvous"))
+                          workdir=str(tmp / "rendezvous"), timeout=600)
         return ranks, single.result(), tmp
 
 

@@ -414,7 +414,9 @@ def test_fused_d_and_g_steps_follow_the_plain_steps(setup):
 def test_steps_draw_their_own_inputs_and_ema(setup):
     """Without `draws` each step draws from its torch.Generator (the same
     seed gives the same step); ema_update and fade_alpha follow the JAX
-    package's formulas; non-ported options raise."""
+    package's formulas; the image D's options are taken, and values the
+    steps do not take raise (tests/test_torch_port_train_options.py holds
+    each option to the JAX step)."""
     import dataclasses
 
     from cips3dpp_torch.train.state import TrainConfig, create_train_state
@@ -440,6 +442,9 @@ def test_steps_draw_their_own_inputs_and_ema(setup):
     assert fade_alpha(5_000, 10_000) == 0.5 and fade_alpha(0, 10, fade=False) == 1.0
     for field, value in (("d_cat", True), ("d_seq", True), ("d_r1_chunk", 2),
                          ("remat_d", True), ("d_dtype", "bfloat16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        create_train_state(dataclasses.replace(TrainConfig(), **{field: value}),
+                           s["g"], s["d"], s["dr"])
+    for field, value in (("d_dtype", "float16"), ("d_r1_chunk", 0)):
+        with pytest.raises(ValueError, match=field):
             create_train_state(dataclasses.replace(TrainConfig(), **{field: value}),
                                s["g"], s["d"], s["dr"])
