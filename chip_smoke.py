@@ -127,6 +127,28 @@ Phases, each fatal on failure:
      (f) `train_r64` for 3 iterations (depth 8, 0 K1); (g) the web form's
      argv for sample_multi_view run through cli.main (after phase 10,
      before the --profile phase).
+ 13. the model variants no shipped config uses, at the FFHQ r1024 model's
+     full width (64^2 rays x 24 samples, SIREN width 256, the r1024
+     decoder at channel multiplier 2), after phase 12: (a) a default
+     Projector on a width-128 depth-2 renderer renders plainly with 0 K1
+     launches and says so once, and at 256 / 24 launches K1 twice a step;
+     (b) the density renderer (with_sdf=False): a batch-1 frame through
+     the plain render and 4 f32 K2 against the plain decoder (phase 5's
+     frame bounds) and against K2's plain version on the same route
+     (phase 6's f32 bounds), and 2 iterations of `train` on train_r1024_fast with
+     --opts G_cfg.renderer.with_sdf False (losses finite, 0 K1, the plain
+     route said once); (c) the 3x3 decoder (kernel_size 3): a batch-1
+     plain frame, fused_decoder=True raising, a batch-4 D step with R1
+     and a G step at train_base's settings (losses finite, K1 a D step =
+     batch); (d) DiscriminatorMultiScale(1024, 2), batch 4: one set of
+     parameters at 64..1024 with alpha 0.5 and the R1 penalty's
+     parameter gradients at 1024 (timed); the logits, the penalty and R1's
+     input gradient against the same weights on the CPU in f32 (TF32
+     off, MS_D_BOUNDS); (e) the triplane renderer, planes (4, 3,
+     32, 256^2), hidden 256, view freqs 4: forward with the eikonal term,
+     the double backward of an eikonal + image loss to the planes and the
+     weights, a CPU f32 run at 64 rays (TRIPLANE_BOUND), and gradgradcheck
+     of the sampler in float64 on cuda. ms and peak memory of each.
 Each path that launches kernels runs with the launch counts set to 0
 just before it and read just after. A kernel's "ms" is its device time a
 launch (torch.profiler), beside the time a call takes back to back (CUDA
@@ -2248,6 +2270,368 @@ def cli_rest_phase(dev, smi, cfg_path=os.path.join(ROOT, "configs", "ffhq.yaml")
     return res
 
 
+# Phase 13's card-against-CPU bounds, each relative to the largest |value|
+# of the CPU's f32 result (TF32 off on the card): the multi-scale D's
+# logits and R1 penalty (f32 convolutions summed in other orders through
+# eight ResBlocks). R1's gradient, the logits' with respect to the input,
+# by its L2 norm: where a pre-activation lies within f32 rounding of zero
+# the leaky ReLU's slope differs between the two, 5x, and moves the
+# gradient over that pixel's receptive field (1.9e-2 of the largest
+# |value| in one run), which the largest difference cannot tell from a
+# fault and the norm of the difference can; the triplane renderer's outputs and eikonal
+# term (f32 sums of a 256-wide MLP, and the sampler's texel weights).
+MS_D_BOUNDS = {"logits": 1e-3, "r1": 1e-3, "r1_grad_l2": 1e-2}
+TRIPLANE_BOUND = 1e-4
+
+
+def _rel_gap(got, want):
+    """max |got - want| over max |want|."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _timed(fn, iters=3):
+    """(ms a call by CUDA events after one warm-up call, peak allocated
+    bytes over the calls)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_time(fn, iters, warmup=1)
+    return ms, torch.cuda.max_memory_allocated()
+
+
+def _timed_call(fn):
+    """(result, ms by CUDA events, peak allocated bytes) of one call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), torch.cuda.max_memory_allocated()
+
+
+def variants_phase(dev, smi, cfg_path=os.path.join(ROOT, "configs", "ffhq.yaml")):
+    """Phase 13: the model variants no shipped config uses, at the FFHQ
+    r1024 model's full width (64^2 rays x 24 samples, SIREN width 256,
+    the r1024 decoder at channel multiplier 2): (a) K1's default route,
+    (b) the density renderer, (c) the k x k decoder, (d) the multi-scale
+    D, (e) the triplane renderer. TF32 is off (ksr.plain_precision, as
+    main sets it), so (d) and (e) hold the card's f32 to the CPU's."""
+    import numpy as np
+
+    from cips3dpp_torch.apps import inversion as inv
+    from cips3dpp_torch.core.camera import camera_from_angles
+    from cips3dpp_torch.core.rays import prepare_nerf_inputs
+    from cips3dpp_torch.models.discriminator import DStyleGANProgressive
+    from cips3dpp_torch.models.discriminator_multi_scale import DiscriminatorMultiScale
+    from cips3dpp_torch.models.discriminator_pose import DVolumeRenderProgressive
+    from cips3dpp_torch.models.generator import preset_r1024
+    from cips3dpp_torch.models.triplane import (TriplaneConfig, TriplaneRenderer,
+                                                grid_sample_bilinear)
+    from cips3dpp_torch.models.vgg import init_vgg
+    from cips3dpp_torch.train import TrainConfig, create_train_state, make_train_steps
+    from cips3dpp_torch.train import train_loop as tl
+    from cips3dpp_torch.train.losses import r1_penalty
+
+    res = {"card": smi}
+    t_phase = time.perf_counter()
+    launches = {"siren_render": 0, "decoder_block_f32": 0}
+    base = preset_r1024()
+
+    def variant(renderer=None, decoder=None):
+        return dataclasses.replace(
+            base, renderer=dataclasses.replace(base.renderer, **(renderer or {})),
+            decoder=dataclasses.replace(base.decoder, **(decoder or {})))
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def front_camera(cfg, b=1):
+        zero = torch.zeros(b, device=dev)
+        return camera_from_angles(zero + 0.1, zero, cfg.img_size, fov_ang=cfg.fov_ang,
+                                  dist_radius=cfg.dist_radius)
+
+    @torch.no_grad()
+    def frame(model, zs, noise, **kw):
+        cam = front_camera(model.cfg)
+        return model(zs, cam.extrinsics, cam.focal, cam.near, cam.far, noise_bufs=noise,
+                     perturb=False, **kw)["rgb"]
+
+    # ---- a. K1's default route: the Projector ----
+    t0 = time.perf_counter()
+    vgg = init_vgg(torch.Generator().manual_seed(0), device=dev)
+    icfg = inv.InversionConfig(w_avg_samples=1000)
+    target = torch.rand((1024, 1024, 3), generator=torch.Generator().manual_seed(SEED + 60)) * 2 - 1
+    lrs, flip, mask_bg = inv.step_plan(0, icfg)
+    res["route"] = {}
+    for width, want_k1 in ((128, 0), (256, 2)):
+        model, _, _ = make_model(variant(renderer={"hidden_dim": width}), dev, SEED + 61)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            proj = inv.Projector(model, vgg, icfg)
+        state = proj.init_state(torch.Generator().manual_seed(1), (0.2, 0.2))
+        targets = proj.prepare_targets(target)
+        t_rand = torch.rand((2, base.img_size, base.img_size, 1),
+                            generator=torch.Generator().manual_seed(2)).to(dev)
+        with counted(f"13a default Projector, width {width}, one pose step",
+                     {"siren_render": want_k1} if want_k1 else {}) as got:
+            state, metrics = proj.step(state, targets, t_rand, lrs, flip, mask_bg)
+        add(got)
+        said = err.getvalue().count("renders with the plain renderer")
+        loss = float(metrics["loss"])
+        if proj.fused != bool(want_k1) or said != (0 if want_k1 else 1) or not np.isfinite(loss):
+            raise AssertionError(f"13a width {width}: fused {proj.fused}, said {said} times, "
+                                 f"loss {loss}; stderr {err.getvalue()[-500:]}")
+        log(f"[variants] 13a default Projector at width {width}, 24 samples: fused "
+            f"{proj.fused}, {got.get('siren_render', 0)} K1 launches a step, the plain route "
+            f"said {said} time(s), loss {loss:.4f}")
+        res["route"][width] = {"fused": proj.fused, "k1": got.get("siren_render", 0),
+                               "loss": loss}
+        del proj, model, state, targets
+    del vgg
+    torch.cuda.empty_cache()
+    res["route_s"] = time.perf_counter() - t0
+
+    # ---- b. the density renderer ----
+    t0 = time.perf_counter()
+    cfg_d = variant(renderer={"with_sdf": False})
+    model, zs, noise = make_model(cfg_d, dev, SEED + 62)
+    with counted("13b density frame, plain render + f32 K2", {"decoder_block_f32": 4}) as got:
+        fused = frame(model, zs, noise, fused_renderer=False, fused_decoder=True)
+    add(got)
+    with counted("13b density frame, plain", {}):
+        plain = frame(model, zs, noise)
+    ms_fused, peak_fused = _timed(
+        lambda: frame(model, zs, noise, fused_renderer=False, fused_decoder=True))
+    ms_plain, _ = _timed(lambda: frame(model, zs, noise))
+    with plain_kernels(), counted("13b density frame, K2's plain version", {}):
+        plain_k2 = frame(model, zs, noise, fused_renderer=False, fused_decoder=True)
+    # against the plain decoder: phase 5's frame bounds (the blocks' conv_b
+    # takes bf16 operands, as JAX's kernel does); against K2's plain
+    # version on the same route: phase 6's f32 bounds
+    gaps = {"plain decoder": (gap(fused, plain), (0.5, 1e-2)),
+            "K2's plain version": (gap(fused, plain_k2), (0.1, 1e-3))}
+    bad = {k: g for k, (g, b) in gaps.items() if not (g[0] <= b[0] and g[1] <= b[1])}
+    if fused.shape != (1, 1024, 1024, 3) or not torch.isfinite(fused).all() or bad:
+        raise AssertionError(f"13b density frame {tuple(fused.shape)}: {bad} (bounds "
+                             f"{ {k: b for k, (_, b) in gaps.items()} })")
+    log(f"[variants] 13b density renderer (with_sdf=False), r1024, batch 1 (CUDA events, 3 "
+        f"frames after one): the plain render + 4 f32 K2 {ms_fused:.1f} ms a frame, peak "
+        f"{peak_fused / 2**30:.2f} GiB; all plain "
+        f"{ms_plain:.1f} ms; max / mean |diff| "
+        f"{ {k: f'{g[0]:.3e} / {g[1]:.3e} (bounds {b})' for k, (g, b) in gaps.items()} }; {smi}")
+    res["density"] = {"frame_ms": ms_fused, "plain_frame_ms": ms_plain,
+                      "peak_bytes": peak_fused, "gaps": {k: g for k, (g, _) in gaps.items()}}
+    del model, fused, plain, plain_k2
+    torch.cuda.empty_cache()
+
+    from cips3dpp_torch.apps import cli as cli_mod
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+        stack.enter_context(hidden_module("yaml"))
+        os.makedirs(f"{tmp}/data")
+        np.save(f"{tmp}/data/images-1024-0000.npy", np.random.default_rng(SEED).integers(
+            0, 256, (8, 1024, 1024, 3), dtype=np.uint8))
+        probe, patches = _train_probe(tl)
+        for obj, name, wrap in patches:
+            stack.enter_context(patched(obj, name, wrap))
+        buf, err = io.StringIO(), io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with counted("13b train train_r1024_fast, with_sdf=False, 2 iterations", {}):
+            with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+                rc = cli_mod.main(["train", "--cfg", cfg_path, "--section", "train_r1024_fast",
+                                   "--data", f"{tmp}/data", "--outdir", f"{tmp}/run",
+                                   "--total-iters", "2", "--no-sphere-init", "--opts",
+                                   "G_cfg.renderer.with_sdf", "False"])
+        peak = torch.cuda.max_memory_allocated()
+    said = err.getvalue().count("renders with the plain renderer")
+    bad = [(k, m) for k, m in probe["metrics"] if not all(np.isfinite(v) for v in m.values())]
+    if rc != 0 or bad or said != 1 or probe["d_k1"] != [0, 0] or len(probe["iter_s"]) != 2:
+        raise AssertionError(f"13b train: rc {rc}, non-finite {bad[:2]}, the plain route said "
+                             f"{said} times, K1 a D step {probe['d_k1']}; {err.getvalue()[-800:]}")
+    log(f"[variants] 13b train train_r1024_fast --opts G_cfg.renderer.with_sdf False: "
+        f"iterations {', '.join(f'{x:.3f}' for x in probe['iter_s'])} s, 0 K1, the plain "
+        f"route said once, every loss finite, peak {peak / 2**30:.2f} GiB; {smi}")
+    res["density"].update(train_iter_s=probe["iter_s"], train_peak_bytes=peak)
+    res["density_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # ---- c. the k x k decoder ----
+    t0 = time.perf_counter()
+    cfg_k = variant(decoder={"kernel_size": 3})
+    model, zs, noise = make_model(cfg_k, dev, SEED + 63)
+    with counted("13c 3x3 decoder frame, plain", {}):
+        rgb = frame(model, zs, noise)
+    ms_frame, peak_frame = _timed(lambda: frame(model, zs, noise))
+    if rgb.shape != (1, 1024, 1024, 3) or not torch.isfinite(rgb).all():
+        raise AssertionError(f"13c frame {tuple(rgb.shape)}")
+    try:
+        frame(model, zs, noise, fused_decoder=True)
+        raise AssertionError("13c: fused_decoder=True rendered a 3x3 decoder")
+    except ValueError as e:
+        if "kernel_size 3" not in str(e):
+            raise
+        refusal = str(e)
+    tcfg = TrainConfig()  # train_base: batch 4, lazy R1, the D step's fused render
+    b = tcfg.batch
+    d = DStyleGANProgressive(1024, 2, device=dev, seed=SEED + 64)
+    d_render = DVolumeRenderProgressive(1024, viewpoint_loss=True, device=dev, seed=SEED + 65)
+    state = create_train_state(tcfg, model, d, d_render)
+    d_step, g_step = make_train_steps(cfg_k, tcfg)[:2]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 66)
+    real = torch.rand((b, 1024, 1024, 3), generator=gen, device=dev) * 2 - 1
+    steps = {}
+    with counted("13c train steps at k = 3 (D with R1 and G, twice each)",
+                 {"siren_render": 2 * b}) as got:
+        for name, fn in (("d_step (R1)", lambda: d_step(state, real, gen, 0.5, True)[1]),
+                         ("g_step", lambda: g_step(state, gen, 0.5)[1])):
+            fn()  # warm-up
+            metrics, ms, peak = _timed_call(fn)
+            bad = {k: float(v) for k, v in metrics.items() if not torch.isfinite(v)}
+            if bad:
+                raise AssertionError(f"13c {name}: non-finite losses {bad}")
+            steps[name] = {"ms": ms, "peak_bytes": peak,
+                           "metrics": {k: float(v) for k, v in metrics.items()}}
+            log(f"[variants] 13c {name}, 3x3 decoder, r1024, batch {b}: {ms:.1f} ms (CUDA "
+                f"events, the second call), peak {peak / 2**30:.2f} GiB, losses "
+                f"{ {k: round(float(v), 4) for k, v in metrics.items()} }; {smi}")
+    add(got)
+    log(f"[variants] 13c 3x3 decoder frame at r1024, batch 1 (plain): {ms_frame:.1f} ms a "
+        f"frame (CUDA events, 3 frames after one), peak "
+        f"{peak_frame / 2**30:.2f} GiB; fused_decoder=True raises: {refusal}")
+    res["kxk"] = {"frame_ms": ms_frame, "frame_peak_bytes": peak_frame, "steps": steps}
+    del model, d, d_render, state, real, rgb
+    torch.cuda.empty_cache()
+    res["kxk_s"] = time.perf_counter() - t0
+
+    # ---- d. the multi-scale D ----
+    t0 = time.perf_counter()
+    msd = DiscriminatorMultiScale(1024, 2, device=dev, seed=SEED + 67)
+    cpu = DiscriminatorMultiScale(1024, 2, device="cpu", seed=SEED + 67)
+    cpu.load_state_dict({k: v.cpu() for k, v in msd.state_dict().items()})
+    gen = torch.Generator().manual_seed(SEED + 68)
+    sizes = [2**i for i in range(6, 11)]
+    xs = {s: torch.rand((4, s, s, 3), generator=gen) * 2 - 1 for s in sizes}
+    gaps = {}
+    with counted("13d multi-scale D", {}):
+        fwd_ms = {}
+        with torch.no_grad():
+            for s in sizes:
+                x = xs[s].to(dev)
+                gaps[f"logits {s}"] = _rel_gap(msd(x, 0.5)[0], cpu(xs[s], 0.5)[0])
+                fwd_ms[s] = cuda_time(lambda: msd(x, 0.5), iters=3, warmup=1)
+
+        def r1_step(x):
+            """The R1 penalty (train/losses.py) and its gradient with
+            respect to every parameter, as the D step takes it."""
+            x = x.clone().requires_grad_(True)
+            pen = r1_penalty(msd(x, 0.5)[0], x)
+            params = [p for p in msd.parameters()]
+            return pen, torch.autograd.grad(pen, params, allow_unused=True)
+
+        r1_step(xs[1024].to(dev))  # warm-up
+        (pen, grads), r1_ms, r1_peak = _timed_call(lambda: r1_step(xs[1024].to(dev)))
+        # R1's gradient (the logits' with respect to the input) and the
+        # penalty, its per-sample sum of squares meaned, on both devices
+        x = xs[1024].to(dev).requires_grad_(True)
+        (g_in,) = torch.autograd.grad(msd(x, 0.5)[0].sum(), x)
+        t_cpu = time.perf_counter()
+        x = xs[1024].clone().requires_grad_(True)
+        (g_cpu,) = torch.autograd.grad(cpu(x, 0.5)[0].sum(), x)
+        cpu_s = time.perf_counter() - t_cpu
+    gaps["r1"] = _rel_gap(pen, g_cpu.square().reshape(g_cpu.shape[0], -1).sum(1).mean())
+    gaps["r1_grad_l2"] = float(torch.linalg.norm(g_in.cpu() - g_cpu) / torch.linalg.norm(g_cpu))
+    r1_grad_max = _rel_gap(g_in, g_cpu)
+    if not all(torch.isfinite(g).all() for g in grads if g is not None):
+        raise AssertionError("13d: R1's parameter gradients not finite")
+    worst = {k: v for k, v in gaps.items()
+             if not v <= MS_D_BOUNDS["logits" if k.startswith("logits") else k]}
+    if worst or not torch.isfinite(pen):
+        raise AssertionError(f"13d: the card against the CPU {worst} (bounds {MS_D_BOUNDS})")
+    log(f"[variants] 13d multi-scale D (max_size 1024, multiplier 2, batch 4, alpha 0.5, one "
+        f"set of parameters): forward ms "
+        f"{ {s: round(v, 3) for s, v in fwd_ms.items()} }; R1 penalty and its parameter "
+        f"gradients at 1024 {r1_ms:.1f} ms, peak {r1_peak / 2**30:.2f} GiB (the CPU's "
+        f"R1 gradient {cpu_s:.1f} s); card against CPU (TF32 off) "
+        f"{ {k: f'{v:.2e}' for k, v in gaps.items()} } (bounds {MS_D_BOUNDS}; R1's gradient "
+        f"at most {r1_grad_max:.2e} of its largest |value|); {smi}")
+    res["ms_d"] = {"forward_ms": fwd_ms, "r1_ms": r1_ms, "r1_peak_bytes": r1_peak,
+                   "gaps": gaps, "r1_grad_max": r1_grad_max}
+    del msd, cpu, grads, g_in, g_cpu
+    torch.cuda.empty_cache()
+    res["ms_d_s"] = time.perf_counter() - t0
+
+    # ---- e. the triplane renderer ----
+    t0 = time.perf_counter()
+    tcfg3 = TriplaneConfig(plane_channels=32, hidden_dim=256, view_n_freqs=4)
+    tri = TriplaneRenderer(tcfg3, device=dev, seed=SEED + 69)
+    bt = 4
+    gen = torch.Generator().manual_seed(SEED + 70)
+    planes = torch.randn((bt, 3, 32, 256, 256), generator=gen)
+    azim = (torch.rand(bt, generator=gen) - 0.5) * 0.6
+    cam = camera_from_angles(azim.to(dev), torch.zeros(bt, device=dev), base.img_size,
+                             fov_ang=base.fov_ang, dist_radius=base.dist_radius)
+    pts, rays_d, viewdirs, z_vals = prepare_nerf_inputs(
+        cam.focal, base.img_size, cam.extrinsics, cam.near, cam.far, base.n_samples)
+    rows = lambda a: a.reshape(bt, base.img_size * base.img_size, *a.shape[3:])
+    inputs = [rows(pts), rows(rays_d), rows(viewdirs), rows(z_vals), cam.near, cam.far]
+
+    def loss_and_grads(module, planes_in, args):
+        p = planes_in.clone().requires_grad_(True)
+        out = module(p, *args, return_eikonal=True)
+        loss = torch.mean(torch.square(torch.linalg.norm(out[-1], dim=-1) - 1.0)) \
+            + torch.mean(out[0] ** 2)
+        grads = torch.autograd.grad(loss, [p] + list(module.parameters()))
+        return out, loss, grads
+
+    with counted("13e triplane renderer", {}):
+        planes_dev = planes.to(dev)
+        loss_and_grads(tri, planes_dev, inputs)  # warm-up
+        (out, loss, grads), tri_ms, tri_peak = _timed_call(
+            lambda: loss_and_grads(tri, planes_dev, inputs))
+        if not all(torch.isfinite(g).all() for g in grads) or float(grads[0].abs().max()) == 0:
+            raise AssertionError("13e: non-finite or zero gradients")
+        with torch.no_grad():
+            fwd_ms, _ = _timed(lambda: tri(planes_dev, *inputs))
+        cpu_tri = TriplaneRenderer(tcfg3, device="cpu", seed=SEED + 70)
+        cpu_tri.load_state_dict({k: v.cpu() for k, v in tri.state_dict().items()})
+        cpu_args = [a[:, :64].cpu() for a in inputs[:4]] + [a.cpu() for a in inputs[4:]]
+        want = cpu_tri(planes, *cpu_args, return_eikonal=True)
+        tgaps = {name: _rel_gap(g[:, :64], w) for name, g, w in
+                 zip(("rgb", "feat", "sdf", "mask_depth", "xyz", "eikonal"), out, want)}
+    torch.cuda.synchronize()
+    f64 = dict(dtype=torch.float64, device=dev)
+    g64 = torch.Generator(device=dev).manual_seed(SEED + 71)
+    feat = torch.randn((1, 4, 5, 2), generator=g64, **f64).requires_grad_(True)
+    coords = (torch.rand((1, 6, 2), generator=g64, **f64) * 1.8 - 0.9).requires_grad_(True)
+    gradgrad = torch.autograd.gradgradcheck(grid_sample_bilinear, (feat, coords))
+    worst = {k: v for k, v in tgaps.items() if not v <= TRIPLANE_BOUND}
+    if worst or not gradgrad:
+        raise AssertionError(f"13e: the card against the CPU {worst} (bound {TRIPLANE_BOUND}), "
+                             f"gradgradcheck {gradgrad}")
+    log(f"[variants] 13e triplane renderer, planes (4, 3, 32, 256, 256), hidden 256, view "
+        f"freqs 4, 64^2 rays x 24 samples: forward {fwd_ms:.1f} ms; forward with the eikonal "
+        f"term and the double backward of an eikonal + image loss to the planes and weights "
+        f"{tri_ms:.1f} ms, peak {tri_peak / 2**30:.2f} GiB, loss {float(loss):.4f}; card "
+        f"against a CPU f32 run at 64 rays {({k: f'{v:.2e}' for k, v in tgaps.items()})} "
+        f"(bound {TRIPLANE_BOUND}); gradgradcheck of the sampler in float64 on cuda passes; {smi}")
+    res["triplane"] = {"forward_ms": fwd_ms, "loss_grad_ms": tri_ms, "peak_bytes": tri_peak,
+                       "gaps": tgaps, "gradgradcheck": gradgrad}
+    del tri, out, grads, planes_dev
+    torch.cuda.empty_cache()
+    res["triplane_s"] = time.perf_counter() - t0
+
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[variants] phase 13: {res['phase_s']:.1f} s (13a {res['route_s']:.1f}, 13b "
+        f"{res['density_s']:.1f}, 13c {res['kxk_s']:.1f}, 13d {res['ms_d_s']:.1f}, 13e "
+        f"{res['triplane_s']:.1f}); launches {launches}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
@@ -2531,24 +2915,32 @@ def main() -> int:
     with torch.inference_mode(False), torch.enable_grad():
         report["cli_rest"] = cli_rest_phase(dev, smi)
 
+    # ---- 13. the model variants no shipped config uses ----
+    torch.cuda.empty_cache()
+    with torch.inference_mode(False), torch.enable_grad():
+        report["variants"] = variants_phase(dev, smi)
+    variants = report["variants"]["launches"]
+
     # ---- the kernels line ----
     t32, tbf = report["trajectory_f32"], report["trajectory_bf16"]
     # K1's launches: the serving path's, the training steps', the
     # training loop's (with its sampling from the checkpoint), the
-    # inversion's, the data-parallel training loop's and phase 12's
-    # (rendering-time, the fast training sections, the split D steps)
+    # inversion's, the data-parallel training loop's, phase 12's
+    # (rendering-time, the fast training sections, the split D steps) and
+    # phase 13's (the default Projector, the 3x3 decoder's D steps)
     loop, inversion = report["training_loop"]["launches"], report["inversion"]["launches"]
     rest = report["cli_rest"]["launches"]
     entry("siren_render", "cips3dpp_torch/csrc/siren_render.cu",
           "cips3dpp_tpu/kernels/siren_render.py:140", report["K1"],
           serving_launches["siren_render"] + report["training"]["launches"]["siren_render"]
           + loop["siren_render"] + inversion["siren_render"]
-          + report["data_parallel"]["launches"]["siren_render"] + rest["siren_render"])
+          + report["data_parallel"]["launches"]["siren_render"] + rest["siren_render"]
+          + variants["siren_render"])
     entry("decoder_block", K2_SRC, K2_TPU, report["K2"],
           serving_launches["decoder_block"] + rest["decoder_block"])
     entry("decoder_block_f32", K2_SRC, K2_TPU, report["K2-f32"],
           t32["launches_buffers"]["decoder_block_f32"] + loop["decoder_block_f32"]
-          + inversion["decoder_block_f32"])
+          + inversion["decoder_block_f32"] + variants["decoder_block_f32"])
     entry("decoder_block_hash", K2_SRC, K2_TPU, report["K2-hash"],
           tbf["launches_seed"]["decoder_block_hash"])
     entry("decoder_block_hash_f32", K2_SRC, K2_TPU, report["K2-hash-f32"],
@@ -2565,7 +2957,8 @@ def main() -> int:
 
     report["script_s"] = time.perf_counter() - T_START
     log(f"[smoke] the whole script: {report['script_s']:.1f} s (phase 12: "
-        f"{report['cli_rest']['phase_s']:.1f} s)")
+        f"{report['cli_rest']['phase_s']:.1f} s, phase 13: "
+        f"{report['variants']['phase_s']:.1f} s)")
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     name = torch.cuda.get_device_name(0)

@@ -18,9 +18,12 @@ parameters enter `Generator.forward` through `torch.func.functional_call`),
 so the caller's model never changes, as JAX's functional params do not.
 Adam updates the moments of every leaf at every step, as optax does, with
 a zero gradient where none flows (the detached decoder styles of a flip
-step). With a depth-2 renderer the render is fused by default: on the card
-`SirenRender` (K1's forward, the plain render replayed in the backward),
-one launch per batch item; on the CPU K1's plain version.
+step). By default the render is fused where JAX's is (on the card, for a
+geometry K1 takes: `default_kernel_route`): `SirenRender` (K1's forward,
+the plain render replayed in the backward), one launch per batch item.
+Elsewhere it is the plain f32 renderer; at a geometry K1 does not take on
+the card the Projector says so once. `fused=True` asks for K1 (its plain
+version on the CPU).
 
 Random draws come from a `torch.Generator` (default seed 123, as JAX's
 PRNGKey(123)), or are passed in as `InversionDraws`: the mean latents
@@ -35,12 +38,14 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
+import sys
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
 from ..core.camera import camera2world_from_axis_angle, camera_from_angles
+from ..kernels.siren_render import default_kernel_route
 from ..models.vgg import LOSS_W_1024, perceptual_features
 from ..ops.resize import resize
 from ..utils.metrics import psnr, ssim
@@ -177,8 +182,10 @@ class Projector:
     """The flip-inversion projector. `model` is a Generator; `vgg` a
     VGG16Features; `lpips` the report's (LPIPS, provenance) pair, as
     `load_lpips` returns it (None: `load_lpips` is called, which consults
-    $CIPS3DPP_WEIGHTS_DIR and falls back to the tagged random metric). `fused` (default: a depth-2 renderer) renders through
-    the SIREN render kernel."""
+    $CIPS3DPP_WEIGHTS_DIR and falls back to the tagged random metric).
+    `fused` renders through the SIREN render kernel; None (the default)
+    decides as JAX's Projector does, from the model's device and geometry
+    (`default_kernel_route`)."""
 
     def __init__(self, model, vgg, cfg: InversionConfig, lpips=None,
                  fused: bool | None = None):
@@ -187,7 +194,14 @@ class Projector:
         self.lpips = lpips
         self.cfg = cfg
         self.gcfg = model.cfg
-        self.fused = model.cfg.renderer.n_layers == 2 if fused is None else fused
+        if fused is None:
+            r = model.cfg.renderer
+            fused, why = default_kernel_route(r.n_layers, r.hidden_dim, model.cfg.n_samples,
+                                              r.with_sdf, model.device)
+            if why is not None and model.device.type == "cuda":
+                print(f"[invert] the projector renders with the plain renderer, not K1: "
+                      f"{why}", file=sys.stderr)
+        self.fused = fused
         self.means = None
 
     @property

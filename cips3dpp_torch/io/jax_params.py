@@ -1,5 +1,6 @@
 """Weight bridge: the JAX package's param trees (generator, image D,
-pose D, VGG16, LPIPS and the FID Inception) and artifacts (a TrainState, an inversion's
+pose D, multi-scale D, triplane renderer, VGG16, LPIPS and the FID
+Inception) and artifacts (a TrainState, an inversion's
 w.pkl) -> this package's state dicts.
 
 The input is the nested dict of `variables["params"]` of the flax
@@ -8,7 +9,7 @@ uses the reference's torch state-dict names and layouts, which are this
 package's module names, so `Generator.load_state_dict` takes it as is:
 
     flax Linear        (in, out)        -> (out, in)
-    flax modulated conv (k, k, in, out) -> (1, out, in, k, k)
+    flax modulated conv (k, k, in, out) -> (1, out, in, k, k), any k
 
     flax conv          (kh, kw, in, out) -> (out, in, kh, kw)
 
@@ -121,36 +122,67 @@ def _indexed(name: str, stem: str) -> str:
     return stem + name[len(stem):].replace("_", ".", 1)
 
 
+def _conv_layer(out, prefix, node, conv_index):
+    """A flax ConvLayer -> the port's ConvLayer (a Sequential: the
+    EqualConv2d at `conv_index`, behind a Blur when it downsamples)."""
+    out[f"{prefix}.{conv_index}.weight"] = _conv(node["EqualConv2d_0"]["weight"])
+    if "act_bias" in node:
+        out[f"{prefix}.{conv_index + 1}.bias"] = _vec(node["act_bias"])
+
+
+def _d_trunk(out, params):
+    """The image Ds' per-resolution input convs and ResBlocks."""
+    for name, node in params.items():
+        if name.startswith("conv_in"):
+            _conv_layer(out, _indexed(name, "conv_in"), node, 0)
+        elif name.startswith("block_"):
+            res = name[len("block_"):]
+            _conv_layer(out, f"blocks.{res}.conv1", node["conv1"], 0)
+            _conv_layer(out, f"blocks.{res}.conv2", node["conv2"], 1)
+            _conv_layer(out, f"blocks.{res}.skip", node["skip"], 1)
+
+
+def _linear(out, prefix, node, hwc=False):
+    """A flax EqualLinear -> (out, in); with `hwc` its input is a 4x4 map
+    that flax flattens channel-last (h, w, c) and torch as (c, h, w)."""
+    w = np.asarray(node["weight"], np.float32)
+    if hwc:
+        c = w.shape[0] // 16
+        w = w.reshape(4, 4, c, -1).transpose(2, 0, 1, 3).reshape(16 * c, -1)
+    out[f"{prefix}.weight"] = np.ascontiguousarray(w.T)
+    out[f"{prefix}.bias"] = _vec(node["bias"])
+
+
 def jax_d_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     """DStyleGANProgressive (or DStyleGAN) params -> `models/discriminator.py`
     names."""
     out = {}
-
-    def conv_layer(prefix, node, conv_index):
-        out[f"{prefix}.{conv_index}.weight"] = _conv(node["EqualConv2d_0"]["weight"])
-        if "act_bias" in node:
-            out[f"{prefix}.{conv_index + 1}.bias"] = _vec(node["act_bias"])
-
-    for name, node in params.items():
-        if name.startswith("conv_in"):
-            conv_layer(_indexed(name, "conv_in"), node, 0)
-        elif name.startswith("block_"):
-            res = name[len("block_"):]
-            conv_layer(f"blocks.{res}.conv1", node["conv1"], 0)
-            # behind a Blur at index 0
-            conv_layer(f"blocks.{res}.conv2", node["conv2"], 1)
-            conv_layer(f"blocks.{res}.skip", node["skip"], 1)
+    _d_trunk(out, params)
     final = params["final"]
-    conv_layer("final_conv", final["final_conv"], 0)
-    # flax flattens the 4x4 map channel-last (h, w, c), torch (c, h, w)
-    w = np.asarray(final["final_linear_0"]["weight"], np.float32)
-    c = w.shape[0] // 16
-    w = w.reshape(4, 4, c, -1).transpose(2, 0, 1, 3).reshape(16 * c, -1)
-    out["final_linear.0.weight"] = np.ascontiguousarray(w.T)
-    out["final_linear.0.bias"] = _vec(final["final_linear_0"]["bias"])
-    out["final_linear.1.weight"] = np.ascontiguousarray(
-        np.asarray(final["final_linear_1"]["weight"], np.float32).T)
-    out["final_linear.1.bias"] = _vec(final["final_linear_1"]["bias"])
+    _conv_layer(out, "final_conv", final["final_conv"], 0)
+    _linear(out, "final_linear.0", final["final_linear_0"], hwc=True)
+    _linear(out, "final_linear.1", final["final_linear_1"])
+    return _tensors(out)
+
+
+def jax_ms_d_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """DiscriminatorMultiScale params -> `models/discriminator_multi_scale.py`
+    names (the JAX tree's, with the image D's ConvLayer internals)."""
+    out = {}
+    _d_trunk(out, params)
+    _conv_layer(out, "final_conv", params["final_conv"], 0)
+    _linear(out, "space_linear", params["space_linear"], hwc=True)
+    _linear(out, "out_linear", params["out_linear"])
+    return _tensors(out)
+
+
+def jax_triplane_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """TriplaneRenderer params -> `models/triplane.py` names: the linears
+    keep flax's (in, out) layout (the port computes x @ weight + bias)."""
+    out = {"sigmoid_beta": _vec(params["sigmoid_beta"])}
+    for name, node in params["network"].items():
+        out[f"network.{name}.weight"] = _vec(node["weight"])
+        out[f"network.{name}.bias"] = _vec(node["bias"])
     return _tensors(out)
 
 

@@ -66,7 +66,10 @@ def decoder_fused_prepare(decoder, styles, noise, *, fold_rgb=True,
     """Trajectory-invariant half. decoder: models.Decoder; styles
     (1, n_latent, style_dim); noise: list of num_layers (1, h, w, 1), or
     None with `noise_seed` (a uint32; then `feat_size`, the feature map's
-    side, is required)."""
+    side, is required). The kernels take the 1x1 decoder only."""
+    if decoder.kernel_size != 1:
+        raise ValueError(f"the decoder block kernels take 1x1 modulated convs, this decoder "
+                         f"has kernel_size {decoder.kernel_size}")
     if styles.shape[0] != 1 or styles.shape[1] != decoder.n_latent:
         raise ValueError(f"styles {tuple(styles.shape)}: want (1, {decoder.n_latent}, D)")
     if noise is None and noise_seed is None:

@@ -160,6 +160,20 @@ def kernel_route_refusal(depth: int, width: int, n_samples: int, with_sdf: bool,
     return None
 
 
+def default_kernel_route(depth: int, width: int, n_samples: int, with_sdf: bool,
+                         device) -> tuple[bool, str | None]:
+    """(take K1, why not) for a route left at its default: the train
+    steps' fused flags and `Projector(fused=None)`. The JAX package takes
+    its kernel only on the TPU and only for a geometry the kernel renders
+    (cips3dpp_tpu/models/renderer.py:86-90, apps/inversion.py:132-139), so
+    a default route takes K1 only on the card and only where
+    `kernel_route_refusal` passes; off the card it renders plainly. `why`
+    is K1's refusal of the geometry, if any, for the caller to print once.
+    An explicit request may still reach K1's plain version on the CPU."""
+    why = kernel_route_refusal(depth, width, n_samples, with_sdf, device)
+    return why is None and torch.device(device).type == "cuda", why
+
+
 def _launch(prepared, pts, viewdirs, z_vals, dnorm, defines=()):
     """The kernel on the card; `defines` selects an instrumented build
     (`_lib.load`)."""
@@ -313,6 +327,6 @@ def siren_render_reference(renderer, styles, pts, viewdirs, z_vals, rays_d,
     feats = film(net.views_linears, torch.cat([h, dirs], dim=-1), styles[-1])
     rgb = dot(feats, net.rgb_linear.weight.t()) + net.rgb_linear.bias
     thumb, feat, xyz, maskd = volume_integration(
-        rgb, sdf, feats, z_vals, rays_d, pts, renderer.sigmoid_beta
+        rgb, sdf, feats, z_vals, rays_d, pts, sigmoid_beta=renderer.sigmoid_beta
     )
     return thumb, feat, sdf, maskd, xyz

@@ -1,5 +1,6 @@
-"""CIPS super-resolution decoder, StyleGAN2 synthesis with 1x1 convs
-(counterpart of cips3dpp_tpu/models/decoder.py; contract model_v3.py:522-729).
+"""CIPS super-resolution decoder, StyleGAN2 synthesis with k x k modulated
+convs, 1x1 in the shipped configs (counterpart of
+cips3dpp_tpu/models/decoder.py; contract model_v3.py:522-729).
 
 conv1 + to_rgb1 at the feature resolution, then one block per resolution
 from 2*size_start to size_end: StyledConv (upsampling when the resolution
@@ -32,15 +33,18 @@ class Decoder(nn.Module):
         dtype=torch.float32,
         skip_dtype=torch.float32,
         remat: bool = False,
+        kernel_size: int = 1,
     ):
         super().__init__()
         self.remat = remat
+        self.kernel_size = kernel_size
         self.size_start, self.size_end = size_start, size_end
         self.channel_multiplier = channel_multiplier
         self.upsample_list = tuple(upsample_list)
         self.dtype = dtype
         ch = channel_table(channel_multiplier)
-        self.conv1 = StyledConv(in_channel, ch[size_start], style_dim)
+        self.conv1 = StyledConv(in_channel, ch[size_start], style_dim,
+                                kernel_size=kernel_size)
         self.to_rgb1 = ToRGB(ch[size_start], style_dim, upsample=False,
                              skip_dtype=skip_dtype)
         self.convs = nn.ModuleList()
@@ -49,8 +53,10 @@ class Decoder(nn.Module):
         for i in range(self.log_in_size + 1, self.log_size + 1):
             res = 2**i
             up = res in self.upsample_list
-            self.convs.append(StyledConv(cin, ch[res], style_dim, upsample=up))
-            self.convs.append(StyledConv(ch[res], ch[res], style_dim))
+            self.convs.append(StyledConv(cin, ch[res], style_dim, upsample=up,
+                                         kernel_size=kernel_size))
+            self.convs.append(StyledConv(ch[res], ch[res], style_dim,
+                                         kernel_size=kernel_size))
             self.to_rgbs.append(ToRGB(ch[res], style_dim, upsample=up,
                                       skip_dtype=skip_dtype))
             cin = ch[res]

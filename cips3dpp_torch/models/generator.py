@@ -134,10 +134,6 @@ class Generator(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = c = cfg
-        if c.decoder.kernel_size != 1:
-            raise NotImplementedError(
-                f"decoder kernel_size {c.decoder.kernel_size}: only the 1x1 "
-                f"modulated conv is ported (ROADMAP queue 1, k > 1)")
         m = c.mapping
         self.style = nn.Sequential(*[
             MappingLinear(m.z_dim if i == 0 else m.style_dim, m.style_dim,
@@ -158,7 +154,7 @@ class Generator(nn.Module):
         self.decoder = Decoder(
             d.size_start, d.size_end, r.hidden_dim, d.style_dim,
             d.channel_multiplier, d.upsample_list, torch_dtype(d.dtype),
-            torch_dtype(d.skip_dtype), remat=d.remat,
+            torch_dtype(d.skip_dtype), remat=d.remat, kernel_size=d.kernel_size,
         )
         gen = torch.Generator().manual_seed(seed)
         init_parameters(self, gen)
@@ -230,7 +226,7 @@ class Generator(nn.Module):
         path_reg: bool = False,
         sample_idx: tuple | None = None,  # (idx_h (B,hs), idx_w (B,ws))
         fused_renderer: bool = False,  # SIREN render kernel
-        fused_decoder: bool = False,  # decoder block kernels (batch 1)
+        fused_decoder: bool = False,  # decoder block kernels (batch 1, 1x1)
         inject_index: int | None = None,
         generator: torch.Generator | None = None,  # perturb + noise draws
         noise_seed: int | None = None,  # uint32: the hash noise realization

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import blur, fused_leaky_relu, modulated_matmul, upsample2x
+from ..ops.modulated import grouped_conv, modulate_weights_kxk, modulated_conv2d
 from ..ops.upfirdn2d import separable_taps
 
 
@@ -152,22 +153,29 @@ class MappingLinear(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# modulated conv stack (kernel_size 1, the v10 decoder)
+# modulated conv stack
 # ---------------------------------------------------------------------------
 
 
 class ModulatedConv2d(nn.Module):
-    """1x1 style-modulated conv, NHWC (model_v3.py:218-314). With upsample,
-    the transposed stride-2 conv + gain-4 blur of k=1 is modulate-then-
-    upsample2x. Weight stored (1, out, in, 1, 1)."""
+    """Style-modulated conv, NHWC (model_v3.py:218-314). Weight stored
+    (1, out, in, k, k). At k = 1 (the v10 decoder) a batched matmul; with
+    upsample, the transposed stride-2 conv + gain-4 blur of k = 1 is
+    modulate-then-upsample2x. At k > 1 one grouped conv (groups = batch):
+    padding k // 2; with upsample a stride-2 transposed conv, then the
+    gain-4 blur; with downsample the blur, then a stride-2 conv
+    (cips3dpp_tpu/models/layers.py:316-405)."""
 
     def __init__(self, in_channel, out_channel, style_dim, demodulate=True,
-                 upsample=False):
+                 upsample=False, kernel_size=1, downsample=False):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(1, out_channel, in_channel, 1, 1))
+        self.weight = nn.Parameter(
+            torch.empty(1, out_channel, in_channel, kernel_size, kernel_size))
         self.modulation = EqualLinear(style_dim, in_channel, bias_init=1.0)
         self.demodulate = demodulate
         self.upsample = upsample
+        self.downsample = downsample
+        self.kernel_size = kernel_size
 
     def reset_parameters(self, gen):
         with torch.no_grad():
@@ -180,10 +188,27 @@ class ModulatedConv2d(nn.Module):
     def forward(self, x, style):
         b, h, w, cin = x.shape
         s = self.modulation(style)
-        y = modulated_matmul(
-            x.reshape(b, -1, cin), self.base_weight(), s, self.demodulate
-        ).reshape(b, h, w, -1)
-        return upsample2x(y) if self.upsample else y
+        k = self.kernel_size
+        if k == 1 and not self.downsample:
+            y = modulated_matmul(
+                x.reshape(b, -1, cin), self.base_weight(), s, self.demodulate
+            ).reshape(b, h, w, -1)
+            return upsample2x(y) if self.upsample else y
+        if not (self.upsample or self.downsample):
+            return modulated_conv2d(x, self.weight[0], s, self.demodulate)
+        wmod = modulate_weights_kxk(self.weight[0], s, self.demodulate)
+        x = x.permute(0, 3, 1, 2)
+        if self.upsample:
+            # (2h + k - 2)^2 out of the transposed conv, brought back to
+            # (2h)^2 by the [1,3,3,1] blur's pads
+            p = 2 - (k - 1)
+            out = grouped_conv(x, wmod, stride=2, transpose=True)
+            out = blur(out, separable_taps((1, 3, 3, 1), 2), ((p + 1) // 2 + 1, p // 2 + 1))
+        else:
+            p = 2 + (k - 1)
+            x = blur(x, separable_taps((1, 3, 3, 1)), ((p + 1) // 2, p // 2))
+            out = grouped_conv(x, wmod, stride=2)
+        return out.permute(0, 2, 3, 1)
 
 
 class NoiseInjection(nn.Module):
@@ -224,10 +249,11 @@ class StyledConv(nn.Module):
     `bias` is the reference's unused StyledConv.bias, kept so the
     state-dict keys match; it takes no part in the forward."""
 
-    def __init__(self, in_channel, out_channel, style_dim, upsample=False):
+    def __init__(self, in_channel, out_channel, style_dim, upsample=False,
+                 kernel_size=1):
         super().__init__()
         self.conv = ModulatedConv2d(in_channel, out_channel, style_dim,
-                                    upsample=upsample)
+                                    upsample=upsample, kernel_size=kernel_size)
         self.noise = NoiseInjection()
         self.activate = FusedLeakyReLU(out_channel)
         self.bias = nn.Parameter(torch.zeros(1, out_channel, 1, 1))

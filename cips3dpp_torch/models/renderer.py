@@ -1,11 +1,16 @@
 """Volume feature renderer: SIREN MLP + SDF-sigma compositing
 (counterpart of cips3dpp_tpu/models/renderer.py).
 
+`with_sdf=False` makes it a density renderer: alpha from softplus of the
+network's fourth output (`volume_integration`); `sigmoid_beta` stays a
+parameter, unused, as in the JAX package, so state dicts keep their keys.
+
 `fused=True` routes a depth-2 SDF renderer through the SIREN render
 kernel (`kernels/siren_render.py`), one call per batch item, and raises for
-any other depth; under grad the call is the `SirenRender` autograd Function
-(kernel forward, replayed backward). Otherwise the plain network +
-`volume_integration`, over tiles of `ray_chunk` rays when it is given
+any renderer K1 does not take (another depth, no SDF, on the card another
+width or sample count); under grad the call is the `SirenRender` autograd
+Function (kernel forward, replayed backward). Otherwise the plain network
++ `volume_integration`, over tiles of `ray_chunk` rays when it is given
 (same result, less memory).
 
 The eikonal term d(sdf)/d(pts) is taken by autograd with create_graph, so
@@ -30,9 +35,9 @@ class VolumeFeatureRenderer(nn.Module):
                  style_dim=256, with_sdf=True, dtype=torch.float32,
                  remat: bool = False):
         super().__init__()
-        if not with_sdf:
-            raise NotImplementedError("only the SDF renderer is ported")
         self.depth = depth
+        self.hidden_dim = hidden_dim
+        self.with_sdf = with_sdf
         self.dtype = dtype
         self.remat = remat
         self.sigmoid_beta = nn.Parameter(torch.full((1,), 0.1))
@@ -74,10 +79,13 @@ class VolumeFeatureRenderer(nn.Module):
         (thumb (B,R,3), feat (B,R,C), sdf (B,R,N,1), mask_depth (B,R,2),
         xyz (B,R,3), eikonal (B,R,N,3) | None)."""
         if fused:
-            if self.depth != 2:
-                raise ValueError(f"fused=True: the SIREN render kernel takes a "
-                                 f"depth-2 renderer, this one has depth {self.depth}")
-            from ..kernels.siren_render import siren_render_fused
+            from ..kernels.siren_render import kernel_route_refusal, siren_render_fused
+
+            why = kernel_route_refusal(self.depth, self.hidden_dim, pts.shape[2],
+                                       self.with_sdf, pts.device)
+            if why is not None:
+                raise ValueError(f"fused=True: the SIREN render kernel takes a depth-2 "
+                                 f"SDF renderer of its geometry: {why}")
 
             near_s = near.reshape(-1)[0]
             far_s = far.reshape(-1)[0]
@@ -118,7 +126,8 @@ class VolumeFeatureRenderer(nn.Module):
                                                viewdirs, styles)
             eik = None
         thumb, feat, xyz, maskd = volume_integration(
-            rgb, sdf, feats, z_vals, rays_d, pts, self.sigmoid_beta
+            rgb, sdf, feats, z_vals, rays_d, pts, with_sdf=self.with_sdf,
+            sigmoid_beta=self.sigmoid_beta,
         )
         return thumb, feat, sdf, maskd, xyz, eik
 

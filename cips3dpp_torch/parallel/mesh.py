@@ -86,7 +86,7 @@ def make_mesh(n_devices: int | None = None, ray: int = 1, device=None, *, rank: 
     if ray > 1:
         raise NotImplementedError(
             f"ray={ray}: sharding the rays over a second mesh axis is not ported "
-            "(ROADMAP queue 1 item 7, the mesh's ray axis)")
+            "(ROADMAP queue 1, \"The mesh's ray axis\")")
     dev = resolve_device(device)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if n_devices is None:

@@ -21,7 +21,7 @@ from .core.camera import camera_from_angles
 from .core.rays import prepare_nerf_inputs
 from .device import check_on, resolve_device
 from .kernels.decoder_fused import decoder_fused_prepare, decoder_fused_render
-from .kernels.siren_render import siren_prepare, siren_render_prepared
+from .kernels.siren_render import kernel_route_refusal, siren_prepare, siren_render_prepared
 
 
 def _device_for(model, device) -> torch.device:
@@ -48,8 +48,16 @@ def prepare_trajectory(
     far=None,  # the config's camera
     device=None,
 ):
-    """Trajectory-invariant state for `render_frame` / `render_camera`."""
+    """Trajectory-invariant state for `render_frame` / `render_camera`.
+    Raises for a model the kernels do not render: a renderer K1 does not
+    take (a density renderer among them) or a decoder of k x k convs. The
+    JAX package's serving path would composite a density model by the SDF
+    rule and read only the centre tap of a k x k weight, without a word."""
     dev = _device_for(model, device)
+    r = model.cfg.renderer
+    why = kernel_route_refusal(r.n_layers, r.hidden_dim, model.cfg.n_samples, r.with_sdf, dev)
+    if why is not None:
+        raise ValueError(f"serving renders through K1: {why}")
     if noise_bufs is None and noise_seed is None:
         raise ValueError("serving trajectories use fixed noise: pass noise_bufs "
                          "or noise_seed")

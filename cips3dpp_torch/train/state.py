@@ -64,9 +64,10 @@ class TrainConfig:
     init_iters: int = 10_000
     # the SIREN render kernel (K1) for the D step's generator forward (no
     # grad) and, with fused_renderer_g, in the G step (the kernel forward +
-    # replayed backward). Taken only where K1 takes the renderer's
-    # geometry (kernels/siren_render.py:kernel_route_refusal); elsewhere
-    # the steps render plainly and say so once.
+    # replayed backward). Taken only on the card and where K1 takes the
+    # renderer's geometry (kernels/siren_render.py:default_kernel_route),
+    # as JAX's flags are inert off the TPU; off the card the steps render
+    # plainly, at a geometry K1 does not take they say so once.
     fused_renderer_d: bool = True
     fused_renderer_g: bool = False
     # The image D's options (cips3dpp_tpu/train/steps.py:144-400).

@@ -12,12 +12,14 @@ a `torch.Generator`; the draws of the JAX package (threefry) cannot be
 reproduced by torch, so parity tests hand the same draws to both.
 
 The D step's generator forward runs under no_grad (JAX's stop_gradient on
-its fakes) and, with cfg.fused_renderer_d (the default), through the SIREN
-render kernel: one launch per batch item. The route is decided once from
-the configuration (`kernel_route_refusal`): a renderer K1 does not take
-(depth 8, another width) renders plainly, and the steps say so once, as
-the JAX package's renderer gates its kernel on depth 2; the same rule
-holds for cfg.fused_renderer_g. Gradients are taken with
+its fakes) and, with cfg.fused_renderer_d (the default) on the card,
+through the SIREN render kernel: one launch per batch item. The route is
+decided once for each device, from the configuration
+(`default_kernel_route`), as the JAX package's renderer gates its kernel:
+off the card the steps render plainly (JAX's fused flags are inert off the
+TPU); a renderer K1 does not take (depth 8, no SDF, another width on the
+card) renders plainly, and the steps say so once. The same rule holds for
+cfg.fused_renderer_g. Gradients are taken with
 torch.autograd.grad with respect to the updated module only, so no
 `.grad` of another module is touched.
 
@@ -52,7 +54,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core.camera import CameraParams, sample_cameras
-from ..kernels.siren_render import kernel_route_refusal
+from ..kernels.siren_render import default_kernel_route
 from ..models.diffaug import diff_augment, diffaug_draws
 from ..models.generator import torch_dtype
 from ..ops.resize import resize
@@ -199,16 +201,17 @@ def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
     routes = {}
 
     def fused_route(flag: bool, step: str, device) -> bool:
-        """K1 for this step's render when `flag` asks for it and K1 takes
-        the renderer; decided once a device, said once when refused."""
+        """K1 for this step's render when `flag` asks for it and the
+        default route takes the renderer; decided once a device, said once
+        when refused."""
         if not flag:
             return False
         key = (step, torch.device(device).type)
         if key not in routes:
             r = gen_cfg.renderer
-            why = kernel_route_refusal(r.n_layers, r.hidden_dim, gen_cfg.n_samples,
-                                       r.with_sdf, device)
-            routes[key] = why is None
+            take, why = default_kernel_route(r.n_layers, r.hidden_dim, gen_cfg.n_samples,
+                                             r.with_sdf, device)
+            routes[key] = take
             if why is not None and (mesh is None or mesh.rank == 0):
                 print(f"[train] the {step} step renders with the plain renderer, not K1: "
                       f"{why}", file=sys.stderr)

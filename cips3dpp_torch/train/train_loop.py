@@ -65,7 +65,7 @@ class Trainer:
                 "auto_remat (switch remat_d on when the R1 step's memory would not fit) "
                 "is not ported: its JAX form reads XLA's ahead-of-time memory analysis, "
                 "which PyTorch has no counterpart of short of running the step; set "
-                "remat_d in the config instead (ROADMAP queue 1 item 7)")
+                "remat_d in the config instead (ROADMAP queue 1, \"auto_remat\")")
         self.generator = generator
         self.d_decoder = d_decoder
         self.d_render = d_render

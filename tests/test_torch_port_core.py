@@ -84,7 +84,8 @@ def test_volume_integration_matches_jax():
     pts = rng.standard_normal((r, n, 3)).astype(np.float32)
     beta = np.asarray([0.1], np.float32)
     want = jvi(rgb, sdf, feats, z, rays_d, pts, with_sdf=True, sigmoid_beta=beta)
-    got = volume_integration(t(rgb), t(sdf), t(feats), t(z), t(rays_d), t(pts), t(beta))
+    got = volume_integration(t(rgb), t(sdf), t(feats), t(z), t(rays_d), t(pts),
+                             sigmoid_beta=t(beta))
     for name, g, w in zip(("rgb", "feat", "xyz", "mask_depth"), got, want):
         np.testing.assert_allclose(a(g), a(w), err_msg=name, rtol=1e-5, atol=2e-6)
     np.testing.assert_allclose(a(sdf_to_sigma(t(sdf), t(beta))), a(jsig(sdf, beta)),

@@ -486,14 +486,15 @@ def test_projector_leaves_the_model_unchanged(projectors):
 
 
 def test_fused_projector_step_matches_plain(projectors):
-    """The default fused render (K1's plain version on the CPU: bf16
-    products, the polynomial sine) against the plain f32 render on one
+    """The fused render, asked for explicitly (K1's plain version on the
+    CPU: bf16 products, the polynomial sine; the default renders plainly
+    off the card, test_torch_port_route.py) against the plain f32 render on one
     masked appearance step: the loss within 2% and each group's gradient
     at cosine > 0.99 (on the card, chip_smoke.py's INV_GRAD_BOUNDS split
     this comparison in two: test_fused_route_gradient_paths)."""
     run = projectors["angles"]
     cfg = run["proj"].cfg
-    fused = tinv.Projector(run["model"], run["proj"].vgg, cfg)
+    fused = tinv.Projector(run["model"], run["proj"].vgg, cfg, fused=True)
     assert fused.fused
     state = fused.init_state(None, AZIM_INIT, run["draws"])
     targets = fused.prepare_targets(run["target"])
@@ -521,7 +522,7 @@ def test_fused_route_gradient_paths(projectors, monkeypatch):
     call, the step's gradients equal the plain f32 renderer's (cosine
     above 1 - 1e-9, max difference within 1e-4 of the largest: f32 sums
     in other orders), so the renderer's fused branch carries every camera
-    path. The default fused route (K1's plain version forward, the
+    path. The fused route, asked for (K1's plain version forward, the
     replayed backward) agrees with autograd through the bf16 function it
     computes (chip_smoke's "bf16" bounds: cosine above 0.999, within 0.1
     of the largest value). Those bounds see a dropped path: with the
@@ -534,7 +535,7 @@ def test_fused_route_gradient_paths(projectors, monkeypatch):
 
     run = projectors["angles"]
     plain = run["proj"]
-    fused = tinv.Projector(run["model"], plain.vgg, plain.cfg)
+    fused = tinv.Projector(run["model"], plain.vgg, plain.cfg, fused=True)
     state = fused.init_state(None, AZIM_INIT, run["draws"])
     targets = fused.prepare_targets(run["target"])
     t_rand = torch.rand((2, 8, 8, 1), generator=torch.Generator().manual_seed(3))

@@ -346,7 +346,7 @@ def test_trainer_on_two_ranks(runs):
 def test_mesh_options_raise():
     from cips3dpp_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, \"The mesh's ray axis\""):
         make_mesh(ray=2, device="cpu")
     with pytest.raises(ValueError, match="rendezvous"):
         make_mesh(2, device="cpu")

@@ -322,12 +322,27 @@ def _loss(out, eik_fn, rw):
 
 
 def test_decoder_kernel_size_other_than_1_raises():
-    """kernel_size 3 used to build a 1x1 decoder without a word."""
-    from cips3dpp_torch.models.generator import DecoderConfig, Generator, GeneratorConfig
+    """kernel_size 3 used to build a 1x1 decoder without a word. It now
+    builds 3x3 modulated convs (held to JAX in test_torch_port_kxk.py),
+    and the decoder block kernels, which take 1x1 convs only, raise."""
+    from cips3dpp_torch.core.camera import camera_from_angles
+    from cips3dpp_torch.models.generator import (DecoderConfig, Generator, GeneratorConfig,
+                                                 RendererConfig)
 
-    cfg = GeneratorConfig(decoder=DecoderConfig(kernel_size=3, upsample_list=()))
-    with pytest.raises(NotImplementedError, match="kernel_size 3"):
-        Generator(cfg, device="cpu")
+    cfg = GeneratorConfig(renderer=RendererConfig(hidden_dim=32),
+                          decoder=DecoderConfig(kernel_size=3, upsample_list=(), size_end=8,
+                                                style_dim=64, mapping_n_layers=1),
+                          img_size=4, n_samples=4)
+    g = Generator(cfg, device="cpu")
+    assert g.decoder.conv1.conv.weight.shape == (1, 512, 32, 3, 3)
+    assert g.decoder.convs[0].conv.weight.shape[-2:] == (3, 3)
+    gen = torch.Generator().manual_seed(0)
+    zs = [torch.randn((1, 256), generator=gen) for _ in range(2)]
+    zero = torch.zeros(1)
+    cam = camera_from_angles(zero, zero, cfg.img_size)
+    with pytest.raises(ValueError, match="kernel_size 3"):
+        g(zs, cam.extrinsics, cam.focal, cam.near, cam.far, perturb=False,
+          fused_decoder=True, generator=gen)
 
 
 def test_forward_perturbs_by_default():

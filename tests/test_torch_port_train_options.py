@@ -100,22 +100,23 @@ class FixedDraws:
         return self.gen.apply(params, *args, noise_bufs=self.noise, perturb=False, **kw)
 
 
-def configs(depth=2, decoder_dtype="float32"):
+def configs(depth=2, decoder_dtype="float32", with_sdf=True, kernel_size=1):
     from cips3dpp_tpu.models import generator as jg
     from cips3dpp_torch.models import generator as tg
 
     def make(m):
         return m.GeneratorConfig(
-            renderer=m.RendererConfig(n_layers=depth, hidden_dim=32),
-            decoder=m.DecoderConfig(channel_multiplier=2, kernel_size=1, upsample_list=(128,),
-                                    style_dim=64, mapping_n_layers=2, dtype=decoder_dtype),
+            renderer=m.RendererConfig(n_layers=depth, hidden_dim=32, with_sdf=with_sdf),
+            decoder=m.DecoderConfig(channel_multiplier=2, kernel_size=kernel_size,
+                                    upsample_list=(128,), style_dim=64, mapping_n_layers=2,
+                                    dtype=decoder_dtype),
             img_size=8, n_samples=4)
 
     return make(jg), make(tg)
 
 
-def build(depth=2, decoder_dtype="float32", seed=31):
-    jcfg, tcfg = configs(depth, decoder_dtype)
+def build(depth=2, decoder_dtype="float32", seed=31, with_sdf=True, kernel_size=1):
+    jcfg, tcfg = configs(depth, decoder_dtype, with_sdf, kernel_size)
     g, gvars = port_and_jax_generator(jcfg, tcfg, seed=seed)
     jd, pd, d = port_and_jax_d(seed=seed + 1, input_size=16)
     jdr, pdr, dr = port_and_jax_pose_d(seed=seed + 2, input_size=8)

@@ -30,8 +30,8 @@ import pytest
 import torch
 
 from torch_port_helpers import a, np_tree, port_and_jax_generator, t
-from torch_port_train_helpers import REL, assert_rel, port_and_jax_d, port_and_jax_pose_d, \
-    tiny_configs
+from torch_port_train_helpers import REL, assert_rel, k1_off_card, port_and_jax_d, \
+    port_and_jax_pose_d, tiny_configs
 
 B, ALPHA = 2, 0.5  # the draws' batch; TrainConfig.batch stays 4
 # Gradient bounds where a scalar parameter's gradient is a sum with
@@ -373,9 +373,11 @@ def test_sphere_init_step_matches_jax(setup):
 # ------------------------------------------ the fused routes, draws, EMA --
 
 
-def test_fused_d_and_g_steps_follow_the_plain_steps(setup):
-    """The default D step renders its fakes through the SIREN render
-    kernel (here its plain version: bf16 products, polynomial sin), and
+def test_fused_d_and_g_steps_follow_the_plain_steps(setup, monkeypatch):
+    """The D step with fused_renderer_d renders its fakes through the
+    SIREN render kernel, here its plain version (bf16 products, polynomial
+    sin), asked for by `k1_off_card` (by default the steps render plainly
+    off the card, as JAX's do off the TPU), and
     fused_renderer_g runs the kernel's forward and the replayed backward
     in the G step. Their losses stay within the bf16 rounding of the
     renderer of the plain steps' (measured up to 1.4e-3 relative, bound
@@ -386,6 +388,7 @@ def test_fused_d_and_g_steps_follow_the_plain_steps(setup):
 
     from cips3dpp_torch.train.steps import make_train_steps
 
+    k1_off_card(monkeypatch)
     s = setup
     dn = draws_np(s, B, seed=5)
     out = {}

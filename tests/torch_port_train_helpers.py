@@ -26,6 +26,20 @@ FWD = dict(rtol=1e-5, atol=1e-5)
 REL = 1e-4
 
 
+def k1_off_card(monkeypatch):
+    """The train steps' fused flags reach K1's plain version on the CPU,
+    where their default route renders plainly (as the JAX package's does
+    off the TPU): the route takes K1 wherever its geometry allows."""
+    from cips3dpp_torch.kernels.siren_render import kernel_route_refusal
+    from cips3dpp_torch.train import steps
+
+    def route(*args):
+        why = kernel_route_refusal(*args)
+        return why is None, why
+
+    monkeypatch.setattr(steps, "default_kernel_route", route)
+
+
 def assert_rel(got, want, rel=REL, name=""):
     """|got - want| <= rel * max|want|, elementwise."""
     got, want = a(got), a(want)
