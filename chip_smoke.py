@@ -130,8 +130,9 @@ Phases, each fatal on failure:
  13. the model variants no shipped config uses, at the FFHQ r1024 model's
      full width (64^2 rays x 24 samples, SIREN width 256, the r1024
      decoder at channel multiplier 2), after phase 12: (a) a default
-     Projector on a width-128 depth-2 renderer renders plainly with 0 K1
-     launches and says so once, and at 256 / 24 launches K1 twice a step;
+     Projector on a width-96 depth-2 renderer (a width K1 does not take)
+     renders plainly with 0 K1 launches and says so once, and at widths
+     128 and 256 (24 samples) launches K1 twice a step;
      (b) the density renderer (with_sdf=False): a batch-1 frame through
      the plain render and 4 f32 K2 against the plain decoder (phase 5's
      frame bounds) and against K2's plain version on the same route
@@ -149,6 +150,22 @@ Phases, each fatal on failure:
      the double backward of an eikonal + image loss to the planes and the
      weights, a CPU f32 run at 64 rays (TRIPLANE_BOUND), and gradgradcheck
      of the sampler in float64 on cuda. ms and peak memory of each.
+ 14. K1 at every geometry it takes and the rest of the mesh and training
+     loop, after phase 13 but for (a), run right after phase 3: (a) K1 at
+     widths 32, 64, 128, 256 and 512 x 12, 20, 24 and 48 samples (4096
+     rays; 256 / 24 is phase 3's) against its plain version at phase 3's
+     bounds, twice bit-equal, with device ms, plain ms, the bound and each
+     build's registers and spills; (b)
+     preset_serving frames with a width-128 renderer (1 K1 + 4 K2 a
+     frame, against the plain kernels at phase 5's bounds) and a
+     train_r1024 D step with lazy R1 at 48 samples a ray (K1 = batch);
+     (c) two gloo ranks on cuda:0 on a mesh of data 1 x ray 2 each render
+     2048 of a frame's 4096 rays through K1, gathered bit-equal to the
+     one-process render; (d) Trainer(auto_remat=True) on train_r1024 at
+     batch 4: with the whole card its R1 probe does not switch; under a
+     per-process memory fraction below the plain R1 step's peak it
+     switches remat_d on and the rebuilt R1 step runs (peaks of both
+     forms printed).
 Each path that launches kernels runs with the launch counts set to 0
 just before it and read just after. A kernel's "ms" is its device time a
 launch (torch.profiler), beside the time a call takes back to back (CUDA
@@ -234,6 +251,26 @@ def bound(nbytes, bf16_flops=0.0, f32_flops=0.0, f32_apart=0.0):
                                f32_flops / PEAK_F32 + f32_apart / PEAK_F32_APART)}
     by = max(times, key=times.get)
     return times[by] * 1e3, by
+
+
+def k1_work(r, s, width):
+    """(bytes, bf16 FLOP, f32 dot-product operations, f32 operations kept
+    apart) of K1 over r rays x s samples at `width`: each input read once,
+    each output written once, the operations of the rows there are (a
+    chunk's samples past s are not counted)."""
+    rows = r * s
+    nbytes = 4 * (rows * 3 + r * 3 + rows + r  # pts, viewdirs, z, |d|
+                  + r * (3 + width + 3 + 2) + rows)  # thumb, feat, xyz, maskd, sdf
+    nbytes += 2 * 2 * width * width + 4 * (width * 17 + 4)  # weights
+    bf16 = rows * 2 * (2 * width * width)  # layer 1 + view layer
+    # f32 on the CUDA cores per (row, channel). The dot products, which the
+    # plain version computes as matmuls and which may contract to FMA:
+    # layer 0 (6), sdf and rgb heads (2 + 6). Kept apart as in the plain
+    # version, one operation an instruction: three phases (2 each) and
+    # sines (13 each), feat sum (2)
+    dot = rows * width * (6 + 2 + 6)
+    apart = rows * width * (3 * (2 + 13) + 2)
+    return nbytes, bf16, dot, apart
 
 
 def max_err(a, b):
@@ -2366,7 +2403,7 @@ def variants_phase(dev, smi, cfg_path=os.path.join(ROOT, "configs", "ffhq.yaml")
     target = torch.rand((1024, 1024, 3), generator=torch.Generator().manual_seed(SEED + 60)) * 2 - 1
     lrs, flip, mask_bg = inv.step_plan(0, icfg)
     res["route"] = {}
-    for width, want_k1 in ((128, 0), (256, 2)):
+    for width, want_k1 in ((96, 0), (128, 2), (256, 2)):
         model, _, _ = make_model(variant(renderer={"hidden_dim": width}), dev, SEED + 61)
         err = io.StringIO()
         with contextlib.redirect_stderr(err):
@@ -2632,6 +2669,352 @@ def variants_phase(dev, smi, cfg_path=os.path.join(ROOT, "configs", "ffhq.yaml")
     return res
 
 
+# Phase 14's K1 grid: every width K1 takes at sample counts 12 (a part
+# chunk), 20 (no multiple of a chunk), 24 (the serving count) and 48 (whole
+# chunks), at a frame's 4096 rays; 256 / 24 is phase 3's
+GRID_WIDTHS, GRID_SAMPLES, GRID_RAYS = (32, 64, 128, 256, 512), (12, 20, 24, 48), 4096
+# K1 against its plain version, at every geometry: same arithmetic and
+# rounding points; only f32 summation orders differ, and the rare bf16
+# flips they cause are amplified by gamma ~ 30-45 in the sin. The bounds
+# sit 10x (feat) to 90x (xyz) above the largest readings at 256 / 24 on
+# the H100, here and in the card test at R = 5, 1001, 4096 (PERF.md
+# section 6)
+K1_TOL = {"thumb": 1e-3, "feat": 5e-3, "sdf": 1e-3, "mask_depth": 1e-4, "xyz": 1e-4}
+
+
+def k1_inputs(dev, width, s, r, seed):
+    """A seeded depth-2 SDF renderer of `width` (the model's init), its
+    prepared operands from seeded styles, and r rays x s samples of a
+    frame's camera (angles 0.2, -0.05, the r1024 model's depth range)."""
+    from cips3dpp_torch.core.camera import camera_from_angles
+    from cips3dpp_torch.core.rays import prepare_nerf_inputs
+    from cips3dpp_torch.kernels import siren_render as ksr
+    from cips3dpp_torch.models.layers import init_parameters
+    from cips3dpp_torch.models.renderer import VolumeFeatureRenderer
+
+    gen = torch.Generator().manual_seed(seed)
+    rend = init_parameters(VolumeFeatureRenderer(depth=2, hidden_dim=width), gen).to(dev)
+    styles = torch.randn((3, 256), generator=gen).to(dev)
+    side = int(round(r ** 0.5))
+    cam = camera_from_angles(torch.full((1,), 0.2, device=dev),
+                             torch.full((1,), -0.05, device=dev), side)
+    pts, rays_d, viewdirs, z_vals = prepare_nerf_inputs(
+        cam.focal, side, cam.extrinsics, cam.near, cam.far, s)
+    flat = lambda a: a.reshape(1, -1, *a.shape[3:]).contiguous()
+    near, far = cam.near.reshape(-1)[0], cam.far.reshape(-1)[0]
+    prep = ksr.siren_prepare(rend, styles, near, far)
+    return rend, styles, prep, (flat(pts), flat(viewdirs), flat(z_vals), flat(rays_d)), (near, far)
+
+
+def _ray_rank(mesh, width, s, r, seed):
+    """One of phase 14c's gloo ranks on cuda:0: its half of a frame's rays
+    rendered through K1, gathered over the ray axis."""
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.kernels import siren_render as ksr
+    from cips3dpp_torch.parallel import gather_rays, shard_rays
+
+    ksr.plain_precision()
+    rend, styles, _, (pts, vd, z, rd), (near, far) = k1_inputs(mesh.device, width, s, r, seed)
+    _lib.reset_launches()
+    with torch.no_grad():
+        mine = rend(*(shard_rays(x, mesh) for x in (pts, rd, vd, z)), near.reshape(1, 1, 1),
+                    far.reshape(1, 1, 1), styles[None], fused=True)[:5]
+        out = [gather_rays(o, mesh).cpu() for o in mine]
+    torch.cuda.synchronize()
+    return {"rank": mesh.rank, "ray_rank": mesh.ray_rank, "rays": int(mine[0].shape[1]),
+            "render": out, "launches": dict(_lib.LAUNCHES), "counts": dict(mesh.counts)}
+
+
+def k1_grid_phase(dev, smi, ptxas):
+    """Phase 14a, run right after phase 3: K1 at each (W, S) of GRID_WIDTHS
+    x GRID_SAMPLES at 4096 rays against its plain version (K1_TOL, twice
+    bit-equal), with its device ms, plain ms, bound, and its build's
+    registers and spills. It runs early because late in a long process
+    the profiler once dropped the first 14 of 50 launches of the 34 us
+    width-32 kernel in each of three tries."""
+    from cips3dpp_torch.kernels import siren_render as ksr
+
+    t0 = time.perf_counter()
+    grid, regs = {}, {}
+    for label, rep in ptxas.items():
+        if label.startswith("siren_render"):
+            regs[label] = [ln.split(":", 1)[-1].strip() for ln in rep.splitlines()
+                           if "registers" in ln or "spill" in ln]
+    for width in GRID_WIDTHS:
+        for s in GRID_SAMPLES:
+            if (width, s) == ksr.SERVING_GEOMETRY:
+                continue
+            _, _, prep, (pts, vd, z, rd), _ = k1_inputs(dev, width, s, GRID_RAYS,
+                                                        SEED + 80 + width + s)
+            args = (prep, pts[0], vd[0], z[0], rd[0])
+            dnorm = torch.linalg.norm(rd[0], dim=-1, keepdim=True)
+            got = ksr.siren_render_prepared(*args)
+            again = ksr.siren_render_prepared(*args)
+            want = ksr.siren_render_plain(*args[:4], dnorm)
+            torch.cuda.synchronize()
+            errs = {k: max_err(g, w) for k, g, w in zip(K1_TOL, got, want)}
+            bad = {k: e for k, e in errs.items() if not e <= K1_TOL[k]}
+            if bad or not all(torch.isfinite(g).all() for g in got) or not all(
+                    torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"14a K1 at W={width} S={s}: {bad or errs}, twice-equal "
+                                     f"{all(torch.equal(g, a) for g, a in zip(got, again))}")
+            ms, call_ms = kernel_time(lambda: ksr.siren_render_prepared(*args),
+                                      "siren_render_kernel")
+            plain_ms = cuda_time(lambda: ksr.siren_render_plain(*args[:4], dnorm), iters=3)
+            nbytes, bf16, dot, apart = k1_work(GRID_RAYS, s, width)
+            bound_ms, by = bound(nbytes, bf16, dot, apart)
+            build = " ".join(("siren_render", *ksr.kernel_defines(width, s)))
+            grid[f"{width}x{s}"] = {
+                "width": width, "samples": s, "rays": GRID_RAYS, "errs": errs,
+                "err": max(errs.values()), "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": by, "build": build,
+                "ptxas": regs.get(build)}
+            log(f"[geometry] 14a K1 W={width} S={s} R={GRID_RAYS}: {ms:.4f} ms kernel, "
+                f"{plain_ms:.3f} ms plain, bound {bound_ms:.4f} ms ({by}), "
+                f"{ms / bound_ms:.2f}x the bound; max |kernel - plain| "
+                f"{ {k: f'{e:.2e}' for k, e in errs.items()} }; build `{build}`: "
+                f"{regs.get(build)}; {smi}")
+            del prep, args, got, again, want
+    torch.cuda.empty_cache()
+    return {"grid": grid, "grid_s": time.perf_counter() - t0}
+
+
+def geometry_phase(dev, smi, grid, cfg_path=os.path.join(ROOT, "configs", "ffhq.yaml")):
+    """Phase 14: K1 at every width it takes and at sample counts other than
+    24, after phase 13: (a) the grid, run right after phase 3 by
+    `k1_grid_phase` (its result is `grid`); (b) whole paths at width 128 and at 48 samples: preset_serving
+    frames with a width-128 renderer through prepare_trajectory /
+    render_frame (1 K1 + 4 K2 a frame, against the plain kernels at phase
+    5's bounds) and a train_r1024 D step with lazy R1 at 48 samples a ray
+    (K1 = batch, losses finite); (c) the mesh's ray axis: two gloo ranks
+    on cuda:0 (data 1 x ray 2) each render 2048 of a frame's 4096 rays
+    through K1 and gather them, bit-equal to the one-process render; (d)
+    auto_remat on train_r1024 at batch 4 (see auto_remat_case)."""
+    from cips3dpp_torch import serving
+    from cips3dpp_torch.io.config import (
+        generator_config_from_dict, load_command_config, train_config_from_dict,
+    )
+    from cips3dpp_torch.models.discriminator import DStyleGANProgressive
+    from cips3dpp_torch.models.discriminator_pose import DVolumeRenderProgressive
+    from cips3dpp_torch.models.generator import Generator, preset_serving
+    from cips3dpp_torch.parallel import run_ranks
+    from cips3dpp_torch.train import create_train_state, make_train_steps
+
+    res = {"card": smi, **grid}
+    t_phase = time.perf_counter()
+    launches = {"siren_render": 0, "decoder_block": 0}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # ---- b. whole paths at width 128 and 48 samples ----
+    t0 = time.perf_counter()
+    base = preset_serving()
+    cfg128 = dataclasses.replace(base, renderer=dataclasses.replace(base.renderer,
+                                                                    hidden_dim=128))
+    model, zs, noise = make_model(cfg128, dev, SEED + 81)
+    with counted("14b preset_serving at width 128: prepare_trajectory + 4 render_frame",
+                 {"siren_render": 4, "decoder_block": 16}) as got:
+        prep = serving.prepare_trajectory(model, zs, noise_bufs=noise, device=dev)
+        yaws = torch.linspace(-0.3, 0.3, 4, device=dev)
+        zero = torch.zeros(1, device=dev)
+        frames = [serving.render_frame(model, prep, yaws[i:i + 1], zero, device=dev)["rgb"]
+                  for i in range(4)]
+    add(got)
+    with plain_kernels():
+        ref = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
+    again = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
+    g = gap(frames[0], ref)
+    if (frames[0].shape != (1, 1024, 1024, 3) or not all(torch.isfinite(f).all() for f in frames)
+            or not (g[0] <= 0.5 and g[1] <= 1e-2) or not torch.equal(again, frames[0])):
+        raise AssertionError(f"14b width-128 frame {tuple(frames[0].shape)}: max / mean |diff| "
+                             f"to the plain kernels {g} (bounds 0.5 / 1e-2), the same camera "
+                             f"bit-equal {torch.equal(again, frames[0])}")
+    frame_ms = cuda_time(lambda: serving.render_frame(model, prep, yaws[:1], zero, device=dev),
+                         iters=10)
+    log(f"[geometry] 14b preset_serving with a width-128 renderer: {frame_ms:.3f} ms a r1024 "
+        f"frame (CUDA events, 10 frames), 1 K1 + 4 K2 a frame, max / mean |diff| to the plain "
+        f"kernels {g[0]:.3e} / {g[1]:.3e} (bounds 0.5 / 1e-2); {smi}")
+    res["serving_w128"] = {"frame_ms": frame_ms, "gap": g}
+    del model, prep, frames, ref, again
+    torch.cuda.empty_cache()
+
+    cfg = load_command_config(cfg_path, "train_r1024")
+    gcfg = dataclasses.replace(generator_config_from_dict(cfg.get("G_cfg", {})), n_samples=48)
+    tcfg = train_config_from_dict(cfg)
+    b = tcfg.batch
+    g48 = Generator(gcfg, device=dev, seed=SEED + 82)
+    d = DStyleGANProgressive(1024, 2, device=dev, seed=SEED + 83)
+    d_render = DVolumeRenderProgressive(1024, device=dev, seed=SEED + 84)
+    state = create_train_state(tcfg, g48, d, d_render)
+    d_step = make_train_steps(gcfg, tcfg)[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 85)
+    real = torch.rand((b, 1024, 1024, 3), generator=gen, device=dev) * 2 - 1
+    fn = lambda: d_step(state, real, gen, 0.5, True)[1]
+    with counted("14b train_r1024 D step with R1 at 48 samples, twice",
+                 {"siren_render": 2 * b}) as got:
+        fn()
+        metrics, ms, peak = _timed_call(fn)
+    add(got)
+    bad = {k: float(v) for k, v in metrics.items() if not torch.isfinite(v)}
+    if bad:
+        raise AssertionError(f"14b D step at 48 samples: non-finite losses {bad}")
+    log(f"[geometry] 14b train_r1024 D step with lazy R1, 64^2 rays x 48 samples, batch {b}: "
+        f"{ms:.1f} ms (CUDA events, the second call), peak {peak / 2**30:.2f} GiB, K1 "
+        f"{b} a step, losses finite; {smi}")
+    res["d_step_s48"] = {"ms": ms, "peak_bytes": peak,
+                         "metrics": {k: float(v) for k, v in metrics.items()}}
+    del g48, d, d_render, state, real
+    torch.cuda.empty_cache()
+    res["paths_s"] = time.perf_counter() - t0
+
+    # ---- c. the mesh's ray axis: two gloo ranks on the one card ----
+    t0 = time.perf_counter()
+    width, s, r = 256, 24, 4096
+    rend, styles, _, (pts, vd, z, rd), (near, far) = k1_inputs(dev, width, s, r, SEED + 86)
+    with counted("14c one process, the frame's 4096 rays", {"siren_render": 1}) as got:
+        with torch.no_grad():
+            whole = [o.cpu() for o in rend(pts, rd, vd, z, near.reshape(1, 1, 1),
+                                           far.reshape(1, 1, 1), styles[None],
+                                           fused=True)[:5]]
+    add(got)
+    ranks = run_ranks(_ray_rank, 2, width, s, r, SEED + 86, device="cuda:0", backend="gloo",
+                      ray=2, timeout=600)
+    equal = all(torch.equal(a, b) for rk in ranks for a, b in zip(rk["render"], whole))
+    rank_k1 = sum(rk["launches"].get("siren_render", 0) for rk in ranks)
+    if not equal or rank_k1 != 2 or [rk["rays"] for rk in ranks] != [2048, 2048]:
+        gaps = [max(max_err(a, b) for a, b in zip(rk["render"], whole)) for rk in ranks]
+        raise AssertionError(f"14c ray mesh: gathered render bit-equal {equal} (max |diff| "
+                             f"{gaps}), K1 launches on the ranks {rank_k1}, rays "
+                             f"{[rk['rays'] for rk in ranks]}")
+    launches["siren_render"] += rank_k1
+    log(f"[geometry] 14c two gloo ranks on cuda:0 (data 1 x ray 2): each renders 2048 of the "
+        f"frame's 4096 rays through K1 (1 launch a rank), gather_rays rebuilds the render "
+        f"bit-equal to the one-process K1 render; collectives "
+        f"{[rk['counts'] for rk in ranks]}; {time.perf_counter() - t0:.1f} s; {smi}")
+    res["ray_mesh"] = {"bit_equal": equal, "rank_launches": rank_k1,
+                       "wall_s": time.perf_counter() - t0}
+    del rend, whole
+    torch.cuda.empty_cache()
+
+    # ---- d. auto_remat ----
+    res["auto_remat"] = auto_remat_case(dev, smi, cfg, add)
+
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[geometry] phase 14: {res['phase_s']:.1f} s (paths {res['paths_s']:.1f} s), and "
+        f"{res['grid_s']:.1f} s for the grid (14a, after phase 3); K1 launches on its paths "
+        f"{launches}")
+    return res
+
+
+def auto_remat_case(dev, smi, cfg, add):
+    """Phase 14d: Trainer(auto_remat=True) on train_r1024 (batch 4, f32,
+    full width). With the whole card the R1 probe must not switch. The R1
+    step's peak with remat_d is then read on the same state. Where remat_d
+    lowers it, the per-process memory fraction is set between the two
+    peaks: the probe must switch, log it, and the rebuilt R1 step must run
+    there. Where it does not, no fraction lets the switch help; the phase
+    says so with both peaks and still holds the rule: under a fraction
+    whose limit is the plain peak, the probe must switch and log it. The
+    fraction is 1 again after."""
+    from cips3dpp_torch.io.config import generator_config_from_dict, train_config_from_dict
+    from cips3dpp_torch.models.discriminator import DStyleGANProgressive
+    from cips3dpp_torch.models.discriminator_pose import DVolumeRenderProgressive
+    from cips3dpp_torch.models.generator import Generator
+    from cips3dpp_torch.train import train_loop as tl
+
+    t0 = time.perf_counter()
+    gib = 2**30
+    gcfg = generator_config_from_dict(cfg.get("G_cfg", {}))
+    tcfg = train_config_from_dict(cfg)
+    g = Generator(gcfg, device=dev, seed=SEED + 90)
+    d = DStyleGANProgressive(1024, 2, device=dev, seed=SEED + 91)
+    d_render = DVolumeRenderProgressive(1024, device=dev, seed=SEED + 92)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def trainer(name, **cfg_kw):
+            return tl.Trainer(g, d, d_render, gcfg, dataclasses.replace(tcfg, **cfg_kw),
+                              os.path.join(tmp, name), auto_remat=not cfg_kw)
+
+        def events(name):
+            path = os.path.join(tmp, name, "logs", "events.log")
+            return open(path).read() if os.path.exists(path) else ""
+
+        with counted("14d auto_remat probe, the whole card") as got:
+            tr = trainer("whole")
+            state = tr.init_state(torch.Generator().manual_seed(SEED + 93))
+        add(got)
+        probe = tr.auto_remat_probe
+        if (probe is None or probe["switched"] or tr.cfg.remat_d or "auto_remat" in events("whole")
+                or got.get("siren_render") != tcfg.batch):
+            raise AssertionError(f"14d the whole card: probe {probe}, remat_d {tr.cfg.remat_d}, "
+                                 f"K1 {got}, events {events('whole')!r}")
+        plain_peak, limit = probe["peak"], probe["limit"]
+        with counted("14d the R1 step's peak with remat_d") as got:
+            remat_peak = trainer("remat", remat_d=True).r1_step_peak(state)
+        add(got)
+        res.update(plain_peak=plain_peak, remat_peak=remat_peak, limit=limit,
+                   share=plain_peak / limit)
+        log(f"[geometry] 14d auto_remat on train_r1024, batch {tcfg.batch}: the whole card "
+            f"(limit {limit / gib:.2f} GiB) does not switch; the R1 D step peaks at "
+            f"{plain_peak / gib:.2f} GiB ({100 * plain_peak / limit:.1f}% of the limit), with "
+            f"remat_d at {'out of memory' if remat_peak is None else f'{remat_peak / gib:.2f} GiB'}"
+            f"; {smi}")
+        del state
+        torch.cuda.empty_cache()
+        helps = remat_peak is not None and remat_peak < plain_peak
+        # between the two peaks where remat_d helps, else at the plain peak
+        fraction_limit = (remat_peak + plain_peak) / 2 if helps else plain_peak
+        total = torch.cuda.get_device_properties(dev).total_memory
+        torch.cuda.set_per_process_memory_fraction(fraction_limit / total, dev)
+        try:
+            with counted("14d auto_remat probe under the fraction") as got:
+                tr = trainer("fraction")
+                state = tr.init_state(torch.Generator().manual_seed(SEED + 93))
+            add(got)
+            probe = tr.auto_remat_probe
+            said = events("fraction")
+            if not (probe and probe["switched"] and tr.cfg.remat_d
+                    and "auto_remat: d_step_r1" in said and "enabling remat_d" in said):
+                raise AssertionError(f"14d under a limit of {fraction_limit / gib:.2f} GiB: "
+                                     f"probe {probe}, remat_d {tr.cfg.remat_d}, events {said!r}")
+            res.update(fraction_limit=fraction_limit, fraction_probe=probe, event=said.strip(),
+                       remat_helps=helps)
+            if helps:
+                gen = torch.Generator(device=dev).manual_seed(SEED + 94)
+                real = torch.rand((tcfg.batch, 1024, 1024, 3), generator=gen, device=dev) * 2 - 1
+                with counted("14d the rebuilt R1 step under the fraction",
+                             {"siren_render": tcfg.batch}) as got:
+                    metrics, ms, peak = _timed_call(
+                        lambda: tr.steps[0](state, real, gen, 0.5, True)[1])
+                add(got)
+                bad = {k: float(v) for k, v in metrics.items() if not torch.isfinite(v)}
+                if bad:
+                    raise AssertionError(f"14d the rebuilt R1 step: non-finite losses {bad}")
+                res.update(rebuilt_ms=ms, rebuilt_peak=peak)
+                log(f"[geometry] 14d under a limit of {fraction_limit / gib:.2f} GiB the probe "
+                    f"switches ({said.strip()}) and the rebuilt R1 step runs: {ms:.1f} ms, peak "
+                    f"{peak / gib:.2f} GiB, losses finite; {smi}")
+            else:
+                log(f"[geometry] 14d remat_d does not lower the R1 step's peak here "
+                    f"({'out of memory' if remat_peak is None else f'{remat_peak / gib:.2f} GiB'}"
+                    f" with it, {plain_peak / gib:.2f} GiB without): no memory fraction lets "
+                    f"the switch fit. Under a limit of {fraction_limit / gib:.2f} GiB (the "
+                    f"plain peak) the probe switches as the rule says: "
+                    f"{'out of memory' if probe['peak'] is None else probe['peak']}; "
+                    f"{said.strip()}; {smi}")
+            del state, tr
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0, dev)
+            torch.cuda.empty_cache()
+    del g, d, d_render
+    torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
@@ -2663,7 +3046,8 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.time()
-    ptxas = _lib.build_all()
+    # every source, and K1 once more a width (kernels/siren_render.py)
+    ptxas = _lib.build([(name, ()) for name in _lib.SOURCES] + ksr.kernel_builds())
     build_s = time.time() - t0
     log(f"[build] {len(ptxas)} libraries built in {build_s:.1f} s")
     for lib, rep in ptxas.items():  # each kernel's registers and spills, by entry
@@ -2716,12 +3100,7 @@ def main() -> int:
     got = ksr.siren_render_prepared(*args)
     want = ksr.siren_render_plain(*args[:4], dnorm)
     torch.cuda.synchronize()
-    # same arithmetic and rounding points; only f32 summation orders
-    # differ, and the rare bf16 flips they cause are amplified by gamma
-    # ~ 30-45 in the sin. The bounds sit 10x (feat) to 90x (xyz) above the
-    # largest readings on the H100, here and in the card test at R = 5,
-    # 1001, 4096 (PERF.md section 6)
-    tol = {"thumb": 1e-3, "feat": 5e-3, "sdf": 1e-3, "mask_depth": 1e-4, "xyz": 1e-4}
+    tol = K1_TOL
     errs = {k: max_err(g, w) for k, g, w in zip(tol, got, want)}
     log(f"[K1] max |kernel - plain| {errs} (bounds {tol})")
     if not all(torch.isfinite(g).all() for g in got):
@@ -2737,18 +3116,7 @@ def main() -> int:
     k1_ms, k1_call_ms = kernel_time(lambda: ksr.siren_render_prepared(*args),
                                     "siren_render_kernel")
     k1_plain_ms = cuda_time(lambda: ksr.siren_render_plain(*args[:4], dnorm), iters=5)
-    rows = r * s
-    k1_bytes = 4 * (rows * 3 + r * 3 + rows + r  # pts, viewdirs, z, |d|
-                    + r * (3 + width + 3 + 2) + rows)  # thumb, feat, xyz, maskd, sdf
-    k1_bytes += 2 * 2 * width * width + 4 * (width * 17 + 4)  # weights
-    k1_bf16 = rows * 2 * (2 * width * width)  # layer 1 + view layer
-    # f32 on the CUDA cores per (row, channel). The dot products, which the
-    # plain version computes as matmuls and which may contract to FMA:
-    # layer 0 (6), sdf and rgb heads (2 + 6). Kept apart as in the plain
-    # version, one operation an instruction: three phases (2 each) and
-    # sines (13 each), feat sum (2)
-    k1_dot = rows * width * (6 + 2 + 6)
-    k1_apart = rows * width * (3 * (2 + 13) + 2)
+    k1_bytes, k1_bf16, k1_dot, k1_apart = k1_work(r, s, width)
     k1_bound, k1_by = bound(k1_bytes, k1_bf16, k1_dot, k1_apart)
     k1_terms = {"bf16_tensor_ms": k1_bf16 / PEAK_BF16 * 1e3,
                 "f32_apart_ms": k1_apart / PEAK_F32_APART * 1e3,
@@ -2764,6 +3132,9 @@ def main() -> int:
                     "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
                     "bytes": k1_bytes, "bf16_flops": k1_bf16, "f32_dot_ops": k1_dot,
                     "f32_apart_ops": k1_apart, "bound_terms_ms": k1_terms}
+
+    # ---- 14a. K1 at the other geometries (early: see k1_grid_phase) ----
+    k1_grid = k1_grid_phase(dev, smi, ptxas)
 
     # ---- 4. K2 in its four variants, K3 and P1 against their plain versions ----
     gen = torch.Generator().manual_seed(SEED + 2)
@@ -2921,13 +3292,23 @@ def main() -> int:
         report["variants"] = variants_phase(dev, smi)
     variants = report["variants"]["launches"]
 
+    # ---- 14. K1 at every width and sample count, the ray axis, auto_remat ----
+    torch.cuda.empty_cache()
+    with torch.inference_mode(False), torch.enable_grad():
+        report["geometry"] = geometry_phase(dev, smi, k1_grid)
+    geometry = report["geometry"]["launches"]
+
     # ---- the kernels line ----
     t32, tbf = report["trajectory_f32"], report["trajectory_bf16"]
     # K1's launches: the serving path's, the training steps', the
     # training loop's (with its sampling from the checkpoint), the
     # inversion's, the data-parallel training loop's, phase 12's
     # (rendering-time, the fast training sections, the split D steps) and
-    # phase 13's (the default Projector, the 3x3 decoder's D steps)
+    # phase 13's (the default Projector, the 3x3 decoder's D steps) and
+    # phase 14's (the width-128 frames, the D steps at 48 samples, the ray
+    # mesh's one-process render and ranks, auto_remat's probes and
+    # iteration); K1's numbers are the serving geometry's (phase 3), the
+    # other geometries' are in the report's "geometry" grid
     loop, inversion = report["training_loop"]["launches"], report["inversion"]["launches"]
     rest = report["cli_rest"]["launches"]
     entry("siren_render", "cips3dpp_torch/csrc/siren_render.cu",
@@ -2935,9 +3316,10 @@ def main() -> int:
           serving_launches["siren_render"] + report["training"]["launches"]["siren_render"]
           + loop["siren_render"] + inversion["siren_render"]
           + report["data_parallel"]["launches"]["siren_render"] + rest["siren_render"]
-          + variants["siren_render"])
+          + variants["siren_render"] + geometry["siren_render"])
     entry("decoder_block", K2_SRC, K2_TPU, report["K2"],
-          serving_launches["decoder_block"] + rest["decoder_block"])
+          serving_launches["decoder_block"] + rest["decoder_block"]
+          + geometry["decoder_block"])
     entry("decoder_block_f32", K2_SRC, K2_TPU, report["K2-f32"],
           t32["launches_buffers"]["decoder_block_f32"] + loop["decoder_block_f32"]
           + inversion["decoder_block_f32"] + variants["decoder_block_f32"])
@@ -2958,7 +3340,8 @@ def main() -> int:
     report["script_s"] = time.perf_counter() - T_START
     log(f"[smoke] the whole script: {report['script_s']:.1f} s (phase 12: "
         f"{report['cli_rest']['phase_s']:.1f} s, phase 13: "
-        f"{report['variants']['phase_s']:.1f} s)")
+        f"{report['variants']['phase_s']:.1f} s, phase 14: "
+        f"{report['geometry']['phase_s']:.1f} s)")
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     name = torch.cuda.get_device_name(0)

@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` is compiled by `nvcc` for sm_90a into its own shared
 library with a plain C interface, at first use, into
 `cips3dpp_torch/_build/` (git-ignored), and loaded with ctypes. The library
 name carries a hash of the source and the flags, so an edited source is
-rebuilt. `build_all` starts one nvcc per source, all at once; `defines`
-(extra `-D` flags) build an instrumented variant beside the plain library.
+rebuilt. `build` starts one nvcc per library, all at once; `defines`
+(extra `-D` flags) build a variant beside the plain library: another
+geometry of a kernel, or an instrumented build.
 
 `LAUNCHES[name]` counts kernel launches: a wrapper adds one where it
 launches its kernel and nowhere else. `device_ms` times a kernel on the
@@ -61,32 +62,39 @@ def _lib_path(name: str, defines=()) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build_all(names=SOURCES, defines=()) -> dict[str, str]:
-    """Compile every missing library in parallel (one nvcc each), with the
-    extra flags `defines`. Returns {name: ptxas report} for the libraries
-    built by this call."""
+def build(jobs) -> dict[str, str]:
+    """Compile every missing library of `jobs`, pairs (name, defines), in
+    parallel (one nvcc each). Returns {label: ptxas report} for the
+    libraries built by this call, labelled by name and, after a space,
+    the defines of a variant."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
+    for name, defines in dict.fromkeys((n, tuple(d)) for n, d in jobs):
         out = _lib_path(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        label = " ".join((name, *defines))
+        procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        tmp, out)
     reports, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
+    for label, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
+            failed.append(f"{label}:\n{log}")
             continue
         os.replace(tmp, out)
-        reports[name] = log
+        reports[label] = log
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return reports
+
+
+def build_all(names=SOURCES, defines=()) -> dict[str, str]:
+    """`build` of every source in `names` with the extra flags `defines`."""
+    return build((name, defines) for name in names)
 
 
 def load(name: str, defines=()) -> ctypes.CDLL:
@@ -98,7 +106,7 @@ def load(name: str, defines=()) -> ctypes.CDLL:
         if lib is None:
             path = _lib_path(name, defines)
             if not path.exists():
-                build_all((name,), defines)
+                build([(name, defines)])
             lib = ctypes.CDLL(str(path))
             _libs[key] = lib
         return lib
@@ -125,26 +133,36 @@ def check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def device_ms(fn, iters: int, kernel: str, tries: int = 3) -> float:
+def device_ms(fn, iters: int, kernel: str, tries: int = 5) -> float:
     """Mean device time in ms of one launch of the CUDA kernel whose name
     holds `kernel`, over `iters` calls of fn(i), from torch.profiler. A
     wrapper's call can take the host longer to issue than the kernel takes
     on the card, so CUDA events around back-to-back calls would time the
     host; the profiler's device time does not. The profiler at times drops
-    the device records of part of a run (13 of 50 launches, once on the
-    H100), so a run whose count is off is profiled again, up to `tries`
-    times; raises unless one run saw each call launch the kernel once."""
+    the device records of part of a run (13 of 50 launches once; 14 of 50
+    launches of a 34 us kernel in each of three runs late in a long
+    process; two of three runs of a 6 us kernel, on the H100), so each run
+    first traces a warm-up step whose records it discards (the profiler's
+    schedule), and a run whose count is off is profiled again, up to
+    `tries` times; raises unless one run saw each call launch the kernel
+    once."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn(0)
     torch.cuda.synchronize()
     seen = []
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(3):
+                fn(0)
+            torch.cuda.synchronize()
+            prof.step()  # the warm-up step ends: the timed calls are traced
             for i in range(iters):
                 fn(i)
             torch.cuda.synchronize()
+            prof.step()
         hits = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and kernel in e.key]
         launches = sum(e.count for e in hits)

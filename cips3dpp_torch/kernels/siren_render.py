@@ -137,26 +137,52 @@ def siren_render_plain(prepared, pts, viewdirs, z_vals, dnorm):
     return thumb, feat, sdf[..., None], maskd, xyz
 
 
-# the one geometry the CUDA kernel is built for
-KERNEL_WIDTH, KERNEL_SAMPLES = 256, 24
+# The geometries K1 renders on the card: a depth-2 SDF SIREN of one of these
+# widths with 1 to KERNEL_MAX_SAMPLES samples a ray. csrc/siren_render.cu is
+# built once a width (the sample count taken at launch) and once more for
+# the serving geometry, whose build fixes the sample count at compile time.
+KERNEL_WIDTHS = (32, 64, 128, 256, 512)
+KERNEL_MAX_SAMPLES = 64
+SERVING_GEOMETRY = (256, 24)
+
+
+def kernel_defines(width: int, n_samples: int) -> tuple[str, ...]:
+    """The nvcc flags of the K1 library that renders `width` x `n_samples`:
+    none for the serving geometry, else the width's build, which takes any
+    sample count."""
+    if (width, n_samples) == SERVING_GEOMETRY:
+        return ()
+    return (f"-DK1_W={width}", "-DK1_FIXED_S=0")
+
+
+def kernel_builds() -> list[tuple[str, tuple[str, ...]]]:
+    """(source, defines) of every K1 library, for `_lib.build`."""
+    return [("siren_render", ())] + [("siren_render", kernel_defines(w, 0))
+                                     for w in KERNEL_WIDTHS]
+
+
+def _geometry_refusal(width: int, n_samples: int) -> str | None:
+    if width in KERNEL_WIDTHS and 1 <= n_samples <= KERNEL_MAX_SAMPLES:
+        return None
+    return (f"the renderer has width {width} and {n_samples} samples, K1 takes widths "
+            f"{', '.join(map(str, KERNEL_WIDTHS))} and 1 to {KERNEL_MAX_SAMPLES} samples")
 
 
 def kernel_route_refusal(depth: int, width: int, n_samples: int, with_sdf: bool,
                          device) -> str | None:
     """Why a renderer of this geometry cannot render through K1 on
     `device`, or None if it can. K1 renders a depth-2 SDF SIREN; on the
-    card its kernel is built for width 256 and 24 samples, on the CPU its
-    plain version takes any width. The training steps decide their route
-    with it once, from the configuration (the JAX package's gate,
+    card its kernel takes the widths KERNEL_WIDTHS and 1 to
+    KERNEL_MAX_SAMPLES samples, on the CPU its plain version takes any.
+    The training steps decide their route with it once, from the
+    configuration (the JAX package's gate,
     cips3dpp_tpu/models/renderer.py:86-90)."""
     if not with_sdf:
         return "the renderer has no SDF"
     if depth != 2:
         return f"the renderer has depth {depth}, K1 renders depth 2"
-    if torch.device(device).type == "cuda" and (width, n_samples) != (
-            KERNEL_WIDTH, KERNEL_SAMPLES):
-        return (f"the renderer has width {width} and {n_samples} samples, K1 is built "
-                f"for width {KERNEL_WIDTH} and {KERNEL_SAMPLES} samples")
+    if torch.device(device).type == "cuda":
+        return _geometry_refusal(width, n_samples)
     return None
 
 
@@ -175,15 +201,15 @@ def default_kernel_route(depth: int, width: int, n_samples: int, with_sdf: bool,
 
 
 def _launch(prepared, pts, viewdirs, z_vals, dnorm, defines=()):
-    """The kernel on the card; `defines` selects an instrumented build
-    (`_lib.load`)."""
+    """The kernel on the card, from the library of the geometry's build;
+    `defines` selects an instrumented build of it (`_lib.load`)."""
     dev = pts.device
     r, s, _ = pts.shape
     weights = prepared["weights"]
     width = weights[3].shape[1]
-    if width != KERNEL_WIDTH or s != KERNEL_SAMPLES:
-        raise ValueError(f"siren_render kernel is built for width 256 and 24 "
-                         f"samples, got width {width}, {s} samples")
+    why = _geometry_refusal(width, s)
+    if why is not None:
+        raise ValueError(f"siren_render kernel: {why}")
     f32 = torch.float32
     _lib.check(pts, "pts", (r, s, 3), f32, dev)
     _lib.check(viewdirs, "viewdirs", (r, 3), f32, dev)
@@ -205,11 +231,11 @@ def _launch(prepared, pts, viewdirs, z_vals, dnorm, defines=()):
     sdf = torch.empty((r, s), dtype=f32, device=dev)
     if r == 0:
         return thumb, feat, sdf[..., None], maskd, xyz
-    lib = _lib.load("siren_render", defines)
+    lib = _lib.load("siren_render", kernel_defines(width, s) + tuple(defines))
     fn = lib.siren_render_forward
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_float] * 2 + \
-        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     (w0, g0, be0, _, g1, be1, _, wvv, gv, bev,
      wsdf, bsdf, wrgb, brgb) = weights
     scale, sbeta = prepared["consts"]
@@ -221,7 +247,7 @@ def _launch(prepared, pts, viewdirs, z_vals, dnorm, defines=()):
         p(wsdf), p(bsdf), p(wrgb), p(brgb),
         scale, sbeta,
         p(thumb), p(feat), p(xyz), p(maskd), p(sdf),
-        r, _lib.stream_ptr(dev),
+        r, s, _lib.stream_ptr(dev),
     )
     _lib.raise_on_error(code, "siren_render")
     _lib.LAUNCHES["siren_render"] += 1

@@ -27,6 +27,17 @@ size 1 too, so a one-GPU run goes through the code that N GPUs run.
 
 The gathering and mean functions are collectives in their backward as
 well: every rank must differentiate the same graph in step.
+
+The mesh has JAX's two axes, ('data', 'ray') with the ranks laid out
+(-1, ray) (cips3dpp_tpu/parallel/mesh.py:29-48): rank r holds data index
+r // ray and ray index r % ray. Each ray column (one ray index) is a data
+group, over which the batch is split and the collectives above run, as
+JAX's constrain_batch shards only 'data'; the ray replicas of a data row
+hold the same rows, so a collective over every rank would count each
+example `ray` times. Each data row is a ray group: `shard_rays` gives a
+rank its slice of a (B, R, ...) tensor's rays (JAX's ray_sharding) and
+`gather_rays` rebuilds the rays of the row. Rays are independent, so a
+render of each slice, gathered, is the render of the whole.
 """
 
 from __future__ import annotations
@@ -47,9 +58,12 @@ from ..device import resolve_device
 
 @dataclasses.dataclass
 class Mesh:
-    """One rank's view of a 1-axis data mesh: its rank, the world size,
-    its device and the process group. `counts` counts the collectives
-    issued by kind ("grad_all_reduce" once an optimizer step)."""
+    """One rank's view of a (data, ray) mesh: its rank, the world size,
+    its device, the data group `group` (the ranks of its ray index: every
+    rank when ray == 1), the size of the ray axis and the ray group (the
+    ranks of its data index; None when ray == 1). `counts` counts the
+    collectives issued by kind ("grad_all_reduce" once an optimizer
+    step)."""
 
     rank: int
     world: int
@@ -57,11 +71,26 @@ class Mesh:
     group: object
     backend: str
     counts: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    ray: int = 1
+    ray_group: object = None
     _tmpdir: str | None = None
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
+
+    @property
+    def data(self) -> int:
+        """Ranks along the data axis: the batch splits into this many."""
+        return self.world // self.ray
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.ray
+
+    @property
+    def ray_rank(self) -> int:
+        return self.rank % self.ray
 
     def close(self) -> None:
         """Destroy the process group (and the rendezvous directory this
@@ -75,25 +104,25 @@ class Mesh:
 
 def make_mesh(n_devices: int | None = None, ray: int = 1, device=None, *, rank: int = 0,
               init_method: str | None = None, backend: str | None = None) -> Mesh:
-    """Join a data mesh of `n_devices` ranks (default: every visible GPU)
-    as rank `rank`. On the card each rank takes `cuda:<rank>` and the group
-    runs NCCL; with `device="cpu"` it runs gloo. An explicit device with an
-    index (e.g. "cuda:0") puts every rank on that device, which only gloo
-    allows. `init_method` is the rendezvous every rank shares (a `file://`
-    URL, so concurrent runs cannot collide on a port); a one-rank mesh
-    makes its own. Raises when fewer GPUs than ranks are visible, or when
-    the group cannot start."""
-    if ray > 1:
-        raise NotImplementedError(
-            f"ray={ray}: sharding the rays over a second mesh axis is not ported "
-            "(ROADMAP queue 1, \"The mesh's ray axis\")")
+    """Join a mesh of `n_devices` ranks (default: every visible GPU) as
+    rank `rank`, with `ray` ranks along the ray axis (`n_devices // ray`
+    along the data axis). On the card each rank takes `cuda:<rank>` and
+    the groups run NCCL; with `device="cpu"` they run gloo. An explicit
+    device with an index (e.g. "cuda:0") puts every rank on that device,
+    which only gloo allows. `init_method` is the rendezvous every rank
+    shares (a `file://` URL, so concurrent runs cannot collide on a port);
+    a one-rank mesh makes its own. Raises when `ray` does not divide the
+    ranks, when fewer GPUs than ranks are visible, or when the group
+    cannot start."""
     dev = resolve_device(device)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if n_devices is None:
         n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
-    world = int(n_devices)
+    world, ray = int(n_devices), int(ray)
     if world < 1 or not 0 <= rank < world:
         raise ValueError(f"rank {rank} of a mesh of {world}")
+    if ray < 1 or world % ray:
+        raise ValueError(f"a mesh of {world} ranks has no ray axis of {ray}")
     if dev.type == "cuda" and dev.index is None:
         have = torch.cuda.device_count()
         if have < world:
@@ -113,11 +142,22 @@ def make_mesh(n_devices: int | None = None, ray: int = 1, device=None, *, rank: 
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
-    return Mesh(rank, world, dev, dist.group.WORLD, backend, _tmpdir=tmpdir)
+    group, ray_group = dist.group.WORLD, None
+    if ray > 1:
+        # every rank makes every group, in one order: the data rows (ray
+        # groups), then the ray columns (data groups)
+        for row in range(world // ray):
+            g = dist.new_group(list(range(row * ray, (row + 1) * ray)))
+            ray_group = g if rank // ray == row else ray_group
+        for col in range(ray):
+            g = dist.new_group(list(range(col, world, ray)))
+            group = g if rank % ray == col else group
+    return Mesh(rank, world, dev, group, backend, ray=ray, ray_group=ray_group,
+                _tmpdir=tmpdir)
 
 
-def _rank_main(rank, fn, world, tmp, device, backend, args):
-    mesh = make_mesh(world, device=device, rank=rank, backend=backend,
+def _rank_main(rank, fn, world, tmp, device, backend, args, ray):
+    mesh = make_mesh(world, ray, device=device, rank=rank, backend=backend,
                      init_method=f"file://{os.path.join(tmp, 'rendezvous')}")
     try:
         out = fn(mesh, *args)
@@ -127,11 +167,12 @@ def _rank_main(rank, fn, world, tmp, device, backend, args):
 
 
 def run_ranks(fn, world: int, *args, device=None, backend: str | None = None,
-              workdir: str | None = None, timeout: float | None = None) -> list:
-    """Run `fn(mesh, *args)` on `world` ranks, one spawned process each,
-    and return their results in rank order. `fn` must be importable by
-    name (it is pickled by reference) and return tensors, numbers, strings
-    and containers of them. The rendezvous file and the results (removed
+              workdir: str | None = None, timeout: float | None = None,
+              ray: int = 1) -> list:
+    """Run `fn(mesh, *args)` on `world` ranks (`ray` of them along the ray
+    axis), one spawned process each, and return their results in rank
+    order. `fn` must be importable by name (it is pickled by reference)
+    and return tensors, numbers, strings and containers of them. The rendezvous file and the results (removed
     once read) go to `workdir` (default: a temporary directory, removed
     after). With `timeout` (seconds), ranks still running then are killed
     and TimeoutError is raised."""
@@ -141,7 +182,7 @@ def run_ranks(fn, world: int, *args, device=None, backend: str | None = None,
         if workdir is None:
             workdir = stack.enter_context(tempfile.TemporaryDirectory(prefix="cips3dpp_ranks_"))
         os.makedirs(workdir, exist_ok=True)
-        ctx = tmp_mp.spawn(_rank_main, args=(fn, world, workdir, device, backend, args),
+        ctx = tmp_mp.spawn(_rank_main, args=(fn, world, workdir, device, backend, args, ray),
                            nprocs=world, join=False)
         deadline = None if timeout is None else time.monotonic() + timeout
         while not ctx.join(None if deadline is None else 1.0):
@@ -162,17 +203,18 @@ def run_ranks(fn, world: int, *args, device=None, backend: str | None = None,
 
 
 def shard_batch(x, mesh: Mesh | None):
-    """The rank's rows of a global batch (a tensor or numpy array); the
-    batch itself off the mesh or on one rank (a slice of every row would
-    add a node to the autograd graph, whose backward hands the next node a
-    contiguous copy, so the sums after it could round otherwise)."""
-    if mesh is None or mesh.world == 1:
+    """The rank's rows of a global batch (a tensor or numpy array), by its
+    data index; the batch itself off the mesh or on a data axis of one
+    rank (a slice of every row would add a node to the autograd graph,
+    whose backward hands the next node a contiguous copy, so the sums
+    after it could round otherwise)."""
+    if mesh is None or mesh.data == 1:
         return x
     b = x.shape[0]
-    if b % mesh.world:
-        raise ValueError(f"batch {b} does not split over {mesh.world} ranks")
-    n = b // mesh.world
-    return x[mesh.rank * n:(mesh.rank + 1) * n]
+    if b % mesh.data:
+        raise ValueError(f"batch {b} does not split over {mesh.data} ranks")
+    n = b // mesh.data
+    return x[mesh.data_rank * n:(mesh.data_rank + 1) * n]
 
 
 def _tensors(tree):
@@ -187,44 +229,45 @@ def _tensors(tree):
 
 
 def replicate(module_or_state, mesh: Mesh | None):
-    """Broadcast every tensor of `module_or_state.state_dict()` from rank 0,
-    in place (the reference's sync_models): a module's parameters and
+    """Broadcast every tensor of `module_or_state.state_dict()` from rank 0
+    to every rank of the mesh, in place (the reference's sync_models): a module's parameters and
     buffers, or a TrainState's modules, optimizer moments and
     mean_path_length. Integer counters are equal by construction."""
     if mesh is None:
         return module_or_state
     for t in _tensors(module_or_state.state_dict()):
         if t.device == mesh.device:
-            dist.broadcast(t, 0, group=mesh.group)
+            dist.broadcast(t, 0)
         else:  # e.g. Adam's step counts, kept on the CPU
             buf = t.to(mesh.device)
-            dist.broadcast(buf, 0, group=mesh.group)
+            dist.broadcast(buf, 0)
             t.copy_(buf)
     mesh.counts["broadcast"] += 1
     return module_or_state
 
 
 def sync_grads(grads: list[torch.Tensor], mesh: Mesh) -> list[torch.Tensor]:
-    """The ranks' mean of each gradient, by one all-reduce of the
-    flattened list (the reference's sync_gradients). Returns new tensors
-    shaped as `grads`."""
+    """The mean of each gradient over the data axis, by one all-reduce of
+    the flattened list (the reference's sync_gradients). Returns new
+    tensors shaped as `grads`."""
     flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat, group=mesh.group)
     mesh.counts["grad_all_reduce"] += 1
-    flat = flat / mesh.world
+    flat = flat / mesh.data
     return [part.view_as(g).clone()
             for part, g in zip(flat.split([g.numel() for g in grads]), grads)]
 
 
 class _GatherRows(torch.autograd.Function):
-    """Forward: the ranks' tensors concatenated along dim 0. Backward: the
-    sum over ranks of the cotangents, the rows of this rank."""
+    """Forward: the data axis's tensors concatenated along dim 0.
+    Backward: the sum over the data axis of the cotangents, the rows of
+    this rank."""
 
     @staticmethod
     def forward(ctx, x, mesh):
         ctx.mesh = mesh
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(mesh.world)]
+        parts = [torch.empty_like(x) for _ in range(mesh.data)]
         dist.all_gather(parts, x, group=mesh.group)
         mesh.counts["all_gather"] += 1
         return torch.cat(parts)
@@ -253,13 +296,14 @@ class _SumOwnRows(torch.autograd.Function):
 
 
 def all_gather_batch(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
-    """The global batch from every rank's rows (in rank order), on every
-    rank; gradients flow back to each rank's rows, to any order."""
+    """The global batch from the rows of every rank of the data axis (in
+    data order), on every rank; gradients flow back to each rank's rows,
+    to any order."""
     return x if mesh is None else _GatherRows.apply(x, mesh)
 
 
 class _GlobalMean(torch.autograd.Function):
-    """The mean over ranks; its adjoint is itself."""
+    """The mean over the data axis; its adjoint is itself."""
 
     @staticmethod
     def forward(ctx, x, mesh):
@@ -267,7 +311,7 @@ class _GlobalMean(torch.autograd.Function):
         total = x.contiguous().clone()
         dist.all_reduce(total, group=mesh.group)
         mesh.counts["all_reduce"] += 1
-        return total / mesh.world
+        return total / mesh.data
 
     @staticmethod
     def backward(ctx, grad):
@@ -275,22 +319,88 @@ class _GlobalMean(torch.autograd.Function):
 
 
 def global_mean(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
-    """The mean of `x` over ranks (each rank's `x` a mean over its rows,
-    so the result is the mean over the global batch); differentiable."""
+    """The mean of `x` over the data axis (each rank's `x` a mean over its
+    rows, so the result is the mean over the global batch);
+    differentiable."""
     return x if mesh is None else _GlobalMean.apply(x, mesh)
 
 
 def global_means(metrics: dict, mesh: Mesh | None) -> dict:
-    """Detached 0-d metrics averaged over ranks by one all-reduce."""
+    """Detached 0-d metrics averaged over the data axis by one all-reduce."""
     if mesh is None or not metrics:
         return metrics
     stacked = torch.stack([v.detach().float() for v in metrics.values()])
     dist.all_reduce(stacked, group=mesh.group)
     mesh.counts["metric_all_reduce"] += 1
-    return dict(zip(metrics, stacked / mesh.world))
+    return dict(zip(metrics, stacked / mesh.data))
 
 
 def barrier(mesh: Mesh | None) -> None:
+    """Every rank of the mesh waits for the others."""
     if mesh is not None:
         kw = dict(device_ids=[mesh.device.index]) if mesh.backend == "nccl" else {}
-        dist.barrier(group=mesh.group, **kw)
+        dist.barrier(**kw)
+
+
+# ------------------------------------------------------------- ray axis --
+
+
+def _ray_slice(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    r = x.shape[1]
+    if r % mesh.ray:
+        raise ValueError(f"{r} rays do not split over a ray axis of {mesh.ray}")
+    n = r // mesh.ray
+    return x[:, mesh.ray_rank * n:(mesh.ray_rank + 1) * n].contiguous()
+
+
+class _SliceRays(torch.autograd.Function):
+    """Forward: this rank's slice of dim 1. Backward: the slices of the
+    ray group gathered, so a replicated input's gradient is the whole
+    program's. Its adjoint is `_GatherRays`."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _ray_slice(x, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _GatherRays.apply(grad, ctx.mesh), None
+
+
+class _GatherRays(torch.autograd.Function):
+    """Forward: the ray group's slices concatenated along dim 1, on every
+    rank of the row. Backward: this rank's slice of the cotangent (the
+    row's ranks hold the same cotangent of the whole), to any order."""
+
+    @staticmethod
+    def forward(ctx, y, mesh):
+        ctx.mesh = mesh
+        y = y.contiguous()
+        parts = [torch.empty_like(y) for _ in range(mesh.ray)]
+        dist.all_gather(parts, y, group=mesh.ray_group)
+        mesh.counts["ray_all_gather"] += 1
+        return torch.cat(parts, dim=1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _SliceRays.apply(grad, ctx.mesh), None
+
+
+def shard_rays(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """This rank's slice of the rays (dim 1) of a (B, R, ...) tensor, by
+    its ray index (the ray half of JAX's ray_sharding; `shard_batch` is
+    the batch's); the tensor itself off the mesh or on a ray axis of one.
+    Raises when the ray axis does not divide R."""
+    if mesh is None or mesh.ray == 1:
+        return x
+    return _SliceRays.apply(x, mesh)
+
+
+def gather_rays(y: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """The (B, R, ...) tensor rebuilt on every rank of a data row from its
+    ranks' slices of dim 1 (`shard_rays`), by one all-gather over the ray
+    group; differentiable, its backward the adjoint slice."""
+    if mesh is None or mesh.ray == 1:
+        return y
+    return _GatherRays.apply(y, mesh)

@@ -193,7 +193,7 @@ def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
         raise ValueError("patch training expects cam_img_size == the generator's "
                          "NeRF resolution")
     up_factor = 2 ** len(gen_cfg.decoder.upsample_list)
-    world = 1 if mesh is None else mesh.world
+    world = 1 if mesh is None else mesh.data  # ranks the batch splits over
     d_dt = torch_dtype(cfg.d_dtype)
     # d_cat takes precedence over d_seq; both need the image D
     d_cat = cfg.d_cat and gen_cfg.enable_decoder
@@ -271,7 +271,7 @@ def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
                     aug = None if aug is None else {k: all_gather_batch(v, mesh)
                                                     for k, v in aug.items()}
             rows = lambda x, i: x[i * chunk:(i + 1) * chunk]
-            mine = range(mesh.rank if world > 1 else 0, nc, world)
+            mine = range(mesh.data_rank if world > 1 else 0, nc, world)
             parts = [(rows(real, i), None if aug is None else
                       {k: rows(v, i) for k, v in aug.items()}) for i in mine]
             scale, on = world / nc, None

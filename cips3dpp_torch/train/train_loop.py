@@ -16,6 +16,19 @@ each rank reads the global batch stream and keeps its rows (the images
 JAX's mesh puts on each device, cips3dpp_tpu/train/train_loop.py:183-191),
 the steps are data-parallel, and rank 0 alone writes checkpoints,
 best_fid.pt and logs while the others wait at a barrier.
+
+`auto_remat` (cips3dpp_tpu/train/train_loop.py:103-135) switches remat_d
+on when the lazy-R1 D step would not fit: JAX compares XLA's ahead-of-time
+peak (temporaries + arguments) with 97% of the device's bytes_limit. The
+port has no ahead-of-time analysis, so `init_state` runs one R1 D step at
+the config's batch and reads its peak allocated memory against 97% of the
+limit the caching allocator enforces (the card's memory times the
+process's memory fraction); a step that runs out of memory does not fit.
+The step runs on the state itself, which is copied to the host first and
+restored after, with a generator of its own and the global generators
+forked, so a run the probe does not switch is bit-equal to a run without
+it. Off the card no limit is reported and the probe does nothing, as
+JAX's where the device reports no bytes_limit.
 """
 
 from __future__ import annotations
@@ -26,6 +39,7 @@ import time
 from typing import Callable, Iterable
 
 import torch
+import torch.distributed as dist
 
 from ..models.layers import init_parameters
 from ..parallel.mesh import barrier, replicate, shard_batch
@@ -33,6 +47,46 @@ from ..parallel.prefetch import prefetch_to_device
 from ..utils.logging import MetricLogger
 from .state import TrainConfig, TrainState, create_train_state
 from .steps import ema_update, fade_alpha, make_train_steps
+
+
+# the share of the device's limit the R1 step's peak may take (JAX's rule)
+AUTO_REMAT_SHARE = 0.97
+
+
+def device_memory_limit(device) -> int | None:
+    """Bytes the caching allocator lets this process allocate on `device`:
+    the card's memory times the process's memory fraction
+    (`torch.cuda.set_per_process_memory_fraction`). None off the card."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    total = torch.cuda.get_device_properties(dev).total_memory
+    return int(total * torch.cuda.get_per_process_memory_fraction(dev))
+
+
+def peak_memory(fn, device) -> int | None:
+    """The peak bytes allocated on the card while fn() runs, or None if it
+    ran out of memory."""
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    try:
+        fn()
+        torch.cuda.synchronize(device)
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        return None
+    return torch.cuda.max_memory_allocated(device)
+
+
+def _host_copy(tree):
+    """A copy of a state dict's tree with every tensor copied to the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    return tree
 
 
 @dataclasses.dataclass
@@ -60,12 +114,6 @@ class Trainer:
         config_snapshot: dict | None = None,
         auto_remat: bool = False,
     ):
-        if auto_remat:
-            raise NotImplementedError(
-                "auto_remat (switch remat_d on when the R1 step's memory would not fit) "
-                "is not ported: its JAX form reads XLA's ahead-of-time memory analysis, "
-                "which PyTorch has no counterpart of short of running the step; set "
-                "remat_d in the config instead (ROADMAP queue 1, \"auto_remat\")")
         self.generator = generator
         self.d_decoder = d_decoder
         self.d_render = d_render
@@ -86,6 +134,9 @@ class Trainer:
             self.logger = MetricLogger(os.path.join(outdir, "logs"))
         self._ckpt = None
         self._keep = keep_ckpts
+        self.auto_remat = auto_remat
+        # what init_state's probe found: {"peak", "limit", "switched"}
+        self.auto_remat_probe = None
         self.steps = make_train_steps(gen_cfg, train_cfg, mesh)
 
     # ----- setup ----------------------------------------------------------
@@ -102,7 +153,54 @@ class Trainer:
                 init_parameters(m, generator)
         state = create_train_state(self.cfg, self.generator, self.d_decoder, self.d_render,
                                    self.mesh)
-        return replicate(state, self.mesh)
+        state = replicate(state, self.mesh)
+        if self.auto_remat and not self.cfg.remat_d:
+            self._auto_remat(state)
+        return state
+
+    def r1_step_peak(self, state: TrainState) -> int | None:
+        """The peak bytes allocated on the card by one lazy-R1 D step of
+        this trainer's steps at the config's batch (zero images of
+        data_img_size, its own generator, the global generators forked),
+        or None if it runs out of memory. The state comes back as it was,
+        from a copy on the host."""
+        rows = self.cfg.batch // (1 if self.mesh is None else self.mesh.data)
+        size = self.cfg.data_img_size
+        real = torch.zeros((rows, size, size, 3), device=self.device)
+        saved = _host_copy(state.state_dict())
+        devices = [self.device.index or 0] if self.device.type == "cuda" else []
+        try:
+            with torch.random.fork_rng(devices=devices):
+                draws = torch.Generator(device=self.device).manual_seed(0)
+                return peak_memory(lambda: self.steps[0](
+                    state, real, draws, 1.0, d_regularize=True), self.device)
+        finally:
+            state.load_state_dict(saved)
+
+    def _auto_remat(self, state: TrainState) -> None:
+        """Switch remat_d on (and rebuild the steps) when one lazy-R1 D step
+        at the config's batch peaks above AUTO_REMAT_SHARE of the device's
+        limit or runs out of memory; the state comes back as it was. Under
+        a mesh every rank probes and the ranks switch together."""
+        limit = device_memory_limit(self.device)
+        if limit is None:
+            return
+        peak = self.r1_step_peak(state)
+        switch = peak is None or peak > AUTO_REMAT_SHARE * limit
+        if self.mesh is not None:
+            flag = torch.tensor([float(switch)], device=self.device)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+            switch = bool(flag.item())
+        self.auto_remat_probe = {"peak": peak, "limit": limit, "switched": switch}
+        if not switch:
+            return
+        if self.main:
+            said = ("ran out of memory under" if peak is None
+                    else f"peak {peak / 2**30:.2f} GiB > {AUTO_REMAT_SHARE:.0%} of")
+            self.logger.log_text(f"auto_remat: d_step_r1 {said} {limit / 2**30:.2f} GiB "
+                                 "- enabling remat_d")
+        self.cfg = dataclasses.replace(self.cfg, remat_d=True)
+        self.steps = make_train_steps(self.gen_cfg, self.cfg, self.mesh)
 
     def checkpointer(self):
         if self._ckpt is None:

@@ -29,28 +29,41 @@ def dev():
     return torch.device("cuda", 0)
 
 
-# 1001 = 8*125 + 1 is ragged against the 8-ray tile, 5 is less than one
-# tile, and 64*64 is the serving shape, where the tiles outnumber the SMs
-@pytest.mark.parametrize("r", [1001, 5, 4096])
-def test_siren_render_kernel_matches_plain(dev, r):
-    """Full width, 24 samples a ray, at R rays."""
-    from cips3dpp_torch.kernels import _lib
-    from cips3dpp_torch.kernels.siren_render import (
-        siren_prepare, siren_render_plain, siren_render_prepared,
-    )
+def _siren_inputs(dev, width, s, r, seed=0):
+    """A seeded depth-2 renderer of `width` and its prepared operands, and
+    r rays x s samples of inputs, on `dev`."""
+    from cips3dpp_torch.kernels.siren_render import siren_prepare
     from cips3dpp_torch.models.layers import init_parameters
     from cips3dpp_torch.models.renderer import VolumeFeatureRenderer
 
-    gen = torch.Generator().manual_seed(0)
-    rend = init_parameters(VolumeFeatureRenderer(depth=2), gen).to(dev)
-    s = 24
+    gen = torch.Generator().manual_seed(seed)
+    rend = init_parameters(VolumeFeatureRenderer(depth=2, hidden_dim=width), gen).to(dev)
     styles = torch.randn((3, 256), generator=gen).to(dev)
     pts = (0.1 * torch.randn((r, s, 3), generator=gen)).to(dev)
     vd = torch.nn.functional.normalize(torch.randn((r, 3), generator=gen), dim=-1).to(dev)
     z = (torch.linspace(0.88, 1.12, s)[None] + 1e-3 * torch.randn((r, 1), generator=gen)).to(dev)
-    rd = 1.05 * vd
     prep = siren_prepare(rend, styles, torch.tensor(0.88, device=dev),
                          torch.tensor(1.12, device=dev))
+    return prep, pts, vd, z, 1.05 * vd
+
+
+# The serving geometry (width 256, 24 samples: its own build) at R = 1001
+# = 8*125 + 1, ragged against the 8-ray tile, 5, less than one tile, and
+# 64*64, the serving shape, where the tiles outnumber the SMs; then the
+# width builds (the sample count taken at launch) at widths 32, 128 and 512
+# (2-ray tiles of 16 samples), 1 sample, 12 (a part chunk), 20 (no
+# multiple of the 24- or 16-sample chunk) and 48 (whole chunks)
+K1_GEOMETRIES = [(256, 24, r) for r in (1001, 5, 4096)] + [
+    (w, s, r) for w in (32, 128, 512) for s in (1, 12, 20, 48) for r in (1001, 4096)]
+
+
+@pytest.mark.parametrize("width,s,r", K1_GEOMETRIES)
+def test_siren_render_kernel_matches_plain(dev, width, s, r):
+    """K1 against its plain version at `width` x `s` samples, R rays."""
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.kernels.siren_render import siren_render_plain, siren_render_prepared
+
+    prep, pts, vd, z, rd = _siren_inputs(dev, width, s, r)
     before = _lib.LAUNCHES["siren_render"]
     got = siren_render_prepared(prep, pts, vd, z, rd)
     assert _lib.LAUNCHES["siren_render"] == before + 1
@@ -58,14 +71,42 @@ def test_siren_render_kernel_matches_plain(dev, r):
     again = siren_render_prepared(prep, pts, vd, z, rd)
     torch.cuda.synchronize()
     # only f32 sum orders differ: the bounds sit 10x (feat) to 90x (xyz)
-    # above the largest readings on the H100 (PERF.md section 6)
+    # above the largest readings at 256 / 24 on the H100 (PERF.md section 6)
     atol = {"thumb": 1e-3, "feat": 5e-3, "sdf": 1e-3, "mask_depth": 1e-4, "xyz": 1e-4}
     errs = {k: float((g - w).abs().max()) for k, g, w in zip(atol, got, want)}
-    print(f"R={r}: max |kernel - plain| {errs}")
+    print(f"W={width} S={s} R={r}: max |kernel - plain| {errs}")
     for g, w, g2, tol in zip(got, want, again, atol.values()):
         assert g.shape == w.shape
         torch.testing.assert_close(g, w, rtol=0, atol=tol)
         assert torch.equal(g, g2)  # fixed summation order: same bits every launch
+
+
+@pytest.mark.parametrize("width,s", [(256, 24), (128, 48), (512, 20)])
+def test_siren_render_ray_slices_equal_the_whole(dev, width, s):
+    """Each ray's arithmetic is independent of its tile: two launches over
+    the halves of 4096 rays give the bits of one launch over all (what the
+    mesh's ray axis relies on)."""
+    from cips3dpp_torch.kernels.siren_render import siren_render_prepared
+
+    prep, pts, vd, z, rd = _siren_inputs(dev, width, s, 4096, seed=3)
+    whole = siren_render_prepared(prep, pts, vd, z, rd)
+    halves = [siren_render_prepared(prep, pts[i:i + 2048], vd[i:i + 2048], z[i:i + 2048],
+                                    rd[i:i + 2048]) for i in (0, 2048)]
+    for w, a, b in zip(whole, *halves):
+        assert torch.equal(w, torch.cat([a, b]))
+
+
+def test_siren_render_refuses_other_geometries(dev):
+    """A width or sample count outside K1's set raises before launching."""
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.kernels.siren_render import siren_render_prepared
+
+    for width, s in ((96, 24), (256, 65)):
+        prep, pts, vd, z, rd = _siren_inputs(dev, width, s, 8)
+        before = _lib.LAUNCHES["siren_render"]
+        with pytest.raises(ValueError, match="K1 takes widths 32, 64, 128, 256, 512"):
+            siren_render_prepared(prep, pts, vd, z, rd)
+        assert _lib.LAUNCHES["siren_render"] == before
 
 
 def test_siren_phase_split_counts_every_phase(dev):

@@ -343,10 +343,16 @@ def test_trainer_on_two_ranks(runs):
     assert os.path.exists(run / "logs" / "metrics.jsonl")
 
 
-def test_mesh_options_raise():
-    from cips3dpp_torch.parallel import make_mesh
+def test_mesh_options_raise(tmp_path):
+    """The ray axis works on two ranks (data 1 x ray 2) and raises where it
+    does not divide the ranks; the other options raise as before."""
+    from cips3dpp_torch.parallel import make_mesh, run_ranks
+    from torch_port_ray_helpers import _ray_axes
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, \"The mesh's ray axis\""):
+    axes = run_ranks(_ray_axes, 2, device="cpu", ray=2, workdir=str(tmp_path), timeout=120)
+    assert axes == [{"rank": r, "data": 1, "ray": 2, "data_rank": 0, "ray_rank": r}
+                    for r in (0, 1)]
+    with pytest.raises(ValueError, match="a mesh of 1 ranks has no ray axis of 2"):
         make_mesh(ray=2, device="cpu")
     with pytest.raises(ValueError, match="rendezvous"):
         make_mesh(2, device="cpu")

@@ -68,11 +68,13 @@ def test_default_route_rule():
     assert default_kernel_route(2, 256, 24, True, "cuda") == (True, None)
     assert default_kernel_route(2, 256, 24, True, "cpu") == (False, None)
     assert default_kernel_route(2, 32, 4, True, "cpu") == (False, None)
-    take, why = default_kernel_route(2, 128, 24, True, "cuda")
-    assert not take and "width 128" in why
-    assert why == kernel_route_refusal(2, 128, 24, True, torch.device("cuda", 0))
-    take, why = default_kernel_route(2, 256, 12, True, "cuda")
-    assert not take and "12 samples" in why
+    take, why = default_kernel_route(2, 96, 24, True, "cuda")
+    assert not take and "width 96" in why
+    assert why == kernel_route_refusal(2, 96, 24, True, torch.device("cuda", 0))
+    take, why = default_kernel_route(2, 256, 65, True, "cuda")
+    assert not take and "65 samples" in why
+    for width, n in ((32, 1), (128, 24), (512, 64), (256, 48)):
+        assert default_kernel_route(2, width, n, True, "cuda") == (True, None)
     take, why = default_kernel_route(2, 256, 24, False, "cuda")
     assert not take and "no SDF" in why
     take, why = default_kernel_route(8, 256, 24, True, "cpu")

@@ -29,12 +29,13 @@ ATOL_ORACLE = {"thumb": 2e-2, "feat": 1.5e-1, "sdf": 2e-2, "mask_depth": 2e-2,
                "xyz": 2e-2}
 
 
-def _make_renderer_params(key, width):
-    """tests/test_kernels.py's random renderer tree (same draws)."""
+def _make_renderer_params(key, width, scale=0.05):
+    """tests/test_kernels.py's random renderer tree (same draws; `scale`
+    is the std of the layers' weights, 0.05 there)."""
     ks = jax.random.split(key, 32)
     i = iter(range(32))
 
-    def lin(k1, k2, din, dout, s=0.05):
+    def lin(k1, k2, din, dout, s=scale):
         return {"weight": s * jax.random.normal(k1, (din, dout)),
                 "bias": 0.1 * jax.random.normal(k2, (dout,))}
 
@@ -115,3 +116,66 @@ def test_fast_sin_matches_jax():
     got = a(fast_sin(t(x)))
     np.testing.assert_allclose(got, a(jsin(jnp.asarray(x))), rtol=0, atol=5e-7)
     assert np.abs(got - np.sin(x.astype(np.float64))).max() < 2e-5
+
+
+@pytest.mark.parametrize("width", [64, 512])
+@pytest.mark.parametrize("s", [12, 20, 48])
+def test_plain_matches_jnp_oracle_at_other_geometries(width, s):
+    """K1 takes widths 32-512 and 1-64 samples on the card: its plain
+    version against the jnp oracle at two widths and three sample counts
+    (20 is no multiple of K1's 24-sample chunk, 48 two chunks), 64 rays,
+    the oracle tolerances above. The weights' std is 0.05 * sqrt(128 /
+    width), so the phases spread as in the width-128 fixture the
+    tolerances were set on, as a SIREN's fan-in init keeps them: at 0.05
+    and width 512 they spread twice as far, and JAX's own Pallas kernel
+    (interpret mode) lies 0.063 (thumb) and 0.31 (feat) from the oracle,
+    as far as the plain version does (the test below)."""
+    from cips3dpp_tpu.kernels.siren_render import siren_render_reference as jref
+    from cips3dpp_torch.kernels.siren_render import siren_render_fused
+
+    params = _make_renderer_params(jax.random.PRNGKey(width + s), width,
+                                   scale=0.05 * (128 / width) ** 0.5)
+    rng = np.random.default_rng(s)
+    r = 64
+    vd = rng.standard_normal((r, 3)).astype(np.float32)
+    vd /= np.linalg.norm(vd, axis=-1, keepdims=True)
+    jargs = (rng.standard_normal((3, 256)).astype(np.float32),
+             (0.1 * rng.standard_normal((r, s, 3))).astype(np.float32), vd,
+             (np.linspace(0.88, 1.12, s)[None] + 1e-3 * rng.standard_normal((r, 1))).astype(
+                 np.float32),
+             (1.05 * vd).astype(np.float32), np.float32(0.88), np.float32(1.12))
+    got = siren_render_fused(port_renderer(np_tree(params), width), *(t(x) for x in jargs))
+    _compare(got, jref(params, *(jnp.asarray(x) for x in jargs)), ATOL_ORACLE)
+
+
+def test_plain_is_as_far_from_the_oracle_as_the_pallas_kernel_at_width_512():
+    """The witness for the scaled tree above: at the fixture's own weight
+    std 0.05 and width 512 both kernels' arithmetic (bias fold, fast_sin,
+    bf16 operands) leaves the oracle's tolerances, K1's plain version no
+    further than JAX's Pallas kernel in interpret mode (within 10% and
+    1e-3 of its distance, output by output)."""
+    from cips3dpp_tpu.kernels.siren_render import siren_render_fused as jfused
+    from cips3dpp_tpu.kernels.siren_render import siren_render_reference as jref
+    from cips3dpp_torch.kernels.siren_render import siren_render_fused
+
+    width, r, s = 512, 64, 12
+    params = _make_renderer_params(jax.random.PRNGKey(width + s), width)
+    rng = np.random.default_rng(s)
+    vd = rng.standard_normal((r, 3)).astype(np.float32)
+    vd /= np.linalg.norm(vd, axis=-1, keepdims=True)
+    jargs = (rng.standard_normal((3, 256)).astype(np.float32),
+             (0.1 * rng.standard_normal((r, s, 3))).astype(np.float32), vd,
+             (np.linspace(0.88, 1.12, s)[None] + 1e-3 * rng.standard_normal((r, 1))).astype(
+                 np.float32),
+             (1.05 * vd).astype(np.float32), np.float32(0.88), np.float32(1.12))
+    jx = [jnp.asarray(x) for x in jargs]
+    oracle = jref(params, *jx)
+    pallas = jfused(params, *jx, ray_tile=64, interpret=True)
+    plain = siren_render_fused(port_renderer(np_tree(params), width), *(t(x) for x in jargs))
+    far = []
+    for name, p, k, o in zip(NAMES, plain, pallas, oracle):
+        d_plain, d_pallas = (float(np.abs(a(x) - a(o)).max()) for x in (p, k))
+        print(f"{name}: plain {d_plain:.3g}, Pallas {d_pallas:.3g} from the oracle")
+        assert d_plain <= 1.1 * d_pallas + 1e-3, name
+        far.append(d_pallas > ATOL_ORACLE[name])
+    assert any(far)  # the tolerances do not hold at this spread of phases

@@ -152,8 +152,9 @@ def test_loop_schedule_matches_jax(tmp_path, monkeypatch):
     assert ptr.checkpointer().restore_raw(15)["metrics"] == {"fid": 3.0}
 
 
-def _tiny_trainer(outdir, log_every=2, ckpt_every=4):
-    """tests/test_train_e2e.py's tiny configuration in the port."""
+def _tiny_trainer(outdir, log_every=2, ckpt_every=4, auto_remat=False):
+    """tests/test_train_e2e.py's tiny configuration in the port (16^2
+    images)."""
     from cips3dpp_torch.models.discriminator import DStyleGANProgressive
     from cips3dpp_torch.models.discriminator_pose import DVolumeRenderProgressive
     from cips3dpp_torch.models.generator import (
@@ -167,12 +168,13 @@ def _tiny_trainer(outdir, log_every=2, ckpt_every=4):
                               mapping_n_layers=2),
         img_size=8, n_samples=4)
     train_cfg = TrainConfig(batch=4, d_reg_every=4, g_reg_every=4, fade_steps=16,
-                            warmup_iters=8, ema_start=8, init_iters=20)
+                            warmup_iters=8, ema_start=8, init_iters=20, data_img_size=16)
     g = Generator(gen_cfg, device="cpu")
     d = DStyleGANProgressive(input_size=16, channel_multiplier=1, device="cpu")
     dr = DVolumeRenderProgressive(input_size=8, device="cpu")
     return Trainer(g, d, dr, gen_cfg, train_cfg, str(outdir), log_every=log_every,
-                   ckpt_every=ckpt_every, keep_ckpts=2, config_snapshot={"demo": True})
+                   ckpt_every=ckpt_every, keep_ckpts=2, config_snapshot={"demo": True},
+                   auto_remat=auto_remat)
 
 
 def _images(n=16, size=16, seed=0):
@@ -245,6 +247,65 @@ def test_resume_equals_straight_run(tmp_path, monkeypatch):
     assert all(np.isfinite(v) for _, m in logged for v in m.values())
 
 
+def _auto_remat_memory(monkeypatch, limit, peak):
+    """The card's side of the probe on the CPU: the allocator's limit, and
+    the peak of the R1 step, which runs (None: it ran out of memory)."""
+    import cips3dpp_torch.train.train_loop as tl
+
+    monkeypatch.setattr(tl, "device_memory_limit", lambda device: limit)
+    monkeypatch.setattr(tl, "peak_memory", lambda fn, device: (fn(), peak)[1])
+
+
+@pytest.mark.parametrize("peak", [2048, None], ids=["over-97%", "out-of-memory"])
+def test_auto_remat_switches_when_r1_does_not_fit(tmp_path, monkeypatch, peak):
+    """JAX's test_trainer_auto_remat_guard in the port: a limit the R1 step
+    does not fit (a peak over 97% of it, or out of memory) switches remat_d
+    on, says so in the events log, and the rebuilt R1 step runs; the probe
+    leaves the state as a trainer without it makes it, bit for bit."""
+    k1_off_card(monkeypatch)
+    _auto_remat_memory(monkeypatch, 1024, peak)
+    tr = _tiny_trainer(tmp_path / "auto", auto_remat=True)
+    assert not tr.cfg.remat_d
+    state = tr.init_state(torch.Generator().manual_seed(1))
+    assert tr.cfg.remat_d and tr.auto_remat_probe == {"peak": peak, "limit": 1024,
+                                                      "switched": True}
+    events = open(tmp_path / "auto" / "logs" / "events.log").read()
+    assert "auto_remat: d_step_r1" in events and "enabling remat_d" in events
+    want = _tensors(_tiny_trainer(tmp_path / "plain").init_state(
+        torch.Generator().manual_seed(1)))
+    got = _tensors(state)
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    real = torch.from_numpy(_images(4))
+    state, m = tr.steps[0](state, real, torch.Generator().manual_seed(2), 1.0,
+                           d_regularize=True)
+    assert all(np.isfinite(float(v)) for v in m.values()) and "d_loss_gp_decoder" in m
+
+
+@pytest.mark.parametrize("limit", [None, 1 << 40], ids=["no-limit", "fits"])
+def test_auto_remat_leaves_a_fitting_run_bit_equal(tmp_path, monkeypatch, limit):
+    """Two iterations with auto_remat=True equal two without it, bit for
+    bit: with no limit (the CPU) the probe does nothing; under a limit the
+    step fits, it runs the R1 step on the state and restores it."""
+    k1_off_card(monkeypatch)
+    if limit is not None:
+        _auto_remat_memory(monkeypatch, limit, 2048)
+    images = _images()
+    out = []
+    for auto in (True, False):
+        tr = _tiny_trainer(tmp_path / str(auto), auto_remat=auto)
+        state = tr.init_state(torch.Generator().manual_seed(1))
+        assert not tr.cfg.remat_d
+        state = tr.train(state, _cyclic(images, 4), torch.Generator().manual_seed(5),
+                         total_iters=2)
+        out.append((_tensors(state), tr.auto_remat_probe))
+    (got, probe), (want, _) = out
+    assert probe == (None if limit is None else {"peak": 2048, "limit": limit,
+                                                 "switched": False})
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
 def test_jax_train_state_carried_across():
     """One optax update in JAX, the state carried into the port, then one
     more update with the same gradients in both packages."""
@@ -310,16 +371,20 @@ def test_jax_train_state_carried_across():
 
 
 def test_not_ported_options_raise(tmp_path):
+    """The two options the port once refused are taken: a mesh with a ray
+    axis (two gloo ranks, data 1 x ray 2) and Trainer(auto_remat=True),
+    whose probe off the card finds no limit and leaves remat_d off."""
+    from cips3dpp_torch.parallel import run_ranks
     from cips3dpp_torch.train import TrainConfig, Trainer
+    from torch_port_ray_helpers import _ray_axes
 
     _, gen_cfg = tiny_configs()
     dev = types.SimpleNamespace(device=torch.device("cpu"))
 
-    from cips3dpp_torch.parallel import make_mesh
-
-    # the mesh is ported; its ray axis is not
-    with pytest.raises(NotImplementedError, match="The mesh's ray axis"):
-        make_mesh(ray=2, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match='remat_d in the config instead .ROADMAP queue 1, "auto_remat"'):
-        Trainer(dev, None, None, gen_cfg, TrainConfig(), str(tmp_path), auto_remat=True)
+    axes = run_ranks(_ray_axes, 2, device="cpu", ray=2, workdir=str(tmp_path / "ranks"),
+                     timeout=120)
+    assert [(x["data_rank"], x["ray_rank"]) for x in axes] == [(0, 0), (0, 1)]
+    tr = Trainer(dev, None, None, gen_cfg, TrainConfig(), str(tmp_path), auto_remat=True)
+    assert tr.auto_remat and not tr.cfg.remat_d
+    tr._auto_remat(None)  # no limit off the card: returns before touching the state
+    assert tr.auto_remat_probe is None and not tr.cfg.remat_d

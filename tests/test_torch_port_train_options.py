@@ -340,7 +340,9 @@ def test_kernel_route_refusal():
     assert kernel_route_refusal(2, 256, 24, True, "cuda") is None
     assert kernel_route_refusal(2, 32, 4, True, "cpu") is None  # K1's plain version
     assert "depth 8" in kernel_route_refusal(8, 256, 24, True, "cpu")
-    assert "width 128" in kernel_route_refusal(2, 128, 24, True, "cuda")
+    assert kernel_route_refusal(2, 128, 24, True, "cuda") is None
+    why = kernel_route_refusal(2, 96, 24, True, "cuda")
+    assert "width 96" in why and "32, 64, 128, 256, 512 and 1 to 64 samples" in why
     assert "no SDF" in kernel_route_refusal(2, 256, 24, False, "cuda")
 
 
