@@ -162,10 +162,22 @@ Phases, each fatal on failure:
      (c) two gloo ranks on cuda:0 on a mesh of data 1 x ray 2 each render
      2048 of a frame's 4096 rays through K1, gathered bit-equal to the
      one-process render; (d) Trainer(auto_remat=True) on train_r1024 at
-     batch 4: with the whole card its R1 probe does not switch; under a
-     per-process memory fraction below the plain R1 step's peak it
-     switches remat_d on and the rebuilt R1 step runs (peaks of both
-     forms printed).
+     batch 4: with the whole card its R1 probe does not switch; the R1
+     step peaks lower with remat_d (15c); under a per-process memory
+     fraction between the two peaks it switches remat_d on and the
+     rebuilt R1 step runs (peaks of both forms printed).
+ 15. the channel counts of decoders at channel multipliers 1 and 4, after
+     phase 14 but for (a), run right after phase 4: (a) K2 at y1 (64, 64,
+     512) with feat stored (the streamed-weight kernel) and (512, 512, 16)
+     rgb only, in its four modes against its plain version (K2_TOL, twice
+     bit-equal, device ms, plain ms, the bound term by term, ms / bound);
+     (b) preset_serving at multipliers 1 and 4: r1024 frames (1 K1 + 4 K2
+     a frame; against K2's plain version at phase 5's bounds, against the
+     plain kernels at 1.5x the plain path's own spread under another GEMM
+     order; ms a frame), an f32 trajectory at m = 1 through
+     render_trajectory(fused=True) and `rendering-time --opts` at m = 4
+     (its fps); (c) is 14d's gate: remat_d's R1 step peaks below the
+     plain one.
 Each path that launches kernels runs with the launch counts set to 0
 just before it and read just after. A kernel's "ms" is its device time a
 launch (torch.profiler), beside the time a call takes back to back (CUDA
@@ -299,8 +311,9 @@ def counted(name, want=None):
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """Every entry point with the plain versions of K1 and K2."""
+def plain_kernels(k1=True):
+    """Every entry point with the plain versions of K2 and, with `k1`, of
+    K1."""
     from cips3dpp_torch import serving
     from cips3dpp_torch.kernels import decoder_block as kdb
     from cips3dpp_torch.kernels import decoder_fused as kdf
@@ -315,7 +328,8 @@ def plain_kernels():
     def block_plain(y1, prepared, emit_feat=True, frames=1):
         return kdb.decoder_block_plain(y1, prepared, emit_feat, frames)
 
-    serving.siren_render_prepared = ksr.siren_render_prepared = siren_plain
+    if k1:
+        serving.siren_render_prepared = ksr.siren_render_prepared = siren_plain
     kdf.decoder_block_packed = block_plain
     try:
         yield
@@ -386,63 +400,69 @@ def make_model(cfg, dev, seed):
     return model, zs, noise
 
 
-def k2_phase(label, blocks, img_size, gen, dev):
-    """K2 in the variant of `blocks` (decoder_block_prepare outputs of the
-    four upsample blocks) against its plain version at each block shape,
-    with timings. The last block skips its feature store, as in a frame.
-    The bound is taken per shape (decoder_block_work: bytes against the
-    tensor and f32 operations) and summed."""
+def k2_case(label, bp, hp, last, gen, dev):
+    """K2 in the variant of `bp` (a decoder_block_prepare output) on a
+    random y1 (hp, hp, C) against its plain version: two launches
+    bit-equal, K2_TOL, timings, and the bound by decoder_block_work with
+    its byte and operation terms. `last`: the final block, which skips its
+    feature store, as in a frame."""
     from cips3dpp_torch.kernels import decoder_block as kdb
 
+    c, dt = bp["w2t"].shape[0], bp["dtype"]
+    hashed = "seeds" in bp
+    y1 = torch.randn((hp, hp, c), generator=gen).to(dev, dt)
+    got = kdb.decoder_block_packed(y1, prepared=bp, emit_feat=not last)
+    again = kdb.decoder_block_packed(y1, prepared=bp, emit_feat=not last)
+    want = kdb.decoder_block_plain(y1, bp, emit_feat=not last)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    again = again if isinstance(again, tuple) else (again,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, a, w in zip(got, again, want):
+        if not torch.isfinite(g.float()).all():
+            raise AssertionError(f"{label} C={c}: output not finite")
+        if not torch.equal(g, a):
+            raise AssertionError(f"{label} C={c}: two launches on the same inputs differ")
+        torch.testing.assert_close(g.float(), w.float(), **K2_TOL[dt])
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    # share of stored feature values that differ from the plain version's
+    flips = float((got[0] != want[0]).float().mean()) if not last else None
+    ms, call_ms = kernel_time(
+        lambda: kdb.decoder_block_packed(y1, prepared=bp, emit_feat=not last), "block_kernel")
+    plain_ms = cuda_time(lambda: kdb.decoder_block_plain(y1, bp, emit_feat=not last), iters=5)
+    work = kdb.decoder_block_work(hp, hp, c, dt, hashed, emit_feat=not last)
+    b_ms, b_by = bound(work["bytes"], work["bf16_flops"], work["f32_dot"], work["f32_apart"])
+    terms = {"bytes_ms": work["bytes"] / PEAK_BYTES * 1e3,
+             "f32_ms": (work["f32_dot"] / PEAK_F32 + work["f32_apart"] / PEAK_F32_APART) * 1e3,
+             "bf16_tensor_ms": work["bf16_flops"] / PEAK_BF16 * 1e3}
+    flip_txt = "feat skipped" if last else f"{100 * flips:.4f}% of feat values differ"
+    log(f"[{label}] y1 ({hp},{hp},{c}): max |kernel - plain| {err:.3e}, {flip_txt}, two "
+        f"launches bit-equal; {ms:.4f} ms kernel ({call_ms:.4f} a call), {plain_ms:.4f} ms "
+        f"plain, bound {b_ms:.4f} ms ({b_by}; bytes {terms['bytes_ms']:.4f} ms for "
+        f"{work['bytes'] / 1e6:.2f} MB, f32 {terms['f32_ms']:.4f} ms for "
+        f"{work['f32_apart'] / 1e6:.1f} M ops apart + {work['f32_dot'] / 1e6:.1f} M FMA "
+        f"flops, bf16 tensor {terms['bf16_tensor_ms']:.4f} ms); {ms / b_ms:.2f}x the bound")
+    return {"y1": [hp, hp, c], "feat": not last, "err": err, "feat_flip_share": flips,
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_terms_ms": terms, **work}
+
+
+def k2_phase(label, blocks, img_size, gen, dev):
+    """K2 in the variant of `blocks` (decoder_block_prepare outputs of the
+    four upsample blocks) against its plain version at each block shape
+    (k2_case), with timings. The last block skips its feature store, as
+    in a frame. The bound is taken per shape and summed."""
     res = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0, "bytes": 0.0,
            "flops": 0.0, "shapes": []}
     hp = img_size
     for i, bp in enumerate(blocks):
-        c, dt = bp["w2t"].shape[0], bp["dtype"]
-        last = i == len(blocks) - 1
-        hashed = "seeds" in bp
-        y1 = torch.randn((hp, hp, c), generator=gen).to(dev, dt)
-        got = kdb.decoder_block_packed(y1, prepared=bp, emit_feat=not last)
-        again = kdb.decoder_block_packed(y1, prepared=bp, emit_feat=not last)
-        want = kdb.decoder_block_plain(y1, bp, emit_feat=not last)
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        again = again if isinstance(again, tuple) else (again,)
-        want = want if isinstance(want, tuple) else (want,)
-        for g, a, w in zip(got, again, want):
-            if not torch.isfinite(g.float()).all():
-                raise AssertionError(f"{label} C={c}: output not finite")
-            if not torch.equal(g, a):
-                raise AssertionError(f"{label} C={c}: two launches on the same inputs differ")
-            torch.testing.assert_close(g.float(), w.float(), **K2_TOL[dt])
-        err = max(max_err(g, w) for g, w in zip(got, want))
-        # share of stored feature values that differ from the plain version's
-        flips = float((got[0] != want[0]).float().mean()) if not last else None
-        ms, call_ms = kernel_time(
-            lambda: kdb.decoder_block_packed(y1, prepared=bp, emit_feat=not last),
-            "block_kernel")
-        plain_ms = cuda_time(lambda: kdb.decoder_block_plain(y1, bp, emit_feat=not last),
-                             iters=5)
-        work = kdb.decoder_block_work(hp, hp, c, dt, hashed, emit_feat=not last)
-        b_ms, b_by = bound(work["bytes"], work["bf16_flops"], work["f32_dot"], work["f32_apart"])
-        terms = {"bytes_ms": work["bytes"] / PEAK_BYTES * 1e3,
-                 "f32_ms": (work["f32_dot"] / PEAK_F32 + work["f32_apart"] / PEAK_F32_APART) * 1e3,
-                 "bf16_tensor_ms": work["bf16_flops"] / PEAK_BF16 * 1e3}
-        flip_txt = "feat skipped" if last else f"{100 * flips:.4f}% of feat values differ"
-        log(f"[{label}] y1 ({hp},{hp},{c}): max |kernel - plain| {err:.3e}, {flip_txt}, two "
-            f"launches bit-equal; {ms:.4f} ms kernel ({call_ms:.4f} a call), {plain_ms:.4f} ms "
-            f"plain, bound {b_ms:.4f} ms ({b_by}; bytes {terms['bytes_ms']:.4f} ms for "
-            f"{work['bytes'] / 1e6:.2f} MB, f32 {terms['f32_ms']:.4f} ms for "
-            f"{work['f32_apart'] / 1e6:.1f} M ops apart + {work['f32_dot'] / 1e6:.1f} M FMA "
-            f"flops, bf16 tensor {terms['bf16_tensor_ms']:.4f} ms); {ms / b_ms:.2f}x the bound")
-        res["shapes"].append({"y1": [hp, hp, c], "feat": not last, "err": err,
-                              "feat_flip_share": flips, "ms": ms, "call_ms": call_ms,
-                              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                              "bound_terms_ms": terms, **work})
-        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                     ("bytes", work["bytes"]), ("flops", work["bf16_flops"])):
+        shape = k2_case(label, bp, hp, i == len(blocks) - 1, gen, dev)
+        res["shapes"].append(shape)
+        for k, v in (("ms", shape["ms"]), ("plain_ms", shape["plain_ms"]),
+                     ("bound_ms", shape["bound_ms"]), ("bytes", shape["bytes"]),
+                     ("flops", shape["bf16_flops"])):
             res[k] += v
-        res["err"] = max(res["err"], err)
+        res["err"] = max(res["err"], shape["err"])
         hp *= 2
     by = [s["bound_by"] for s in res["shapes"]]
     res["bound_by"] = max(set(by), key=lambda b: sum(
@@ -2910,14 +2930,12 @@ def geometry_phase(dev, smi, grid, cfg_path=os.path.join(ROOT, "configs", "ffhq.
 
 
 def auto_remat_case(dev, smi, cfg, add):
-    """Phase 14d: Trainer(auto_remat=True) on train_r1024 (batch 4, f32,
-    full width). With the whole card the R1 probe must not switch. The R1
-    step's peak with remat_d is then read on the same state. Where remat_d
-    lowers it, the per-process memory fraction is set between the two
-    peaks: the probe must switch, log it, and the rebuilt R1 step must run
-    there. Where it does not, no fraction lets the switch help; the phase
-    says so with both peaks and still holds the rule: under a fraction
-    whose limit is the plain peak, the probe must switch and log it. The
+    """Phase 14d, with 15c's gate: Trainer(auto_remat=True) on train_r1024
+    (batch 4, f32, full width). With the whole card the R1 probe must not
+    switch. The R1 step's peak with remat_d is then read on the same state
+    and must lie below the plain step's (15c: remat_d's R1 region). The
+    per-process memory fraction is then set between the two peaks: the
+    probe must switch, log it, and the rebuilt R1 step must run there. The
     fraction is 1 again after."""
     from cips3dpp_torch.io.config import generator_config_from_dict, train_config_from_dict
     from cips3dpp_torch.models.discriminator import DStyleGANProgressive
@@ -2964,9 +2982,16 @@ def auto_remat_case(dev, smi, cfg, add):
             f"; {smi}")
         del state
         torch.cuda.empty_cache()
-        helps = remat_peak is not None and remat_peak < plain_peak
-        # between the two peaks where remat_d helps, else at the plain peak
-        fraction_limit = (remat_peak + plain_peak) / 2 if helps else plain_peak
+        if remat_peak is None or not remat_peak < plain_peak:
+            raise AssertionError(f"15c remat_d does not lower the R1 step's peak: "
+                                 f"{remat_peak} B with it, {plain_peak} B without")
+        log(f"[geometry] 15c remat_d lowers the R1 D step's peak by "
+            f"{(plain_peak - remat_peak) / gib:.2f} GiB ({100 * remat_peak / plain_peak:.1f}% "
+            f"of the plain peak); {smi}")
+        # between the two peaks, three quarters of the way up: the rebuilt
+        # step's caching allocator reserves more than it allocates (2.2 GiB
+        # more once, at a limit halfway up)
+        fraction_limit = remat_peak + 0.75 * (plain_peak - remat_peak)
         total = torch.cuda.get_device_properties(dev).total_memory
         torch.cuda.set_per_process_memory_fraction(fraction_limit / total, dev)
         try:
@@ -2980,31 +3005,22 @@ def auto_remat_case(dev, smi, cfg, add):
                     and "auto_remat: d_step_r1" in said and "enabling remat_d" in said):
                 raise AssertionError(f"14d under a limit of {fraction_limit / gib:.2f} GiB: "
                                      f"probe {probe}, remat_d {tr.cfg.remat_d}, events {said!r}")
-            res.update(fraction_limit=fraction_limit, fraction_probe=probe, event=said.strip(),
-                       remat_helps=helps)
-            if helps:
-                gen = torch.Generator(device=dev).manual_seed(SEED + 94)
-                real = torch.rand((tcfg.batch, 1024, 1024, 3), generator=gen, device=dev) * 2 - 1
-                with counted("14d the rebuilt R1 step under the fraction",
-                             {"siren_render": tcfg.batch}) as got:
-                    metrics, ms, peak = _timed_call(
-                        lambda: tr.steps[0](state, real, gen, 0.5, True)[1])
-                add(got)
-                bad = {k: float(v) for k, v in metrics.items() if not torch.isfinite(v)}
-                if bad:
-                    raise AssertionError(f"14d the rebuilt R1 step: non-finite losses {bad}")
-                res.update(rebuilt_ms=ms, rebuilt_peak=peak)
-                log(f"[geometry] 14d under a limit of {fraction_limit / gib:.2f} GiB the probe "
-                    f"switches ({said.strip()}) and the rebuilt R1 step runs: {ms:.1f} ms, peak "
-                    f"{peak / gib:.2f} GiB, losses finite; {smi}")
-            else:
-                log(f"[geometry] 14d remat_d does not lower the R1 step's peak here "
-                    f"({'out of memory' if remat_peak is None else f'{remat_peak / gib:.2f} GiB'}"
-                    f" with it, {plain_peak / gib:.2f} GiB without): no memory fraction lets "
-                    f"the switch fit. Under a limit of {fraction_limit / gib:.2f} GiB (the "
-                    f"plain peak) the probe switches as the rule says: "
-                    f"{'out of memory' if probe['peak'] is None else probe['peak']}; "
-                    f"{said.strip()}; {smi}")
+            res.update(fraction_limit=fraction_limit, fraction_probe=probe, event=said.strip())
+            torch.cuda.empty_cache()
+            gen = torch.Generator(device=dev).manual_seed(SEED + 94)
+            real = torch.rand((tcfg.batch, 1024, 1024, 3), generator=gen, device=dev) * 2 - 1
+            with counted("14d the rebuilt R1 step under the fraction",
+                         {"siren_render": tcfg.batch}) as got:
+                metrics, ms, peak = _timed_call(
+                    lambda: tr.steps[0](state, real, gen, 0.5, True)[1])
+            add(got)
+            bad = {k: float(v) for k, v in metrics.items() if not torch.isfinite(v)}
+            if bad:
+                raise AssertionError(f"14d the rebuilt R1 step: non-finite losses {bad}")
+            res.update(rebuilt_ms=ms, rebuilt_peak=peak)
+            log(f"[geometry] 14d under a limit of {fraction_limit / gib:.2f} GiB the probe "
+                f"switches ({said.strip()}) and the rebuilt R1 step runs: {ms:.1f} ms, peak "
+                f"{peak / gib:.2f} GiB, losses finite; {smi}")
             del state, tr
         finally:
             torch.cuda.set_per_process_memory_fraction(1.0, dev)
@@ -3012,6 +3028,166 @@ def auto_remat_case(dev, smi, cfg, add):
     del g, d, d_render
     torch.cuda.empty_cache()
     res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def k2_channels_phase(dev, smi):
+    """Phase 15a, run right after phase 4's K2 (late in the script the
+    profiler drops device records of this kernel: 23 of 50 launches in
+    each of five tries): K2 at y1 (64, 64, 512) with feat stored (the
+    128^2 block of m = 4, the streamed-weight kernel) and (512, 512, 16)
+    rgb only (the 1024^2 block of m = 1) in its four modes against its
+    plain version (k2_case), on seeded random operands."""
+    from cips3dpp_torch.kernels import decoder_block as kdb
+
+    t0 = time.perf_counter()
+    res = {}
+    gen = torch.Generator().manual_seed(SEED + 150)
+    for c, hp, last in ((512, 64, False), (16, 512, True)):
+        for dt in kdb.STORAGE:
+            for hashed in (False, True):
+                rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
+                bp = kdb.decoder_block_prepare(
+                    rnd(2 * hp, 2 * hp, 1), rnd(2 * hp, 2 * hp, 1), rnd(c, c) / c**0.5,
+                    0.1 * rnd(c), 0.1 * rnd(c), 0.3, -0.2, rnd(c, 3) / c**0.5, dtype=dt,
+                    noise_seeds=(NOISE_SEED, NOISE_SEED + 1) if hashed else None)
+                res[f"{kdb.launch_name(bp)} C={c}"] = k2_case(
+                    f"15a {kdb.launch_name(bp)}", bp, hp, last, gen, dev)
+    log("[15a] ms / bound ms (ratio): " + "; ".join(
+        f"{k} {v['ms']:.4f} / {v['bound_ms']:.4f} ({v['ms'] / v['bound_ms']:.2f}x)"
+        for k, v in res.items()) + f"; {smi}")
+    return {"k2": res, "k2_s": time.perf_counter() - t0}
+
+
+def multipliers_phase(dev, smi, k2):
+    """Phase 15, after phase 14: K2 at the channel counts of decoders at
+    channel multipliers 1 and 4, and those models served. (a) K2 at those
+    channel counts against its plain version (`k2`: k2_channels_phase's
+    result, run right after phase 4); (b) preset_serving
+    with only the multiplier changed, m = 1 and 4, weights from a seed:
+    r1024 frames through prepare_trajectory / render_frame (1 K1 + 4 K2 a
+    frame, the blocks' C checked, against K2's plain version at phase 5's
+    bounds and against the plain kernels at the plain path's own spread,
+    the same camera bit-equal, ms a frame by CUDA events), an f32
+    trajectory (preset_r1024 at m = 1) through render_trajectory(fused=True)
+    against the plain kernels at phase 6's f32 bounds, and `rendering-time
+    --opts` at m = 4 through the command line, its fps printed."""
+    from cips3dpp_torch import serving
+    from cips3dpp_torch.apps import cli
+    from cips3dpp_torch.apps.sample import render_trajectory, yaw_trajectory
+    from cips3dpp_torch.models.generator import preset_r1024, preset_serving
+    from cips3dpp_torch.models.layers import channel_table
+
+    t_phase = time.perf_counter()
+    res = {"card": smi, **k2}
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # ---- b. the models at channel multipliers 1 and 4 ----
+    yaws = torch.linspace(-0.3, 0.3, 4, device=dev)
+    zero = torch.zeros(1, device=dev)
+    base = preset_serving()
+    for m in (1, 4):
+        cfg = dataclasses.replace(base, decoder=dataclasses.replace(
+            base.decoder, channel_multiplier=m))
+        model, zs, noise = make_model(cfg, dev, SEED + 150 + m)
+        with counted(f"15b preset_serving at channel multiplier {m}: prepare_trajectory + 4 "
+                     "render_frame", {"siren_render": 4, "decoder_block": 16}) as got:
+            prep = serving.prepare_trajectory(model, zs, noise_bufs=noise, device=dev)
+            frames = [serving.render_frame(model, prep, yaws[i:i + 1], zero, device=dev)["rgb"]
+                      for i in range(4)]
+        add(got)
+        chans = [b["bp"]["w2t"].shape[0] for b in prep["dec"]["blocks"] if "bp" in b]
+        table = [channel_table(m)[r] for r in cfg.decoder.upsample_list]
+        with plain_kernels(k1=False):
+            ref_k2 = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
+        with plain_kernels():
+            ref = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
+            # the plain path against itself under another GEMM order (F = 4)
+            ref4 = serving.render_frame(model, prep, yaws, yaws * 0, device=dev)["rgb"][:1]
+        again = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
+        g_k2, g, g_own = gap(frames[0], ref_k2), gap(frames[0], ref), gap(ref4, ref)
+        # K2's part at phase 5's bounds. The whole frame's mean gap is set
+        # by K1's bf16 flips through the bf16 decoder, which at m = 1 and 4
+        # (brighter frames) reaches phase 5's 1e-2, and is the size of the
+        # plain path's own spread under another GEMM order
+        # (cips3dpp_torch.tools.frame_gap_split): at most 1.5x that spread
+        if (chans != table or frames[0].shape != (1, cfg.out_size, cfg.out_size, 3)
+                or not all(torch.isfinite(f).all() for f in frames)
+                or not (g_k2[0] <= 0.5 and g_k2[1] <= 1e-2)
+                or not (g[0] <= 0.5 and g[1] <= 1.5 * g_own[1])
+                or not torch.equal(again, frames[0])):
+            raise AssertionError(f"15b m = {m}: block C {chans}, frame "
+                                 f"{tuple(frames[0].shape)}, max / mean |diff| to K2's plain "
+                                 f"version {g_k2} (bounds 0.5 / 1e-2), to the plain kernels {g} "
+                                 f"(bounds 0.5 / 1.5 x {g_own[1]:.3e}, the plain path's own), "
+                                 f"the same camera bit-equal {torch.equal(again, frames[0])}")
+        frame_ms = cuda_time(
+            lambda: serving.render_frame(model, prep, yaws[:1], zero, device=dev), iters=10)
+        log(f"[multipliers] 15b preset_serving at channel multiplier {m} (blocks at C {chans}): "
+            f"{frame_ms:.3f} ms a r1024 frame (CUDA events, 10 frames), 1 K1 + 4 K2 a frame; "
+            f"max / mean |diff| to K2's plain version {g_k2[0]:.3e} / {g_k2[1]:.3e} (bounds "
+            f"0.5 / 1e-2), to the plain kernels {g[0]:.3e} / {g[1]:.3e} (bounds 0.5 / "
+            f"{1.5 * g_own[1]:.3e}; the plain path against itself at F = 4 {g_own[0]:.3e} / "
+            f"{g_own[1]:.3e}); mean |rgb| {float(ref.abs().mean()):.3f}; {smi}")
+        res[f"serving_m{m}"] = {"frame_ms": frame_ms, "gap_k2": g_k2, "gap": g,
+                                "gap_plain_own": g_own, "channels": chans,
+                                "mean_abs_rgb": float(ref.abs().mean())}
+        del model, prep, frames, ref, ref_k2, ref4, again
+        torch.cuda.empty_cache()
+
+    cfg32 = preset_r1024()
+    cfg32 = dataclasses.replace(cfg32, decoder=dataclasses.replace(cfg32.decoder,
+                                                                   channel_multiplier=1))
+    model32, zs32, noise32 = make_model(cfg32, dev, SEED + 160)
+    cams = yaw_trajectory(2, cfg32.img_size, fov_ang=cfg32.fov_ang,
+                          dist_radius=cfg32.dist_radius, device=dev)
+    with counted("15b f32 trajectory at channel multiplier 1 (preset_r1024, 2 frames)",
+                 {"siren_render": 2, "decoder_block_f32": 8}) as got:
+        t0 = time.perf_counter()
+        out = render_trajectory(model32, zs32, cams, fused=True, noise_bufs=noise32)
+        torch.cuda.synchronize()
+        traj_s = time.perf_counter() - t0
+    add(got)
+    with plain_kernels():
+        ref = render_trajectory(model32, zs32, cams, fused=True, noise_bufs=noise32)
+    g = gap(out["rgb"], ref["rgb"])
+    if not (torch.isfinite(torch.from_numpy(out["rgb"])).all() and g[0] <= 0.1
+            and g[1] <= 1e-3):  # phase 6's f32 bounds
+        raise AssertionError(f"15b f32 trajectory at m = 1: max / mean |diff| to the plain "
+                             f"kernels {g} (bounds 0.1 / 1e-3)")
+    log(f"[multipliers] 15b f32 trajectory at channel multiplier 1: 2 r1024 frames in "
+        f"{traj_s:.3f} s (host clock, outputs copied to the host), max / mean |diff| to the "
+        f"plain kernels {g[0]:.3e} / {g[1]:.3e} (bounds 0.1 / 1e-3)")
+    res["trajectory_f32_m1"] = {"s": traj_s, "gap": g}
+    del model32, out, ref
+    torch.cuda.empty_cache()
+
+    n = 32
+    sweeps = cli.RENDER_REPS + 1
+    with counted(f"15b rendering-time --n-frames {n} at channel multiplier 4",
+                 {"siren_render": n * sweeps, "decoder_block": 4 * n * sweeps}) as got:
+        t0 = time.perf_counter()
+        rt = cli_json(["rendering-time", "--n-frames", str(n), "--opts",
+                       "G_cfg.decoder.channel_multiplier", "4", "G_cfg.renderer.dtype",
+                       "bfloat16", "G_cfg.decoder.dtype", "bfloat16"])
+        wall = time.perf_counter() - t0
+    add(got)
+    if rt["out_size"] != 1024 or not rt["value"] > 0:
+        raise AssertionError(f"15b rendering-time at m = 4: {rt}")
+    log(f"[multipliers] 15b rendering-time --opts G_cfg.decoder.channel_multiplier 4 (preset_"
+        f"serving's bf16), batch 1, {n} frames: {sweeps} sweeps of {n} K1 + {4 * n} K2 "
+        f"counted; best {rt['value']:.2f} fps ({rt['ms_per_frame']:.3f} ms a frame, mean "
+        f"{rt['mean_ms_per_frame']:.3f}), peak {rt['peak_bytes'] / 2**20:.1f} MiB, {wall:.2f} s "
+        f"with set-up; card {rt['card']}")
+    res["rendering_time_m4"] = rt
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[multipliers] phase 15: {res['phase_s']:.1f} s, and {res['k2_s']:.1f} s for 15a "
+        f"(after phase 4); launches on its paths {launches}")
     return res
 
 
@@ -3063,7 +3239,7 @@ def main() -> int:
             "bf16": (torch.bfloat16, False, False), "bf16-hash": (torch.bfloat16, True, False),
             "f32": (torch.float32, False, False), "f32-hash": (torch.float32, True, False),
             "K3": (torch.float32, False, True)}.items():
-        for c in kdb.KERNEL_CHANNELS:
+        for c in kdb.K3_CHANNELS if k3 else kdb.KERNEL_CHANNELS:
             info = kdb.decoder_block_info(c, dt, hashed, k3)
             report["decoder_block_info"][f"{mode} C={c}"] = info
             log(f"[build] block_kernel {mode} C={c}: {info['smem_bytes']} B shared, "
@@ -3157,6 +3333,8 @@ def main() -> int:
             f"{report['K2-hash']['shapes'][i]['ms']:.4f}; f32 buffers "
             f"{report['K2-f32']['shapes'][i]['ms']:.4f}, hash "
             f"{report['K2-hash-f32']['shapes'][i]['ms']:.4f}")
+    # ---- 15a. K2 at C = 512 and 16 (early: see k2_channels_phase) ----
+    k2_channels = k2_channels_phase(dev, smi)
     channels = [b["w2t"].shape[0] for b in variants["K2"]]
     report["K3"] = k3_phase(gen, dev, cfg.img_size, channels)
     report["P1"] = p1_phase(dev)
@@ -3298,6 +3476,11 @@ def main() -> int:
         report["geometry"] = geometry_phase(dev, smi, k1_grid)
     geometry = report["geometry"]["launches"]
 
+    # ---- 15. K2 at C = 16 and 512, the models at channel multipliers 1 and 4 ----
+    torch.cuda.empty_cache()
+    report["multipliers"] = multipliers_phase(dev, smi, k2_channels)
+    multipliers = report["multipliers"]["launches"]
+
     # ---- the kernels line ----
     t32, tbf = report["trajectory_f32"], report["trajectory_bf16"]
     # K1's launches: the serving path's, the training steps', the
@@ -3319,10 +3502,11 @@ def main() -> int:
           + variants["siren_render"] + geometry["siren_render"])
     entry("decoder_block", K2_SRC, K2_TPU, report["K2"],
           serving_launches["decoder_block"] + rest["decoder_block"]
-          + geometry["decoder_block"])
+          + geometry["decoder_block"] + multipliers["decoder_block"])
     entry("decoder_block_f32", K2_SRC, K2_TPU, report["K2-f32"],
           t32["launches_buffers"]["decoder_block_f32"] + loop["decoder_block_f32"]
-          + inversion["decoder_block_f32"] + variants["decoder_block_f32"])
+          + inversion["decoder_block_f32"] + variants["decoder_block_f32"]
+          + multipliers["decoder_block_f32"])
     entry("decoder_block_hash", K2_SRC, K2_TPU, report["K2-hash"],
           tbf["launches_seed"]["decoder_block_hash"])
     entry("decoder_block_hash_f32", K2_SRC, K2_TPU, report["K2-hash-f32"],
@@ -3341,7 +3525,8 @@ def main() -> int:
     log(f"[smoke] the whole script: {report['script_s']:.1f} s (phase 12: "
         f"{report['cli_rest']['phase_s']:.1f} s, phase 13: "
         f"{report['variants']['phase_s']:.1f} s, phase 14: "
-        f"{report['geometry']['phase_s']:.1f} s)")
+        f"{report['geometry']['phase_s']:.1f} s, phase 15: "
+        f"{report['multipliers']['phase_s']:.1f} s)")
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     name = torch.cuda.get_device_name(0)

@@ -3,9 +3,11 @@
 //   - decoder_block_forward (K2): replaces the Pallas TPU kernel
 //     cips3dpp_tpu/kernels/decoder_block.py:_packed_kernel, the serving block
 //     with bf16 or f32 storage, noise from buffers or hashed in the kernel,
-//     F frames stacked on rows and an optional ToRGB fold;
+//     F frames stacked on rows and an optional ToRGB fold, at C = 16, 32,
+//     64, 128, 256 (block_kernel) and 512 (block_kernel_wide);
 //   - decoder_block_fused_forward (K3): replaces _block_kernel (the v1 block,
-//     f32 in and out), which adds the ToRGB bias and the upsampled RGB skip;
+//     f32 in and out, C = 16 to 256), which adds the ToRGB bias and the
+//     upsampled RGB skip;
 //     the row halo the TPU kernel took from three host-side row-shifted
 //     copies is read from y1 and skip in the kernel;
 //   - decoder_block_info: shared memory, blocks an SM, registers, local
@@ -76,6 +78,11 @@
 //  - Built with -DDBLOCK_PHASE_CLOCKS, every warp also counts its clock
 //    cycles by phase of a tile (PHASE_MARK below); the plain build has no
 //    trace of it.
+//  - C = 16 to 256 take this template (block_kernel). At C = 16 a tile is
+//    one row x 128 input columns (512 output pixels) and conv_b is one
+//    k-step. C = 512 (the 128^2 block of a channel-multiplier-4 decoder)
+//    has a kernel of its own, block_kernel_wide below: its 512 KB weight
+//    cannot stay in shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -121,9 +128,13 @@ struct Geo {
   static constexpr int MT = TM / 16 / MW;                // m-tiles of 16 pixels a warp
   static constexpr int NT = C / NW / 8;                  // n-tiles of 8 columns a warp
   static constexpr int LD = C + 8;                       // bf16 row stride: weight, act
-  // staged y1 column stride: bf16 at C=32 is padded so that a half-warp's
-  // 8-byte reads of two column pairs fall in distinct banks
-  static constexpr int SLD = C + (C * sizeof(T) == 64 ? 16 : 0);
+  // staged y1 column stride. A half-warp's 8-byte reads (bf16) or a quarter-
+  // warp's 16-byte reads (f32) are 128 bytes: C / 4 threads a column, so
+  // 2 (a 64-byte column: bf16 C = 32, f32 C = 16) or 4 (a 32-byte column:
+  // bf16 C = 16) even columns at once. Padding the column to 96 or 48 bytes
+  // puts those columns' bytes in distinct banks.
+  static constexpr int SLD_PAD = C * sizeof(T) == 64 ? 32 : C * sizeof(T) == 32 ? 16 : 0;
+  static constexpr int SLD = C + SLD_PAD / int(sizeof(T));
   static constexpr int SCOLS = TW_IN + 2;                // staged columns, halo included
   static constexpr int FLD = C / NW + 8;                 // warp feat slice row stride
   static_assert((C / 4) * (TW_IN / 2) == NTHREADS, "one upsample item a thread");
@@ -281,6 +292,53 @@ __device__ __forceinline__ float skip_up(const float* skip, int hp, int wp, int 
                : __fadd_rn(__fmul_rn(0.25f, row(ix - 1)), __fmul_rn(0.75f, row(ix)));
 }
 
+// The upsample's row pass on a thread's 4 channels of one input column:
+// even output row .25*y[r-1] + .75*y[r], odd .75*y[r] + .25*y[r+1] (up, c,
+// dn: rows r-1, r, r+1), each rounded to the storage type T.
+template <typename T>
+__device__ __forceinline__ void row_pass(const float (&up)[4], const float (&c)[4],
+                                         const float (&dn)[4], float (&x)[2][4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float kc = __fmul_rn(0.75f, c[e]);
+    x[0][e] = blend(up[e], kc);
+    x[1][e] = blend(dn[e], kc);
+  }
+  round4<T>(x[0]);
+  round4<T>(x[1]);
+}
+
+// The column pass on a thread's row-passed input columns j0-1 .. j0+2
+// (x[k], k = 0..3), + noise1 + b1 + lrelu: output columns 2*j0 .. 2*j0+3
+// of both output rows, stored in bf16 to the activation tile `act` (row
+// p = par * TW + output column, row stride LD) at channels ch .. ch+3.
+// nz1: the tile's noise1 by output pixel; bb: b1 at those channels.
+template <int TW, int LD, typename NZ>
+__device__ __forceinline__ void column_pass(const float (&x)[4][2][4], const float (&bb)[4],
+                                            float nw1, const NZ* nz1, int j0, int ch,
+                                            __nv_bfloat16* act) {
+#pragma unroll
+  for (int par = 0; par < 2; ++par)
+#pragma unroll
+    for (int jc = 1; jc < 3; ++jc) {  // the centre input column
+      float kc[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) kc[e] = __fmul_rn(0.75f, x[jc][par][e]);
+#pragma unroll
+      for (int odd = 0; odd < 2; ++odd) {  // output column 2*(j0 + jc - 1) + odd
+        const int p = par * TW + 2 * (j0 + jc - 1) + odd;
+        const float(&xn)[4] = x[odd ? jc + 1 : jc - 1][par];
+        const float nzw = __fmul_rn(nw1, to_f(nz1[p]));
+        float h[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          h[e] = lrelu(__fadd_rn(__fadd_rn(blend(xn[e], kc[e]), nzw), bb[e]));
+        *reinterpret_cast<uint2*>(act + p * LD + ch) =
+            make_uint2(pack_bf16(h[0], h[1]), pack_bf16(h[2], h[3]));
+      }
+    }
+}
+
 #ifdef DBLOCK_PHASE_CLOCKS
 // Instrumented build only (python -m cips3dpp_torch.tools.decoder_block_phase_split):
 // every warp adds the SM clock cycles since its previous mark to that
@@ -399,39 +457,12 @@ __global__ void __launch_bounds__(NTHREADS, C == 256 ? 1 : 2) block_kernel(const
       load4(ys + k * SLD, up);
       load4(ys + (SCOLS + k) * SLD, c);
       load4(ys + (2 * SCOLS + k) * SLD, dn);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // even output row: .25*y[r-1] + .75*y[r]; odd: .75*y[r] + .25*y[r+1]
-        const float kc = __fmul_rn(0.75f, c[e]);
-        x[k][0][e] = blend(up[e], kc);
-        x[k][1][e] = blend(dn[e], kc);
-      }
-      round4<T>(x[k][0]);
-      round4<T>(x[k][1]);
+      row_pass<T>(up, c, dn, x[k]);
     }
     float bb[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) bb[e] = sm.b1[ch + e];
-#pragma unroll
-    for (int par = 0; par < 2; ++par)
-#pragma unroll
-      for (int jc = 1; jc < 3; ++jc) {  // staged column of the centre input
-        float kc[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) kc[e] = __fmul_rn(0.75f, x[jc][par][e]);
-#pragma unroll
-        for (int odd = 0; odd < 2; ++odd) {  // output column 2*(j0 + jc - 1) + odd
-          const int p = par * TW + 2 * (j0 + jc - 1) + odd;
-          const float(&xn)[4] = x[odd ? jc + 1 : jc - 1][par];
-          const float nzw = __fmul_rn(nw1, to_f(sm.nz[s][0][p]));
-          float h[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            h[e] = lrelu(__fadd_rn(__fadd_rn(blend(xn[e], kc[e]), nzw), bb[e]));
-          *reinterpret_cast<uint2*>(sm.act + p * LD + ch) =
-              make_uint2(pack_bf16(h[0], h[1]), pack_bf16(h[2], h[3]));
-        }
-      }
+    column_pass<TW, LD>(x, bb, nw1, sm.nz[s][0], j0, ch, sm.act);
   };
 
   // conv_b: the warp's (16 MT, 8 NT) block of act @ w2t^T.
@@ -648,13 +679,308 @@ __global__ void __launch_bounds__(NTHREADS, C == 256 ? 1 : 2) block_kernel(const
 #endif
 }
 
+// ---- C = 512: block_kernel_wide, the conv_b weight streamed ----
+//
+// At C = 512 conv_b's weight is 512 KB, over twice what a block's shared
+// memory holds, so it cannot stay resident as in block_kernel. Every byte
+// of it read from L2 has to serve as many pixels as shared memory allows:
+// a tile is one input row x 32 input columns (2 output rows x 64 columns,
+// 128 pixels; 128 tiles for the 64 x 64 input of the 128^2 block, one a
+// block on 132 SMs). Its bf16 activation tile (128 x 512, 130 KB) stays in
+// shared memory while conv_b walks four passes of 128 output columns, each
+// over eight k-chunks of 64 input channels; the weight's (128, 64) chunks
+// stream through a 4-slot cp.async ring, three chunks ahead, across tile
+// boundaries, so a tile reads the whole weight from L2 once: 64 MB of L2
+// reads for the 128^2 block, three times its ~21 MB of HBM bytes (the
+// price of a simple first design; a cluster sharing each chunk would cut
+// it). The upsample reads y1 straight from global memory
+// (L2: the 4 MB bf16 input is resident), no staging ring: shared memory is
+// the activation tile and the weight ring. Every rounding point, the
+// modes, the frames, the ragged last tile, the skipped feat store and the
+// folded ToRGB are block_kernel's; ToRGB sums a pixel's 512 channels in a
+// fixed order (pass by pass in a thread, then lanes by shuffles, then the
+// two column-group partials in order), so two launches give the same bits.
+struct Wide {
+  static constexpr int C = 512;
+  static constexpr int TW_IN = 32;                   // input columns a tile
+  static constexpr int TW = 2 * TW_IN;               // output columns a tile row
+  static constexpr int TM = 2 * TW;                  // output pixels a tile (128)
+  static constexpr int NB = 128;                     // conv_b output columns a pass
+  static constexpr int KC = 64;                      // input channels a weight chunk
+  static constexpr int NS = 4;                       // weight ring slots
+  static constexpr int KCH = C / KC;                 // chunks a pass
+  static constexpr int CHUNKS = (C / NB) * KCH;      // chunks a tile
+  static constexpr int NW = 2;                       // warps across a pass's columns
+  static constexpr int MW = 8 / NW;                  // warps across the pixels
+  static constexpr int MT = TM / 16 / MW;            // m-tiles of 16 pixels a warp (2)
+  static constexpr int NT = NB / NW / 8;             // n-tiles of 8 columns a warp (8)
+  static constexpr int LD = C + 8;                   // act row stride (bf16)
+  static constexpr int WLD = KC + 8;                 // weight chunk row stride (bf16)
+  static_assert(MT * 16 * MW == TM && NT % 2 == 0 && (C / 4) * 2 == NTHREADS, "warp layout");
+};
+
+struct __align__(16) WideSmem {
+  __nv_bfloat16 act[Wide::TM * Wide::LD];            // activation tile
+  __nv_bfloat16 w[Wide::NS][Wide::NB * Wide::WLD];   // ring: weight chunks (n, k)
+  float nz[2][Wide::TM];                             // the tile's noise1, noise2
+  float b1[Wide::C], b2[Wide::C];
+  float wrgb[3 * Wide::C];                           // (j, k)
+  float rgbp[Wide::NW * Wide::TM * 3];               // ToRGB partials of the column groups
+};
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <typename T, bool HASH>
+__global__ void __launch_bounds__(NTHREADS, 1) block_kernel_wide(const Params P) {
+  using W = Wide;
+  constexpr int C = W::C, TW_IN = W::TW_IN, TW = W::TW, TM = W::TM, MT = W::MT, NT = W::NT,
+                LD = W::LD, WLD = W::WLD, NS = W::NS;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  WideSmem& sm = *reinterpret_cast<WideSmem*>(smem_raw);
+  const T* __restrict__ y1 = static_cast<const T*>(P.y1);
+  const T* __restrict__ wrgbt = static_cast<const T*>(P.wrgbt);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mg = warp / W::NW, nq = warp % W::NW;  // pixel group, column group
+  const int hp = P.hp, wp = P.wp, wo = 2 * wp;
+  const int segs = (wp + TW_IN - 1) / TW_IN;
+  const int n_tiles = P.frames * hp * segs;
+  const int my_chunks = (n_tiles - 1 - int(blockIdx.x)) / int(gridDim.x) * W::CHUNKS + W::CHUNKS;
+  const float nw1 = P.nw[0], nw2 = P.nw[1];
+  const bool emit_rgb = P.rgb != nullptr;
+  T* feat = static_cast<T*>(P.feat);
+
+  // chunk q of the block's sequence (W::CHUNKS a tile: pass q / KCH, k-chunk
+  // q % KCH of a tile) into ring slot q % NS; past the block's last tile the
+  // copy group stays empty
+  auto load_chunk = [&](int q) {
+    if (q >= my_chunks) return;
+    const int cq = q % W::CHUNKS, n0 = cq / W::KCH * W::NB, k0 = cq % W::KCH * W::KC;
+    __nv_bfloat16* dst = sm.w[q % NS];
+    for (int i = tid; i < W::NB * (W::KC / 8); i += NTHREADS) {
+      const int n = i / (W::KC / 8), u = i % (W::KC / 8);
+      cp_async16(dst + n * WLD + u * 8, P.w2t + size_t(n0 + n) * C + k0 + u * 8);
+    }
+  };
+  for (int q = 0; q < NS - 1; ++q) {
+    load_chunk(q);
+    cp_async_commit();
+  }
+  for (int i = tid; i < C; i += NTHREADS) {
+    sm.b1[i] = P.b1[i];
+    sm.b2[i] = P.b2[i];
+  }
+  if (wrgbt != nullptr)
+    for (int i = tid; i < 3 * C; i += NTHREADS) sm.wrgb[i] = to_f(wrgbt[i]);
+
+  // ldmatrix rows: A pixel (lane & 15) at k + (lane >> 4) * 8; B output
+  // column (lane & 7) + (lane >> 4) * 8 at k + ((lane >> 3) & 1) * 8
+  const uint32_t a_addr = smem_u32(sm.act + (mg * MT * 16 + (lane & 15)) * LD + (lane >> 4) * 8);
+  const int b_off = (nq * NT * 8 + (lane & 7) + (lane >> 4) * 8) * WLD + ((lane >> 3) & 1) * 8;
+
+  int q = 0;  // the next chunk to multiply
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int r = tile / segs, rf = r % hp, c0 = (tile % segs) * TW_IN;
+    const size_t out0 = size_t(2 * r) * wo + 2 * c0;  // the tile's first output pixel
+
+    // the tile's noise in f32 (buffer values are exact in f32), 0 past the row's end
+    for (int i = tid; i < 2 * TM; i += NTHREADS) {
+      const int m = i / TM, p = i % TM;
+      const int orow = 2 * rf + p / TW, ocol = 2 * c0 + p % TW;
+      if constexpr (HASH) {
+        sm.nz[m][p] = hash_normal(uint32_t(orow) * uint32_t(wo) + uint32_t(ocol),
+                                  m ? P.seed2 : P.seed1);
+      } else {
+        const T* nb = static_cast<const T*>(m ? P.n2 : P.n1);
+        sm.nz[m][p] = ocol < wo ? to_f(nb[size_t(orow) * wo + ocol]) : 0.f;
+      }
+    }
+    __syncthreads();  // noise staged; every warp is done with the last tile
+
+    // Upsample + noise1 + b1 + lrelu -> the bf16 activation tile, as
+    // block_kernel's: a thread takes channels ch .. ch+3 of input columns
+    // j0, j0+1 (their neighbours j0-1 .. j0+2 read, zero outside the frame).
+    {
+      const int ch = 4 * (tid % (C / 4));
+      float bb[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) bb[e] = sm.b1[ch + e];
+      const T* frame = y1 + size_t(r - rf) * wp * C + ch;  // the frame's first row
+      for (int j0 = 2 * (tid / (C / 4)); j0 < TW_IN; j0 += 2 * (NTHREADS / (C / 4))) {
+        float x[4][2][4];  // row-upsampled columns, even and odd output row
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int ic = c0 - 1 + j0 + k;
+          float v[3][4];
+#pragma unroll
+          for (int row = 0; row < 3; ++row) {
+            const int ir = rf - 1 + row;
+            if (ir >= 0 && ir < hp && ic >= 0 && ic < wp) {
+              load4(frame + (size_t(ir) * wp + ic) * C, v[row]);
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) v[row][e] = 0.f;
+            }
+          }
+          row_pass<T>(v[0], v[1], v[2], x[k]);
+        }
+        column_pass<TW, LD>(x, bb, nw1, sm.nz[0], j0, ch, sm.act);
+      }
+    }
+    __syncthreads();  // the activation tile is complete
+
+    bool inside[MT];  // an m-tile lies in one output row, inside or past its end
+    size_t px0[MT];   // its first output pixel
+    float z[MT][2];   // nw2 * noise2 of rows g, g + 8
+    float srgb[MT][2][3];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int pm = (mg * MT + i) * 16;
+      inside[i] = 2 * c0 + pm % TW < wo;
+      px0[i] = out0 + size_t(pm / TW) * wo + pm % TW;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        z[i][rr] = __fmul_rn(nw2, sm.nz[1][pm + g + 8 * rr]);
+#pragma unroll
+        for (int jj = 0; jj < 3; ++jj) srgb[i][rr][jj] = 0.f;
+      }
+    }
+
+    for (int pass = 0; pass < C / W::NB; ++pass) {
+      float acc[MT][NT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][jn][e] = 0.f;
+      for (int kc = 0; kc < W::KCH; ++kc, ++q) {
+        cp_async_wait<NS - 2>();
+        __syncthreads();  // chunk q landed; every warp is done with slot (q - 1) % NS
+        load_chunk(q + NS - 1);
+        cp_async_commit();
+        const uint32_t b_addr = smem_u32(sm.w[q % NS] + b_off);
+#pragma unroll
+        for (int k = 0; k < W::KC; k += 16) {
+          uint32_t a[MT][4];
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+            ldmatrix_x4(a[i], a_addr + 2 * (i * 16 * LD + kc * W::KC + k));
+#pragma unroll
+          for (int jp = 0; jp < NT / 2; ++jp) {
+            uint32_t b[4];  // b0, b1 of n-tile 2jp, then of 2jp + 1
+            ldmatrix_x4(b, b_addr + 2 * (jp * 16 * WLD + k));
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+              mma_bf16(acc[i][2 * jp], a[i], b[0], b[1]);
+              mma_bf16(acc[i][2 * jp + 1], a[i], b[2], b[3]);
+            }
+          }
+        }
+      }
+
+      // the pass's epilogue: noise2 + b2 + lrelu (rounded to bf16 where the
+      // storage is bf16), feat stores, ToRGB partial sums
+      const int col0 = pass * W::NB + nq * NT * 8;  // the warp's first output column
+#pragma unroll
+      for (int jp = 0; jp < NT / 2; ++jp) {
+        float v[MT][2][2][2];  // [m-tile][n-tile of the pair][row g, g + 8][column 2t, 2t + 1]
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int jn = 2 * jp + h, ch = col0 + jn * 8 + 2 * t;
+          const float2 bb = *reinterpret_cast<const float2*>(sm.b2 + ch);
+          float2 w[3];
+#pragma unroll
+          for (int jj = 0; jj < 3; ++jj) w[jj] = *reinterpret_cast<const float2*>(sm.wrgb + jj * C + ch);
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              float v0 = lrelu(__fadd_rn(__fadd_rn(acc[i][jn][2 * rr], z[i][rr]), bb.x));
+              float v1 = lrelu(__fadd_rn(__fadd_rn(acc[i][jn][2 * rr + 1], z[i][rr]), bb.y));
+              if constexpr (!F32) {
+                const float2 f = unpack_bf16(pack_bf16(v0, v1));
+                v0 = f.x, v1 = f.y;
+              }
+              v[i][h][rr][0] = v0, v[i][h][rr][1] = v1;
+              if (emit_rgb)
+#pragma unroll
+                for (int jj = 0; jj < 3; ++jj)
+                  srgb[i][rr][jj] = __fmaf_rn(v1, w[jj].y, __fmaf_rn(v0, w[jj].x, srgb[i][rr][jj]));
+            }
+        }
+        // one exchange between lanes t, t^1 gives each 4 adjacent channels:
+        // even lanes those of n-tile 2jp, odd lanes those of 2jp + 1
+        if (feat != nullptr) {
+          const bool odd = t & 1;
+          const int ch = col0 + (2 * jp + odd) * 8 + 2 * (t & 2);
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const float s0 = odd ? v[i][0][rr][0] : v[i][1][rr][0];
+              const float s1 = odd ? v[i][0][rr][1] : v[i][1][rr][1];
+              const float r0 = __shfl_xor_sync(FULL, s0, 1), r1 = __shfl_xor_sync(FULL, s1, 1);
+              const float4 o = odd ? make_float4(r0, r1, v[i][1][rr][0], v[i][1][rr][1])
+                                   : make_float4(v[i][0][rr][0], v[i][0][rr][1], r0, r1);
+              if (!inside[i]) continue;
+              T* dst = feat + (px0[i] + g + 8 * rr) * C + ch;
+              if constexpr (F32)
+                *reinterpret_cast<float4*>(dst) = o;
+              else  // the values are bf16 already: packing is exact
+                *reinterpret_cast<uint2*>(dst) =
+                    make_uint2(pack_bf16(o.x, o.y), pack_bf16(o.z, o.w));
+            }
+        }
+      }
+    }
+
+    // ToRGB: a thread's sums over its lanes' channels, then the two column
+    // groups' partials in order, as float4 runs over the tile's output rows
+    if (emit_rgb) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+          for (int jj = 0; jj < 3; ++jj) {
+            srgb[i][rr][jj] += __shfl_xor_sync(FULL, srgb[i][rr][jj], 1);
+            srgb[i][rr][jj] += __shfl_xor_sync(FULL, srgb[i][rr][jj], 2);
+          }
+      if (t == 0)
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+            for (int jj = 0; jj < 3; ++jj)
+              sm.rgbp[(nq * TM + (mg * MT + i) * 16 + g + 8 * rr) * 3 + jj] = srgb[i][rr][jj];
+    }
+    __syncthreads();  // the partials are complete
+    if (emit_rgb)
+      for (int u = tid; u < TM * 3 / 4; u += NTHREADS) {
+        const int f = 4 * u, par = f / (3 * TW), fr = f % (3 * TW);
+        if (2 * c0 + fr / 3 >= wo) continue;  // past the row's end (32-pixel aligned)
+        const float4 a = *reinterpret_cast<const float4*>(sm.rgbp + f);
+        const float4 b = *reinterpret_cast<const float4*>(sm.rgbp + TM * 3 + f);
+        *reinterpret_cast<float4*>(P.rgb + (out0 + size_t(par) * wo) * 3 + fr) =
+            make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                        __fadd_rn(a.w, b.w));
+      }
+  }
+  cp_async_wait_all();
+}
+
 // Launches the instantiation, or with `info` (6 ints) fills in its shared
 // memory bytes, blocks an SM, registers a thread, local (spill) bytes a
 // thread, input columns a tile and output pixels a tile, and launches nothing.
-template <int C, typename T, bool HASH, bool RGB_BF16>
-int launch(const Params& P, cudaStream_t stream, int* info) {
-  auto kernel = block_kernel<C, T, HASH, RGB_BF16>;
-  const int smem = int(sizeof(Smem<C, T, HASH>));
+template <typename K>
+int launch_kernel(K kernel, int smem, int tw_in, int tm, const Params& P, cudaStream_t stream,
+                  int* info) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
@@ -668,12 +994,10 @@ int launch(const Params& P, cudaStream_t stream, int* info) {
   if (info != nullptr) {
     cudaFuncAttributes attr;
     if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return int(err);
-    const int vals[6] = {smem, per_sm, attr.numRegs, int(attr.localSizeBytes),
-                         Geo<C, T>::TW_IN, Geo<C, T>::TM};
+    const int vals[6] = {smem, per_sm, attr.numRegs, int(attr.localSizeBytes), tw_in, tm};
     for (int i = 0; i < 6; ++i) info[i] = vals[i];
     return 0;
   }
-  const int tw_in = Geo<C, T>::TW_IN;
   const int n_tiles = P.frames * P.hp * ((P.wp + tw_in - 1) / tw_in);
   int blocks = sms * (per_sm > 0 ? per_sm : 1);
   if (blocks > n_tiles) blocks = n_tiles;
@@ -681,15 +1005,31 @@ int launch(const Params& P, cudaStream_t stream, int* info) {
   return int(cudaGetLastError());
 }
 
+template <int C, typename T, bool HASH, bool RGB_BF16>
+int launch(const Params& P, cudaStream_t stream, int* info) {
+  return launch_kernel(block_kernel<C, T, HASH, RGB_BF16>, int(sizeof(Smem<C, T, HASH>)),
+                       Geo<C, T>::TW_IN, Geo<C, T>::TM, P, stream, info);
+}
+
+template <typename T, bool HASH>
+int launch_wide(const Params& P, cudaStream_t stream, int* info) {
+  return launch_kernel(block_kernel_wide<T, HASH>, int(sizeof(WideSmem)), Wide::TW_IN,
+                       Wide::TM, P, stream, info);
+}
+
 template <typename T, bool HASH, bool RGB_BF16>
 int launch_c(int c, const Params& P, cudaStream_t s, int* info = nullptr) {
   if (info == nullptr && (P.wp % 16 != 0 || P.frames < 1 || P.hp < 1))
     return int(cudaErrorInvalidValue);
   switch (c) {
+    case 16: return launch<16, T, HASH, RGB_BF16>(P, s, info);
     case 32: return launch<32, T, HASH, RGB_BF16>(P, s, info);
     case 64: return launch<64, T, HASH, RGB_BF16>(P, s, info);
     case 128: return launch<128, T, HASH, RGB_BF16>(P, s, info);
     case 256: return launch<256, T, HASH, RGB_BF16>(P, s, info);
+    case 512:  // K2 only: K3 takes C <= 256
+      if constexpr (RGB_BF16) return int(cudaErrorInvalidValue);
+      else return launch_wide<T, HASH>(P, s, info);
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -10,11 +10,14 @@ One decoder block at resolution r, after conv_a's matmul at r/2 (y1):
 
 `decoder_block_packed` (K2, the serving block) launches the CUDA kernel
 `csrc/decoder_block.cu` for tensors on the card and runs
-`decoder_block_plain` for tensors on the CPU. The storage dtype `dtype`
-(bf16 or f32) fixes the rounding points, as the serving path of the JAX
-package has them: y1 and the noise buffers are stored in it, the
-row-upsampled values are rounded to it before the column blend, feat is
-stored in it, and ToRGB multiplies the stored feat by wrgb rounded to it.
+`decoder_block_plain` for tensors on the CPU. K2 takes C in
+KERNEL_CHANNELS: at 16-256 conv_b's weight stays in shared memory, at 512
+it is streamed (`block_kernel_wide`); K3 takes C up to 256. The storage
+dtype `dtype` (bf16 or f32) fixes the rounding points, as the serving
+path of the JAX package has them: y1 and the noise buffers are stored in
+it, the row-upsampled values are rounded to it before the column blend,
+feat is stored in it, and ToRGB multiplies the stored feat by wrgb
+rounded to it.
 The upsample, noise, bias and activation arithmetic is f32.
 
 Noise comes from two buffers or, with `noise_seeds`, from the hash
@@ -42,7 +45,11 @@ from .siren_render import fast_sin
 # normalized [1,3,3,1]/8 * 2 gain (per-axis sqrt of the 4x 2-D gain)
 K4 = (0.25, 0.75, 0.75, 0.25)
 SQRT2 = 1.4142135623730951
-KERNEL_CHANNELS = (32, 64, 128, 256)
+# K2 takes every C of the decoder's channel table at channel multipliers
+# 1, 2 and 4 (16 at the 1024^2 block of m = 1, 512 at the 128^2 block of
+# m = 4; tests/test_torch_port_decoder_block.py), K3 every C up to 256
+KERNEL_CHANNELS = (16, 32, 64, 128, 256, 512)
+K3_CHANNELS = (16, 32, 64, 128, 256)
 STORAGE = (torch.bfloat16, torch.float32)
 _M32 = 0xFFFFFFFF
 # f32 operations of one hash_normal value: two avalanche hashes (2 x 7
@@ -204,10 +211,10 @@ def decoder_block_plain(y1, prepared, emit_feat=True, frames=1):
     return tuple(res) if len(res) > 1 else res[0]
 
 
-def _check_block_shape(what, rows, wp, c, frames):
-    if c not in KERNEL_CHANNELS or wp % 16 or rows % frames:
+def _check_block_shape(what, rows, wp, c, frames, channels=KERNEL_CHANNELS):
+    if c not in channels or wp % 16 or rows % frames:
         raise ValueError(f"{what} kernel: unsupported y1 {(rows, wp, c)} for "
-                         f"{frames} frames (C in {KERNEL_CHANNELS}, Wp % 16 == 0)")
+                         f"{frames} frames (C in {channels}, Wp % 16 == 0)")
 
 
 def _check_aligned(**tensors):
@@ -221,7 +228,10 @@ def decoder_block_info(c, dtype=torch.bfloat16, hashed=False, k3=False):
     """Resources of one instantiation of the kernel on the current card:
     shared memory a block (bytes), blocks an SM, registers a thread, local
     (spill) bytes a thread, input columns and output pixels of a tile. K3
-    (`k3=True`) is the f32 instantiation with the bias and skip epilogue."""
+    (`k3=True`) is the f32 instantiation with the bias and skip epilogue.
+    C = 512 is K2's streamed-weight kernel (block_kernel_wide)."""
+    if c not in (K3_CHANNELS if k3 else KERNEL_CHANNELS):
+        raise ValueError(f"decoder_block_info: no {'K3' if k3 else 'K2'} kernel at C = {c}")
     info = (ctypes.c_int * 6)()
     lib = _lib.load("decoder_block")
     fn = lib.decoder_block_info
@@ -346,7 +356,7 @@ def _launch_fused(y1, skip, noise1, noise2, w2, wrgb, b1, b2, brgb, noise_w1,
                   noise_w2):
     dev = y1.device
     hp, wp, c = y1.shape
-    _check_block_shape("decoder_block_fused", hp, wp, c, 1)
+    _check_block_shape("decoder_block_fused", hp, wp, c, 1, K3_CHANNELS)
     f32, bf16 = torch.float32, torch.bfloat16
     ops = {
         "y1": y1.float().contiguous(),

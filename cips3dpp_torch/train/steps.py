@@ -26,10 +26,11 @@ torch.autograd.grad with respect to the updated module only, so no
 The image D's options of the JAX steps (cips3dpp_tpu/train/steps.py:
 144-400): `d_dtype` (its input cast at entry, its logit back to f32, in
 the D and G steps), `remat_d` (torch.utils.checkpoint around each image-D
-apply), `d_r1_chunk` (lazy R1 over real-batch chunks, the mean of the
-chunk means), `d_seq` (the fake and real passes one after the other, their
-gradients summed) and `d_cat` (one batch-2n pass with a per-half
-minibatch stddev and a sign-split loss). With `d_seq` or `d_cat`, R1 runs
+apply; under lazy R1 the logit and its input gradient as one recomputed
+region, `_RematR1`), `d_r1_chunk` (lazy R1 over real-batch chunks, the
+mean of the chunk means), `d_seq` (the fake and real passes one after the
+other, their gradients summed) and `d_cat` (one batch-2n pass with a
+per-half minibatch stddev and a sign-split loss). With `d_seq` or `d_cat`, R1 runs
 as one chunk of the whole batch after the GAN passes, as in JAX. With
 diffaug, `d_cat` augments each half with the fake and real passes' draws
 and the chunks take their rows of the R1 pass's draws.
@@ -183,6 +184,42 @@ def _add(grads, more):
     return [b if a is None else a if b is None else a + b for a, b in zip(grads, more)]
 
 
+def _logit_and_r1(fn, x):
+    """The image D's logit fn(x) and its R1 penalty on x."""
+    x = x.detach().requires_grad_(True)
+    pred = fn(x)
+    return pred, r1_penalty(pred, x)
+
+
+class _RematR1(torch.autograd.Function):
+    """`_logit_and_r1` under remat_d: nothing of the D's forward or of the
+    input gradient's graph outlives the forward; the backward recomputes
+    both and differentiates through them (R1's double backward), so one
+    such graph is alive at a time. A checkpoint of the logit alone does not
+    do that under R1: the input gradient, taken with create_graph, keeps
+    the checkpoint's recomputation alive until the parameters' backward,
+    which recomputes the logit once more for its own path."""
+
+    @staticmethod
+    def forward(ctx, fn, x, *params):
+        ctx.fn, ctx.params = fn, params
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x)
+        with torch.enable_grad():
+            pred, penalty = _logit_and_r1(fn, x)
+        return pred.detach(), penalty.detach()
+
+    @staticmethod
+    def backward(ctx, d_pred, d_penalty):
+        (x,) = ctx.saved_tensors
+        with torch.enable_grad():
+            outs = [(o, d) for o, d in zip(_logit_and_r1(ctx.fn, x), (d_pred, d_penalty))
+                    if d is not None]
+            grads = torch.autograd.grad([o for o, _ in outs], ctx.params,
+                                        [d for _, d in outs], allow_unused=True)
+        return (None, None, *grads)
+
+
 def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
     """(d_step, g_step, path_reg_step, sphere_init_step) for a generator of
     `gen_cfg` trained under `cfg`, data-parallel over `mesh` if given."""
@@ -248,6 +285,14 @@ def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
         mesh its minibatch stddev gathers over."""
         return remat(lambda v: d(v.to(d_dt), alpha, aug=aug, mesh=on).float(), x)
 
+    def image_d_r1(d, x, alpha, aug=None, on=mesh):
+        """(image_d's logit, its R1 penalty) on x; with remat_d as one
+        recomputed region (_RematR1)."""
+        fn = lambda v: d(v.to(d_dt), alpha, aug=aug, mesh=on).float()
+        if cfg.remat_d and torch.is_grad_enabled():
+            return _RematR1.apply(fn, x.detach(), *d.parameters())
+        return _logit_and_r1(fn, x)
+
     def r1_chunks(d, real, aug, alpha, chunk):
         """Lazy R1 of the image D over chunks of `chunk` rows of the global
         batch, the mean of the chunk means, each chunk's minibatch stddev
@@ -277,8 +322,7 @@ def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
             scale, on = world / nc, None
         value, grads = torch.zeros((), device=real.device), [None] * len(pd)
         for x, a in parts:
-            x = x.detach().requires_grad_(True)
-            v = coef * scale * r1_penalty(image_d(d, x, alpha, a, on=on), x)
+            v = coef * scale * image_d_r1(d, x, alpha, a, on=on)[1]
             grads = _add(grads, torch.autograd.grad(v, pd, allow_unused=True))
             value = value + v.detach()
         return value, grads
@@ -318,15 +362,18 @@ def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
         if not gen_cfg.enable_decoder:  # StyleSDF stage 1: no image D
             fake_pred = real_pred = torch.zeros((1, 1), device=zero.device)
         elif not (d_cat or d_seq):
-            real = real_imgs.detach().requires_grad_(d_regularize and chunk is None)
             fake_pred = image_d(state.d, fake_rgb, alpha, aug.get("fake"))
-            real_pred = image_d(state.d, real, alpha, aug.get("real"))
+            r1 = None
+            if d_regularize and chunk is None and not aug:
+                # the penalty's pass is the real pass itself
+                real_pred, r1 = image_d_r1(state.d, real_imgs, alpha)
+            else:
+                real_pred = image_d(state.d, real_imgs.detach(), alpha, aug.get("real"))
+                if d_regularize and chunk is None:  # its own augmentation
+                    r1 = image_d_r1(state.d, real_imgs, alpha, aug["r1"])[1]
             d_gan = d_logistic_loss(real_pred, fake_pred)
-            if d_regularize and chunk is None:
-                # with diffaug the penalty sees its own augmentation; without,
-                # its pass is the real pass itself (the same function)
-                r1_pred = image_d(state.d, real, alpha, aug["r1"]) if aug else real_pred
-                r1_d = cfg.lambda_gp * 0.5 * cfg.d_reg_every * r1_penalty(r1_pred, real)
+            if r1 is not None:
+                r1_d = cfg.lambda_gp * 0.5 * cfg.d_reg_every * r1
         total = d_gan_r + r1_r + pose + d_gan + r1_d
 
         pd, pr = list(state.d.parameters()), list(state.d_render.parameters())

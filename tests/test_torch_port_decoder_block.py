@@ -1,8 +1,11 @@
 """K2, the decoder upsample block: the port's plain version (what the CUDA
 kernel computes, run on the CPU) against the packed Pallas kernel in
-interpret mode and against its jnp oracle, for C in {32, 128}: with ToRGB
-folded in, with the feature store skipped, and with two frames stacked on
-rows (the upsample halo must stop at each frame's edge).
+interpret mode and against its jnp oracle, for C in {16, 32, 128, 512}
+(the kernel's smallest and largest, 512 its streamed-weight form): with
+ToRGB folded in, with the feature store skipped, and with two frames
+stacked on rows (the upsample halo must stop at each frame's edge). Then
+the decoder's channel table at channel multipliers 1, 2 and 4 against
+the channel counts the kernel takes and JAX's packed-block assertion.
 
 Why not exact: conv_b multiplies bf16-rounded activations and sums in f32
 in another order than the Pallas kernel; an activation that lands next to
@@ -55,7 +58,7 @@ def _pallas(x, dt, **kw):
     )
 
 
-@pytest.mark.parametrize("c", [32, 128])
+@pytest.mark.parametrize("c", [16, 32, 128, 512])
 def test_plain_matches_pallas_bf16_rgb_fold(c):
     """The serving configuration: bf16 storage, ToRGB folded in; then the
     final-block mode (feature store skipped) and two stacked frames."""
@@ -89,7 +92,7 @@ def test_plain_matches_pallas_bf16_rgb_fold(c):
                                    rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("c", [32, 128])
+@pytest.mark.parametrize("c", [16, 32, 128, 512])
 def test_plain_matches_pallas_and_oracle_f32(c):
     """f32 storage (the f32 decoder config): only conv_b rounds to bf16."""
     from cips3dpp_tpu.kernels.decoder_block import decoder_block_packed_reference as jref
@@ -131,3 +134,21 @@ def test_v1_block_plain_matches_pallas_and_oracle():
     for want in (jfused(*args, *jn, t_rows=8, interpret=True), jref(*args, *jn)):
         np.testing.assert_allclose(a(feat), a(want[0]), rtol=0, atol=2e-3)
         np.testing.assert_allclose(a(rgb), a(want[1]), rtol=0, atol=2e-3)
+
+
+@pytest.mark.parametrize("m", [1, 2, 4])
+def test_channel_table_blocks_lie_in_the_kernel(m):
+    """Every upsample block of a decoder at channel multiplier m (128^2 to
+    1024^2) has a C that K2 takes and that JAX's packed block admits
+    (cips3dpp_tpu/kernels/decoder_block.py: (c * p) % 128 == 0 or c >= 128
+    with p = max(1, 128 // c)), from both packages' channel tables."""
+    from cips3dpp_tpu.models.layers import channel_table as jax_table
+    from cips3dpp_torch.kernels.decoder_block import KERNEL_CHANNELS
+    from cips3dpp_torch.models.layers import channel_table
+
+    assert channel_table(m) == jax_table(m)
+    got = [channel_table(m)[r] for r in (128, 256, 512, 1024)]
+    assert got == {1: [128, 64, 32, 16], 2: [256, 128, 64, 32], 4: [512, 256, 128, 64]}[m]
+    for c in got:
+        p = max(1, 128 // c)
+        assert c in KERNEL_CHANNELS and ((c * p) % 128 == 0 or c >= 128)

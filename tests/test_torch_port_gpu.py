@@ -125,9 +125,10 @@ def test_siren_phase_split_counts_every_phase(dev):
 # config's mode, and hash noise made in the kernel in either storage
 MODES = [("bf16", "buffers"), ("f32", "buffers"), ("bf16", "hash"), ("f32", "hash")]
 # y1 (F*Hp, Wp) by name: the first two as before; Wp = 48 is ragged against
-# the tile width at C = 32 and 64 (64 and 32 input columns) with F = 3;
-# Hp = 1 puts every row at a frame edge; "large" gives every persistent
-# block several tiles, so the staging ring wraps
+# the tile width at C = 16, 32, 64 and 512 (128, 64, 32 and 32 input
+# columns) with F = 3; Hp = 1 puts every row at a frame edge; "large" gives
+# every persistent block several tiles, so the staging ring (and at C =
+# 512 the weight ring, across tiles) wraps
 SHAPES = {"16x32": (16, 32, 1), "16x32-f2": (16, 32, 2), "ragged-f3": (8, 48, 3),
           "hp1-f2": (1, 32, 2), "large-f2": None}
 
@@ -139,7 +140,7 @@ def _block_shape(name, c):
 
 
 @pytest.mark.parametrize("mode", MODES, ids=["-".join(m) for m in MODES])
-@pytest.mark.parametrize("c", [32, 64, 128, 256])
+@pytest.mark.parametrize("c", [16, 32, 64, 128, 256, 512])
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_decoder_block_kernel_matches_plain(dev, c, shape, mode):
     from cips3dpp_torch.kernels import _lib
@@ -226,6 +227,62 @@ def test_generator_fused_route_matches_render_frame(dev):
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("m", [1, 4])
+def test_fused_frames_at_channel_multipliers(dev, m):
+    """preset_serving at channel multiplier 1 (the 1024^2 block at C = 16)
+    and 4 (the 128^2 block at C = 512): an r1024 frame through
+    prepare_trajectory / render_frame launches 1 K1 + 4 K2 and lies within
+    chip_smoke.py phase 5's bounds of the frame through K2's plain
+    version. Against the plain versions of both kernels its mean gap is
+    K1's bf16 flips through the 14 bf16 layers, as large as the plain
+    path's own under another GEMM order (F = 4; python -m
+    cips3dpp_torch.tools.frame_gap_split): at most 1.5x that."""
+    import dataclasses
+
+    from cips3dpp_torch import serving
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.kernels import decoder_block as kdb
+    from cips3dpp_torch.kernels import decoder_fused as kdf
+    from cips3dpp_torch.kernels import siren_render as ksr
+    from cips3dpp_torch.models.generator import Generator, preset_serving
+    from cips3dpp_torch.models.layers import randomize_zero_init_
+
+    base = preset_serving()
+    cfg = dataclasses.replace(base, decoder=dataclasses.replace(
+        base.decoder, channel_multiplier=m))
+    model = Generator(cfg, device=dev, seed=20 + m)
+    randomize_zero_init_(model, torch.Generator().manual_seed(20 + m))
+    gen = torch.Generator().manual_seed(30 + m)
+    zs = [torch.randn((1, 256), generator=gen).to(dev) for _ in range(2)]
+    noise = model.decoder.make_noise(gen, cfg.img_size, device=dev)
+    prep = serving.prepare_trajectory(model, zs, noise_bufs=noise, device=dev)
+    assert [b["bp"]["w2t"].shape[0] for b in prep["dec"]["blocks"] if "bp" in b] == [
+        128 * m, 64 * m, 32 * m, 16 * m]
+    yaw, zero = torch.full((1,), 0.2, device=dev), torch.zeros(1, device=dev)
+    _lib.reset_launches()
+    got = serving.render_frame(model, prep, yaw, zero, device=dev)["rgb"]
+    torch.cuda.synchronize()
+    assert dict(_lib.LAUNCHES) == {"siren_render": 1, "decoder_block": 4}
+    saved = serving.siren_render_prepared, ksr.siren_render_prepared, kdf.decoder_block_packed
+    kdf.decoder_block_packed = lambda y1, prepared, emit_feat=True, frames=1: \
+        kdb.decoder_block_plain(y1, prepared, emit_feat, frames)
+    try:
+        want_k2 = serving.render_frame(model, prep, yaw, zero, device=dev)["rgb"]
+        serving.siren_render_prepared = ksr.siren_render_prepared = (
+            lambda p, pts, vd, z, d: ksr.siren_render_plain(
+                p, pts, vd, z, torch.linalg.norm(d, dim=-1, keepdim=True)))
+        want = serving.render_frame(model, prep, yaw, zero, device=dev)["rgb"]
+        yaws = torch.cat([yaw, torch.zeros(3, device=dev)])
+        own = serving.render_frame(model, prep, yaws, yaws * 0, device=dev)["rgb"][:1]
+    finally:
+        serving.siren_render_prepared, ksr.siren_render_prepared, kdf.decoder_block_packed = saved
+    assert got.shape == (1, 1024, 1024, 3) and torch.isfinite(got).all()
+    d_k2, d, d_own = (got - want_k2).abs(), (got - want).abs(), (own - want).abs()
+    assert float(d_k2.max()) <= 0.5 and float(d_k2.mean()) <= 1e-2, float(d_k2.mean())
+    assert float(d.max()) <= 0.5 and float(d.mean()) <= 1.5 * float(d_own.mean()), (
+        float(d.max()), float(d.mean()), float(d_own.mean()))
+
+
 def test_hash_noise_in_kernel_matches_its_map(dev):
     """The kernel's hash noise is hash_noise_map's realization: the f32
     block fed the map as buffers gives what the seeds give."""
@@ -255,7 +312,7 @@ def test_hash_noise_in_kernel_matches_its_map(dev):
 K3_SHAPES = {"32x16": (32, 16), "ragged": (8, 48), "hp1": (1, 32), "large": None}
 
 
-@pytest.mark.parametrize("c", [32, 64, 128, 256])
+@pytest.mark.parametrize("c", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("shape", list(K3_SHAPES))
 def test_decoder_block_fused_kernel_matches_plain(dev, c, shape):
     """K3, the v1 block: f32 in and out, bias and upsampled-skip epilogue."""
@@ -307,19 +364,26 @@ def test_decoder_block_phase_split_counts_every_phase(dev):
 
 
 def test_decoder_block_resources(dev):
-    """Every K2 / K3 instantiation fits on the card with no spill, and tiles
-    hold 8192 values at every C."""
-    from cips3dpp_torch.kernels.decoder_block import KERNEL_CHANNELS, decoder_block_info
+    """Every K2 / K3 instantiation fits on the card with no spill; tiles
+    hold 8192 values at C = 16 to 256 and 128 pixels (32 input columns) at
+    C = 512, which K3 does not take."""
+    from cips3dpp_torch.kernels.decoder_block import (
+        K3_CHANNELS, KERNEL_CHANNELS, decoder_block_info,
+    )
 
     for dt, hashed, k3 in ((torch.bfloat16, False, False), (torch.bfloat16, True, False),
                            (torch.float32, False, False), (torch.float32, True, False),
                            (torch.float32, False, True)):
         for c in KERNEL_CHANNELS:
+            if k3 and c not in K3_CHANNELS:
+                with pytest.raises(ValueError):
+                    decoder_block_info(c, dt, hashed, k3)
+                continue
             info = decoder_block_info(c, dt, hashed, k3)
             print(dt, hashed, k3, c, info)
             assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
             assert info["smem_bytes"] <= 232448
-            assert info["tile_pixels"] * c == 8192
+            assert info["tile_pixels"] == (128 if c == 512 else 8192 // c)
             assert info["tile_input_columns"] * 4 == info["tile_pixels"]
 
 
@@ -500,6 +564,43 @@ def test_d_step_launches_k1_once_per_item(dev):
     assert _lib.LAUNCHES["siren_render"] == launches + 3
     assert all(torch.isfinite(v) for v in metrics.values())
     assert any(not torch.equal(p, q) for p, q in zip(state.d.parameters(), before))
+
+
+def test_remat_d_lowers_the_r1_step_peak(dev, tmp_path):
+    """remat_d lowers the lazy-R1 D step's peak, JAX's reason for it
+    (cips3dpp_tpu/train/state.py:71-75): train_r1024 (configs/ffhq.yaml),
+    batch 4, f32, one step through Trainer.r1_step_peak on the same weights
+    with and without it. A checkpoint of the image D's logit alone raised
+    it: R1's input gradient kept the recomputation alive while the
+    parameters' backward recomputed the logit again."""
+    import dataclasses
+    import os
+
+    from cips3dpp_torch.io.config import (
+        generator_config_from_dict, load_command_config, train_config_from_dict,
+    )
+    from cips3dpp_torch.models.discriminator import DStyleGANProgressive
+    from cips3dpp_torch.models.discriminator_pose import DVolumeRenderProgressive
+    from cips3dpp_torch.models.generator import Generator
+    from cips3dpp_torch.train.train_loop import Trainer
+
+    cfg = load_command_config(os.path.join(os.path.dirname(__file__), "..", "configs",
+                                           "ffhq.yaml"), "train_r1024")
+    gcfg, tcfg = generator_config_from_dict(cfg.get("G_cfg", {})), train_config_from_dict(cfg)
+    assert tcfg.batch == 4 and not tcfg.remat_d
+    g = Generator(gcfg, device=dev, seed=1)
+    d = DStyleGANProgressive(1024, 2, device=dev, seed=2)
+    d_render = DVolumeRenderProgressive(1024, device=dev, seed=3)
+    peaks = {}
+    for remat in (False, True, False):
+        tr = Trainer(g, d, d_render, gcfg, dataclasses.replace(tcfg, remat_d=remat),
+                     str(tmp_path / f"{remat}{len(peaks)}"))
+        state = tr.init_state(torch.Generator().manual_seed(4))
+        peaks.setdefault(remat, []).append(tr.r1_step_peak(state))
+        del state, tr
+        torch.cuda.empty_cache()
+    print({k: [p / 2**30 for p in v] for k, v in peaks.items()})
+    assert max(peaks[True]) < min(peaks[False])
 
 
 def test_prefetch_to_device_delivers_every_batch_intact(dev):

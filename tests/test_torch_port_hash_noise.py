@@ -77,13 +77,25 @@ def test_block_hash_mode_matches_pallas(dtype, frames):
     """K2 with noise_seeds: the port's plain block against the Pallas
     kernel in interpret mode, C=32, Hp=Wp=16. Every frame of a stacked
     call takes the same realization, which is the seeds' hash_noise_map."""
+    _check_block_hash_mode(dtype, frames, 32, seed=frames)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("frames", [1, 2])
+@pytest.mark.parametrize("c", [16, 512])
+def test_block_hash_mode_matches_pallas_at_c16_and_c512(dtype, frames, c):
+    """The same at the kernel's smallest and largest C."""
+    _check_block_hash_mode(dtype, frames, c, seed=c + frames)
+
+
+def _check_block_hash_mode(dtype, frames, c, seed):
     from cips3dpp_tpu.kernels.decoder_block import decoder_block_packed as jblock
     from cips3dpp_torch.kernels.decoder_block import (
         decoder_block_packed, hash_noise_map,
     )
 
-    c, hp, wp = 32, 16, 16
-    x = _block_inputs(c, hp, wp, frames, seed=frames)
+    hp, wp = 16, 16
+    x = _block_inputs(c, hp, wp, frames, seed=seed)
     seeds = (123, 456)
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
     jdt = jnp.dtype(dtype)

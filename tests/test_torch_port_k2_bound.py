@@ -49,3 +49,25 @@ def test_k2_apart_count_follows_the_plain_version(hashed):
     assert a["f32_apart"] == b["f32_apart"] and b["f32_dot"] == (
         2 * (4 * 4 * 16) * HASH_OPS if hashed else 0)  # two maps of 2Hp x 2Wp
     assert a["bytes"] - b["bytes"] == 4 * 4 * 4 * 16 * 3 + 2 * 3 * 128
+
+
+def test_k2_work_at_the_new_channel_counts_by_hand():
+    # C = 512 (the streamed-weight kernel): y1 (1, 16, 512) bf16, noise
+    # buffers, feat and rgb: 4*1*16 = 64 output pixels; the weight dominates
+    got = decoder_block_work(1, 16, 512, torch.bfloat16, hashed=False, emit_feat=True)
+    assert got == {
+        # y1, noise, feat, rgb, w2t, b1/b2/nw, wrgb
+        "bytes": 16384 + 256 + 65536 + 768 + 524288 + 4104 + 3072,
+        "bf16_flops": 2 * 64 * 512 * 512,
+        "f32_dot": 2 * 64 * 3 * 512,
+        "f32_apart": 10.25 * 64 * 512 + 2 * 64,
+    }
+    # C = 16: y1 (2*1, 16, 16) f32 as 2 frames, hash noise, rgb only: 128
+    # output pixels, one 64-pixel map a seed
+    got = decoder_block_work(1, 16, 16, torch.float32, hashed=True, emit_feat=False, frames=2)
+    assert got == {
+        "bytes": 2048 + 1536 + 512 + 136 + 192,  # y1, rgb, w2t, b1/b2/nw, wrgb
+        "bf16_flops": 2 * 128 * 16 * 16,
+        "f32_dot": 2 * 128 * 3 * 16 + 2 * 64 * HASH_OPS,
+        "f32_apart": 10.25 * 128 * 16 + 2 * 128,
+    }

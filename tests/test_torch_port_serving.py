@@ -23,7 +23,7 @@ from torch_port_helpers import a, port_and_jax_generator, t
 ATOL = {"rgb": 3e-2, "thumb_rgb": 1e-3}
 
 
-def _configs():
+def _configs(channel_multiplier=2):
     from cips3dpp_tpu.models import generator as jg
     from cips3dpp_torch.models import generator as tg
 
@@ -31,19 +31,19 @@ def _configs():
         return m.GeneratorConfig(
             renderer=m.RendererConfig(n_layers=2, hidden_dim=32),
             decoder=m.DecoderConfig(size_end=64, upsample_list=(32, 64),
-                                    style_dim=64, mapping_n_layers=2),
+                                    style_dim=64, mapping_n_layers=2,
+                                    channel_multiplier=channel_multiplier),
             img_size=16, n_samples=8,
         )
 
     return jg, make(jg), make(tg)
 
 
-@pytest.fixture(scope="module")
-def served():
+def _served(channel_multiplier=2):
     from cips3dpp_tpu.serving import prepare_trajectory as jprep
     from cips3dpp_torch.serving import prepare_trajectory
 
-    jg, jcfg, tcfg = _configs()
+    jg, jcfg, tcfg = _configs(channel_multiplier)
     tmodel, variables = port_and_jax_generator(jcfg, tcfg, seed=11)
     jmodel = jg.Generator(jcfg)
     rng = np.random.default_rng(12)
@@ -55,6 +55,11 @@ def served():
     tp = prepare_trajectory(tmodel, [t(z) for z in zs],
                             noise_bufs=[t(n) for n in noise], device="cpu")
     return jmodel, jp, tmodel, tp, zs, noise
+
+
+@pytest.fixture(scope="module")
+def served():
+    return _served()
 
 
 def _compare(got, want):
@@ -89,6 +94,21 @@ def test_render_frame_and_scan_match_jax(served):
     np.testing.assert_allclose(float(got), float(want), rtol=0, atol=2e-3)
     own = sum(float(o["rgb"].mean()) for o in outs)
     np.testing.assert_allclose(float(got), own, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("m", [1, 4])
+def test_render_frame_at_channel_multipliers_match_jax(m):
+    """The serving fixture at channel multiplier 1 and 4 (its 64^2 block
+    at C = 256 and 1024, its 32^2 block at 512), the JAX weights carried by
+    io/jax_params.py: the frame at the fixture's ATOL of JAX's."""
+    from cips3dpp_tpu.serving import render_frame as jrender
+    from cips3dpp_torch.serving import render_frame
+
+    jmodel, jp, tmodel, tp, _, _ = _served(m)
+    assert [b["bp"]["w2t"].shape[0] for b in tp["dec"]["blocks"] if "bp" in b] == [512, 256 * m]
+    want = jrender(jmodel, jp, jnp.full((1,), 0.2), jnp.zeros((1,)), interpret=True)
+    got = render_frame(tmodel, tp, t([0.2]), torch.zeros(1), device="cpu")
+    _compare(got, want)
 
 
 def test_render_frame_batched_matches_jax(served):

@@ -316,6 +316,23 @@ def test_split_forms_equal_the_two_pass_form(tiny):
         check_f32(base[0], base[1], *got)
 
 
+@pytest.mark.parametrize("opts", [{}, dict(d_r1_chunk=2), dict(d_seq=True)],
+                         ids=["r1", "d_r1_chunk", "d_seq"])
+def test_remat_d_r1_equals_the_plain_form(tiny, opts):
+    """remat_d's R1 region (train/steps.py: _RematR1, the logit and its
+    input gradient recomputed together in the backward) gives the plain
+    form's R1 value and image-D gradients on one state and one set of
+    draws, in each of the step's R1 paths: the same f32 operations run
+    again, so they agree to relative 1e-6."""
+    base = port_d_step(tiny, opts, True)
+    got = port_d_step(tiny, {**opts, "remat_d": True}, True)
+    assert base[0]["d_loss_gp_decoder"] > 0
+    assert got[0]["d_loss_gp_decoder"] == pytest.approx(base[0]["d_loss_gp_decoder"], rel=1e-6)
+    assert got[1].keys() == base[1].keys()
+    for k, w in base[1].items():
+        assert float((got[1][k] - w).abs().max()) <= 1e-6 * float(w.abs().max()), k
+
+
 def test_default_d_step_at_depth_8_matches_jax(capsys):
     """The repair of the D step's route: with the default TrainConfig
     (fused_renderer_d=True) a depth-8 renderer, which K1 does not take,
@@ -501,10 +518,12 @@ def mesh_runs(tmp_path_factory):
 
 @pytest.mark.parametrize("option", list(MESH_OPTIONS))
 def test_two_ranks_equal_one_process(mesh_runs, option):
-    """d_cat (each half's minibatch stddev over its global half), d_seq
-    and d_r1_chunk (chunks of the global batch, shared round the ranks) on
-    two gloo ranks equal one process: every metric and every updated
-    tensor of both discriminators within the parallel test's TOL."""
+    """d_cat (each half's minibatch stddev over its global half), d_seq,
+    d_r1_chunk (chunks of the global batch, shared round the ranks) and
+    remat_d (R1's recomputed region, its stddev gathered again in the
+    backward) on two gloo ranks equal one process: every metric and every
+    updated tensor of both discriminators within the parallel test's
+    TOL."""
     import test_torch_port_parallel as par
 
     ranks, single = mesh_runs

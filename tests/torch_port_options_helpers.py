@@ -11,7 +11,7 @@ import torch
 # generator without an upsample, 8^2 D's with DiffAugment on, batch 4),
 # one D step with R1 under SGD(lr=1) per option
 MESH_OPTIONS = {"d_cat": dict(d_cat=True), "d_seq": dict(d_seq=True),
-                "d_r1_chunk": dict(d_r1_chunk=2)}
+                "d_r1_chunk": dict(d_r1_chunk=2), "remat_d": dict(remat_d=True)}
 
 
 def _mesh_d_steps(mesh, options):
