@@ -166,11 +166,17 @@ Phases, each fatal on failure:
      step peaks lower with remat_d (15c); under a per-process memory
      fraction between the two peaks it switches remat_d on and the
      rebuilt R1 step runs (peaks of both forms printed).
- 15. the channel counts of decoders at channel multipliers 1 and 4, after
-     phase 14 but for (a), run right after phase 4: (a) K2 at y1 (64, 64,
-     512) with feat stored (the streamed-weight kernel) and (512, 512, 16)
-     rgb only, in its four modes against its plain version (K2_TOL, twice
-     bit-equal, device ms, plain ms, the bound term by term, ms / bound);
+ 15. the channel counts of decoders at channel multipliers 1, 4, 8 and
+     16, after phase 14 but for (a), run right after phase 4 in a child
+     process with phase 16 (a fresh profiler): (a) K2 at y1
+     (64, 64, 512) with feat stored (the streamed-weight kernel), (512,
+     512, 16) rgb only, and with feat stored (64, 64, 1024), (64, 64,
+     2048), (128, 128, 1024) and (64, 64, 384) (the streamed kernel at
+     its 64- and 32-pixel tiles, and at a count that is no power of two),
+     in its four modes against its plain version (K2_TOL, twice bit-equal,
+     device ms, plain ms, the bound term by term, ms / bound, the L2
+     weight bytes the streamed kernel reads), and K3 at y1 (64, 64, C), C
+     = 512, 1024 and 2048, against its plain version at phase 4's bounds;
      (b) preset_serving at multipliers 1 and 4: r1024 frames (1 K1 + 4 K2
      a frame; against K2's plain version at phase 5's bounds, against the
      plain kernels at 1.5x the plain path's own spread under another GEMM
@@ -178,6 +184,13 @@ Phases, each fatal on failure:
      render_trajectory(fused=True) and `rendering-time --opts` at m = 4
      (its fps); (c) is 14d's gate: remat_d's R1 step peaks below the
      plain one.
+ 16. the models at channel multipliers 8 and 16, run after 15a in its
+     child process:
+     preset_serving frames at m = 8 and 16 (1 K1 + 4 K2 a frame, blocks at
+     C (1024, 512, 256, 128) and (2048, 1024, 512, 256), gated as 15b's,
+     ms a frame, and the frame's device time by kernel group and idle
+     share by the profiler), an f32 trajectory at m = 8 (phase 6's f32
+     bounds) and `rendering-time --opts` at m = 8, 32 frames.
 Each path that launches kernels runs with the launch counts set to 0
 just before it and read just after. A kernel's "ms" is its device time a
 launch (torch.profiler), beside the time a call takes back to back (CUDA
@@ -472,20 +485,19 @@ def k2_phase(label, blocks, img_size, gen, dev):
     return res
 
 
-def k3_phase(gen, dev, img_size, channels):
-    """K3, the v1 block, at the four block shapes: its path (one call of
-    its entry point per shape, counted), then each shape against its plain
-    version, with timings."""
+def k3_phase(gen, dev, shapes, label="K3"):
+    """K3, the v1 block, on y1 (hp, hp, c) for each (hp, c) of `shapes`:
+    its path (one call of its entry point per shape, counted), then each
+    shape against its plain version, with timings."""
     from cips3dpp_torch.kernels import decoder_block as kdb
 
-    cases, hp = [], img_size
-    for c in channels:
+    cases = []
+    for hp, c in shapes:
         rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
         cases.append((rnd(hp, hp, c), rnd(hp, hp, 3), rnd(2 * hp, 2 * hp, 1),
                       rnd(2 * hp, 2 * hp, 1), rnd(c, c) / c**0.5, rnd(c, 3) / c**0.5,
                       0.1 * rnd(c), 0.1 * rnd(c), 0.1 * rnd(3), 0.3, -0.2))
-        hp *= 2
-    with counted("K3 path (decoder_block_fused at 4 shapes)",
+    with counted(f"{label} path (decoder_block_fused at {len(cases)} shapes)",
                  {"decoder_block_fused": len(cases)}) as launches:
         for args in cases:
             kdb.decoder_block_fused(*args)
@@ -513,10 +525,10 @@ def k3_phase(gen, dev, img_size, channels):
                   + 2 * c * c + 2 * 3 * c + 4 * (2 * c + 3 + 2))  # weights
         flops = 2 * px * c * c + 2 * px * c * 3
         b_ms, b_by = bound(nbytes, bf16_flops=flops)
-        log(f"[K3] y1 ({hp},{hp},{c}): max |kernel - plain| feat {err_feat:.3e}, rgb "
+        log(f"[{label}] y1 ({hp},{hp},{c}): max |kernel - plain| feat {err_feat:.3e}, rgb "
             f"{err_rgb:.3e}; {ms:.4f} ms "
             f"kernel ({call_ms:.4f} a call), {plain_ms:.4f} ms plain, bound {b_ms:.4f} ms "
-            f"({b_by}, {nbytes / 1e6:.2f} MB)")
+            f"({b_by}, {nbytes / 1e6:.2f} MB); {ms / b_ms:.2f}x the bound")
         res["shapes"].append({"y1": [hp, hp, c], "err": err, "err_feat": err_feat,
                               "err_rgb": err_rgb, "ms": ms, "call_ms": call_ms,
                               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -3032,18 +3044,25 @@ def auto_remat_case(dev, smi, cfg, add):
 
 
 def k2_channels_phase(dev, smi):
-    """Phase 15a, run right after phase 4's K2 (late in the script the
-    profiler drops device records of this kernel: 23 of 50 launches in
-    each of five tries): K2 at y1 (64, 64, 512) with feat stored (the
-    128^2 block of m = 4, the streamed-weight kernel) and (512, 512, 16)
-    rgb only (the 1024^2 block of m = 1) in its four modes against its
-    plain version (k2_case), on seeded random operands."""
+    """Phase 15a, run right after phase 4's K2 in a child process of its
+    own (child_phases: late in a process the profiler drops device records
+    of this kernel, 23 of 50 launches in each of five tries once): K2 in
+    its four modes against its plain version
+    (k2_case), on seeded random operands, at the shapes only other channel
+    multipliers reach: y1 (64, 64, 512) with feat stored (the 128^2 block
+    of m = 4), (512, 512, 16) rgb only (the 1024^2 block of m = 1), and the
+    streamed-weight kernel at its other tiles: (64, 64, 1024) (m = 8's
+    128^2 block, 64-pixel tiles), (64, 64, 2048) (m = 16's, 32-pixel
+    tiles), (128, 128, 1024) (m = 16's 256^2 block) and (64, 64, 384) (a
+    count that is no power of two), all with feat stored; then K3 at
+    y1 (64, 64, C), C = 512, 1024 and 2048 (k3_phase)."""
     from cips3dpp_torch.kernels import decoder_block as kdb
 
     t0 = time.perf_counter()
     res = {}
     gen = torch.Generator().manual_seed(SEED + 150)
-    for c, hp, last in ((512, 64, False), (16, 512, True)):
+    for c, hp, last in ((512, 64, False), (16, 512, True), (1024, 64, False),
+                        (2048, 64, False), (1024, 128, False), (384, 64, False)):
         for dt in kdb.STORAGE:
             for hashed in (False, True):
                 rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
@@ -3051,144 +3070,287 @@ def k2_channels_phase(dev, smi):
                     rnd(2 * hp, 2 * hp, 1), rnd(2 * hp, 2 * hp, 1), rnd(c, c) / c**0.5,
                     0.1 * rnd(c), 0.1 * rnd(c), 0.3, -0.2, rnd(c, 3) / c**0.5, dtype=dt,
                     noise_seeds=(NOISE_SEED, NOISE_SEED + 1) if hashed else None)
-                res[f"{kdb.launch_name(bp)} C={c}"] = k2_case(
-                    f"15a {kdb.launch_name(bp)}", bp, hp, last, gen, dev)
+                key = f"{kdb.launch_name(bp)} C={c} y1={hp}"
+                res[key] = k2_case(f"15a {kdb.launch_name(bp)}", bp, hp, last, gen, dev)
+                # the streamed kernel reads the whole weight from L2 once a tile
+                if c in kdb.STREAMED_CHANNELS:
+                    tiles = hp * hp * 4 // kdb.tile_pixels(c)
+                    res[key]["l2_weight_bytes"] = tiles * 2 * c * c
     log("[15a] ms / bound ms (ratio): " + "; ".join(
         f"{k} {v['ms']:.4f} / {v['bound_ms']:.4f} ({v['ms'] / v['bound_ms']:.2f}x)"
         for k, v in res.items()) + f"; {smi}")
-    return {"k2": res, "k2_s": time.perf_counter() - t0}
+    log("[15a] L2 weight reads of the streamed kernel (the whole weight once a tile): "
+        + "; ".join(f"{k} {v['l2_weight_bytes'] / 1e6:.0f} MB, "
+                    f"{v['l2_weight_bytes'] / v['ms'] / 1e9:.2f} TB/s"
+                    for k, v in res.items() if "l2_weight_bytes" in v))
+    k3 = k3_phase(gen, dev, [(64, 512), (64, 1024), (64, 2048)], "15a K3")
+    return {"k2": res, "k3": k3, "k2_s": time.perf_counter() - t0}
+
+
+def multiplier_cfg(base, m):
+    """`base` with only the decoder's channel multiplier changed to m."""
+    return dataclasses.replace(base, decoder=dataclasses.replace(base.decoder,
+                                                                 channel_multiplier=m))
+
+
+def serve_multiplier(dev, smi, m, seed, tag, profile=False):
+    """preset_serving at channel multiplier m, weights from `seed`: r1024
+    frames through prepare_trajectory / render_frame (1 K1 + 4 K2 a frame,
+    the blocks' C checked against the channel table), against K2's plain
+    version at phase 5's bounds and against the plain kernels at 1.5x the
+    plain path's own spread under another GEMM order, the same camera
+    bit-equal, ms a frame by CUDA events; with `profile`, the frame's
+    device time by kernel group and idle share (profile_calls). Returns
+    (result, launches)."""
+    from cips3dpp_torch import serving
+    from cips3dpp_torch.models.generator import preset_serving
+    from cips3dpp_torch.models.layers import channel_table
+
+    yaws = torch.linspace(-0.3, 0.3, 4, device=dev)
+    zero = torch.zeros(1, device=dev)
+    cfg = multiplier_cfg(preset_serving(), m)
+    model, zs, noise = make_model(cfg, dev, seed)
+    with counted(f"{tag} preset_serving at channel multiplier {m}: prepare_trajectory + 4 "
+                 "render_frame", {"siren_render": 4, "decoder_block": 16}) as got:
+        prep = serving.prepare_trajectory(model, zs, noise_bufs=noise, device=dev)
+        frames = [serving.render_frame(model, prep, yaws[i:i + 1], zero, device=dev)["rgb"]
+                  for i in range(4)]
+    chans = [b["bp"]["w2t"].shape[0] for b in prep["dec"]["blocks"] if "bp" in b]
+    table = [channel_table(m)[r] for r in cfg.decoder.upsample_list]
+    with plain_kernels(k1=False):
+        ref_k2 = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
+    with plain_kernels():
+        ref = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
+        # the plain path against itself under another GEMM order (F = 4)
+        ref4 = serving.render_frame(model, prep, yaws, yaws * 0, device=dev)["rgb"][:1]
+    again = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
+    g_k2, g, g_own = gap(frames[0], ref_k2), gap(frames[0], ref), gap(ref4, ref)
+    # K2's part at phase 5's bounds. The whole frame's mean gap is set by
+    # K1's bf16 flips through the bf16 decoder, which at m = 1 and 4
+    # (brighter frames) reaches phase 5's 1e-2, and is the size of the
+    # plain path's own spread under another GEMM order
+    # (cips3dpp_torch.tools.frame_gap_split): at most 1.5x that spread
+    if (chans != table or frames[0].shape != (1, cfg.out_size, cfg.out_size, 3)
+            or not all(torch.isfinite(f).all() for f in frames)
+            or not (g_k2[0] <= 0.5 and g_k2[1] <= 1e-2)
+            or not (g[0] <= 0.5 and g[1] <= 1.5 * g_own[1])
+            or not torch.equal(again, frames[0])):
+        raise AssertionError(f"{tag} m = {m}: block C {chans}, frame "
+                             f"{tuple(frames[0].shape)}, max / mean |diff| to K2's plain "
+                             f"version {g_k2} (bounds 0.5 / 1e-2), to the plain kernels {g} "
+                             f"(bounds 0.5 / 1.5 x {g_own[1]:.3e}, the plain path's own), "
+                             f"the same camera bit-equal {torch.equal(again, frames[0])}")
+
+    def render_one():
+        return serving.render_frame(model, prep, yaws[:1], zero, device=dev)
+
+    torch.cuda.reset_peak_memory_stats()
+    frame_ms = cuda_time(render_one, iters=10)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[multipliers] {tag} preset_serving at channel multiplier {m} (blocks at C {chans}): "
+        f"{frame_ms:.3f} ms a r1024 frame (CUDA events, 10 frames), 1 K1 + 4 K2 a frame, peak "
+        f"{peak / 2**20:.1f} MiB; max / mean |diff| to K2's plain version {g_k2[0]:.3e} / "
+        f"{g_k2[1]:.3e} (bounds 0.5 / 1e-2), to the plain kernels {g[0]:.3e} / {g[1]:.3e} "
+        f"(bounds 0.5 / {1.5 * g_own[1]:.3e}; the plain path against itself at F = 4 "
+        f"{g_own[0]:.3e} / {g_own[1]:.3e}); mean |rgb| {float(ref.abs().mean()):.3f}; {smi}")
+    res = {"frame_ms": frame_ms, "peak_bytes": peak, "gap_k2": g_k2, "gap": g,
+           "gap_plain_own": g_own, "channels": chans, "mean_abs_rgb": float(ref.abs().mean())}
+    if profile:
+        res["profile"] = profile_calls(render_one, frame_ms, what=f"m = {m} frame",
+                                       table=f"profile_frame_m{m}.txt")
+        k2_calls = sum(k["calls_per_call"] for k in res["profile"]["kernels"]
+                       if k["group"] == "K2 decoder_block")
+        log(f"[multipliers] {tag} m = {m}: the profile saw {k2_calls:g} K2 launches a frame "
+            f"(4 launched)")
+    return res, got
+
+
+def f32_trajectory_case(dev, m, seed, tag, spread=False):
+    """render_trajectory(fused=True) over 2 frames of preset_r1024 (f32
+    decoder storage) at channel multiplier m, against the plain kernels at
+    phase 6's f32 bounds, and K2's part of that gap (the frames through K2's
+    plain version, K1 the kernel in both) at the same bounds. With `spread`,
+    the whole gap's mean is held instead to 1.5x the plain path's own spread
+    under another GEMM order (the same frames in one F = 4 call), as 15b
+    holds the bf16 frames: at m = 8 K1's bf16 flips through the wider f32
+    decoder move the frames by more than 1e-3, and by as much as the plain
+    path moves itself (`frame_gap_split --preset r1024`). Returns (result,
+    launches)."""
+    from cips3dpp_torch import serving
+    from cips3dpp_torch.apps.sample import render_trajectory, yaw_trajectory
+    from cips3dpp_torch.core.camera import CameraParams
+    from cips3dpp_torch.models.generator import preset_r1024
+
+    cfg32 = multiplier_cfg(preset_r1024(), m)
+    model32, zs32, noise32 = make_model(cfg32, dev, seed)
+    cams = yaw_trajectory(2, cfg32.img_size, fov_ang=cfg32.fov_ang,
+                          dist_radius=cfg32.dist_radius, device=dev)
+    traj = lambda: render_trajectory(model32, zs32, cams, fused=True, noise_bufs=noise32)
+    with counted(f"{tag} f32 trajectory at channel multiplier {m} (preset_r1024, 2 frames)",
+                 {"siren_render": 2, "decoder_block_f32": 8}) as got:
+        t0 = time.perf_counter()
+        out = traj()
+        torch.cuda.synchronize()
+        traj_s = time.perf_counter() - t0
+    with plain_kernels(k1=False):
+        ref_k2 = traj()
+    with plain_kernels():
+        ref = traj()
+        prep = serving.prepare_trajectory(model32, zs32, noise_bufs=noise32, near=cams.near[0],
+                                          far=cams.far[0], device=dev)
+        cams4 = CameraParams(*(torch.cat([c, c]) for c in cams))
+        own = serving.render_camera(model32, prep, cams4, device=dev)["rgb"][:2].cpu()
+    g, g_k2, g_own = (gap(out["rgb"], ref["rgb"]), gap(out["rgb"], ref_k2["rgb"]),
+                      gap(own, ref["rgb"]))
+    mean_bound = 1.5 * g_own[1] if spread else 1e-3
+    if not (torch.isfinite(torch.from_numpy(out["rgb"])).all() and g[0] <= 0.1
+            and g[1] <= mean_bound and g_k2[0] <= 0.1 and g_k2[1] <= 1e-3):  # phase 6's f32 bounds
+        raise AssertionError(f"{tag} f32 trajectory at m = {m}: max / mean |diff| to the "
+                             f"plain kernels {g} (bounds 0.1 / {mean_bound:.3e}), to K2's plain "
+                             f"version {g_k2} (bounds 0.1 / 1e-3)")
+    log(f"[multipliers] {tag} f32 trajectory at channel multiplier {m}: 2 r1024 frames in "
+        f"{traj_s:.3f} s (host clock, outputs copied to the host), max / mean |diff| to the "
+        f"plain kernels {g[0]:.3e} / {g[1]:.3e} (bounds 0.1 / {mean_bound:.3e}), to K2's plain "
+        f"version {g_k2[0]:.3e} / {g_k2[1]:.3e} (bounds 0.1 / 1e-3); the plain path against "
+        f"itself at F = 4 {g_own[0]:.3e} / {g_own[1]:.3e}")
+    return {"s": traj_s, "gap": g, "gap_k2": g_k2, "gap_plain_own": g_own}, got
+
+
+def rendering_time_case(m, n, tag):
+    """`rendering-time --n-frames n --opts` at channel multiplier m in
+    preset_serving's bf16, through the command line: every sweep's launches
+    counted, its fps printed. Returns (result, launches)."""
+    from cips3dpp_torch.apps import cli
+
+    sweeps = cli.RENDER_REPS + 1
+    with counted(f"{tag} rendering-time --n-frames {n} at channel multiplier {m}",
+                 {"siren_render": n * sweeps, "decoder_block": 4 * n * sweeps}) as got:
+        t0 = time.perf_counter()
+        rt = cli_json(["rendering-time", "--n-frames", str(n), "--opts",
+                       "G_cfg.decoder.channel_multiplier", str(m), "G_cfg.renderer.dtype",
+                       "bfloat16", "G_cfg.decoder.dtype", "bfloat16"])
+        wall = time.perf_counter() - t0
+    if rt["out_size"] != 1024 or not rt["value"] > 0:
+        raise AssertionError(f"{tag} rendering-time at m = {m}: {rt}")
+    log(f"[multipliers] {tag} rendering-time --opts G_cfg.decoder.channel_multiplier {m} "
+        f"(preset_serving's bf16), batch 1, {n} frames: {sweeps} sweeps of {n} K1 + {4 * n} K2 "
+        f"counted; best {rt['value']:.2f} fps ({rt['ms_per_frame']:.3f} ms a frame, mean "
+        f"{rt['mean_ms_per_frame']:.3f}), peak {rt['peak_bytes'] / 2**20:.1f} MiB, {wall:.2f} s "
+        f"with set-up; card {rt['card']}")
+    return rt, got
+
+
+def add_launches(total, got):
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
 
 
 def multipliers_phase(dev, smi, k2):
     """Phase 15, after phase 14: K2 at the channel counts of decoders at
     channel multipliers 1 and 4, and those models served. (a) K2 at those
     channel counts against its plain version (`k2`: k2_channels_phase's
-    result, run right after phase 4); (b) preset_serving
-    with only the multiplier changed, m = 1 and 4, weights from a seed:
-    r1024 frames through prepare_trajectory / render_frame (1 K1 + 4 K2 a
-    frame, the blocks' C checked, against K2's plain version at phase 5's
-    bounds and against the plain kernels at the plain path's own spread,
-    the same camera bit-equal, ms a frame by CUDA events), an f32
-    trajectory (preset_r1024 at m = 1) through render_trajectory(fused=True)
-    against the plain kernels at phase 6's f32 bounds, and `rendering-time
-    --opts` at m = 4 through the command line, its fps printed."""
-    from cips3dpp_torch import serving
-    from cips3dpp_torch.apps import cli
-    from cips3dpp_torch.apps.sample import render_trajectory, yaw_trajectory
-    from cips3dpp_torch.models.generator import preset_r1024, preset_serving
-    from cips3dpp_torch.models.layers import channel_table
-
+    result, run right after phase 4); (b) preset_serving with only the
+    multiplier changed, m = 1 and 4, weights from a seed (serve_multiplier),
+    an f32 trajectory (preset_r1024 at m = 1) through
+    render_trajectory(fused=True) against the plain kernels at phase 6's
+    f32 bounds, and `rendering-time --opts` at m = 4 through the command
+    line, its fps printed."""
     t_phase = time.perf_counter()
     res = {"card": smi, **k2}
     launches = {}
-
-    def add(got):
-        for k, v in got.items():
-            launches[k] = launches.get(k, 0) + v
-
-    # ---- b. the models at channel multipliers 1 and 4 ----
-    yaws = torch.linspace(-0.3, 0.3, 4, device=dev)
-    zero = torch.zeros(1, device=dev)
-    base = preset_serving()
     for m in (1, 4):
-        cfg = dataclasses.replace(base, decoder=dataclasses.replace(
-            base.decoder, channel_multiplier=m))
-        model, zs, noise = make_model(cfg, dev, SEED + 150 + m)
-        with counted(f"15b preset_serving at channel multiplier {m}: prepare_trajectory + 4 "
-                     "render_frame", {"siren_render": 4, "decoder_block": 16}) as got:
-            prep = serving.prepare_trajectory(model, zs, noise_bufs=noise, device=dev)
-            frames = [serving.render_frame(model, prep, yaws[i:i + 1], zero, device=dev)["rgb"]
-                      for i in range(4)]
-        add(got)
-        chans = [b["bp"]["w2t"].shape[0] for b in prep["dec"]["blocks"] if "bp" in b]
-        table = [channel_table(m)[r] for r in cfg.decoder.upsample_list]
-        with plain_kernels(k1=False):
-            ref_k2 = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
-        with plain_kernels():
-            ref = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
-            # the plain path against itself under another GEMM order (F = 4)
-            ref4 = serving.render_frame(model, prep, yaws, yaws * 0, device=dev)["rgb"][:1]
-        again = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
-        g_k2, g, g_own = gap(frames[0], ref_k2), gap(frames[0], ref), gap(ref4, ref)
-        # K2's part at phase 5's bounds. The whole frame's mean gap is set
-        # by K1's bf16 flips through the bf16 decoder, which at m = 1 and 4
-        # (brighter frames) reaches phase 5's 1e-2, and is the size of the
-        # plain path's own spread under another GEMM order
-        # (cips3dpp_torch.tools.frame_gap_split): at most 1.5x that spread
-        if (chans != table or frames[0].shape != (1, cfg.out_size, cfg.out_size, 3)
-                or not all(torch.isfinite(f).all() for f in frames)
-                or not (g_k2[0] <= 0.5 and g_k2[1] <= 1e-2)
-                or not (g[0] <= 0.5 and g[1] <= 1.5 * g_own[1])
-                or not torch.equal(again, frames[0])):
-            raise AssertionError(f"15b m = {m}: block C {chans}, frame "
-                                 f"{tuple(frames[0].shape)}, max / mean |diff| to K2's plain "
-                                 f"version {g_k2} (bounds 0.5 / 1e-2), to the plain kernels {g} "
-                                 f"(bounds 0.5 / 1.5 x {g_own[1]:.3e}, the plain path's own), "
-                                 f"the same camera bit-equal {torch.equal(again, frames[0])}")
-        frame_ms = cuda_time(
-            lambda: serving.render_frame(model, prep, yaws[:1], zero, device=dev), iters=10)
-        log(f"[multipliers] 15b preset_serving at channel multiplier {m} (blocks at C {chans}): "
-            f"{frame_ms:.3f} ms a r1024 frame (CUDA events, 10 frames), 1 K1 + 4 K2 a frame; "
-            f"max / mean |diff| to K2's plain version {g_k2[0]:.3e} / {g_k2[1]:.3e} (bounds "
-            f"0.5 / 1e-2), to the plain kernels {g[0]:.3e} / {g[1]:.3e} (bounds 0.5 / "
-            f"{1.5 * g_own[1]:.3e}; the plain path against itself at F = 4 {g_own[0]:.3e} / "
-            f"{g_own[1]:.3e}); mean |rgb| {float(ref.abs().mean()):.3f}; {smi}")
-        res[f"serving_m{m}"] = {"frame_ms": frame_ms, "gap_k2": g_k2, "gap": g,
-                                "gap_plain_own": g_own, "channels": chans,
-                                "mean_abs_rgb": float(ref.abs().mean())}
-        del model, prep, frames, ref, ref_k2, ref4, again
+        res[f"serving_m{m}"], got = serve_multiplier(dev, smi, m, SEED + 150 + m, "15b")
+        add_launches(launches, got)
         torch.cuda.empty_cache()
-
-    cfg32 = preset_r1024()
-    cfg32 = dataclasses.replace(cfg32, decoder=dataclasses.replace(cfg32.decoder,
-                                                                   channel_multiplier=1))
-    model32, zs32, noise32 = make_model(cfg32, dev, SEED + 160)
-    cams = yaw_trajectory(2, cfg32.img_size, fov_ang=cfg32.fov_ang,
-                          dist_radius=cfg32.dist_radius, device=dev)
-    with counted("15b f32 trajectory at channel multiplier 1 (preset_r1024, 2 frames)",
-                 {"siren_render": 2, "decoder_block_f32": 8}) as got:
-        t0 = time.perf_counter()
-        out = render_trajectory(model32, zs32, cams, fused=True, noise_bufs=noise32)
-        torch.cuda.synchronize()
-        traj_s = time.perf_counter() - t0
-    add(got)
-    with plain_kernels():
-        ref = render_trajectory(model32, zs32, cams, fused=True, noise_bufs=noise32)
-    g = gap(out["rgb"], ref["rgb"])
-    if not (torch.isfinite(torch.from_numpy(out["rgb"])).all() and g[0] <= 0.1
-            and g[1] <= 1e-3):  # phase 6's f32 bounds
-        raise AssertionError(f"15b f32 trajectory at m = 1: max / mean |diff| to the plain "
-                             f"kernels {g} (bounds 0.1 / 1e-3)")
-    log(f"[multipliers] 15b f32 trajectory at channel multiplier 1: 2 r1024 frames in "
-        f"{traj_s:.3f} s (host clock, outputs copied to the host), max / mean |diff| to the "
-        f"plain kernels {g[0]:.3e} / {g[1]:.3e} (bounds 0.1 / 1e-3)")
-    res["trajectory_f32_m1"] = {"s": traj_s, "gap": g}
-    del model32, out, ref
+    res["trajectory_f32_m1"], got = f32_trajectory_case(dev, 1, SEED + 160, "15b")
+    add_launches(launches, got)
     torch.cuda.empty_cache()
-
-    n = 32
-    sweeps = cli.RENDER_REPS + 1
-    with counted(f"15b rendering-time --n-frames {n} at channel multiplier 4",
-                 {"siren_render": n * sweeps, "decoder_block": 4 * n * sweeps}) as got:
-        t0 = time.perf_counter()
-        rt = cli_json(["rendering-time", "--n-frames", str(n), "--opts",
-                       "G_cfg.decoder.channel_multiplier", "4", "G_cfg.renderer.dtype",
-                       "bfloat16", "G_cfg.decoder.dtype", "bfloat16"])
-        wall = time.perf_counter() - t0
-    add(got)
-    if rt["out_size"] != 1024 or not rt["value"] > 0:
-        raise AssertionError(f"15b rendering-time at m = 4: {rt}")
-    log(f"[multipliers] 15b rendering-time --opts G_cfg.decoder.channel_multiplier 4 (preset_"
-        f"serving's bf16), batch 1, {n} frames: {sweeps} sweeps of {n} K1 + {4 * n} K2 "
-        f"counted; best {rt['value']:.2f} fps ({rt['ms_per_frame']:.3f} ms a frame, mean "
-        f"{rt['mean_ms_per_frame']:.3f}), peak {rt['peak_bytes'] / 2**20:.1f} MiB, {wall:.2f} s "
-        f"with set-up; card {rt['card']}")
-    res["rendering_time_m4"] = rt
+    res["rendering_time_m4"], got = rendering_time_case(4, 32, "15b")
+    add_launches(launches, got)
     res["launches"] = launches
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"[multipliers] phase 15: {res['phase_s']:.1f} s, and {res['k2_s']:.1f} s for 15a "
         f"(after phase 4); launches on its paths {launches}")
     return res
+
+
+def wide_multipliers_phase(dev, smi):
+    """Phase 16, run after 15a in the same child process (child_phases),
+    where the frames' profile sees every record: the
+    models at channel multipliers 8 and 16, whose 128^2 to 256^2 blocks
+    (C = 1024 / 512 and 2048 / 1024 / 512) take the streamed-weight
+    kernel. preset_serving at m = 8 and 16 (serve_multiplier: 1 K1 + 4 K2
+    a frame, blocks at C (1024, 512, 256, 128) and (2048, 1024, 512, 256),
+    K2's part at phase 5's bounds, the frame at 1.5x the plain path's own
+    spread, the same camera bit-equal, ms a frame by CUDA events, and the
+    frame's device time and idle share by the profiler); an f32 trajectory
+    (preset_r1024 at m = 8; K2's part at phase 6's f32 bounds, the whole
+    at 1.5x the plain path's own spread); `rendering-time --opts` at m =
+    8, 32 frames."""
+    t_phase = time.perf_counter()
+    res = {"card": smi}
+    launches = {}
+    for m in (8, 16):
+        res[f"serving_m{m}"], got = serve_multiplier(dev, smi, m, SEED + 170 + m, "16",
+                                                     profile=True)
+        add_launches(launches, got)
+        torch.cuda.empty_cache()
+    res["trajectory_f32_m8"], got = f32_trajectory_case(dev, 8, SEED + 180, "16", spread=True)
+    add_launches(launches, got)
+    torch.cuda.empty_cache()
+    res["rendering_time_m8"], got = rendering_time_case(8, 32, "16")
+    add_launches(launches, got)
+    torch.cuda.empty_cache()
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[multipliers] phase 16: {res['phase_s']:.1f} s; launches on its paths {launches}")
+    return res
+
+
+CHILD_FLAG = "--child-15a-16"
+CHILD_RESULT = "[child result] "
+
+
+def child_phases():
+    """Phases 15a and 16 in a child process of this script, right after
+    phase 4: one process's profiler drops device records once it has run
+    some 50 profiled timings (0-46 of 50 launches seen in each of five
+    tries at 15a's 21st shape, after phases 3, 14a and 4), and these two
+    phases time 29 more. The child builds nothing (the libraries are
+    built), echoes its log and hands back its results, launch counts
+    included, as JSON. Returns (k2_channels_phase's result,
+    wide_multipliers_phase's)."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), CHILD_FLAG],
+                          capture_output=True, text=True, timeout=900)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith(CHILD_RESULT):
+            result = json.loads(line[len(CHILD_RESULT):])
+        else:
+            log(line)
+    if proc.returncode != 0 or result is None:
+        raise AssertionError(f"phases 15a and 16 (child process) failed, rc {proc.returncode}:\n"
+                             f"{proc.stderr[-8000:]}")
+    return result["k2_channels"], result["wide"]
+
+
+def child_main() -> int:
+    """The child process of child_phases: phases 15a and 16."""
+    sys.path.insert(0, ROOT)
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.kernels import siren_render as ksr
+
+    _lib.build([(name, ()) for name in _lib.SOURCES])  # built by the parent: nothing to do
+    ksr.plain_precision()
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    result = {"k2_channels": k2_channels_phase(dev, smi),
+              "wide": wide_multipliers_phase(dev, smi)}
+    print(CHILD_RESULT + json.dumps(result), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -3239,13 +3401,17 @@ def main() -> int:
             "bf16": (torch.bfloat16, False, False), "bf16-hash": (torch.bfloat16, True, False),
             "f32": (torch.float32, False, False), "f32-hash": (torch.float32, True, False),
             "K3": (torch.float32, False, True)}.items():
-        for c in kdb.K3_CHANNELS if k3 else kdb.KERNEL_CHANNELS:
+        for c in kdb.KERNEL_CHANNELS:
             info = kdb.decoder_block_info(c, dt, hashed, k3)
             report["decoder_block_info"][f"{mode} C={c}"] = info
-            log(f"[build] block_kernel {mode} C={c}: {info['smem_bytes']} B shared, "
+            log(f"[build] {'block_kernel' if c <= 256 else 'block_kernel_wide'} {mode} C={c}: "
+                f"{info['smem_bytes']} B shared, "
                 f"{info['blocks_per_sm']} block(s) an SM, {info['registers']} registers, "
                 f"{info['local_bytes']} B local, tile {info['tile_input_columns']} input "
                 f"columns = {info['tile_pixels']} output pixels")
+            if (info["local_bytes"] or info["smem_bytes"] > 232448 or info["blocks_per_sm"] < 1
+                    or info["tile_pixels"] != kdb.tile_pixels(c)):
+                raise AssertionError(f"decoder block {mode} C={c}: {info}")
 
     # ---- models and trajectory state ----
     cfg = preset_serving()
@@ -3333,10 +3499,13 @@ def main() -> int:
             f"{report['K2-hash']['shapes'][i]['ms']:.4f}; f32 buffers "
             f"{report['K2-f32']['shapes'][i]['ms']:.4f}, hash "
             f"{report['K2-hash-f32']['shapes'][i]['ms']:.4f}")
-    # ---- 15a. K2 at C = 512 and 16 (early: see k2_channels_phase) ----
-    k2_channels = k2_channels_phase(dev, smi)
+    # ---- 15a and 16. K2 at C = 16 and 384-2048, K3 at 512-2048, the
+    # models at channel multipliers 8 and 16 (in a child process: see
+    # child_phases) ----
+    k2_channels, report["wide_multipliers"] = child_phases()
+    wide = report["wide_multipliers"]["launches"]
     channels = [b["w2t"].shape[0] for b in variants["K2"]]
-    report["K3"] = k3_phase(gen, dev, cfg.img_size, channels)
+    report["K3"] = k3_phase(gen, dev, [(cfg.img_size * 2**i, c) for i, c in enumerate(channels)])
     report["P1"] = p1_phase(dev)
 
     # ---- 5. the serving slice: r1024 frames through prepare/render ----
@@ -3476,7 +3645,7 @@ def main() -> int:
         report["geometry"] = geometry_phase(dev, smi, k1_grid)
     geometry = report["geometry"]["launches"]
 
-    # ---- 15. K2 at C = 16 and 512, the models at channel multipliers 1 and 4 ----
+    # ---- 15. the models at channel multipliers 1 and 4 ----
     torch.cuda.empty_cache()
     report["multipliers"] = multipliers_phase(dev, smi, k2_channels)
     multipliers = report["multipliers"]["launches"]
@@ -3487,10 +3656,12 @@ def main() -> int:
     # training loop's (with its sampling from the checkpoint), the
     # inversion's, the data-parallel training loop's, phase 12's
     # (rendering-time, the fast training sections, the split D steps) and
-    # phase 13's (the default Projector, the 3x3 decoder's D steps) and
+    # phase 13's (the default Projector, the 3x3 decoder's D steps),
     # phase 14's (the width-128 frames, the D steps at 48 samples, the ray
     # mesh's one-process render and ranks, auto_remat's probes and
-    # iteration); K1's numbers are the serving geometry's (phase 3), the
+    # iteration) and phases 15's and 16's (the frames at channel
+    # multipliers 1, 4, 8 and 16, the f32 trajectories, rendering-time at
+    # 4 and 8); K1's numbers are the serving geometry's (phase 3), the
     # other geometries' are in the report's "geometry" grid
     loop, inversion = report["training_loop"]["launches"], report["inversion"]["launches"]
     rest = report["cli_rest"]["launches"]
@@ -3499,20 +3670,22 @@ def main() -> int:
           serving_launches["siren_render"] + report["training"]["launches"]["siren_render"]
           + loop["siren_render"] + inversion["siren_render"]
           + report["data_parallel"]["launches"]["siren_render"] + rest["siren_render"]
-          + variants["siren_render"] + geometry["siren_render"])
+          + variants["siren_render"] + geometry["siren_render"]
+          + multipliers["siren_render"] + wide["siren_render"])
     entry("decoder_block", K2_SRC, K2_TPU, report["K2"],
           serving_launches["decoder_block"] + rest["decoder_block"]
-          + geometry["decoder_block"] + multipliers["decoder_block"])
+          + geometry["decoder_block"] + multipliers["decoder_block"] + wide["decoder_block"])
     entry("decoder_block_f32", K2_SRC, K2_TPU, report["K2-f32"],
           t32["launches_buffers"]["decoder_block_f32"] + loop["decoder_block_f32"]
           + inversion["decoder_block_f32"] + variants["decoder_block_f32"]
-          + multipliers["decoder_block_f32"])
+          + multipliers["decoder_block_f32"] + wide["decoder_block_f32"])
     entry("decoder_block_hash", K2_SRC, K2_TPU, report["K2-hash"],
           tbf["launches_seed"]["decoder_block_hash"])
     entry("decoder_block_hash_f32", K2_SRC, K2_TPU, report["K2-hash-f32"],
           t32["launches_seed"]["decoder_block_hash_f32"])
     entry("decoder_block_fused", K2_SRC,
-          "cips3dpp_tpu/kernels/decoder_block.py:64", report["K3"], report["K3"]["launches"])
+          "cips3dpp_tpu/kernels/decoder_block.py:64", report["K3"],
+          report["K3"]["launches"] + k2_channels["k3"]["launches"])
     for short in ("f32", "bf16"):
         p = report["P1"][short]
         entry(f"elem_probe_{short}", "cips3dpp_torch/csrc/elem_probe.cu",
@@ -3526,7 +3699,8 @@ def main() -> int:
         f"{report['cli_rest']['phase_s']:.1f} s, phase 13: "
         f"{report['variants']['phase_s']:.1f} s, phase 14: "
         f"{report['geometry']['phase_s']:.1f} s, phase 15: "
-        f"{report['multipliers']['phase_s']:.1f} s)")
+        f"{report['multipliers']['phase_s']:.1f} s, phase 16: "
+        f"{report['wide_multipliers']['phase_s']:.1f} s)")
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     name = torch.cuda.get_device_name(0)
@@ -3539,4 +3713,4 @@ def main() -> int:
 
 if __name__ == "__main__":
     with torch.inference_mode():
-        sys.exit(main())
+        sys.exit(child_main() if sys.argv[1:] == [CHILD_FLAG] else main())

@@ -4,10 +4,11 @@
 //     cips3dpp_tpu/kernels/decoder_block.py:_packed_kernel, the serving block
 //     with bf16 or f32 storage, noise from buffers or hashed in the kernel,
 //     F frames stacked on rows and an optional ToRGB fold, at C = 16, 32,
-//     64, 128, 256 (block_kernel) and 512 (block_kernel_wide);
+//     64, 128, 256 (block_kernel) and every multiple of 128 from 384 to
+//     2048 (block_kernel_wide);
 //   - decoder_block_fused_forward (K3): replaces _block_kernel (the v1 block,
-//     f32 in and out, C = 16 to 256), which adds the ToRGB bias and the
-//     upsampled RGB skip;
+//     f32 in and out, the same channel counts), which adds the ToRGB bias
+//     and the upsampled RGB skip;
 //     the row halo the TPU kernel took from three host-side row-shifted
 //     copies is read from y1 and skip in the kernel;
 //   - decoder_block_info: shared memory, blocks an SM, registers, local
@@ -80,9 +81,9 @@
 //    trace of it.
 //  - C = 16 to 256 take this template (block_kernel). At C = 16 a tile is
 //    one row x 128 input columns (512 output pixels) and conv_b is one
-//    k-step. C = 512 (the 128^2 block of a channel-multiplier-4 decoder)
-//    has a kernel of its own, block_kernel_wide below: its 512 KB weight
-//    cannot stay in shared memory.
+//    k-step. C = 384 to 2048 (the 64^2 to 256^2 blocks of decoders at
+//    channel multipliers 4, 8 and 16) have a kernel of their own,
+//    block_kernel_wide below: their weight cannot stay in shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -112,6 +113,7 @@ struct Params {
   float* rgb;            // (2F*Hp, 2Wp, 3)
   int frames, hp, wp;
   uint32_t seed1, seed2; // hash mode
+  int c;                 // channels (block_kernel_wide; block_kernel's is a template argument)
 };
 
 // Tile geometry and warp layout by channel count.
@@ -311,12 +313,12 @@ __device__ __forceinline__ void row_pass(const float (&up)[4], const float (&c)[
 // The column pass on a thread's row-passed input columns j0-1 .. j0+2
 // (x[k], k = 0..3), + noise1 + b1 + lrelu: output columns 2*j0 .. 2*j0+3
 // of both output rows, stored in bf16 to the activation tile `act` (row
-// p = par * TW + output column, row stride LD) at channels ch .. ch+3.
+// p = par * TW + output column, row stride ld) at channels ch .. ch+3.
 // nz1: the tile's noise1 by output pixel; bb: b1 at those channels.
-template <int TW, int LD, typename NZ>
+template <int TW, typename NZ>
 __device__ __forceinline__ void column_pass(const float (&x)[4][2][4], const float (&bb)[4],
                                             float nw1, const NZ* nz1, int j0, int ch,
-                                            __nv_bfloat16* act) {
+                                            __nv_bfloat16* act, int ld) {
 #pragma unroll
   for (int par = 0; par < 2; ++par)
 #pragma unroll
@@ -333,7 +335,7 @@ __device__ __forceinline__ void column_pass(const float (&x)[4][2][4], const flo
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           h[e] = lrelu(__fadd_rn(__fadd_rn(blend(xn[e], kc[e]), nzw), bb[e]));
-        *reinterpret_cast<uint2*>(act + p * LD + ch) =
+        *reinterpret_cast<uint2*>(act + p * ld + ch) =
             make_uint2(pack_bf16(h[0], h[1]), pack_bf16(h[2], h[3]));
       }
     }
@@ -462,7 +464,7 @@ __global__ void __launch_bounds__(NTHREADS, C == 256 ? 1 : 2) block_kernel(const
     float bb[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) bb[e] = sm.b1[ch + e];
-    column_pass<TW, LD>(x, bb, nw1, sm.nz[s][0], j0, ch, sm.act);
+    column_pass<TW>(x, bb, nw1, sm.nz[s][0], j0, ch, sm.act, LD);
   };
 
   // conv_b: the warp's (16 MT, 8 NT) block of act @ w2t^T.
@@ -679,53 +681,63 @@ __global__ void __launch_bounds__(NTHREADS, C == 256 ? 1 : 2) block_kernel(const
 #endif
 }
 
-// ---- C = 512: block_kernel_wide, the conv_b weight streamed ----
+// ---- C = 384 to 2048: block_kernel_wide, the conv_b weight streamed ----
 //
-// At C = 512 conv_b's weight is 512 KB, over twice what a block's shared
-// memory holds, so it cannot stay resident as in block_kernel. Every byte
-// of it read from L2 has to serve as many pixels as shared memory allows:
-// a tile is one input row x 32 input columns (2 output rows x 64 columns,
-// 128 pixels; 128 tiles for the 64 x 64 input of the 128^2 block, one a
-// block on 132 SMs). Its bf16 activation tile (128 x 512, 130 KB) stays in
-// shared memory while conv_b walks four passes of 128 output columns, each
-// over eight k-chunks of 64 input channels; the weight's (128, 64) chunks
-// stream through a 4-slot cp.async ring, three chunks ahead, across tile
-// boundaries, so a tile reads the whole weight from L2 once: 64 MB of L2
-// reads for the 128^2 block, three times its ~21 MB of HBM bytes (the
-// price of a simple first design; a cluster sharing each chunk would cut
-// it). The upsample reads y1 straight from global memory
-// (L2: the 4 MB bf16 input is resident), no staging ring: shared memory is
-// the activation tile and the weight ring. Every rounding point, the
-// modes, the frames, the ragged last tile, the skipped feat store and the
-// folded ToRGB are block_kernel's; ToRGB sums a pixel's 512 channels in a
-// fixed order (pass by pass in a thread, then lanes by shuffles, then the
-// two column-group partials in order), so two launches give the same bits.
+// From C = 384 up, conv_b's weight (C x C bf16: 288 KB at 384, 8 MB at
+// 2048) cannot stay in shared memory as in block_kernel. Every byte of it
+// read from L2 has to serve as many pixels as shared memory allows, so the
+// tile is one input row x TW_IN input columns whose bf16 activation tile
+// (TM x C, 100-131 KB) stays in shared memory while conv_b walks C / 128
+// passes of NB = 128 output columns, each over C / 64 k-chunks of KC = 64
+// input channels. C is taken at run time; the tile (TM = 128 output pixels
+// at C <= 512, 64 at C <= 1024, 32 at C <= 2048: 2 output rows x TM / 2
+// columns, TW_IN = TM / 4) and the warp layout are a template argument.
+// The counts the shipped multipliers' blocks reach (512, 1024, 2048) are
+// also built with C fixed at compile time (CT), which folds the index
+// arithmetic a run-time C costs; the same source serves both.
+// The weight's (128, 64) chunks stream through an NS-slot cp.async ring,
+// NS - 1 chunks ahead, across tile boundaries, so a tile reads the whole
+// weight from L2 once: 64 MB of L2 reads for the 128^2 block of m = 4
+// (three times its ~21 MB of HBM bytes), 512 MB at y1 (64, 64, 1024) and
+// 4 GB at (64, 64, 2048). That L2 stream is what bounds this simple first
+// design from C = 1024 up; a cluster sharing each chunk (TMA multicast
+// into distributed shared memory) would cut it. The upsample reads y1
+// straight from global memory (L2: the input is resident), no staging
+// ring: shared memory is the activation tile and the weight ring. Every
+// rounding point, the modes (K3's bf16 ToRGB operands, bias and upsampled
+// skip included), the frames, the ragged last tile (at TM = 128 only: Wp
+// is a multiple of 16), the skipped feat store and the folded ToRGB are
+// block_kernel's; ToRGB sums a pixel's C channels in a fixed order (pass by
+// pass in a thread, then lanes by shuffles, then the NW column-group
+// partials in order), so two launches give the same bits. At C = 512 the
+// tile, the layout and the order are those this kernel had when 512 was
+// its only C.
+template <int TM_>
 struct Wide {
-  static constexpr int C = 512;
-  static constexpr int TW_IN = 32;                   // input columns a tile
-  static constexpr int TW = 2 * TW_IN;               // output columns a tile row
-  static constexpr int TM = 2 * TW;                  // output pixels a tile (128)
+  static constexpr int TM = TM_;                     // output pixels a tile
+  static constexpr int TW = TM / 2;                  // output columns a tile row
+  static constexpr int TW_IN = TW / 2;               // input columns a tile
   static constexpr int NB = 128;                     // conv_b output columns a pass
   static constexpr int KC = 64;                      // input channels a weight chunk
-  static constexpr int NS = 4;                       // weight ring slots
-  static constexpr int KCH = C / KC;                 // chunks a pass
-  static constexpr int CHUNKS = (C / NB) * KCH;      // chunks a tile
-  static constexpr int NW = 2;                       // warps across a pass's columns
+  // weight ring slots: three at TM = 32, where the activation tile of C =
+  // 2048 leaves no room for a fourth
+  static constexpr int NS = TM == 32 ? 3 : 4;
+  static constexpr int NW = TM == 128 ? 2 : 4;       // warps across a pass's columns
   static constexpr int MW = 8 / NW;                  // warps across the pixels
-  static constexpr int MT = TM / 16 / MW;            // m-tiles of 16 pixels a warp (2)
-  static constexpr int NT = NB / NW / 8;             // n-tiles of 8 columns a warp (8)
-  static constexpr int LD = C + 8;                   // act row stride (bf16)
+  static constexpr int MT = TM / 16 / MW;            // m-tiles of 16 pixels a warp
+  static constexpr int NT = NB / NW / 8;             // n-tiles of 8 columns a warp
   static constexpr int WLD = KC + 8;                 // weight chunk row stride (bf16)
-  static_assert(MT * 16 * MW == TM && NT % 2 == 0 && (C / 4) * 2 == NTHREADS, "warp layout");
-};
+  static_assert(MT >= 1 && MT * 16 * MW == TM && NT % 2 == 0, "warp layout");
 
-struct __align__(16) WideSmem {
-  __nv_bfloat16 act[Wide::TM * Wide::LD];            // activation tile
-  __nv_bfloat16 w[Wide::NS][Wide::NB * Wide::WLD];   // ring: weight chunks (n, k)
-  float nz[2][Wide::TM];                             // the tile's noise1, noise2
-  float b1[Wide::C], b2[Wide::C];
-  float wrgb[3 * Wide::C];                           // (j, k)
-  float rgbp[Wide::NW * Wide::TM * 3];               // ToRGB partials of the column groups
+  // Shared memory at C channels, in order: the bf16 activation tile (row
+  // stride C + 8), the weight ring, noise1 / noise2 of the tile, b1, b2,
+  // wrgb (j, k) and the column groups' ToRGB partials; every part 16-byte
+  // aligned (C is a multiple of 128).
+  __host__ __device__ static constexpr size_t act_bytes(int c) { return size_t(TM) * (c + 8) * 2; }
+  __host__ __device__ static constexpr size_t ring_bytes() { return size_t(NS) * NB * WLD * 2; }
+  __host__ __device__ static constexpr size_t smem_bytes(int c) {
+    return act_bytes(c) + ring_bytes() + 4 * (2 * TM + 5 * size_t(c) + NW * TM * 3);
+  }
 };
 
 template <int N>
@@ -733,54 +745,80 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <typename T, bool HASH>
+// CT: C fixed at compile time (the channel counts of the shipped
+// multipliers' blocks), or 0: C taken from P.c at run time.
+template <int TM, int CT, typename T, bool HASH, bool RGB_BF16>
 __global__ void __launch_bounds__(NTHREADS, 1) block_kernel_wide(const Params P) {
-  using W = Wide;
-  constexpr int C = W::C, TW_IN = W::TW_IN, TW = W::TW, TM = W::TM, MT = W::MT, NT = W::NT,
-                LD = W::LD, WLD = W::WLD, NS = W::NS;
+  using W = Wide<TM>;
+  constexpr int TW_IN = W::TW_IN, TW = W::TW, NB = W::NB, KC = W::KC, NW = W::NW,
+                MT = W::MT, NT = W::NT, WLD = W::WLD, NS = W::NS;
   constexpr bool F32 = std::is_same<T, float>::value;
+  static_assert(F32 || !RGB_BF16, "K3 stores f32");
+  using WT = typename std::conditional<RGB_BF16, __nv_bfloat16, T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  WideSmem& sm = *reinterpret_cast<WideSmem*>(smem_raw);
+  const int C = CT > 0 ? CT : P.c, LD = C + 8;  // LD: act row stride (bf16)
+  const int KCH = C / KC;         // chunks a pass
+  const int CHUNKS = (C / NB) * KCH;  // chunks a tile
+  __nv_bfloat16* const act = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* const wring = reinterpret_cast<__nv_bfloat16*>(smem_raw + W::act_bytes(C));
+  float* const nz = reinterpret_cast<float*>(smem_raw + W::act_bytes(C) + W::ring_bytes());
+  float* const b1 = nz + 2 * TM;
+  float* const b2 = b1 + C;
+  float* const wrgb = b2 + C;
+  float* const rgbp = wrgb + 3 * C;
   const T* __restrict__ y1 = static_cast<const T*>(P.y1);
-  const T* __restrict__ wrgbt = static_cast<const T*>(P.wrgbt);
+  const WT* __restrict__ wrgbt = static_cast<const WT*>(P.wrgbt);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int mg = warp / W::NW, nq = warp % W::NW;  // pixel group, column group
+  const int mg = warp / NW, nq = warp % NW;  // pixel group, column group
   const int hp = P.hp, wp = P.wp, wo = 2 * wp;
   const int segs = (wp + TW_IN - 1) / TW_IN;
   const int n_tiles = P.frames * hp * segs;
-  const int my_chunks = (n_tiles - 1 - int(blockIdx.x)) / int(gridDim.x) * W::CHUNKS + W::CHUNKS;
+  const int my_chunks = (n_tiles - 1 - int(blockIdx.x)) / int(gridDim.x) * CHUNKS + CHUNKS;
   const float nw1 = P.nw[0], nw2 = P.nw[1];
   const bool emit_rgb = P.rgb != nullptr;
   T* feat = static_cast<T*>(P.feat);
 
-  // chunk q of the block's sequence (W::CHUNKS a tile: pass q / KCH, k-chunk
-  // q % KCH of a tile) into ring slot q % NS; past the block's last tile the
-  // copy group stays empty
-  auto load_chunk = [&](int q) {
-    if (q >= my_chunks) return;
-    const int cq = q % W::CHUNKS, n0 = cq / W::KCH * W::NB, k0 = cq % W::KCH * W::KC;
-    __nv_bfloat16* dst = sm.w[q % NS];
-    for (int i = tid; i < W::NB * (W::KC / 8); i += NTHREADS) {
-      const int n = i / (W::KC / 8), u = i % (W::KC / 8);
-      cp_async16(dst + n * WLD + u * 8, P.w2t + size_t(n0 + n) * C + k0 + u * 8);
+  // The block's chunks are loaded in sequence, CHUNKS a tile: chunk lq
+  // holds output columns ln0 .. ln0+NB-1 (the pass) and input channels
+  // lk0 .. lk0+KC-1 (the k-chunk) of the weight and goes to ring slot
+  // lq % NS; past the block's last tile the copy group stays empty. The
+  // position advances by adds, not by divisions by the run-time C.
+  int lq = 0, ln0 = 0, lk0 = 0;
+  auto load_next = [&]() {
+    if (lq < my_chunks) {
+      __nv_bfloat16* dst = wring + (lq % NS) * NB * WLD;
+      const __nv_bfloat16* src = P.w2t + size_t(ln0) * C + lk0;
+      for (int i = tid; i < NB * (KC / 8); i += NTHREADS) {
+        const int n = i / (KC / 8), u = i % (KC / 8);
+        cp_async16(dst + n * WLD + u * 8, src + size_t(n) * C + u * 8);
+      }
+      if ((lk0 += KC) == C) {
+        lk0 = 0;
+        if ((ln0 += NB) == C) ln0 = 0;
+      }
     }
+    ++lq;
   };
-  for (int q = 0; q < NS - 1; ++q) {
-    load_chunk(q);
+  for (int i = 0; i < NS - 1; ++i) {
+    load_next();
     cp_async_commit();
   }
   for (int i = tid; i < C; i += NTHREADS) {
-    sm.b1[i] = P.b1[i];
-    sm.b2[i] = P.b2[i];
+    b1[i] = P.b1[i];
+    b2[i] = P.b2[i];
   }
   if (wrgbt != nullptr)
-    for (int i = tid; i < 3 * C; i += NTHREADS) sm.wrgb[i] = to_f(wrgbt[i]);
+    for (int i = tid; i < 3 * C; i += NTHREADS) wrgb[i] = to_f(wrgbt[i]);
 
   // ldmatrix rows: A pixel (lane & 15) at k + (lane >> 4) * 8; B output
   // column (lane & 7) + (lane >> 4) * 8 at k + ((lane >> 3) & 1) * 8
-  const uint32_t a_addr = smem_u32(sm.act + (mg * MT * 16 + (lane & 15)) * LD + (lane >> 4) * 8);
+  const uint32_t a_addr = smem_u32(act + (mg * MT * 16 + (lane & 15)) * LD + (lane >> 4) * 8);
   const int b_off = (nq * NT * 8 + (lane & 7) + (lane >> 4) * 8) * WLD + ((lane >> 3) & 1) * 8;
+  // the upsample's items: the thread's first (group cg0 of pair jp0) and
+  // the stride of NTHREADS items in groups and pairs
+  const int groups = C / 4, cg0 = tid % groups, jp0 = tid / groups;
+  const int dcg = NTHREADS % groups, djp = NTHREADS / groups;
 
   int q = 0;  // the next chunk to multiply
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -792,25 +830,26 @@ __global__ void __launch_bounds__(NTHREADS, 1) block_kernel_wide(const Params P)
       const int m = i / TM, p = i % TM;
       const int orow = 2 * rf + p / TW, ocol = 2 * c0 + p % TW;
       if constexpr (HASH) {
-        sm.nz[m][p] = hash_normal(uint32_t(orow) * uint32_t(wo) + uint32_t(ocol),
-                                  m ? P.seed2 : P.seed1);
+        nz[i] = hash_normal(uint32_t(orow) * uint32_t(wo) + uint32_t(ocol),
+                            m ? P.seed2 : P.seed1);
       } else {
         const T* nb = static_cast<const T*>(m ? P.n2 : P.n1);
-        sm.nz[m][p] = ocol < wo ? to_f(nb[size_t(orow) * wo + ocol]) : 0.f;
+        nz[i] = ocol < wo ? to_f(nb[size_t(orow) * wo + ocol]) : 0.f;
       }
     }
     __syncthreads();  // noise staged; every warp is done with the last tile
 
     // Upsample + noise1 + b1 + lrelu -> the bf16 activation tile, as
-    // block_kernel's: a thread takes channels ch .. ch+3 of input columns
-    // j0, j0+1 (their neighbours j0-1 .. j0+2 read, zero outside the frame).
+    // block_kernel's: an item is channels ch .. ch+3 (group cg) of input
+    // columns j0, j0+1 (pair jp; their neighbours j0-1 .. j0+2 read, zero
+    // outside the frame); the C / 4 x TW_IN / 2 items are strided over the
+    // threads, group fastest
     {
-      const int ch = 4 * (tid % (C / 4));
-      float bb[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) bb[e] = sm.b1[ch + e];
-      const T* frame = y1 + size_t(r - rf) * wp * C + ch;  // the frame's first row
-      for (int j0 = 2 * (tid / (C / 4)); j0 < TW_IN; j0 += 2 * (NTHREADS / (C / 4))) {
+      const T* frame = y1 + size_t(r - rf) * wp * C;  // the frame's first row
+      for (int cg = cg0, jp = jp0; jp < TW_IN / 2;) {
+        const int ch = 4 * cg, j0 = 2 * jp;
+        const float4 b1v = *reinterpret_cast<const float4*>(b1 + ch);
+        const float bb[4] = {b1v.x, b1v.y, b1v.z, b1v.w};
         float x[4][2][4];  // row-upsampled columns, even and odd output row
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
@@ -820,7 +859,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) block_kernel_wide(const Params P)
           for (int row = 0; row < 3; ++row) {
             const int ir = rf - 1 + row;
             if (ir >= 0 && ir < hp && ic >= 0 && ic < wp) {
-              load4(frame + (size_t(ir) * wp + ic) * C, v[row]);
+              load4(frame + (size_t(ir) * wp + ic) * C + ch, v[row]);
             } else {
 #pragma unroll
               for (int e = 0; e < 4; ++e) v[row][e] = 0.f;
@@ -828,7 +867,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) block_kernel_wide(const Params P)
           }
           row_pass<T>(v[0], v[1], v[2], x[k]);
         }
-        column_pass<TW, LD>(x, bb, nw1, sm.nz[0], j0, ch, sm.act);
+        column_pass<TW>(x, bb, nw1, nz, j0, ch, act, LD);
+        cg += dcg, jp += djp;  // the next item: NTHREADS on
+        if (cg >= groups) cg -= groups, ++jp;
       }
     }
     __syncthreads();  // the activation tile is complete
@@ -844,13 +885,13 @@ __global__ void __launch_bounds__(NTHREADS, 1) block_kernel_wide(const Params P)
       px0[i] = out0 + size_t(pm / TW) * wo + pm % TW;
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
-        z[i][rr] = __fmul_rn(nw2, sm.nz[1][pm + g + 8 * rr]);
+        z[i][rr] = __fmul_rn(nw2, nz[TM + pm + g + 8 * rr]);
 #pragma unroll
         for (int jj = 0; jj < 3; ++jj) srgb[i][rr][jj] = 0.f;
       }
     }
 
-    for (int pass = 0; pass < C / W::NB; ++pass) {
+    for (int pass = 0; pass < C / NB; ++pass) {
       float acc[MT][NT][4];
 #pragma unroll
       for (int i = 0; i < MT; ++i)
@@ -858,18 +899,18 @@ __global__ void __launch_bounds__(NTHREADS, 1) block_kernel_wide(const Params P)
         for (int jn = 0; jn < NT; ++jn)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][jn][e] = 0.f;
-      for (int kc = 0; kc < W::KCH; ++kc, ++q) {
+      for (int kc = 0; kc < KCH; ++kc, ++q) {
         cp_async_wait<NS - 2>();
         __syncthreads();  // chunk q landed; every warp is done with slot (q - 1) % NS
-        load_chunk(q + NS - 1);
+        load_next();      // chunk q + NS - 1
         cp_async_commit();
-        const uint32_t b_addr = smem_u32(sm.w[q % NS] + b_off);
+        const uint32_t b_addr = smem_u32(wring + (q % NS) * NB * WLD + b_off);
 #pragma unroll
-        for (int k = 0; k < W::KC; k += 16) {
+        for (int k = 0; k < KC; k += 16) {
           uint32_t a[MT][4];
 #pragma unroll
           for (int i = 0; i < MT; ++i)
-            ldmatrix_x4(a[i], a_addr + 2 * (i * 16 * LD + kc * W::KC + k));
+            ldmatrix_x4(a[i], a_addr + 2 * (i * 16 * LD + kc * KC + k));
 #pragma unroll
           for (int jp = 0; jp < NT / 2; ++jp) {
             uint32_t b[4];  // b0, b1 of n-tile 2jp, then of 2jp + 1
@@ -885,17 +926,17 @@ __global__ void __launch_bounds__(NTHREADS, 1) block_kernel_wide(const Params P)
 
       // the pass's epilogue: noise2 + b2 + lrelu (rounded to bf16 where the
       // storage is bf16), feat stores, ToRGB partial sums
-      const int col0 = pass * W::NB + nq * NT * 8;  // the warp's first output column
+      const int col0 = pass * NB + nq * NT * 8;  // the warp's first output column
 #pragma unroll
       for (int jp = 0; jp < NT / 2; ++jp) {
         float v[MT][2][2][2];  // [m-tile][n-tile of the pair][row g, g + 8][column 2t, 2t + 1]
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int jn = 2 * jp + h, ch = col0 + jn * 8 + 2 * t;
-          const float2 bb = *reinterpret_cast<const float2*>(sm.b2 + ch);
+          const float2 bb = *reinterpret_cast<const float2*>(b2 + ch);
           float2 w[3];
 #pragma unroll
-          for (int jj = 0; jj < 3; ++jj) w[jj] = *reinterpret_cast<const float2*>(sm.wrgb + jj * C + ch);
+          for (int jj = 0; jj < 3; ++jj) w[jj] = *reinterpret_cast<const float2*>(wrgb + jj * C + ch);
 #pragma unroll
           for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -907,10 +948,12 @@ __global__ void __launch_bounds__(NTHREADS, 1) block_kernel_wide(const Params P)
                 v0 = f.x, v1 = f.y;
               }
               v[i][h][rr][0] = v0, v[i][h][rr][1] = v1;
-              if (emit_rgb)
+              if (emit_rgb) {
+                const float a0 = RGB_BF16 ? bf16r(v0) : v0, a1 = RGB_BF16 ? bf16r(v1) : v1;
 #pragma unroll
                 for (int jj = 0; jj < 3; ++jj)
-                  srgb[i][rr][jj] = __fmaf_rn(v1, w[jj].y, __fmaf_rn(v0, w[jj].x, srgb[i][rr][jj]));
+                  srgb[i][rr][jj] = __fmaf_rn(a1, w[jj].y, __fmaf_rn(a0, w[jj].x, srgb[i][rr][jj]));
+              }
             }
         }
         // one exchange between lanes t, t^1 gives each 4 adjacent channels:
@@ -939,8 +982,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) block_kernel_wide(const Params P)
       }
     }
 
-    // ToRGB: a thread's sums over its lanes' channels, then the two column
-    // groups' partials in order, as float4 runs over the tile's output rows
+    // ToRGB: a thread's sums over its lanes' channels, then the column
+    // groups' partials in order (+ brgb and the upsampled skip in K3), as
+    // float4 runs over the tile's output rows
     if (emit_rgb) {
 #pragma unroll
       for (int i = 0; i < MT; ++i)
@@ -958,18 +1002,31 @@ __global__ void __launch_bounds__(NTHREADS, 1) block_kernel_wide(const Params P)
           for (int rr = 0; rr < 2; ++rr)
 #pragma unroll
             for (int jj = 0; jj < 3; ++jj)
-              sm.rgbp[(nq * TM + (mg * MT + i) * 16 + g + 8 * rr) * 3 + jj] = srgb[i][rr][jj];
+              rgbp[(nq * TM + (mg * MT + i) * 16 + g + 8 * rr) * 3 + jj] = srgb[i][rr][jj];
     }
     __syncthreads();  // the partials are complete
     if (emit_rgb)
       for (int u = tid; u < TM * 3 / 4; u += NTHREADS) {
         const int f = 4 * u, par = f / (3 * TW), fr = f % (3 * TW);
         if (2 * c0 + fr / 3 >= wo) continue;  // past the row's end (32-pixel aligned)
-        const float4 a = *reinterpret_cast<const float4*>(sm.rgbp + f);
-        const float4 b = *reinterpret_cast<const float4*>(sm.rgbp + TM * 3 + f);
-        *reinterpret_cast<float4*>(P.rgb + (out0 + size_t(par) * wo) * 3 + fr) =
-            make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
-                        __fadd_rn(a.w, b.w));
+        float4 a = *reinterpret_cast<const float4*>(rgbp + f);
+#pragma unroll
+        for (int qn = 1; qn < NW; ++qn) {
+          const float4 b = *reinterpret_cast<const float4*>(rgbp + qn * TM * 3 + f);
+          a = make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                          __fadd_rn(a.w, b.w));
+        }
+        if constexpr (RGB_BF16) {
+          float o[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int p = (f + e) / 3, jj = (f + e) % 3;
+            o[e] = __fadd_rn(__fadd_rn(o[e], P.brgb[jj]),
+                             skip_up(P.skip, hp, wp, 2 * rf + p / TW, 2 * c0 + p % TW, jj));
+          }
+          a = make_float4(o[0], o[1], o[2], o[3]);
+        }
+        *reinterpret_cast<float4*>(P.rgb + (out0 + size_t(par) * wo) * 3 + fr) = a;
       }
   }
   cp_async_wait_all();
@@ -1011,12 +1068,15 @@ int launch(const Params& P, cudaStream_t stream, int* info) {
                        Geo<C, T>::TW_IN, Geo<C, T>::TM, P, stream, info);
 }
 
-template <typename T, bool HASH>
+template <int TM, int CT, typename T, bool HASH, bool RGB_BF16>
 int launch_wide(const Params& P, cudaStream_t stream, int* info) {
-  return launch_kernel(block_kernel_wide<T, HASH>, int(sizeof(WideSmem)), Wide::TW_IN,
-                       Wide::TM, P, stream, info);
+  using W = Wide<TM>;
+  return launch_kernel(block_kernel_wide<TM, CT, T, HASH, RGB_BF16>, int(W::smem_bytes(P.c)),
+                       W::TW_IN, W::TM, P, stream, info);
 }
 
+// C = 16 to 256: block_kernel; every multiple of 128 from 384 to 2048:
+// block_kernel_wide, its tile by C. K2 and K3 take the same channel counts.
 template <typename T, bool HASH, bool RGB_BF16>
 int launch_c(int c, const Params& P, cudaStream_t s, int* info = nullptr) {
   if (info == nullptr && (P.wp % 16 != 0 || P.frames < 1 || P.hp < 1))
@@ -1027,11 +1087,18 @@ int launch_c(int c, const Params& P, cudaStream_t s, int* info = nullptr) {
     case 64: return launch<64, T, HASH, RGB_BF16>(P, s, info);
     case 128: return launch<128, T, HASH, RGB_BF16>(P, s, info);
     case 256: return launch<256, T, HASH, RGB_BF16>(P, s, info);
-    case 512:  // K2 only: K3 takes C <= 256
-      if constexpr (RGB_BF16) return int(cudaErrorInvalidValue);
-      else return launch_wide<T, HASH>(P, s, info);
-    default: return int(cudaErrorInvalidValue);
+    default: break;
   }
+  if (c < 384 || c > 2048 || c % 128 != 0 || P.c != c) return int(cudaErrorInvalidValue);
+  switch (c) {  // the blocks of decoders at channel multipliers 4, 8 and 16
+    case 512: return launch_wide<128, 512, T, HASH, RGB_BF16>(P, s, info);
+    case 1024: return launch_wide<64, 1024, T, HASH, RGB_BF16>(P, s, info);
+    case 2048: return launch_wide<32, 2048, T, HASH, RGB_BF16>(P, s, info);
+    default: break;
+  }
+  if (c <= 512) return launch_wide<128, 0, T, HASH, RGB_BF16>(P, s, info);
+  if (c <= 1024) return launch_wide<64, 0, T, HASH, RGB_BF16>(P, s, info);
+  return launch_wide<32, 0, T, HASH, RGB_BF16>(P, s, info);
 }
 
 template <bool RGB_BF16>
@@ -1053,7 +1120,7 @@ extern "C" int decoder_block_forward(
     int hash, unsigned int seed1, unsigned int seed2, void* stream) {
   using namespace dblock;
   Params P{y1, n1, n2, static_cast<const __nv_bfloat16*>(w2t), b1, b2, nw, wrgbt,
-           nullptr, nullptr, feat, rgb, frames, hp, wp, seed1, seed2};
+           nullptr, nullptr, feat, rgb, frames, hp, wp, seed1, seed2, c};
   return launch_mode<false>(c, f32_storage, hash, P, static_cast<cudaStream_t>(stream),
                             nullptr);
 }
@@ -1065,7 +1132,7 @@ extern "C" int decoder_block_fused_forward(
     int c, void* stream) {
   using namespace dblock;
   Params P{y1, n1, n2, static_cast<const __nv_bfloat16*>(w2t), b1, b2, nw, wrgbt,
-           skip, brgb, feat, rgb, 1, hp, wp, 0u, 0u};
+           skip, brgb, feat, rgb, 1, hp, wp, 0u, 0u, c};
   return launch_mode<true>(c, 1, 0, P, static_cast<cudaStream_t>(stream), nullptr);
 }
 
@@ -1085,7 +1152,8 @@ extern "C" int decoder_block_phase_cycles(unsigned long long* out, int* n, int r
 
 extern "C" int decoder_block_info(int c, int f32_storage, int hash, int k3, int* info) {
   using namespace dblock;
-  const Params P{};
+  Params P{};
+  P.c = c;
   return k3 ? launch_mode<true>(c, 1, 0, P, nullptr, info)
             : launch_mode<false>(c, f32_storage, hash, P, nullptr, info);
 }

@@ -10,9 +10,12 @@ One decoder block at resolution r, after conv_a's matmul at r/2 (y1):
 
 `decoder_block_packed` (K2, the serving block) launches the CUDA kernel
 `csrc/decoder_block.cu` for tensors on the card and runs
-`decoder_block_plain` for tensors on the CPU. K2 takes C in
-KERNEL_CHANNELS: at 16-256 conv_b's weight stays in shared memory, at 512
-it is streamed (`block_kernel_wide`); K3 takes C up to 256. The storage
+`decoder_block_plain` for tensors on the CPU. K2 and K3 take the channel
+counts of KERNEL_CHANNELS: at 16-256 conv_b's weight stays in shared
+memory (`block_kernel`), at every multiple of 128 from 384 to 2048 it is
+streamed from L2 (`block_kernel_wide`, its tile by C: `tile_pixels`).
+That covers every block of a decoder at channel multipliers 1, 2, 4, 8
+and 16. The storage
 dtype `dtype` (bf16 or f32) fixes the rounding points, as the serving
 path of the JAX package has them: y1 and the noise buffers are stored in
 it, the row-upsampled values are rounded to it before the column blend,
@@ -45,11 +48,15 @@ from .siren_render import fast_sin
 # normalized [1,3,3,1]/8 * 2 gain (per-axis sqrt of the 4x 2-D gain)
 K4 = (0.25, 0.75, 0.75, 0.25)
 SQRT2 = 1.4142135623730951
-# K2 takes every C of the decoder's channel table at channel multipliers
-# 1, 2 and 4 (16 at the 1024^2 block of m = 1, 512 at the 128^2 block of
-# m = 4; tests/test_torch_port_decoder_block.py), K3 every C up to 256
-KERNEL_CHANNELS = (16, 32, 64, 128, 256, 512)
-K3_CHANNELS = (16, 32, 64, 128, 256)
+# The channel counts K2 and K3 take: 16-256 with the weight resident, and
+# the streamed ones, every multiple of 128 from 384 to 2048. Every C of the
+# decoder's channel table at channel multipliers 1, 2, 4, 8 and 16 lies in
+# them (16 at the 1024^2 block of m = 1, 2048 at the 128^2 block of m = 16;
+# tests/test_torch_port_decoder_block.py)
+RESIDENT_CHANNELS = (16, 32, 64, 128, 256)
+STREAMED_CHANNELS = tuple(range(384, 2049, 128))
+KERNEL_CHANNELS = RESIDENT_CHANNELS + STREAMED_CHANNELS
+TAKEN = "C in 16, 32, 64, 128, 256 or a multiple of 128 from 384 to 2048"
 STORAGE = (torch.bfloat16, torch.float32)
 _M32 = 0xFFFFFFFF
 # f32 operations of one hash_normal value: two avalanche hashes (2 x 7
@@ -211,10 +218,22 @@ def decoder_block_plain(y1, prepared, emit_feat=True, frames=1):
     return tuple(res) if len(res) > 1 else res[0]
 
 
-def _check_block_shape(what, rows, wp, c, frames, channels=KERNEL_CHANNELS):
-    if c not in channels or wp % 16 or rows % frames:
+def tile_pixels(c) -> int:
+    """Output pixels of the kernel's tile at C = c (2 output rows x half as
+    many columns): 8192 / C with the weight resident; with it streamed, 128
+    at C <= 512, 64 at C <= 1024 and 32 above, so that the bf16 activation
+    tile stays near 128 KB of shared memory."""
+    if c not in KERNEL_CHANNELS:
+        raise ValueError(f"no decoder block kernel at C = {c} ({TAKEN})")
+    if c in RESIDENT_CHANNELS:
+        return 8192 // c
+    return 128 if c <= 512 else 64 if c <= 1024 else 32
+
+
+def _check_block_shape(what, rows, wp, c, frames):
+    if c not in KERNEL_CHANNELS or wp % 16 or rows % frames:
         raise ValueError(f"{what} kernel: unsupported y1 {(rows, wp, c)} for "
-                         f"{frames} frames (C in {channels}, Wp % 16 == 0)")
+                         f"{frames} frames ({TAKEN}, none other; Wp % 16 == 0)")
 
 
 def _check_aligned(**tensors):
@@ -229,9 +248,12 @@ def decoder_block_info(c, dtype=torch.bfloat16, hashed=False, k3=False):
     shared memory a block (bytes), blocks an SM, registers a thread, local
     (spill) bytes a thread, input columns and output pixels of a tile. K3
     (`k3=True`) is the f32 instantiation with the bias and skip epilogue.
-    C = 512 is K2's streamed-weight kernel (block_kernel_wide)."""
-    if c not in (K3_CHANNELS if k3 else KERNEL_CHANNELS):
-        raise ValueError(f"decoder_block_info: no {'K3' if k3 else 'K2'} kernel at C = {c}")
+    C = 384-2048 is the streamed-weight kernel (block_kernel_wide): one
+    instantiation a tile size (`tile_pixels`) and mode with C at run
+    time, and one each with C fixed at 512, 1024 and 2048."""
+    if c not in KERNEL_CHANNELS:
+        raise ValueError(f"decoder_block_info: no {'K3' if k3 else 'K2'} kernel at C = {c} "
+                         f"({TAKEN})")
     info = (ctypes.c_int * 6)()
     lib = _lib.load("decoder_block")
     fn = lib.decoder_block_info
@@ -356,7 +378,7 @@ def _launch_fused(y1, skip, noise1, noise2, w2, wrgb, b1, b2, brgb, noise_w1,
                   noise_w2):
     dev = y1.device
     hp, wp, c = y1.shape
-    _check_block_shape("decoder_block_fused", hp, wp, c, 1, K3_CHANNELS)
+    _check_block_shape("decoder_block_fused", hp, wp, c, 1)
     f32, bf16 = torch.float32, torch.bfloat16
     ops = {
         "y1": y1.float().contiguous(),

@@ -1,9 +1,11 @@
 """Where a served frame's gap to the plain path comes from, on the card.
 
     python -m cips3dpp_torch.tools.frame_gap_split [--multipliers 1 2 4] [--seeds 1234 1241]
+        [--preset serving|r1024]
 
 For each channel multiplier and seed: a full-width preset_serving
-Generator with only the multiplier changed (weights from the seed, its
+Generator (bf16 storage; preset_r1024 with `--preset r1024`, the f32
+decoder of the sampling trajectories) with only the multiplier changed (weights from the seed, its
 zero-initialised noise weights and biases set to draws, as chip_smoke.py's
 models), one identity's r1024 frame at yaw -0.3 through prepare_trajectory
 / render_frame, rendered four ways: both kernels (K1 and K2), K2's plain
@@ -51,17 +53,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--multipliers", type=int, nargs="+", default=[1, 2, 4])
     ap.add_argument("--seeds", type=int, nargs="+", default=[1234, 1241])
+    ap.add_argument("--preset", choices=("serving", "r1024"), default="serving")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("frame_gap_split: needs a CUDA device")
     from .. import serving
     from ..kernels.siren_render import plain_precision
-    from ..models.generator import Generator, preset_serving
+    from ..models.generator import Generator, preset_r1024, preset_serving
     from ..models.layers import randomize_zero_init_
 
     plain_precision()
     dev = torch.device("cuda", 0)
-    base = preset_serving()
+    base = preset_serving() if args.preset == "serving" else preset_r1024()
     yaws = torch.linspace(-0.3, 0.3, 4, device=dev)
     gap = lambda a, b: [float((a - b).abs().max()), float((a - b).abs().mean())]
     with torch.inference_mode():
@@ -87,7 +90,7 @@ def main(argv=None) -> int:
                     both = frame()
                     own = serving.render_frame(model, prep, yaws, yaws * 0, device=dev)["rgb"][:1]
                 print(json.dumps({
-                    "channel_multiplier": m, "seed": seed,
+                    "preset": args.preset, "channel_multiplier": m, "seed": seed,
                     "to_k2_plain": gap(got, k2_plain), "to_k1_plain": gap(got, k1_plain),
                     "to_plain": gap(got, both), "plain_own_spread": gap(own, both),
                     "mean_abs_rgb": float(both.abs().mean()),

@@ -1,11 +1,15 @@
 """K2, the decoder upsample block: the port's plain version (what the CUDA
 kernel computes, run on the CPU) against the packed Pallas kernel in
-interpret mode and against its jnp oracle, for C in {16, 32, 128, 512}
-(the kernel's smallest and largest, 512 its streamed-weight form): with
-ToRGB folded in, with the feature store skipped, and with two frames
-stacked on rows (the upsample halo must stop at each frame's edge). Then
-the decoder's channel table at channel multipliers 1, 2 and 4 against
-the channel counts the kernel takes and JAX's packed-block assertion.
+interpret mode and against its jnp oracle, for C in {16, 32, 128, 384,
+512, 1024, 2048} (the resident kernel's smallest and largest shipped C,
+and the streamed-weight kernel at each of its tile sizes, 384 a count
+that is no power of two): with ToRGB folded in, with the feature store
+skipped, and with two frames stacked on rows (the upsample halo must stop
+at each frame's edge). The plain versions are generic in C: the same
+code serves every C. Then K3's plain version at C = 32, 512 and 1024,
+the decoder's channel table at channel multipliers 1, 2, 4, 8 and 16
+against the channel counts the kernel takes and JAX's packed-block
+assertion, and the shape check at counts it does not take.
 
 Why not exact: conv_b multiplies bf16-rounded activations and sums in f32
 in another order than the Pallas kernel; an activation that lands next to
@@ -58,7 +62,11 @@ def _pallas(x, dt, **kw):
     )
 
 
-@pytest.mark.parametrize("c", [16, 32, 128, 512])
+# the resident kernel's C, then the streamed kernel's three tile sizes
+CHANNELS = [16, 32, 128, 384, 512, 1024, 2048]
+
+
+@pytest.mark.parametrize("c", CHANNELS)
 def test_plain_matches_pallas_bf16_rgb_fold(c):
     """The serving configuration: bf16 storage, ToRGB folded in; then the
     final-block mode (feature store skipped) and two stacked frames."""
@@ -92,7 +100,7 @@ def test_plain_matches_pallas_bf16_rgb_fold(c):
                                    rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("c", [16, 32, 128, 512])
+@pytest.mark.parametrize("c", CHANNELS)
 def test_plain_matches_pallas_and_oracle_f32(c):
     """f32 storage (the f32 decoder config): only conv_b rounds to bf16."""
     from cips3dpp_tpu.kernels.decoder_block import decoder_block_packed_reference as jref
@@ -112,20 +120,23 @@ def test_plain_matches_pallas_and_oracle_f32(c):
     np.testing.assert_allclose(a(got_ref), a(want), **tol)
 
 
-def test_v1_block_plain_matches_pallas_and_oracle():
+@pytest.mark.parametrize("c", [32, 512, 1024])
+def test_v1_block_plain_matches_pallas_and_oracle(c):
     """K3, the v1 block (f32 in and out, ToRGB bias and upsampled-skip
     epilogue): the port's plain version against the Pallas kernel in
     interpret mode and against its jnp oracle, at tests/test_kernels.py's
-    shape (32, 16, 32) and tolerance."""
+    shape (32, 16, 32) and tolerance, and at C = 512 and 1024, which the
+    card takes through the streamed-weight kernel."""
     from cips3dpp_tpu.kernels.decoder_block import decoder_block_fused as jfused
     from cips3dpp_tpu.kernels.decoder_block import decoder_block_reference as jref
     from cips3dpp_torch.kernels.decoder_block import decoder_block_fused
 
-    hp, wp, c = 32, 16, 32
-    rng = np.random.default_rng(3)
+    hp, wp = (32, 16) if c == 32 else (16, 16)
+    rng = np.random.default_rng(3 if c == 32 else c)
     n = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    g = 0.1 * np.sqrt(32 / c)  # the C = 32 case's gain at every C
     args = (n(hp, wp, c), n(hp, wp, 3), n(2 * hp, 2 * wp, 1), n(2 * hp, 2 * wp, 1),
-            0.1 * n(c, c), 0.1 * n(c, 3), 0.1 * n(c), 0.1 * n(c), 0.1 * n(3))
+            g * n(c, c), g * n(c, 3), 0.1 * n(c), 0.1 * n(c), 0.1 * n(3))
     nw = (0.3, 0.2)
     feat, rgb = decoder_block_fused(*[t(x) for x in args], *nw)
     assert feat.shape == (2 * hp, 2 * wp, c) and rgb.shape == (2 * hp, 2 * wp, 3)
@@ -136,10 +147,10 @@ def test_v1_block_plain_matches_pallas_and_oracle():
         np.testing.assert_allclose(a(rgb), a(want[1]), rtol=0, atol=2e-3)
 
 
-@pytest.mark.parametrize("m", [1, 2, 4])
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 16])
 def test_channel_table_blocks_lie_in_the_kernel(m):
     """Every upsample block of a decoder at channel multiplier m (128^2 to
-    1024^2) has a C that K2 takes and that JAX's packed block admits
+    1024^2) has a C that K2 and K3 take and that JAX's packed block admits
     (cips3dpp_tpu/kernels/decoder_block.py: (c * p) % 128 == 0 or c >= 128
     with p = max(1, 128 // c)), from both packages' channel tables."""
     from cips3dpp_tpu.models.layers import channel_table as jax_table
@@ -148,7 +159,28 @@ def test_channel_table_blocks_lie_in_the_kernel(m):
 
     assert channel_table(m) == jax_table(m)
     got = [channel_table(m)[r] for r in (128, 256, 512, 1024)]
-    assert got == {1: [128, 64, 32, 16], 2: [256, 128, 64, 32], 4: [512, 256, 128, 64]}[m]
+    assert got == {1: [128, 64, 32, 16], 2: [256, 128, 64, 32], 4: [512, 256, 128, 64],
+                   8: [1024, 512, 256, 128], 16: [2048, 1024, 512, 256]}[m]
     for c in got:
         p = max(1, 128 // c)
         assert c in KERNEL_CHANNELS and ((c * p) % 128 == 0 or c >= 128)
+
+
+@pytest.mark.parametrize("c", [192, 4096])
+def test_shape_check_names_the_channel_counts_taken(c):
+    """A C that neither kernel takes (192: a multiple of 16 the resident
+    tile does not divide; 4096: past the streamed kernel's largest) raises,
+    naming the set, before any library is built or loaded."""
+    from cips3dpp_torch.kernels import decoder_block as kdb
+
+    assert c not in kdb.KERNEL_CHANNELS
+    taken = "16, 32, 64, 128, 256 or a multiple of 128 from 384 to 2048"
+    with pytest.raises(ValueError, match=taken):
+        kdb._check_block_shape("decoder_block", 16, 16, c, 1)
+    for k3 in (False, True):
+        with pytest.raises(ValueError, match=taken):
+            kdb.decoder_block_info(c, k3=k3)
+    with pytest.raises(ValueError, match=taken):
+        kdb.tile_pixels(c)
+    assert [kdb.tile_pixels(c) for c in (16, 256, 384, 512, 640, 1024, 1152, 2048)] == [
+        512, 32, 128, 128, 64, 64, 32, 32]

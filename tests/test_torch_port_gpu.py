@@ -125,10 +125,10 @@ def test_siren_phase_split_counts_every_phase(dev):
 # config's mode, and hash noise made in the kernel in either storage
 MODES = [("bf16", "buffers"), ("f32", "buffers"), ("bf16", "hash"), ("f32", "hash")]
 # y1 (F*Hp, Wp) by name: the first two as before; Wp = 48 is ragged against
-# the tile width at C = 16, 32, 64 and 512 (128, 64, 32 and 32 input
-# columns) with F = 3; Hp = 1 puts every row at a frame edge; "large" gives
-# every persistent block several tiles, so the staging ring (and at C =
-# 512 the weight ring, across tiles) wraps
+# the tile width at C = 16, 32, 64, 384 and 512 (128, 64, 32, 32 and 32
+# input columns) with F = 3; Hp = 1 puts every row at a frame edge; "large"
+# gives every persistent block several tiles, so the staging ring (and from
+# C = 384 up the weight ring, across tiles) wraps
 SHAPES = {"16x32": (16, 32, 1), "16x32-f2": (16, 32, 2), "ragged-f3": (8, 48, 3),
           "hp1-f2": (1, 32, 2), "large-f2": None}
 
@@ -139,8 +139,13 @@ def _block_shape(name, c):
     return SHAPES[name]
 
 
+# every resident C, and the streamed kernel at each tile size (128 pixels
+# at 384 and 512, 64 at 1024, 32 at 2048)
+BLOCK_CHANNELS = [16, 32, 64, 128, 256, 384, 512, 1024, 2048]
+
+
 @pytest.mark.parametrize("mode", MODES, ids=["-".join(m) for m in MODES])
-@pytest.mark.parametrize("c", [16, 32, 64, 128, 256, 512])
+@pytest.mark.parametrize("c", BLOCK_CHANNELS)
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_decoder_block_kernel_matches_plain(dev, c, shape, mode):
     from cips3dpp_torch.kernels import _lib
@@ -227,10 +232,11 @@ def test_generator_fused_route_matches_render_frame(dev):
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("m", [1, 4])
+@pytest.mark.parametrize("m", [1, 4, 8])
 def test_fused_frames_at_channel_multipliers(dev, m):
-    """preset_serving at channel multiplier 1 (the 1024^2 block at C = 16)
-    and 4 (the 128^2 block at C = 512): an r1024 frame through
+    """preset_serving at channel multiplier 1 (the 1024^2 block at C = 16),
+    4 (the 128^2 block at C = 512) and 8 (the 128^2 block at C = 1024, the
+    256^2 block at 512): an r1024 frame through
     prepare_trajectory / render_frame launches 1 K1 + 4 K2 and lies within
     chip_smoke.py phase 5's bounds of the frame through K2's plain
     version. Against the plain versions of both kernels its mean gap is
@@ -312,7 +318,7 @@ def test_hash_noise_in_kernel_matches_its_map(dev):
 K3_SHAPES = {"32x16": (32, 16), "ragged": (8, 48), "hp1": (1, 32), "large": None}
 
 
-@pytest.mark.parametrize("c", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("c", [16, 32, 64, 128, 256, 512, 1024, 2048])
 @pytest.mark.parametrize("shape", list(K3_SHAPES))
 def test_decoder_block_fused_kernel_matches_plain(dev, c, shape):
     """K3, the v1 block: f32 in and out, bias and upsampled-skip epilogue."""
@@ -364,27 +370,29 @@ def test_decoder_block_phase_split_counts_every_phase(dev):
 
 
 def test_decoder_block_resources(dev):
-    """Every K2 / K3 instantiation fits on the card with no spill; tiles
-    hold 8192 values at C = 16 to 256 and 128 pixels (32 input columns) at
-    C = 512, which K3 does not take."""
+    """Every K2 / K3 instantiation fits on the card with no spill, at every
+    C the kernels take; tiles hold 8192 values at C = 16 to 256, and 128,
+    64 or 32 pixels (32, 16 or 8 input columns) with the weight streamed
+    (C = 384-512, 640-1024, 1152-2048). A C outside the set raises."""
     from cips3dpp_torch.kernels.decoder_block import (
-        K3_CHANNELS, KERNEL_CHANNELS, decoder_block_info,
+        KERNEL_CHANNELS, decoder_block_info, tile_pixels,
     )
 
     for dt, hashed, k3 in ((torch.bfloat16, False, False), (torch.bfloat16, True, False),
                            (torch.float32, False, False), (torch.float32, True, False),
                            (torch.float32, False, True)):
         for c in KERNEL_CHANNELS:
-            if k3 and c not in K3_CHANNELS:
-                with pytest.raises(ValueError):
-                    decoder_block_info(c, dt, hashed, k3)
-                continue
             info = decoder_block_info(c, dt, hashed, k3)
             print(dt, hashed, k3, c, info)
             assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
             assert info["smem_bytes"] <= 232448
-            assert info["tile_pixels"] == (128 if c == 512 else 8192 // c)
+            assert info["tile_pixels"] == tile_pixels(c)
+            assert info["tile_pixels"] == (8192 // c if c <= 256 else
+                                           128 if c <= 512 else 64 if c <= 1024 else 32)
             assert info["tile_input_columns"] * 4 == info["tile_pixels"]
+        for c in (192, 4096):
+            with pytest.raises(ValueError, match="multiple of 128 from 384 to 2048"):
+                decoder_block_info(c, dt, hashed, k3)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

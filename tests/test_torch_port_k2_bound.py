@@ -71,3 +71,32 @@ def test_k2_work_at_the_new_channel_counts_by_hand():
         "f32_dot": 2 * 128 * 3 * 16 + 2 * 64 * HASH_OPS,
         "f32_apart": 10.25 * 128 * 16 + 2 * 128,
     }
+
+
+@pytest.mark.parametrize("c", [1024, 2048])
+def test_k2_work_at_the_streamed_channel_counts_by_hand(c):
+    """decoder_block_work is generic in C: at the channel counts of decoders
+    at channel multipliers 8 and 16 (the streamed-weight kernel at 64- and
+    32-pixel tiles) its terms are the same formulas, written out here for
+    y1 (1, 16, C) bf16, noise buffers, feat and rgb: 64 output pixels."""
+    got = decoder_block_work(1, 16, c, torch.bfloat16, hashed=False, emit_feat=True)
+    assert got == {
+        # y1, noise, feat, rgb, w2t, b1/b2/nw, wrgb
+        "bytes": 16 * c * 2 + 256 + 64 * c * 2 + 768 + c * c * 2 + 4 * (2 * c + 2)
+        + 3 * c * 2,
+        "bf16_flops": 2 * 64 * c * c,
+        "f32_dot": 2 * 64 * 3 * c,
+        "f32_apart": 10.25 * 64 * c + 2 * 64,
+    }
+
+
+def test_k2_times_tool_refuses_a_host_without_the_card():
+    """The timing tool (python -m cips3dpp_torch.tools.k2_times) times on the
+    card only: on a host without one it stops with a message, never timing
+    the plain version in the kernel's place."""
+    from cips3dpp_torch.tools import k2_times
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        k2_times.main(["--shapes", "16x16x384"])

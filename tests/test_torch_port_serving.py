@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import a, port_and_jax_generator, t
+from torch_port_helpers import a, np_tree, port_and_jax_generator, t
 
 # measured max |diff| 1.3e-2 on rgb (mean 3e-4) and 3e-5 on the thumbnail
 ATOL = {"rgb": 3e-2, "thumb_rgb": 1e-3}
@@ -96,11 +96,11 @@ def test_render_frame_and_scan_match_jax(served):
     np.testing.assert_allclose(float(got), own, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("m", [1, 4])
+@pytest.mark.parametrize("m", [1, 4, 8])
 def test_render_frame_at_channel_multipliers_match_jax(m):
-    """The serving fixture at channel multiplier 1 and 4 (its 64^2 block
-    at C = 256 and 1024, its 32^2 block at 512), the JAX weights carried by
-    io/jax_params.py: the frame at the fixture's ATOL of JAX's."""
+    """The serving fixture at channel multiplier 1, 4 and 8 (its 64^2 block
+    at C = 256, 1024 and 2048, its 32^2 block at 512), the JAX weights
+    carried by io/jax_params.py: the frame at the fixture's ATOL of JAX's."""
     from cips3dpp_tpu.serving import render_frame as jrender
     from cips3dpp_torch.serving import render_frame
 
@@ -109,6 +109,28 @@ def test_render_frame_at_channel_multipliers_match_jax(m):
     want = jrender(jmodel, jp, jnp.full((1,), 0.2), jnp.zeros((1,)), interpret=True)
     got = render_frame(tmodel, tp, t([0.2]), torch.zeros(1), device="cpu")
     _compare(got, want)
+
+
+@pytest.mark.parametrize("m", [8, 16])
+def test_weight_bridge_loads_wide_multiplier_trees(m):
+    """io/jax_params.py carries a JAX tree of the serving fixture at channel
+    multiplier 8 and 16 (its 64^2 layers at C = 2048 and 4096) into the
+    port's Generator: every tensor equal to the JAX package's exporter's,
+    under the reference's names."""
+    from cips3dpp_tpu.io.torch_import import export_generator_state_dict
+    from cips3dpp_torch.io.jax_params import load_jax_params
+    from cips3dpp_torch.models import generator as tg
+
+    _, jcfg, tcfg = _configs(m)
+    _, variables = port_and_jax_generator(jcfg, tcfg, seed=13)
+    tmodel = load_jax_params(tg.Generator(tcfg, device="cpu", seed=99),
+                             np_tree(variables["params"]))
+    want = export_generator_state_dict(variables)
+    mine = tmodel.state_dict()
+    assert sorted(mine) == sorted(want)
+    assert tuple(mine["decoder.convs.7.conv.weight"].shape)[1:3] == (256 * m, 256 * m)
+    for k, w in want.items():
+        np.testing.assert_array_equal(a(mine[k]), np.asarray(w, np.float32), err_msg=k)
 
 
 def test_render_frame_batched_matches_jax(served):
