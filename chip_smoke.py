@@ -175,7 +175,9 @@ Phases, each fatal on failure:
      its 64- and 32-pixel tiles, and at a count that is no power of two),
      in its four modes against its plain version (K2_TOL, twice bit-equal,
      device ms, plain ms, the bound term by term, ms / bound, the L2
-     weight bytes the streamed kernel reads), and K3 at y1 (64, 64, C), C
+     weight bytes the streamed kernel's clusters read, and torch.matmul's
+     device time on conv_b's product alone as a yardstick on no path), and
+     K3 at y1 (64, 64, C), C
      = 512, 1024 and 2048, against its plain version at phase 4's bounds;
      (b) preset_serving at multipliers 1 and 4: r1024 frames (1 K1 + 4 K2
      a frame; against K2's plain version at phase 5's bounds, against the
@@ -263,6 +265,22 @@ def kernel_time(fn, kernel, iters=50):
     from cips3dpp_torch.kernels import _lib
 
     return _lib.device_ms(lambda i: fn(), iters, kernel), cuda_time(fn, iters)
+
+
+def main_kernel(fn):
+    """The name of the kernel on which one call of fn() spends the most
+    device time (a library call, whose kernels' names are not known), by
+    the profiler: the name `_lib.device_ms` then times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return max((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+               key=lambda e: e.self_device_time_total).key
 
 
 def bound(nbytes, bf16_flops=0.0, f32_flops=0.0, f32_apart=0.0):
@@ -3053,16 +3071,24 @@ def k2_channels_phase(dev, smi):
     of m = 4), (512, 512, 16) rgb only (the 1024^2 block of m = 1), and the
     streamed-weight kernel at its other tiles: (64, 64, 1024) (m = 8's
     128^2 block, 64-pixel tiles), (64, 64, 2048) (m = 16's, 32-pixel
-    tiles), (128, 128, 1024) (m = 16's 256^2 block) and (64, 64, 384) (a
-    count that is no power of two), all with feat stored; then K3 at
-    y1 (64, 64, C), C = 512, 1024 and 2048 (k3_phase)."""
+    tiles), (128, 128, 1024) (m = 16's 256^2 block), (64, 64, 384) (a
+    count that is no power of two, C fixed) and (64, 64, 640) and
+    (64, 64, 1152) (C at run time, one at each tile size), all with feat
+    stored; then K3 at y1 (64, 64, C), C = 512, 1024, 2048, 640 and 1152
+    (k3_phase). Beside each
+    streamed shape: the L2 weight bytes the kernel reads (the whole weight
+    once a tile group of a cluster) and, as a yardstick on no path, the
+    device time of torch.matmul on conv_b's bf16 product alone, (4 Hp Wp,
+    C) x (C, C)."""
+    from cips3dpp_torch.kernels import _lib
     from cips3dpp_torch.kernels import decoder_block as kdb
 
     t0 = time.perf_counter()
     res = {}
     gen = torch.Generator().manual_seed(SEED + 150)
     for c, hp, last in ((512, 64, False), (16, 512, True), (1024, 64, False),
-                        (2048, 64, False), (1024, 128, False), (384, 64, False)):
+                        (2048, 64, False), (1024, 128, False), (384, 64, False),
+                        (640, 64, False), (1152, 64, False)):
         for dt in kdb.STORAGE:
             for hashed in (False, True):
                 rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
@@ -3072,18 +3098,32 @@ def k2_channels_phase(dev, smi):
                     noise_seeds=(NOISE_SEED, NOISE_SEED + 1) if hashed else None)
                 key = f"{kdb.launch_name(bp)} C={c} y1={hp}"
                 res[key] = k2_case(f"15a {kdb.launch_name(bp)}", bp, hp, last, gen, dev)
-                # the streamed kernel reads the whole weight from L2 once a tile
+                # the streamed kernel's cluster reads the whole weight from
+                # L2 once for each CL tiles, multicast to its CTAs
                 if c in kdb.STREAMED_CHANNELS:
                     tiles = hp * hp * 4 // kdb.tile_pixels(c)
-                    res[key]["l2_weight_bytes"] = tiles * 2 * c * c
+                    cl = kdb.decoder_block_info(c, dt, hashed)["cluster"]
+                    res[key]["cluster"] = cl
+                    res[key]["l2_weight_bytes"] = -(-tiles // cl) * 2 * c * c
+        if c in kdb.STREAMED_CHANNELS:
+            a = torch.randn((4 * hp * hp, c), generator=gen).to(dev, torch.bfloat16)
+            b = torch.randn((c, c), generator=gen).to(dev, torch.bfloat16)
+            name = main_kernel(lambda: a @ b)
+            res[f"matmul C={c} y1={hp}"] = {
+                "matmul_ms": _lib.device_ms(lambda i: a @ b, 50, name), "kernel": name}
     log("[15a] ms / bound ms (ratio): " + "; ".join(
         f"{k} {v['ms']:.4f} / {v['bound_ms']:.4f} ({v['ms'] / v['bound_ms']:.2f}x)"
-        for k, v in res.items()) + f"; {smi}")
-    log("[15a] L2 weight reads of the streamed kernel (the whole weight once a tile): "
-        + "; ".join(f"{k} {v['l2_weight_bytes'] / 1e6:.0f} MB, "
-                    f"{v['l2_weight_bytes'] / v['ms'] / 1e9:.2f} TB/s"
-                    for k, v in res.items() if "l2_weight_bytes" in v))
-    k3 = k3_phase(gen, dev, [(64, 512), (64, 1024), (64, 2048)], "15a K3")
+        for k, v in res.items() if "ms" in v) + f"; {smi}")
+    log("[15a] L2 weight reads of the streamed kernel (the whole weight once a tile group "
+        "of a cluster): " + "; ".join(
+            f"{k} CL={v['cluster']} {v['l2_weight_bytes'] / 1e6:.0f} MB, "
+            f"{v['l2_weight_bytes'] / v['ms'] / 1e9:.2f} TB/s"
+            for k, v in res.items() if "l2_weight_bytes" in v))
+    log("[15a] yardstick on no path, torch.matmul of conv_b's bf16 product alone (device "
+        "ms): " + "; ".join(f"{k} {v['matmul_ms']:.4f} ({v['kernel']})" for k, v in res.items()
+                            if "matmul_ms" in v))
+    k3 = k3_phase(gen, dev, [(64, 512), (64, 1024), (64, 2048), (64, 640), (64, 1152)],
+                  "15a K3")
     return {"k2": res, "k3": k3, "k2_s": time.perf_counter() - t0}
 
 
@@ -3408,7 +3448,8 @@ def main() -> int:
                 f"{info['smem_bytes']} B shared, "
                 f"{info['blocks_per_sm']} block(s) an SM, {info['registers']} registers, "
                 f"{info['local_bytes']} B local, tile {info['tile_input_columns']} input "
-                f"columns = {info['tile_pixels']} output pixels")
+                f"columns = {info['tile_pixels']} output pixels, clusters of "
+                f"{info['cluster']} ({info['clusters_on_card']} on the card at once)")
             if (info["local_bytes"] or info["smem_bytes"] > 232448 or info["blocks_per_sm"] < 1
                     or info["tile_pixels"] != kdb.tile_pixels(c)):
                 raise AssertionError(f"decoder block {mode} C={c}: {info}")

@@ -89,6 +89,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace dblock {
@@ -114,6 +115,7 @@ struct Params {
   int frames, hp, wp;
   uint32_t seed1, seed2; // hash mode
   int c;                 // channels (block_kernel_wide; block_kernel's is a template argument)
+  const void* w2c;       // block_kernel_wide: w2t in swizzled 16 KB chunks (chunk_weight)
 };
 
 // Tile geometry and warp layout by channel count.
@@ -313,9 +315,12 @@ __device__ __forceinline__ void row_pass(const float (&up)[4], const float (&c)[
 // The column pass on a thread's row-passed input columns j0-1 .. j0+2
 // (x[k], k = 0..3), + noise1 + b1 + lrelu: output columns 2*j0 .. 2*j0+3
 // of both output rows, stored in bf16 to the activation tile `act` (row
-// p = par * TW + output column, row stride ld) at channels ch .. ch+3.
+// p = par * TW + output column, row stride ld) at channels ch .. ch+3;
+// with SW128, to block_kernel_wide's swizzled tile instead (channel k of
+// pixel p in block k / 64, ld apart, row p of 128 bytes, 16-byte column
+// ((k / 8) % 8) ^ (p % 8)).
 // nz1: the tile's noise1 by output pixel; bb: b1 at those channels.
-template <int TW, typename NZ>
+template <int TW, bool SW128 = false, typename NZ>
 __device__ __forceinline__ void column_pass(const float (&x)[4][2][4], const float (&bb)[4],
                                             float nw1, const NZ* nz1, int j0, int ch,
                                             __nv_bfloat16* act, int ld) {
@@ -335,7 +340,10 @@ __device__ __forceinline__ void column_pass(const float (&x)[4][2][4], const flo
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           h[e] = lrelu(__fadd_rn(__fadd_rn(blend(xn[e], kc[e]), nzw), bb[e]));
-        *reinterpret_cast<uint2*>(act + p * ld + ch) =
+        const int at = SW128 ? (ch >> 6) * ld + p * 64 + ((((ch >> 3) & 7) ^ (p & 7)) << 3) +
+                                   (ch & 7)
+                             : p * ld + ch;
+        *reinterpret_cast<uint2*>(act + at) =
             make_uint2(pack_bf16(h[0], h[1]), pack_bf16(h[2], h[3]));
       }
     }
@@ -684,357 +692,624 @@ __global__ void __launch_bounds__(NTHREADS, C == 256 ? 1 : 2) block_kernel(const
 // ---- C = 384 to 2048: block_kernel_wide, the conv_b weight streamed ----
 //
 // From C = 384 up, conv_b's weight (C x C bf16: 288 KB at 384, 8 MB at
-// 2048) cannot stay in shared memory as in block_kernel. Every byte of it
-// read from L2 has to serve as many pixels as shared memory allows, so the
-// tile is one input row x TW_IN input columns whose bf16 activation tile
-// (TM x C, 100-131 KB) stays in shared memory while conv_b walks C / 128
-// passes of NB = 128 output columns, each over C / 64 k-chunks of KC = 64
-// input channels. C is taken at run time; the tile (TM = 128 output pixels
-// at C <= 512, 64 at C <= 1024, 32 at C <= 2048: 2 output rows x TM / 2
-// columns, TW_IN = TM / 4) and the warp layout are a template argument.
-// The counts the shipped multipliers' blocks reach (512, 1024, 2048) are
-// also built with C fixed at compile time (CT), which folds the index
-// arithmetic a run-time C costs; the same source serves both.
-// The weight's (128, 64) chunks stream through an NS-slot cp.async ring,
-// NS - 1 chunks ahead, across tile boundaries, so a tile reads the whole
-// weight from L2 once: 64 MB of L2 reads for the 128^2 block of m = 4
-// (three times its ~21 MB of HBM bytes), 512 MB at y1 (64, 64, 1024) and
-// 4 GB at (64, 64, 2048). That L2 stream is what bounds this simple first
-// design from C = 1024 up; a cluster sharing each chunk (TMA multicast
-// into distributed shared memory) would cut it. The upsample reads y1
-// straight from global memory (L2: the input is resident), no staging
-// ring: shared memory is the activation tile and the weight ring. Every
-// rounding point, the modes (K3's bf16 ToRGB operands, bias and upsampled
-// skip included), the frames, the ragged last tile (at TM = 128 only: Wp
-// is a multiple of 16), the skipped feat store and the folded ToRGB are
-// block_kernel's; ToRGB sums a pixel's C channels in a fixed order (pass by
-// pass in a thread, then lanes by shuffles, then the NW column-group
-// partials in order), so two launches give the same bits. At C = 512 the
-// tile, the layout and the order are those this kernel had when 512 was
-// its only C.
+// 2048) cannot stay in shared memory as in block_kernel. A tile is one
+// input row x TW_IN input columns whose bf16 activation tile (TM pixels x
+// C, 48-128 KB) stays in shared memory while the whole weight streams
+// past it: TM = 64 output pixels at C <= 1024, 32 above (2 output rows x
+// TM / 2 columns, TW_IN = TM / 4, so with Wp a multiple of 16 no tile is
+// ragged). At C <= 512 the 64-pixel tile gives y1 (64, 64, C) 256 tiles,
+// enough for every SM. C is taken at run time; C = 384, 512, 1024 and
+// 2048 (the 128^2 blocks at channel multipliers 3, 4, 8 and 16) are also
+// built with C fixed (CT), which folds the index arithmetic.
+//
+// conv_b runs transposed, out^T (channels x pixels) = W (C out x C in) .
+// act^T, on wgmma: the weight is the 64-row A operand and the activation
+// tile the N = 32 / 64-column B operand, both K-major in shared memory in
+// the 128-byte swizzle, so a 32-pixel tile still fills wgmma's 64 rows.
+// A consumer warpgroup takes the chunk's 64 rows of its half: 64 x TM
+// outputs, TM / 2 accumulators a thread.
+// decoder_block_prepare lays the weight out as (128 out x 64 in) chunks of
+// 16 KB, pass by pass (128 output channels over C / 64 chunks), each
+// already swizzled (chunk_weight in kernels/decoder_block.py), so one 1-D
+// bulk copy (cp.async.bulk) fills a ring slot; no tensor map. Tile group g
+// walks the passes from pass g % P and each pass's chunks from chunk
+// g / P % (C / 64), so the clusters on the card at once read different
+// parts of the weight instead of the same chunk (3% at C = 384-1024).
+//
+// Roles: warps 0-7 are two consumer warpgroups, warp 8 the producer. The
+// producer's first thread keeps an NS-slot ring full (NS = 5-8, as many as
+// shared memory leaves, by C) under full / empty mbarriers: wait for the
+// slot's empty barrier, expect 16 KB on its full barrier, copy. A cluster
+// of CL CTAs (launched with cudaLaunchKernelEx on a persistent grid of as
+// many clusters as cudaOccupancyMaxActiveClusters allows) walks CL
+// neighbouring tiles in lockstep and shares every chunk: CTA q % CL
+// copies chunk q into all CL CTAs by .multicast::cluster, so L2 serves
+// each chunk once a cluster; every consumer warpgroup frees a slot by
+// arriving on that slot's empty barrier in each CTA of the cluster. A CTA
+// whose tile lies past the last one still consumes and frees every chunk
+// and stores nothing.
+//
+// A consumer warpgroup waits for a chunk's full barrier, issues its 4
+// k16 wgmmas (N = TM), and frees the slot of the previous chunk once that
+// chunk's wgmma group is done (one group left in flight), by a CTA-scope
+// arrival: what it orders is wgmma's reads of the
+// slot, complete by then, and a cluster-scope release would stall the
+// arriving warp, and so its warpgroup's next wgmma, on a fence. No block
+// barrier a chunk. After a pass of C / 64 chunks the epilogue runs on the
+// accumulators, whose rows are channels and columns pixels: noise2 + b2 +
+// lrelu (rounded to bf16 where the storage is bf16), feat through a
+// warp-private staging slice (stmatrix .trans for bf16) as 16-byte rows,
+// ToRGB partials in registers over the passes. At the end of the tile
+// they are reduced over a warp's 8 row lanes (a reduce-scatter by
+// shuffles) into the warp's sums in shared memory, then the eight warps'
+// sums are added in a fixed order (+ brgb and the upsampled skip in K3)
+// and stored as float4 runs. Every sum is in an order fixed by the tile
+// (the walk's start included), so two launches give the same bits. b1, b2
+// and wrgb are read from global memory (L1) where they are needed, which
+// leaves their 40 KB at C = 2048 to the ring.
+//
+// The upsample (all 256 consumer threads) reads y1 straight from global
+// memory, rounds where block_kernel rounds and writes the activation tile
+// in the swizzled layout with ordinary stores, then fence.proxy.async and
+// a consumer barrier before wgmma reads it. Every rounding point, the
+// modes (K3's bf16 ToRGB operands, bias and upsampled skip included), the
+// frames and the skipped feat store are block_kernel's.
+constexpr int WIDE_CONSUMERS = 256;                  // two consumer warpgroups
+constexpr int WIDE_THREADS = WIDE_CONSUMERS + 32;    // and the producer warp
+constexpr int CHUNK_ROWS = 128;                      // output channels a chunk (a pass)
+constexpr int CHUNK_K = 64;                          // input channels a chunk: 128 bytes
+constexpr int CHUNK_BYTES = CHUNK_ROWS * CHUNK_K * 2;
+constexpr int MAX_SLOTS = 8;
+constexpr int SMEM_LIMIT = 232448;                   // a block's shared memory on sm_90
+#ifndef DBLOCK_WIDE_CLUSTER
+#define DBLOCK_WIDE_CLUSTER 2                        // another size: a build with -D
+#endif
+constexpr int WIDE_CLUSTER = DBLOCK_WIDE_CLUSTER;    // CTAs a cluster
+static_assert(WIDE_CLUSTER >= 1 && WIDE_CLUSTER <= 8, "a portable cluster size");
+
 template <int TM_>
 struct Wide {
   static constexpr int TM = TM_;                     // output pixels a tile
   static constexpr int TW = TM / 2;                  // output columns a tile row
   static constexpr int TW_IN = TW / 2;               // input columns a tile
-  static constexpr int NB = 128;                     // conv_b output columns a pass
-  static constexpr int KC = 64;                      // input channels a weight chunk
-  // weight ring slots: three at TM = 32, where the activation tile of C =
-  // 2048 leaves no room for a fourth
-  static constexpr int NS = TM == 32 ? 3 : 4;
-  static constexpr int NW = TM == 128 ? 2 : 4;       // warps across a pass's columns
-  static constexpr int MW = 8 / NW;                  // warps across the pixels
-  static constexpr int MT = TM / 16 / MW;            // m-tiles of 16 pixels a warp
-  static constexpr int NT = NB / NW / 8;             // n-tiles of 8 columns a warp
-  static constexpr int WLD = KC + 8;                 // weight chunk row stride (bf16)
-  static_assert(MT >= 1 && MT * 16 * MW == TM && NT % 2 == 0, "warp layout");
+  static constexpr int RV = 3 * TM / 4;              // a thread's ToRGB partials
+  static_assert(TW_IN <= 16, "Wp, a multiple of 16, is a whole number of tiles");
+  static_assert(TM == 32 || TM == 64, "wgmma N");
 
-  // Shared memory at C channels, in order: the bf16 activation tile (row
-  // stride C + 8), the weight ring, noise1 / noise2 of the tile, b1, b2,
-  // wrgb (j, k) and the column groups' ToRGB partials; every part 16-byte
-  // aligned (C is a multiple of 128).
-  __host__ __device__ static constexpr size_t act_bytes(int c) { return size_t(TM) * (c + 8) * 2; }
-  __host__ __device__ static constexpr size_t ring_bytes() { return size_t(NS) * NB * WLD * 2; }
-  __host__ __device__ static constexpr size_t smem_bytes(int c) {
-    return act_bytes(c) + ring_bytes() + 4 * (2 * TM + 5 * size_t(c) + NW * TM * 3);
+  // Shared memory, from a 1024-byte aligned base: the activation tile (C /
+  // 64 blocks of TM swizzled 128-byte rows), the ring, then the full and
+  // empty barriers, noise1 / noise2 of the tile (f32), the warps' ToRGB
+  // partials and the warps' feat staging slices (16 pixels x 16 channels,
+  // rows padded to 48 bytes in bf16 and 80 in f32 against bank conflicts).
+  template <typename T>
+  __host__ __device__ static constexpr int stage_ld() { return sizeof(T) == 2 ? 24 : 20; }
+  __host__ __device__ static constexpr int act_bytes(int c) { return TM * c * 2; }
+  template <typename T>
+  __host__ __device__ static constexpr int small_bytes() {
+    return 2 * MAX_SLOTS * 8 + 2 * TM * 4 + 8 * TM * 3 * 4 +
+           8 * 16 * stage_ld<T>() * int(sizeof(T));
+  }
+  template <typename T>
+  __host__ __device__ static constexpr int slots(int c) {
+    const int n = (SMEM_LIMIT - 1024 - act_bytes(c) - small_bytes<T>()) / CHUNK_BYTES;
+    return n < MAX_SLOTS ? n : MAX_SLOTS;
+  }
+  template <typename T>
+  __host__ __device__ static constexpr int smem_bytes(int c) {
+    return 1024 + act_bytes(c) + slots<T>(c) * CHUNK_BYTES + small_bytes<T>();
   }
 };
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+// ---- Hopper primitives: mbarriers, bulk copies, clusters, wgmma ----
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// arrive on the barrier at the same offset in CTA `cta` of the cluster
+// (the default CTA-scope release: see block_kernel_wide's slot release)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+// `bytes` from global memory into shared memory at `dst` of every CTA in
+// `mask` (the same offset in each), completing on the barrier at `bar`'s
+// offset in each
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar,
+                                          uint16_t mask, bool multicast) {
+  if (multicast)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+        "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+        "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+        "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_reg(int which) {
+  uint32_t v;
+  switch (which) {
+    case 0: asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(v)); break;
+    case 1: asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(v)); break;
+    case 2: asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(v)); break;
+    default: asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(v)); break;
+  }
+  return v;
+}
+
+// i + 1, or 0 past n - 1
+__device__ __forceinline__ int next_mod(int i, int n) { return i + 1 == n ? 0 : i + 1; }
+
+// the 256 consumer threads only (named barrier 1; the producer warp never joins)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(WIDE_CONSUMERS) : "memory");
+}
+
+// the activation tile's generic-proxy stores, seen by wgmma (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
+// 1024 bytes apart (the leading offset is unused in this layout)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// the accumulators are not read or written by other code around here
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 32, f32) += A (64 x 16) . B (32 x 16)^T, bf16, both from shared memory
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 64, f32) += A (64 x 16) . B (64 x 16)^T
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x N) += A . B^T at N = 32 or 64
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b) {
+  if constexpr (N == 32) wgmma_n32(d, a, b);
+  else wgmma_n64(d, a, b);
+}
+
+// four 8x8 bf16 matrices from the mma fragment layout, each stored
+// transposed: the row of lane l holds column l % 8 of matrix l / 8
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+                   "r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+// One step of a reduce-scatter over the lanes that differ in `mask`: of
+// x[0 .. 2H), the lane keeps the upper half where its `mask` bit is set
+// and the lower where it is not, adds its partner's copy of that half,
+// and leaves the sums in x[0 .. H).
+template <int H>
+__device__ __forceinline__ void reduce_half(float* x, int mask, bool upper) {
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? x[i] : x[i + H], keep = upper ? x[i + H] : x[i];
+    x[i] = __fadd_rn(keep, __shfl_xor_sync(FULL, send, mask));
+  }
+}
+
+#ifdef DBLOCK_PHASE_CLOCKS
+// Instrumented build only (decoder_block_phase_split --streamed): the
+// producer's thread counts its waits for an empty slot; every consumer
+// warp counts its waits for a full slot, its wgmma issue and group waits,
+// the tile's noise and upsample (their barriers included) and the
+// epilogue (feat, ToRGB, the rgb store, their barriers). Lane 0 of each
+// warp adds its counts to these totals at the end.
+constexpr int NWIDE_PHASES = 5;
+__device__ unsigned long long g_wide_cycles[NWIDE_PHASES];
+#define WIDE_MARK(k)                                          \
+  do {                                                        \
+    const long long now_ = clock64();                         \
+    wide_cyc[k] += (unsigned long long)(now_ - wmark);        \
+    wmark = now_;                                             \
+  } while (0)
+#define WIDE_RESTART() \
+  do {                 \
+    wmark = clock64(); \
+  } while (0)
+#else
+#define WIDE_MARK(k) \
+  do {               \
+  } while (0)
+#define WIDE_RESTART() \
+  do {                 \
+  } while (0)
+#endif
 
 // CT: C fixed at compile time (the channel counts of the shipped
 // multipliers' blocks), or 0: C taken from P.c at run time.
 template <int TM, int CT, typename T, bool HASH, bool RGB_BF16>
-__global__ void __launch_bounds__(NTHREADS, 1) block_kernel_wide(const Params P) {
+__global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Params P) {
   using W = Wide<TM>;
-  constexpr int TW_IN = W::TW_IN, TW = W::TW, NB = W::NB, KC = W::KC, NW = W::NW,
-                MT = W::MT, NT = W::NT, WLD = W::WLD, NS = W::NS;
+  constexpr int TW_IN = W::TW_IN, TW = W::TW, RV = W::RV;
+  constexpr int SLD = W::template stage_ld<T>();
   constexpr bool F32 = std::is_same<T, float>::value;
   static_assert(F32 || !RGB_BF16, "K3 stores f32");
   using WT = typename std::conditional<RGB_BF16, __nv_bfloat16, T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int C = CT > 0 ? CT : P.c, LD = C + 8;  // LD: act row stride (bf16)
-  const int KCH = C / KC;         // chunks a pass
-  const int CHUNKS = (C / NB) * KCH;  // chunks a tile
-  __nv_bfloat16* const act = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* const wring = reinterpret_cast<__nv_bfloat16*>(smem_raw + W::act_bytes(C));
-  float* const nz = reinterpret_cast<float*>(smem_raw + W::act_bytes(C) + W::ring_bytes());
-  float* const b1 = nz + 2 * TM;
-  float* const b2 = b1 + C;
-  float* const wrgb = b2 + C;
-  float* const rgbp = wrgb + 3 * C;
-  const T* __restrict__ y1 = static_cast<const T*>(P.y1);
-  const WT* __restrict__ wrgbt = static_cast<const WT*>(P.wrgbt);
+  const int C = CT > 0 ? CT : P.c;
+  const int KCH = C / CHUNK_K, PASSES = C / CHUNK_ROWS;  // chunks a pass, passes a tile
+  const int NS = W::template slots<T>(C);
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t s_act = (raw + 1023u) & ~1023u;  // the swizzle wants 1024-byte alignment
+  unsigned char* const base = smem_raw + (s_act - raw);
+  const uint32_t s_ring = s_act + W::act_bytes(C);
+  const uint32_t s_full = s_ring + NS * CHUNK_BYTES, s_empty = s_full + 8 * MAX_SLOTS;
+  float* const nz = reinterpret_cast<float*>(base + (s_empty + 8 * MAX_SLOTS - s_act));
+  float* const rgbp = nz + 2 * TM;       // the warps' ToRGB sums, [warp][pixel][colour]
+  T* const stage = reinterpret_cast<T*>(rgbp + 8 * TM * 3);
+  __nv_bfloat16* const act = reinterpret_cast<__nv_bfloat16*>(base);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int mg = warp / NW, nq = warp % NW;  // pixel group, column group
+  const uint32_t rank = cluster_reg(0), ncta = cluster_reg(1), cid = cluster_reg(2),
+                 ncl = cluster_reg(3);
   const int hp = P.hp, wp = P.wp, wo = 2 * wp;
   const int segs = (wp + TW_IN - 1) / TW_IN;
   const int n_tiles = P.frames * hp * segs;
-  const int my_chunks = (n_tiles - 1 - int(blockIdx.x)) / int(gridDim.x) * CHUNKS + CHUNKS;
-  const float nw1 = P.nw[0], nw2 = P.nw[1];
-  const bool emit_rgb = P.rgb != nullptr;
-  T* feat = static_cast<T*>(P.feat);
+  const int groups = (n_tiles + int(ncta) - 1) / int(ncta);  // a cluster's CL tiles
+#ifdef DBLOCK_PHASE_CLOCKS
+  unsigned long long wide_cyc[NWIDE_PHASES] = {};
+  long long wmark = clock64();
+#endif
 
-  // The block's chunks are loaded in sequence, CHUNKS a tile: chunk lq
-  // holds output columns ln0 .. ln0+NB-1 (the pass) and input channels
-  // lk0 .. lk0+KC-1 (the k-chunk) of the weight and goes to ring slot
-  // lq % NS; past the block's last tile the copy group stays empty. The
-  // position advances by adds, not by divisions by the run-time C.
-  int lq = 0, ln0 = 0, lk0 = 0;
-  auto load_next = [&]() {
-    if (lq < my_chunks) {
-      __nv_bfloat16* dst = wring + (lq % NS) * NB * WLD;
-      const __nv_bfloat16* src = P.w2t + size_t(ln0) * C + lk0;
-      for (int i = tid; i < NB * (KC / 8); i += NTHREADS) {
-        const int n = i / (KC / 8), u = i % (KC / 8);
-        cp_async16(dst + n * WLD + u * 8, src + size_t(n) * C + u * 8);
-      }
-      if ((lk0 += KC) == C) {
-        lk0 = 0;
-        if ((ln0 += NB) == C) ln0 = 0;
-      }
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(s_full + 8 * s, 1);                   // the producer's expect_tx
+      mbar_init(s_empty + 8 * s, 2 * int(ncta));      // each warpgroup of the cluster
     }
-    ++lq;
-  };
-  for (int i = 0; i < NS - 1; ++i) {
-    load_next();
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = tid; i < C; i += NTHREADS) {
-    b1[i] = P.b1[i];
-    b2[i] = P.b2[i];
-  }
-  if (wrgbt != nullptr)
-    for (int i = tid; i < 3 * C; i += NTHREADS) wrgb[i] = to_f(wrgbt[i]);
+  cluster_sync();  // every barrier of the cluster initialized before any copy or arrival
 
-  // ldmatrix rows: A pixel (lane & 15) at k + (lane >> 4) * 8; B output
-  // column (lane & 7) + (lane >> 4) * 8 at k + ((lane >> 3) & 1) * 8
-  const uint32_t a_addr = smem_u32(act + (mg * MT * 16 + (lane & 15)) * LD + (lane >> 4) * 8);
-  const int b_off = (nq * NT * 8 + (lane & 7) + (lane >> 4) * 8) * WLD + ((lane >> 3) & 1) * 8;
-  // the upsample's items: the thread's first (group cg0 of pair jp0) and
-  // the stride of NTHREADS items in groups and pairs
-  const int groups = C / 4, cg0 = tid % groups, jp0 = tid / groups;
-  const int dcg = NTHREADS % groups, djp = NTHREADS / groups;
-
-  int q = 0;  // the next chunk to multiply
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int r = tile / segs, rf = r % hp, c0 = (tile % segs) * TW_IN;
-    const size_t out0 = size_t(2 * r) * wo + 2 * c0;  // the tile's first output pixel
-
-    // the tile's noise in f32 (buffer values are exact in f32), 0 past the row's end
-    for (int i = tid; i < 2 * TM; i += NTHREADS) {
-      const int m = i / TM, p = i % TM;
-      const int orow = 2 * rf + p / TW, ocol = 2 * c0 + p % TW;
-      if constexpr (HASH) {
-        nz[i] = hash_normal(uint32_t(orow) * uint32_t(wo) + uint32_t(ocol),
-                            m ? P.seed2 : P.seed1);
-      } else {
-        const T* nb = static_cast<const T*>(m ? P.n2 : P.n1);
-        nz[i] = ocol < wo ? to_f(nb[size_t(orow) * wo + ocol]) : 0.f;
-      }
-    }
-    __syncthreads();  // noise staged; every warp is done with the last tile
-
-    // Upsample + noise1 + b1 + lrelu -> the bf16 activation tile, as
-    // block_kernel's: an item is channels ch .. ch+3 (group cg) of input
-    // columns j0, j0+1 (pair jp; their neighbours j0-1 .. j0+2 read, zero
-    // outside the frame); the C / 4 x TW_IN / 2 items are strided over the
-    // threads, group fastest
-    {
-      const T* frame = y1 + size_t(r - rf) * wp * C;  // the frame's first row
-      for (int cg = cg0, jp = jp0; jp < TW_IN / 2;) {
-        const int ch = 4 * cg, j0 = 2 * jp;
-        const float4 b1v = *reinterpret_cast<const float4*>(b1 + ch);
-        const float bb[4] = {b1v.x, b1v.y, b1v.z, b1v.w};
-        float x[4][2][4];  // row-upsampled columns, even and odd output row
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int ic = c0 - 1 + j0 + k;
-          float v[3][4];
-#pragma unroll
-          for (int row = 0; row < 3; ++row) {
-            const int ir = rf - 1 + row;
-            if (ir >= 0 && ir < hp && ic >= 0 && ic < wp) {
-              load4(frame + (size_t(ir) * wp + ic) * C + ch, v[row]);
-            } else {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) v[row][e] = 0.f;
-            }
+  if (warp == WIDE_CONSUMERS / 32) {
+    // ---- producer: chunk after chunk, the same sequence in every CTA ----
+    if (lane == 0) {
+      const unsigned char* const w2c = static_cast<const unsigned char*>(P.w2c);
+      const uint16_t mask = uint16_t((1u << ncta) - 1);
+      int slot = 0;
+      uint32_t phase = 0, issuer = 0;
+      for (int grp = int(cid); grp < groups; grp += int(ncl))
+        for (int i = 0, pass = grp % PASSES; i < PASSES; ++i, pass = next_mod(pass, PASSES))
+          for (int j = 0, kc = grp / PASSES % KCH; j < KCH; ++j, kc = next_mod(kc, KCH)) {
+            WIDE_RESTART();
+            mbar_wait(s_empty + 8 * slot, phase ^ 1);  // free in every CTA of the cluster
+            WIDE_MARK(0);
+            mbar_expect_tx(s_full + 8 * slot, CHUNK_BYTES);
+            if (issuer == rank)
+              bulk_load(s_ring + slot * CHUNK_BYTES,
+                        w2c + size_t(pass * KCH + kc) * CHUNK_BYTES, CHUNK_BYTES,
+                        s_full + 8 * slot, mask, ncta > 1);
+            if (++issuer == ncta) issuer = 0;
+            if (++slot == NS) slot = 0, phase ^= 1;
           }
-          row_pass<T>(v[0], v[1], v[2], x[k]);
-        }
-        column_pass<TW>(x, bb, nw1, nz, j0, ch, act, LD);
-        cg += dcg, jp += djp;  // the next item: NTHREADS on
-        if (cg >= groups) cg -= groups, ++jp;
-      }
     }
-    __syncthreads();  // the activation tile is complete
+    __syncwarp();
+  } else {
+    // ---- consumers ----
+    const T* __restrict__ y1 = static_cast<const T*>(P.y1);
+    const WT* __restrict__ wrgbt = static_cast<const WT*>(P.wrgbt);
+    const int wg = warp >> 2, wi = warp & 3, g = lane >> 2, tq = lane & 3;
+    const int r0 = wg * 64;  // the warpgroup's first row of a chunk
+    const float nw1 = P.nw[0], nw2 = P.nw[1];
+    const bool emit_rgb = P.rgb != nullptr;
+    T* const feat = static_cast<T*>(P.feat);
+    T* const stw = stage + warp * 16 * SLD;      // the warp's staging slice
+    // the upsample's items: the thread's first (group cg0 of pair jp0) and
+    // the stride of 256 items in groups and pairs
+    const int cgroups = C / 4, cg0 = tid % cgroups, jp0 = tid / cgroups;
+    const int dcg = WIDE_CONSUMERS % cgroups, djp = WIDE_CONSUMERS / cgroups;
+    const uint64_t desc_a = sw128_desc(s_ring + r0 * 128), desc_b = sw128_desc(s_act);
+    int slot = 0;
+    uint32_t phase = 0;
+    for (int grp = int(cid); grp < groups; grp += int(ncl)) {
+      const int tile = grp * int(ncta) + int(rank);
+      const bool live = tile < n_tiles;
+      const int r = live ? tile / segs : 0, rf = r % hp, c0 = live ? (tile % segs) * TW_IN : 0;
+      const size_t out0 = size_t(2 * r) * wo + 2 * c0;  // the tile's first output pixel
+      consumer_sync();  // every warp is done with the last tile's noise and partials
 
-    bool inside[MT];  // an m-tile lies in one output row, inside or past its end
-    size_t px0[MT];   // its first output pixel
-    float z[MT][2];   // nw2 * noise2 of rows g, g + 8
-    float srgb[MT][2][3];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int pm = (mg * MT + i) * 16;
-      inside[i] = 2 * c0 + pm % TW < wo;
-      px0[i] = out0 + size_t(pm / TW) * wo + pm % TW;
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        z[i][rr] = __fmul_rn(nw2, nz[TM + pm + g + 8 * rr]);
-#pragma unroll
-        for (int jj = 0; jj < 3; ++jj) srgb[i][rr][jj] = 0.f;
-      }
-    }
-
-    for (int pass = 0; pass < C / NB; ++pass) {
-      float acc[MT][NT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int jn = 0; jn < NT; ++jn)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][jn][e] = 0.f;
-      for (int kc = 0; kc < KCH; ++kc, ++q) {
-        cp_async_wait<NS - 2>();
-        __syncthreads();  // chunk q landed; every warp is done with slot (q - 1) % NS
-        load_next();      // chunk q + NS - 1
-        cp_async_commit();
-        const uint32_t b_addr = smem_u32(wring + (q % NS) * NB * WLD + b_off);
-#pragma unroll
-        for (int k = 0; k < KC; k += 16) {
-          uint32_t a[MT][4];
-#pragma unroll
-          for (int i = 0; i < MT; ++i)
-            ldmatrix_x4(a[i], a_addr + 2 * (i * 16 * LD + kc * KC + k));
-#pragma unroll
-          for (int jp = 0; jp < NT / 2; ++jp) {
-            uint32_t b[4];  // b0, b1 of n-tile 2jp, then of 2jp + 1
-            ldmatrix_x4(b, b_addr + 2 * (jp * 16 * WLD + k));
-#pragma unroll
-            for (int i = 0; i < MT; ++i) {
-              mma_bf16(acc[i][2 * jp], a[i], b[0], b[1]);
-              mma_bf16(acc[i][2 * jp + 1], a[i], b[2], b[3]);
-            }
-          }
+      // the tile's noise in f32 (buffer values are exact in f32)
+      if (live)
+        for (int i = tid; i < 2 * TM; i += WIDE_CONSUMERS) {
+          const int m = i / TM, p = i % TM;
+          const int orow = 2 * rf + p / TW, ocol = 2 * c0 + p % TW;
+          if constexpr (HASH)
+            nz[i] = hash_normal(uint32_t(orow) * uint32_t(wo) + uint32_t(ocol),
+                                m ? P.seed2 : P.seed1);
+          else
+            nz[i] = to_f(static_cast<const T*>(m ? P.n2 : P.n1)[size_t(orow) * wo + ocol]);
         }
-      }
+      consumer_sync();
 
-      // the pass's epilogue: noise2 + b2 + lrelu (rounded to bf16 where the
-      // storage is bf16), feat stores, ToRGB partial sums
-      const int col0 = pass * NB + nq * NT * 8;  // the warp's first output column
+      // Upsample + noise1 + b1 + lrelu -> the swizzled bf16 activation
+      // tile, as block_kernel's: an item is channels ch .. ch+3 (group cg)
+      // of input columns j0, j0+1 (pair jp; their neighbours j0-1 .. j0+2
+      // read, zero outside the frame), strided over the threads, group
+      // fastest.
+      if (live) {
+        const T* frame = y1 + size_t(r - rf) * wp * C;  // the frame's first row
+        for (int cg = cg0, jp = jp0; jp < TW_IN / 2;) {
+          const int ch = 4 * cg, j0 = 2 * jp;
+          const float bb[4] = {__ldg(P.b1 + ch), __ldg(P.b1 + ch + 1), __ldg(P.b1 + ch + 2),
+                               __ldg(P.b1 + ch + 3)};
+          float x[4][2][4];  // row-upsampled columns, even and odd output row
 #pragma unroll
-      for (int jp = 0; jp < NT / 2; ++jp) {
-        float v[MT][2][2][2];  // [m-tile][n-tile of the pair][row g, g + 8][column 2t, 2t + 1]
+          for (int k = 0; k < 4; ++k) {
+            const int ic = c0 - 1 + j0 + k;
+            float v[3][4];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int jn = 2 * jp + h, ch = col0 + jn * 8 + 2 * t;
-          const float2 bb = *reinterpret_cast<const float2*>(b2 + ch);
-          float2 w[3];
+            for (int row = 0; row < 3; ++row) {
+              const int ir = rf - 1 + row;
+              if (ir >= 0 && ir < hp && ic >= 0 && ic < wp) {
+                load4(frame + (size_t(ir) * wp + ic) * C + ch, v[row]);
+              } else {
 #pragma unroll
-          for (int jj = 0; jj < 3; ++jj) w[jj] = *reinterpret_cast<const float2*>(wrgb + jj * C + ch);
-#pragma unroll
-          for (int i = 0; i < MT; ++i)
-#pragma unroll
-            for (int rr = 0; rr < 2; ++rr) {
-              float v0 = lrelu(__fadd_rn(__fadd_rn(acc[i][jn][2 * rr], z[i][rr]), bb.x));
-              float v1 = lrelu(__fadd_rn(__fadd_rn(acc[i][jn][2 * rr + 1], z[i][rr]), bb.y));
-              if constexpr (!F32) {
-                const float2 f = unpack_bf16(pack_bf16(v0, v1));
-                v0 = f.x, v1 = f.y;
-              }
-              v[i][h][rr][0] = v0, v[i][h][rr][1] = v1;
-              if (emit_rgb) {
-                const float a0 = RGB_BF16 ? bf16r(v0) : v0, a1 = RGB_BF16 ? bf16r(v1) : v1;
-#pragma unroll
-                for (int jj = 0; jj < 3; ++jj)
-                  srgb[i][rr][jj] = __fmaf_rn(a1, w[jj].y, __fmaf_rn(a0, w[jj].x, srgb[i][rr][jj]));
+                for (int e = 0; e < 4; ++e) v[row][e] = 0.f;
               }
             }
-        }
-        // one exchange between lanes t, t^1 gives each 4 adjacent channels:
-        // even lanes those of n-tile 2jp, odd lanes those of 2jp + 1
-        if (feat != nullptr) {
-          const bool odd = t & 1;
-          const int ch = col0 + (2 * jp + odd) * 8 + 2 * (t & 2);
-#pragma unroll
-          for (int i = 0; i < MT; ++i)
-#pragma unroll
-            for (int rr = 0; rr < 2; ++rr) {
-              const float s0 = odd ? v[i][0][rr][0] : v[i][1][rr][0];
-              const float s1 = odd ? v[i][0][rr][1] : v[i][1][rr][1];
-              const float r0 = __shfl_xor_sync(FULL, s0, 1), r1 = __shfl_xor_sync(FULL, s1, 1);
-              const float4 o = odd ? make_float4(r0, r1, v[i][1][rr][0], v[i][1][rr][1])
-                                   : make_float4(v[i][0][rr][0], v[i][0][rr][1], r0, r1);
-              if (!inside[i]) continue;
-              T* dst = feat + (px0[i] + g + 8 * rr) * C + ch;
-              if constexpr (F32)
-                *reinterpret_cast<float4*>(dst) = o;
-              else  // the values are bf16 already: packing is exact
-                *reinterpret_cast<uint2*>(dst) =
-                    make_uint2(pack_bf16(o.x, o.y), pack_bf16(o.z, o.w));
-            }
+            row_pass<T>(v[0], v[1], v[2], x[k]);
+          }
+          column_pass<TW, true>(x, bb, nw1, nz, j0, ch, act, TM * 64);
+          cg += dcg, jp += djp;  // the next item: 256 on
+          if (cg >= cgroups) cg -= cgroups, ++jp;
         }
       }
-    }
+      fence_proxy_async();
+      consumer_sync();  // the activation tile is complete
+      WIDE_MARK(3);
 
-    // ToRGB: a thread's sums over its lanes' channels, then the column
-    // groups' partials in order (+ brgb and the upsampled skip in K3), as
-    // float4 runs over the tile's output rows
-    if (emit_rgb) {
+      // ToRGB partials, [n-block j][pixel 2tq + e][colour], summed over the
+      // passes; reduce_rgb reduces them over the warp's row lanes g (lane
+      // bits 2-4; lane g keeps values g * RV / 8 .. of its tq) into the
+      // warp's sums in shared memory
+      float srgb[RV];
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+      for (int k = 0; k < RV; ++k) srgb[k] = 0.f;
+      auto reduce_rgb = [&]() {
+        reduce_half<RV / 2>(srgb, 16, lane & 16);
+        reduce_half<RV / 4>(srgb, 8, lane & 8);
+        reduce_half<RV / 8>(srgb, 4, lane & 4);
 #pragma unroll
-        for (int rr = 0; rr < 2; ++rr)
+        for (int k = 0; k < RV / 8; ++k) {
+          const int vi = g * (RV / 8) + k, j = vi / 6, e = (vi / 3) & 1, jj = vi % 3;
+          rgbp[(warp * TM + 8 * j + 2 * tq + e) * 3 + jj] = srgb[k];
+        }
+      };
+
+      // The pass's epilogue: noise2 + b2 + lrelu (rounded to bf16 where
+      // the storage is bf16), feat through the staging slice, ToRGB
+      // partials. Accumulator i of M block mb holds row 16 wi + g (+ 8
+      // for i % 4 >= 2) and pixel 8 (i / 4) + 2 tq + i % 2.
+      auto epilogue = [&](int pass, const float (&acc)[TM / 2]) {
+        const int cb = pass * CHUNK_ROWS + r0 + 16 * wi;  // the warp's first channel
+        const float bA = __ldg(P.b2 + cb + g), bB = __ldg(P.b2 + cb + g + 8);
+        float wA[3] = {}, wB[3] = {};
+        if (emit_rgb)
 #pragma unroll
           for (int jj = 0; jj < 3; ++jj) {
-            srgb[i][rr][jj] += __shfl_xor_sync(FULL, srgb[i][rr][jj], 1);
-            srgb[i][rr][jj] += __shfl_xor_sync(FULL, srgb[i][rr][jj], 2);
+            wA[jj] = to_f(wrgbt[jj * C + cb + g]);
+            wB[jj] = to_f(wrgbt[jj * C + cb + g + 8]);
           }
-      if (t == 0)
 #pragma unroll
-        for (int i = 0; i < MT; ++i)
+        for (int jq = 0; jq < TM / 16; ++jq) {  // 16 pixels: n-blocks 2 jq, 2 jq + 1
+          float v[2][2][2];  // [n-block of the pair][row g, g + 8][pixel 2tq + e]
 #pragma unroll
-          for (int rr = 0; rr < 2; ++rr)
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-            for (int jj = 0; jj < 3; ++jj)
-              rgbp[(nq * TM + (mg * MT + i) * 16 + g + 8 * rr) * 3 + jj] = srgb[i][rr][jj];
-    }
-    __syncthreads();  // the partials are complete
-    if (emit_rgb)
-      for (int u = tid; u < TM * 3 / 4; u += NTHREADS) {
-        const int f = 4 * u, par = f / (3 * TW), fr = f % (3 * TW);
-        if (2 * c0 + fr / 3 >= wo) continue;  // past the row's end (32-pixel aligned)
-        float4 a = *reinterpret_cast<const float4*>(rgbp + f);
+            for (int e = 0; e < 2; ++e) {
+              const int j = 2 * jq + h, p = 8 * j + 2 * tq + e;
+              const float z = __fmul_rn(nw2, nz[TM + p]);
+              float va = lrelu(__fadd_rn(__fadd_rn(acc[4 * j + e], z), bA));
+              float vb = lrelu(__fadd_rn(__fadd_rn(acc[4 * j + 2 + e], z), bB));
+              if constexpr (!F32) va = bf16r(va), vb = bf16r(vb);  // feat rounded; ToRGB reads it
+              v[h][0][e] = va, v[h][1][e] = vb;
+              if (emit_rgb) {
+                const float a0 = RGB_BF16 ? bf16r(va) : va, a1 = RGB_BF16 ? bf16r(vb) : vb;
 #pragma unroll
-        for (int qn = 1; qn < NW; ++qn) {
-          const float4 b = *reinterpret_cast<const float4*>(rgbp + qn * TM * 3 + f);
-          a = make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
-                          __fadd_rn(a.w, b.w));
+                for (int jj = 0; jj < 3; ++jj) {
+                  float& s = srgb[(j * 2 + e) * 3 + jj];
+                  s = __fmaf_rn(a1, wB[jj], __fmaf_rn(a0, wA[jj], s));
+                }
+              }
+            }
+          if (feat == nullptr) continue;
+          // the warp's 16 pixels x 16 channels as staged rows of pixels
+          if constexpr (F32) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float* row = reinterpret_cast<float*>(stw) + (8 * h + 2 * tq + e) * SLD;
+                row[g] = v[h][0][e];
+                row[g + 8] = v[h][1][e];
+              }
+          } else {
+            // matrix 2h + u: rows g + 8u (channels) x pixels of n-block 2jq + h
+            const uint32_t pk[4] = {pack_bf16(v[0][0][0], v[0][0][1]),
+                                    pack_bf16(v[0][1][0], v[0][1][1]),
+                                    pack_bf16(v[1][0][0], v[1][0][1]),
+                                    pack_bf16(v[1][1][0], v[1][1][1])};
+            const int m = lane >> 3;
+            stmatrix_x4_trans(smem_u32(stw + (8 * (m >> 1) + (lane & 7)) * SLD + 8 * (m & 1)),
+                              pk);
+          }
+          __syncwarp();
+          if (live) {
+            constexpr int VPR = 16 * int(sizeof(T)) / 16;  // 16-byte vectors a staged row
+#pragma unroll
+            for (int u = lane; u < 16 * VPR; u += 32) {
+              const int row = u / VPR, qv = u % VPR;
+              const int p = 16 * jq + row;
+              *reinterpret_cast<uint4*>(feat + (out0 + size_t(p / TW) * wo + p % TW) * C + cb +
+                                        qv * (16 / int(sizeof(T)))) =
+                  *reinterpret_cast<const uint4*>(stw + row * SLD + qv * (16 / int(sizeof(T))));
+            }
+          }
+          __syncwarp();
         }
-        if constexpr (RGB_BF16) {
-          float o[4] = {a.x, a.y, a.z, a.w};
+      };
+
+      for (int i = 0, pass = grp % PASSES; i < PASSES; ++i, pass = next_mod(pass, PASSES)) {
+        float acc[TM / 2];
+#pragma unroll
+        for (int k = 0; k < TM / 2; ++k) acc[k] = 0.f;
+        int prev = -1;
+        for (int j = 0, kc = grp / PASSES % KCH; j < KCH; ++j, kc = next_mod(kc, KCH)) {
+          WIDE_MARK(2);
+          mbar_wait(s_full + 8 * slot, phase);
+          WIDE_MARK(1);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < CHUNK_K / 16; ++ks)
+            wgmma<TM>(acc, desc_a + ((slot * CHUNK_BYTES + ks * 32) >> 4),
+                      desc_b + ((kc * TM * 128 + ks * 32) >> 4));
+          wgmma_commit();
+          if (prev >= 0) {  // the previous chunk's products are done: free its slot
+            wgmma_wait<1>();
+            if (wi == 0 && lane < int(ncta)) mbar_arrive_cluster(s_empty + 8 * prev, lane);
+          }
+          prev = slot;
+          if (++slot == NS) slot = 0, phase ^= 1;
+        }
+        wgmma_wait<0>();
+        fence_acc(acc);
+        if (wi == 0 && lane < int(ncta)) mbar_arrive_cluster(s_empty + 8 * prev, lane);
+        WIDE_MARK(2);
+        epilogue(pass, acc);
+        WIDE_MARK(4);
+      }
+      if (emit_rgb) reduce_rgb();
+
+      // ToRGB: the eight warps' sums over their channels added in order (+
+      // brgb and the upsampled skip in K3), as float4 runs over the tile's
+      // output rows
+      consumer_sync();  // the partials are complete
+      if (emit_rgb && live)
+        for (int u = tid; u < TM * 3 / 4; u += WIDE_CONSUMERS) {
+          const int f = 4 * u, par = f / (3 * TW), fr = f % (3 * TW);
+          float o[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int p = (f + e) / 3, jj = (f + e) % 3;
-            o[e] = __fadd_rn(__fadd_rn(o[e], P.brgb[jj]),
-                             skip_up(P.skip, hp, wp, 2 * rf + p / TW, 2 * c0 + p % TW, jj));
+            float a = rgbp[p * 3 + jj];
+#pragma unroll
+            for (int k = 1; k < 8; ++k) a = __fadd_rn(a, rgbp[(k * TM + p) * 3 + jj]);
+            if constexpr (RGB_BF16)
+              a = __fadd_rn(__fadd_rn(a, P.brgb[jj]),
+                            skip_up(P.skip, hp, wp, 2 * rf + p / TW, 2 * c0 + p % TW, jj));
+            o[e] = a;
           }
-          a = make_float4(o[0], o[1], o[2], o[3]);
+          *reinterpret_cast<float4*>(P.rgb + (out0 + size_t(par) * wo) * 3 + fr) =
+              make_float4(o[0], o[1], o[2], o[3]);
         }
-        *reinterpret_cast<float4*>(P.rgb + (out0 + size_t(par) * wo) * 3 + fr) = a;
-      }
+      WIDE_MARK(4);
+    }
   }
-  cp_async_wait_all();
+#ifdef DBLOCK_PHASE_CLOCKS
+  if (lane == 0)
+    for (int k = 0; k < NWIDE_PHASES; ++k) atomicAdd(&g_wide_cycles[k], wide_cyc[k]);
+#endif
+  cluster_sync();  // no CTA leaves while a peer may still copy into it or arrive on it
 }
 
-// Launches the instantiation, or with `info` (6 ints) fills in its shared
-// memory bytes, blocks an SM, registers a thread, local (spill) bytes a
-// thread, input columns a tile and output pixels a tile, and launches nothing.
+// Launches the instantiation, or with `info` (INFO_VALUES ints) fills in
+// its shared memory bytes, blocks an SM, registers a thread, local (spill)
+// bytes a thread, input columns a tile, output pixels a tile, CTAs a
+// cluster and the clusters (blocks, for block_kernel) the card holds at
+// once, and launches nothing.
+constexpr int INFO_VALUES = 8;
+
+template <typename K>
+cudaError_t kernel_info(K kernel, int smem, int threads, int tw_in, int tm, int cluster,
+                        int resident, int* info) {
+  cudaError_t err;
+  int per_sm = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+      cudaSuccess)
+    return err;
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return err;
+  const int vals[INFO_VALUES] = {smem, per_sm, attr.numRegs, int(attr.localSizeBytes),
+                                 tw_in, tm, cluster, resident};
+  for (int i = 0; i < INFO_VALUES; ++i) info[i] = vals[i];
+  return cudaSuccess;
+}
+
 template <typename K>
 int launch_kernel(K kernel, int smem, int tw_in, int tm, const Params& P, cudaStream_t stream,
                   int* info) {
@@ -1048,13 +1323,8 @@ int launch_kernel(K kernel, int smem, int tw_in, int tm, const Params& P, cudaSt
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTHREADS, smem)) !=
       cudaSuccess)
     return int(err);
-  if (info != nullptr) {
-    cudaFuncAttributes attr;
-    if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return int(err);
-    const int vals[6] = {smem, per_sm, attr.numRegs, int(attr.localSizeBytes), tw_in, tm};
-    for (int i = 0; i < 6; ++i) info[i] = vals[i];
-    return 0;
-  }
+  if (info != nullptr)
+    return int(kernel_info(kernel, smem, NTHREADS, tw_in, tm, 1, sms * per_sm, info));
   const int n_tiles = P.frames * P.hp * ((P.wp + tw_in - 1) / tw_in);
   int blocks = sms * (per_sm > 0 ? per_sm : 1);
   if (blocks > n_tiles) blocks = n_tiles;
@@ -1068,11 +1338,59 @@ int launch(const Params& P, cudaStream_t stream, int* info) {
                        Geo<C, T>::TW_IN, Geo<C, T>::TM, P, stream, info);
 }
 
+// block_kernel_wide on a persistent grid of clusters: as many as the card
+// holds at once (cudaOccupancyMaxActiveClusters), at most one a tile
+// group. A cluster the card cannot place is an error, never a fallback.
+// The shared-memory limit (the most any C takes) is set once a device and
+// the cluster count found once a device and C, on the first launch; later
+// launches read them. static: a template's local statics are otherwise
+// one object across every build loaded in the process (GNU unique
+// symbols), and another build's kernel would go without its setting.
+constexpr int MAX_DEVICES = 16;
+constexpr int WIDE_CS = (2048 - 384) / 128 + 1;       // the streamed channel counts
+
 template <int TM, int CT, typename T, bool HASH, bool RGB_BF16>
-int launch_wide(const Params& P, cudaStream_t stream, int* info) {
+static int launch_wide(const Params& P, cudaStream_t stream, int* info) {
   using W = Wide<TM>;
-  return launch_kernel(block_kernel_wide<TM, CT, T, HASH, RGB_BF16>, int(W::smem_bytes(P.c)),
-                       W::TW_IN, W::TM, P, stream, info);
+  auto kernel = block_kernel_wide<TM, CT, T, HASH, RGB_BF16>;
+  static std::atomic<int> smem_set[MAX_DEVICES], clusters_at[MAX_DEVICES][WIDE_CS];
+  const int smem = W::template smem_bytes<T>(P.c), cl = WIDE_CLUSTER;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return int(err);
+  if (dev >= MAX_DEVICES) return int(cudaErrorInvalidDevice);
+  if (!smem_set[dev].load(std::memory_order_relaxed)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (err != cudaSuccess) return int(err);
+    smem_set[dev].store(1, std::memory_order_relaxed);
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl);
+  cfg.blockDim = dim3(WIDE_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  std::atomic<int>& cached = clusters_at[dev][(P.c - 384) / 128];
+  int clusters = cached.load(std::memory_order_relaxed);
+  if (clusters == 0) {
+    if ((err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) != cudaSuccess)
+      return int(err);
+    if (clusters < 1) return int(cudaErrorLaunchOutOfResources);
+    cached.store(clusters, std::memory_order_relaxed);
+  }
+  if (info != nullptr)
+    return int(kernel_info(kernel, smem, WIDE_THREADS, W::TW_IN, TM, cl, clusters, info));
+  const int n_tiles = P.frames * P.hp * ((P.wp + W::TW_IN - 1) / W::TW_IN);
+  const int groups = (n_tiles + cl - 1) / cl;
+  cfg.gridDim = dim3((clusters < groups ? clusters : groups) * cl);
+  if ((err = cudaLaunchKernelEx(&cfg, kernel, P)) != cudaSuccess) return int(err);
+  return int(cudaGetLastError());
 }
 
 // C = 16 to 256: block_kernel; every multiple of 128 from 384 to 2048:
@@ -1090,13 +1408,13 @@ int launch_c(int c, const Params& P, cudaStream_t s, int* info = nullptr) {
     default: break;
   }
   if (c < 384 || c > 2048 || c % 128 != 0 || P.c != c) return int(cudaErrorInvalidValue);
-  switch (c) {  // the blocks of decoders at channel multipliers 4, 8 and 16
-    case 512: return launch_wide<128, 512, T, HASH, RGB_BF16>(P, s, info);
+  switch (c) {  // the 128^2 blocks of decoders at channel multipliers 3, 4, 8 and 16
+    case 384: return launch_wide<64, 384, T, HASH, RGB_BF16>(P, s, info);
+    case 512: return launch_wide<64, 512, T, HASH, RGB_BF16>(P, s, info);
     case 1024: return launch_wide<64, 1024, T, HASH, RGB_BF16>(P, s, info);
     case 2048: return launch_wide<32, 2048, T, HASH, RGB_BF16>(P, s, info);
     default: break;
   }
-  if (c <= 512) return launch_wide<128, 0, T, HASH, RGB_BF16>(P, s, info);
   if (c <= 1024) return launch_wide<64, 0, T, HASH, RGB_BF16>(P, s, info);
   return launch_wide<32, 0, T, HASH, RGB_BF16>(P, s, info);
 }
@@ -1114,39 +1432,50 @@ int launch_mode(int c, int f32_storage, int hash, const Params& P, cudaStream_t 
 }  // namespace dblock
 
 extern "C" int decoder_block_forward(
-    const void* y1, const void* n1, const void* n2, const void* w2t,
+    const void* y1, const void* n1, const void* n2, const void* w2t, const void* w2c,
     const float* b1, const float* b2, const float* nw, const void* wrgbt,
     void* feat, float* rgb, int frames, int hp, int wp, int c, int f32_storage,
     int hash, unsigned int seed1, unsigned int seed2, void* stream) {
   using namespace dblock;
   Params P{y1, n1, n2, static_cast<const __nv_bfloat16*>(w2t), b1, b2, nw, wrgbt,
-           nullptr, nullptr, feat, rgb, frames, hp, wp, seed1, seed2, c};
+           nullptr, nullptr, feat, rgb, frames, hp, wp, seed1, seed2, c, w2c};
   return launch_mode<false>(c, f32_storage, hash, P, static_cast<cudaStream_t>(stream),
                             nullptr);
 }
 
 extern "C" int decoder_block_fused_forward(
     const float* y1, const float* skip, const float* n1, const float* n2,
-    const void* w2t, const float* b1, const float* b2, const float* nw,
+    const void* w2t, const void* w2c, const float* b1, const float* b2, const float* nw,
     const void* wrgbt, const float* brgb, float* feat, float* rgb, int hp, int wp,
     int c, void* stream) {
   using namespace dblock;
   Params P{y1, n1, n2, static_cast<const __nv_bfloat16*>(w2t), b1, b2, nw, wrgbt,
-           skip, brgb, feat, rgb, 1, hp, wp, 0u, 0u, c};
+           skip, brgb, feat, rgb, 1, hp, wp, 0u, 0u, c, w2c};
   return launch_mode<true>(c, 1, 0, P, static_cast<cudaStream_t>(stream), nullptr);
 }
 
 #ifdef DBLOCK_PHASE_CLOCKS
-// Copies the phase counts to `out` (NPHASES values) and, with `reset`, sets
-// them to 0. Returns NPHASES through `n`.
-extern "C" int decoder_block_phase_cycles(unsigned long long* out, int* n, int reset) {
-  *n = dblock::NPHASES;
-  cudaError_t err = cudaMemcpyFromSymbol(out, dblock::g_phase_cycles, sizeof(dblock::g_phase_cycles));
+// Copies the `n` counts of `counts` to `out` and, with `reset`, sets them to 0.
+template <size_t N>
+int copy_cycles(const unsigned long long (&counts)[N], unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, counts, sizeof(counts));
   if (err == cudaSuccess && reset) {
-    static const unsigned long long zero[dblock::NPHASES] = {};
-    err = cudaMemcpyToSymbol(dblock::g_phase_cycles, zero, sizeof(zero));
+    static const unsigned long long zero[N] = {};
+    err = cudaMemcpyToSymbol(counts, zero, sizeof(zero));
   }
   return int(err);
+}
+
+// block_kernel's phase counts (NPHASES values, returned through `n`)
+extern "C" int decoder_block_phase_cycles(unsigned long long* out, int* n, int reset) {
+  *n = dblock::NPHASES;
+  return copy_cycles(dblock::g_phase_cycles, out, reset);
+}
+
+// block_kernel_wide's phase counts (NWIDE_PHASES values)
+extern "C" int decoder_block_wide_phase_cycles(unsigned long long* out, int* n, int reset) {
+  *n = dblock::NWIDE_PHASES;
+  return copy_cycles(dblock::g_wide_cycles, out, reset);
 }
 #endif
 

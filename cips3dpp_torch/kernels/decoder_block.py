@@ -13,7 +13,8 @@ One decoder block at resolution r, after conv_a's matmul at r/2 (y1):
 `decoder_block_plain` for tensors on the CPU. K2 and K3 take the channel
 counts of KERNEL_CHANNELS: at 16-256 conv_b's weight stays in shared
 memory (`block_kernel`), at every multiple of 128 from 384 to 2048 it is
-streamed from L2 (`block_kernel_wide`, its tile by C: `tile_pixels`).
+streamed from L2 in swizzled 16 KB chunks (`chunk_weight`), shared by a
+thread-block cluster (`block_kernel_wide`, its tile by C: `tile_pixels`).
 That covers every block of a decoder at channel multipliers 1, 2, 4, 8
 and 16. The storage
 dtype `dtype` (bf16 or f32) fixes the rounding points, as the serving
@@ -58,6 +59,8 @@ STREAMED_CHANNELS = tuple(range(384, 2049, 128))
 KERNEL_CHANNELS = RESIDENT_CHANNELS + STREAMED_CHANNELS
 TAKEN = "C in 16, 32, 64, 128, 256 or a multiple of 128 from 384 to 2048"
 STORAGE = (torch.bfloat16, torch.float32)
+# block_kernel_wide's weight chunk: 128 output channels x 64 input channels
+CHUNK_ROWS, CHUNK_K = 128, 64
 _M32 = 0xFFFFFFFF
 # f32 operations of one hash_normal value: two avalanche hashes (2 x 7
 # integer ops), two int->float uniforms (4), log, sqrt and -2x (3), the
@@ -147,6 +150,8 @@ def decoder_block_prepare(noise1, noise2, w2, b1, b2, noise_w1, noise_w2,
             for v in (noise_w1, noise_w2)
         ]),
     }
+    if c in STREAMED_CHANNELS:
+        prep["w2c"] = chunk_weight(prep["w2t"])
     if noise_seeds is not None:
         prep["seeds"] = tuple(int(s) & _M32 for s in noise_seeds)
     else:
@@ -156,6 +161,20 @@ def decoder_block_prepare(noise1, noise2, w2, b1, b2, noise_w1, noise_w2,
     if wrgb is not None:
         prep["wrgbt"] = wrgb.t().contiguous().to(dtype)  # (3, C)
     return prep
+
+
+def chunk_weight(w2t):
+    """conv_b's (C out, C in) bf16 weight as block_kernel_wide reads it:
+    (C / 128) passes x (C / 64) chunks of 128 output x 64 input channels,
+    16 KB each, contiguous in that order; within a chunk row n, the 16-byte
+    group j of 8 input channels sits at j ^ (n % 8), the 128-byte swizzle
+    wgmma reads. One 1-D bulk copy then fills a ring slot. Returns a flat
+    bf16 tensor of C * C values."""
+    c = w2t.shape[0]
+    w = w2t.reshape(c // CHUNK_ROWS, CHUNK_ROWS, c // CHUNK_K, 8, 8).permute(0, 2, 1, 3, 4)
+    rows = torch.arange(CHUNK_ROWS, device=w2t.device)[:, None]
+    swizzle = torch.arange(8, device=w2t.device)[None, :] ^ (rows % 8)
+    return torch.gather(w, 3, swizzle[None, None, :, :, None].expand(w.shape)).reshape(-1)
 
 
 def launch_name(prepared) -> str:
@@ -220,14 +239,14 @@ def decoder_block_plain(y1, prepared, emit_feat=True, frames=1):
 
 def tile_pixels(c) -> int:
     """Output pixels of the kernel's tile at C = c (2 output rows x half as
-    many columns): 8192 / C with the weight resident; with it streamed, 128
-    at C <= 512, 64 at C <= 1024 and 32 above, so that the bf16 activation
-    tile stays near 128 KB of shared memory."""
+    many columns): 8192 / C with the weight resident; with it streamed, 64
+    at C <= 1024 and 32 above, so that the bf16 activation tile stays at
+    most 128 KB of shared memory, beside the weight ring."""
     if c not in KERNEL_CHANNELS:
         raise ValueError(f"no decoder block kernel at C = {c} ({TAKEN})")
     if c in RESIDENT_CHANNELS:
         return 8192 // c
-    return 128 if c <= 512 else 64 if c <= 1024 else 32
+    return 64 if c <= 1024 else 32
 
 
 def _check_block_shape(what, rows, wp, c, frames):
@@ -243,27 +262,33 @@ def _check_aligned(**tensors):
             raise ValueError(f"{name}: data not 16-byte aligned")
 
 
-def decoder_block_info(c, dtype=torch.bfloat16, hashed=False, k3=False):
+INFO_KEYS = ("smem_bytes", "blocks_per_sm", "registers", "local_bytes",
+             "tile_input_columns", "tile_pixels", "cluster", "clusters_on_card")
+
+
+def decoder_block_info(c, dtype=torch.bfloat16, hashed=False, k3=False, defines=()):
     """Resources of one instantiation of the kernel on the current card:
     shared memory a block (bytes), blocks an SM, registers a thread, local
-    (spill) bytes a thread, input columns and output pixels of a tile. K3
-    (`k3=True`) is the f32 instantiation with the bias and skip epilogue.
-    C = 384-2048 is the streamed-weight kernel (block_kernel_wide): one
-    instantiation a tile size (`tile_pixels`) and mode with C at run
-    time, and one each with C fixed at 512, 1024 and 2048."""
+    (spill) bytes a thread, input columns and output pixels of a tile, CTAs
+    a cluster, and the clusters the card holds at once (blocks, for the
+    resident kernel, whose cluster is 1). K3 (`k3=True`) is the f32
+    instantiation with the bias and skip epilogue. C = 384-2048 is the
+    streamed-weight kernel (block_kernel_wide): one instantiation a tile
+    size (`tile_pixels`) and mode with C at run time, and one each with C
+    fixed at 384, 512, 1024 and 2048; raises if the card cannot place its
+    cluster. `defines`: of the library built with those extra flags (the
+    cluster size is a build's, -DDBLOCK_WIDE_CLUSTER)."""
     if c not in KERNEL_CHANNELS:
         raise ValueError(f"decoder_block_info: no {'K3' if k3 else 'K2'} kernel at C = {c} "
                          f"({TAKEN})")
-    info = (ctypes.c_int * 6)()
-    lib = _lib.load("decoder_block")
+    info = (ctypes.c_int * len(INFO_KEYS))()
+    lib = _lib.load("decoder_block", defines)
     fn = lib.decoder_block_info
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     _lib.raise_on_error(fn(c, int(dtype == torch.float32), int(hashed), int(k3),
                            ctypes.cast(info, ctypes.c_void_p)), "decoder_block_info")
-    keys = ("smem_bytes", "blocks_per_sm", "registers", "local_bytes",
-            "tile_input_columns", "tile_pixels")
-    return dict(zip(keys, list(info)))
+    return dict(zip(INFO_KEYS, list(info)))
 
 
 def _launch(y1, prepared, emit_feat, frames, defines=()):
@@ -280,6 +305,9 @@ def _launch(y1, prepared, emit_feat, frames, defines=()):
         _lib.check(prepared["n1"], "noise1", (2 * hp, 2 * wp), dt, dev)
         _lib.check(prepared["n2"], "noise2", (2 * hp, 2 * wp), dt, dev)
     _lib.check(prepared["w2t"], "w2t", (c, c), torch.bfloat16, dev)
+    w2c = prepared.get("w2c")
+    if c in STREAMED_CHANNELS:
+        _lib.check(w2c, "w2c", (c * c,), torch.bfloat16, dev)
     _lib.check(prepared["b1"], "b1", (c,), torch.float32, dev)
     _lib.check(prepared["b2"], "b2", (c,), torch.float32, dev)
     _lib.check(prepared["nw"], "nw", (2,), torch.float32, dev)
@@ -290,16 +318,16 @@ def _launch(y1, prepared, emit_feat, frames, defines=()):
     rgb = (torch.empty((2 * rows, 2 * wp, 3), dtype=torch.float32, device=dev)
            if emit_rgb else None)
     _check_aligned(y1=y1, noise1=prepared.get("n1"), noise2=prepared.get("n2"),
-                   w2t=prepared["w2t"])
+                   w2t=prepared["w2t"], w2c=w2c)
     seed1, seed2 = prepared["seeds"] if hashed else (0, 0)
     lib = _lib.load("decoder_block", defines)
     fn = lib.decoder_block_forward
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                    + [ctypes.c_uint32] * 2 + [ctypes.c_void_p])
     p = _lib.ptr
     code = fn(
-        p(y1), p(prepared.get("n1")), p(prepared.get("n2")), p(prepared["w2t"]),
+        p(y1), p(prepared.get("n1")), p(prepared.get("n2")), p(prepared["w2t"]), p(w2c),
         p(prepared["b1"]), p(prepared["b2"]), p(prepared["nw"]),
         p(prepared.get("wrgbt")), p(feat), p(rgb),
         frames, hp, wp, c, int(dt == torch.float32), int(hashed), seed1, seed2,
@@ -375,7 +403,8 @@ def decoder_block_fused_plain(y1, skip, noise1, noise2, w2, wrgb, b1, b2, brgb,
 
 
 def _launch_fused(y1, skip, noise1, noise2, w2, wrgb, b1, b2, brgb, noise_w1,
-                  noise_w2):
+                  noise_w2, defines=()):
+    """Launch K3 (the library built with the extra flags `defines`)."""
     dev = y1.device
     hp, wp, c = y1.shape
     _check_block_shape("decoder_block_fused", hp, wp, c, 1)
@@ -393,23 +422,27 @@ def _launch_fused(y1, skip, noise1, noise2, w2, wrgb, b1, b2, brgb, noise_w1,
         "wrgbt": wrgb.t().contiguous().to(bf16),
         "brgb": brgb.reshape(3).float().contiguous(),
     }
+    if c in STREAMED_CHANNELS:
+        ops["w2c"] = chunk_weight(ops["w2t"])
     shapes = {"y1": ((hp, wp, c), f32), "skip": ((hp, wp, 3), f32),
               "noise1": ((2 * hp, 2 * wp), f32), "noise2": ((2 * hp, 2 * wp), f32),
               "w2t": ((c, c), bf16), "b1": ((c,), f32), "b2": ((c,), f32),
               "nw": ((2,), f32), "wrgbt": ((3, c), bf16), "brgb": ((3,), f32)}
+    if c in STREAMED_CHANNELS:
+        shapes["w2c"] = ((c * c,), bf16)
     for name, (shape, dtype) in shapes.items():
         _lib.check(ops[name], name, shape, dtype, dev)
     _check_aligned(**ops)
     feat = torch.empty((2 * hp, 2 * wp, c), dtype=f32, device=dev)
     rgb = torch.empty((2 * hp, 2 * wp, 3), dtype=f32, device=dev)
-    lib = _lib.load("decoder_block")
+    lib = _lib.load("decoder_block", defines)
     fn = lib.decoder_block_fused_forward
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     p = _lib.ptr
     code = fn(
         p(ops["y1"]), p(ops["skip"]), p(ops["noise1"]), p(ops["noise2"]),
-        p(ops["w2t"]), p(ops["b1"]), p(ops["b2"]), p(ops["nw"]),
+        p(ops["w2t"]), p(ops.get("w2c")), p(ops["b1"]), p(ops["b2"]), p(ops["nw"]),
         p(ops["wrgbt"]), p(ops["brgb"]), p(feat), p(rgb), hp, wp, c,
         _lib.stream_ptr(dev),
     )

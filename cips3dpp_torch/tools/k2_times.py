@@ -1,7 +1,7 @@
 """K2's device time at given y1 shapes, in its four modes, on the card.
 
     python -m cips3dpp_torch.tools.k2_times [--shapes 64x64x512 64x64x1024]
-        [--root DIR] [--label L]
+        [--root DIR] [--label L] [--cluster 2 4]
 
 Each shape HpxWpxC is a y1 of one frame with feat stored and ToRGB folded,
 on seeded random operands; each mode (bf16 / f32 storage x noise buffers /
@@ -9,8 +9,12 @@ hash noise) is timed by the profiler's device time over 50 launches
 (`_lib.device_ms`). `--root` times the package under another checkout
 instead of this one (its kernels built from its own sources there), so two
 versions compare in one call on one card: run parent, change, change,
-parent. Prints one JSON line: the label, the package's path, the card's
-name and {"C=c y1=hp x wp mode": ms}.
+parent. `--cluster` times the streamed-weight kernel (C >= 384) once at
+each cluster size given, each in a library of its own built with
+-DDBLOCK_WIDE_CLUSTER=n (`cluster_defines`; the packages since the
+cluster kernel), the keys then ending in " CL=n". Prints one JSON line:
+the label, the package's path, the card's name and {"C=c y1=hp x wp
+mode": ms}.
 """
 
 from __future__ import annotations
@@ -21,11 +25,19 @@ import os
 import sys
 
 
+def cluster_defines(cluster: int) -> tuple[str, ...]:
+    """The extra nvcc flags of a decoder_block library whose streamed-weight
+    kernel runs clusters of `cluster` CTAs."""
+    return (f"-DDBLOCK_WIDE_CLUSTER={int(cluster)}",)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--shapes", nargs="+", default=["64x64x512", "64x64x1024", "64x64x2048"])
     ap.add_argument("--root", default=None, help="a checkout whose package is timed")
     ap.add_argument("--label", default="")
+    ap.add_argument("--cluster", type=int, nargs="+", default=None,
+                    help="cluster sizes of the streamed-weight kernel to time")
     args = ap.parse_args(argv)
     if args.root is not None:
         root = os.path.abspath(args.root)
@@ -54,9 +66,13 @@ def main(argv=None) -> int:
                         0.1 * rnd(c), 0.1 * rnd(c), 0.3, -0.2, rnd(c, 3) / c**0.5, dtype=dt,
                         noise_seeds=(1, 2) if hashed else None)
                     y1 = torch.randn((hp, wp, c), generator=gen).to(dev, dt)
-                    ms = _lib.device_ms(lambda i: kdb.decoder_block_packed(y1, prepared=bp),
-                                        50, "block_kernel")
-                    out["ms"][f"C={c} y1={hp}x{wp} {kdb.launch_name(bp)}"] = ms
+                    key = f"C={c} y1={hp}x{wp} {kdb.launch_name(bp)}"
+                    streamed = args.cluster and c in kdb.STREAMED_CHANNELS
+                    for cl in args.cluster if streamed else (None,):
+                        defines = () if cl is None else cluster_defines(cl)
+                        ms = _lib.device_ms(lambda i: kdb._launch(y1, bp, True, 1, defines),
+                                            50, "block_kernel")
+                        out["ms"][key + ("" if cl is None else f" CL={cl}")] = ms
     print(json.dumps(out), flush=True)
     return 0
 

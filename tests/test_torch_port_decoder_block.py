@@ -183,4 +183,36 @@ def test_shape_check_names_the_channel_counts_taken(c):
     with pytest.raises(ValueError, match=taken):
         kdb.tile_pixels(c)
     assert [kdb.tile_pixels(c) for c in (16, 256, 384, 512, 640, 1024, 1152, 2048)] == [
-        512, 32, 128, 128, 64, 64, 32, 32]
+        512, 32, 64, 64, 64, 64, 32, 32]
+
+
+@pytest.mark.parametrize("c", [384, 1024, 2048])
+def test_streamed_weight_chunks_invert(c):
+    """The streamed kernel's weight layout (chunk_weight): the whole weight
+    in 16 KB chunks of 128 output x 64 input channels, pass by pass, each
+    row's 16-byte groups swizzled by row % 8. Its inverse gives back w2t
+    bit for bit, and decoder_block_prepare carries it only where the
+    weight is streamed."""
+    from cips3dpp_torch.kernels import decoder_block as kdb
+
+    gen = torch.Generator().manual_seed(c)
+    w2t = torch.randn((c, c), generator=gen).to(torch.bfloat16)
+    w2c = kdb.chunk_weight(w2t)
+    assert w2c.shape == (c * c,) and w2c.dtype == torch.bfloat16
+    chunks = w2c.reshape(c // 128, c // 64, 128, 8, 8)  # pass, chunk, row, group, value
+    back = torch.empty_like(w2t)
+    for n in range(128):  # the inverse, row by row: group j of row n sits at j ^ (n % 8)
+        groups = chunks[:, :, n, [j ^ (n % 8) for j in range(8)]]  # (pass, chunk, j, value)
+        back[n::128] = groups.reshape(c // 128, c)
+    assert torch.equal(back, w2t)
+    for p, k, n, j in ((0, 0, 0, 0), (1, 2, 13, 3), (c // 128 - 1, c // 64 - 1, 127, 7)):
+        assert torch.equal(chunks[p, k, n, j ^ (n % 8)],
+                           w2t[128 * p + n, 64 * k + 8 * j:64 * k + 8 * j + 8])
+    prep = kdb.decoder_block_prepare(
+        torch.zeros(4, 4), torch.zeros(4, 4), w2t.float().t(), torch.zeros(c), torch.zeros(c),
+        0.1, 0.1)
+    assert torch.equal(prep["w2c"], w2c)
+    small = kdb.decoder_block_prepare(
+        torch.zeros(4, 4), torch.zeros(4, 4), torch.zeros(256, 256), torch.zeros(256),
+        torch.zeros(256), 0.1, 0.1)
+    assert "w2c" not in small

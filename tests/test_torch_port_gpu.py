@@ -125,12 +125,21 @@ def test_siren_phase_split_counts_every_phase(dev):
 # config's mode, and hash noise made in the kernel in either storage
 MODES = [("bf16", "buffers"), ("f32", "buffers"), ("bf16", "hash"), ("f32", "hash")]
 # y1 (F*Hp, Wp) by name: the first two as before; Wp = 48 is ragged against
-# the tile width at C = 16, 32, 64, 384 and 512 (128, 64, 32, 32 and 32
-# input columns) with F = 3; Hp = 1 puts every row at a frame edge; "large"
+# the tile width at C = 16, 32 and 64 (128, 64 and 32 input columns) with
+# F = 3; Hp = 1 puts every row at a frame edge; "large"
 # gives every persistent block several tiles, so the staging ring (and from
-# C = 384 up the weight ring, across tiles) wraps
+# C = 384 up the weight ring, across tiles) wraps. The streamed kernel's
+# clusters walk CL neighbouring tiles: "cluster-ragged" has 15 and 30
+# tiles at its 64- and 32-pixel tiles, a multiple of no cluster of 4 (and
+# of none of 2 at 64 pixels; at 32 pixels a tile count is even at every
+# Wp % 16 == 0), so the last cluster has CTAs past the last tile;
+# "cluster-short" has 1 and 2 tiles, fewer than a cluster of 4
 SHAPES = {"16x32": (16, 32, 1), "16x32-f2": (16, 32, 2), "ragged-f3": (8, 48, 3),
-          "hp1-f2": (1, 32, 2), "large-f2": None}
+          "hp1-f2": (1, 32, 2), "large-f2": None, "cluster-ragged": (1, 80, 3),
+          "cluster-short": (1, 16, 1)}
+# the cluster sizes the streamed kernel runs at on the cluster shapes: the
+# plain library's, and a library built with clusters of 4
+CLUSTER_SIZES = (2, 4)
 
 
 def _block_shape(name, c):
@@ -139,9 +148,23 @@ def _block_shape(name, c):
     return SHAPES[name]
 
 
-# every resident C, and the streamed kernel at each tile size (128 pixels
-# at 384 and 512, 64 at 1024, 32 at 2048)
-BLOCK_CHANNELS = [16, 32, 64, 128, 256, 384, 512, 1024, 2048]
+def _cluster_builds(shape, c):
+    """[(cluster, defines)]: the libraries to run the kernel in at `shape`
+    and C = c, each with its streamed kernel's cluster size (None: the
+    plain library, its cluster not asserted)."""
+    from cips3dpp_torch.kernels.decoder_block import STREAMED_CHANNELS
+    from cips3dpp_torch.tools.k2_times import cluster_defines
+
+    if not (shape.startswith("cluster") and c in STREAMED_CHANNELS):
+        return [(None, ())]
+    return [(cl, () if cl == CLUSTER_SIZES[0] else cluster_defines(cl))
+            for cl in CLUSTER_SIZES]
+
+
+# every resident C, and the streamed kernel at each tile size (64 pixels
+# at 384-1024, 32 at 1152-2048), with C fixed (384, 512, 1024, 2048) and
+# at run time (640, 1152)
+BLOCK_CHANNELS = [16, 32, 64, 128, 256, 384, 512, 640, 1024, 1152, 2048]
 
 
 @pytest.mark.parametrize("mode", MODES, ids=["-".join(m) for m in MODES])
@@ -150,7 +173,8 @@ BLOCK_CHANNELS = [16, 32, 64, 128, 256, 384, 512, 1024, 2048]
 def test_decoder_block_kernel_matches_plain(dev, c, shape, mode):
     from cips3dpp_torch.kernels import _lib
     from cips3dpp_torch.kernels.decoder_block import (
-        decoder_block_packed, decoder_block_plain, decoder_block_prepare, launch_name,
+        _launch, decoder_block_info, decoder_block_packed, decoder_block_plain,
+        decoder_block_prepare, launch_name,
     )
 
     hp, wp, frames = _block_shape(shape, c)
@@ -167,12 +191,19 @@ def test_decoder_block_kernel_matches_plain(dev, c, shape, mode):
     assert name == {("bf16", "buffers"): "decoder_block", ("f32", "buffers"): "decoder_block_f32",
                     ("bf16", "hash"): "decoder_block_hash",
                     ("f32", "hash"): "decoder_block_hash_f32"}[mode]
-    for emit_feat in (True, False):
+    for (cl, defines), emit_feat in [(b, e) for b in _cluster_builds(shape, c)
+                                     for e in (True, False)]:
+        if cl is not None:
+            info = decoder_block_info(c, dt, mode[1] == "hash", defines=defines)
+            assert info["cluster"] == cl
+        run = ((lambda: _launch(y1, prep, emit_feat, frames, defines)) if defines else
+               (lambda: decoder_block_packed(y1, prepared=prep, emit_feat=emit_feat,
+                                             frames=frames)))
         before = _lib.LAUNCHES.copy()  # a Counter: 0 for a kernel not launched yet
-        got = decoder_block_packed(y1, prepared=prep, emit_feat=emit_feat, frames=frames)
+        got = run()
         assert _lib.LAUNCHES[name] == before.get(name, 0) + 1
         assert sum(_lib.LAUNCHES.values()) == sum(before.values()) + 1
-        again = decoder_block_packed(y1, prepared=prep, emit_feat=emit_feat, frames=frames)
+        again = run()
         want = decoder_block_plain(y1, prep, emit_feat, frames)
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -314,17 +345,19 @@ def test_hash_noise_in_kernel_matches_its_map(dev):
         torch.testing.assert_close(g, w, rtol=0, atol=5e-3)
 
 
-# K3 takes one frame: the same shapes as K2's, F = 1
-K3_SHAPES = {"32x16": (32, 16), "ragged": (8, 48), "hp1": (1, 32), "large": None}
+# K3 takes one frame: the same shapes as K2's, F = 1 ("cluster-ragged":
+# 5 and 10 tiles; "cluster-short": 1 and 2)
+K3_SHAPES = {"32x16": (32, 16), "ragged": (8, 48), "hp1": (1, 32), "large": None,
+             "cluster-ragged": (1, 80), "cluster-short": (1, 16)}
 
 
-@pytest.mark.parametrize("c", [16, 32, 64, 128, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("c", [16, 32, 64, 128, 256, 384, 512, 640, 1024, 1152, 2048])
 @pytest.mark.parametrize("shape", list(K3_SHAPES))
 def test_decoder_block_fused_kernel_matches_plain(dev, c, shape):
     """K3, the v1 block: f32 in and out, bias and upsampled-skip epilogue."""
     from cips3dpp_torch.kernels import _lib
     from cips3dpp_torch.kernels.decoder_block import (
-        decoder_block_fused, decoder_block_fused_plain,
+        _launch_fused, decoder_block_fused, decoder_block_fused_plain, decoder_block_info,
     )
 
     hp, wp = K3_SHAPES[shape] or ((256, 256) if c <= 64 else (128, 128))
@@ -333,19 +366,24 @@ def test_decoder_block_fused_kernel_matches_plain(dev, c, shape):
     args = (rnd(hp, wp, c), rnd(hp, wp, 3), rnd(2 * hp, 2 * wp, 1), rnd(2 * hp, 2 * wp, 1),
             rnd(c, c) / c**0.5, rnd(c, 3) / c**0.5, 0.1 * rnd(c), 0.1 * rnd(c),
             0.1 * rnd(3), 0.3, 0.2)
-    before = _lib.LAUNCHES["decoder_block_fused"]
-    got = decoder_block_fused(*args)
-    assert _lib.LAUNCHES["decoder_block_fused"] == before + 1
-    again = decoder_block_fused(*args)
     want = decoder_block_fused_plain(*args)
-    torch.cuda.synchronize()
-    for g, a, w in zip(got, again, want):
-        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
-        assert torch.equal(g, a)
-    # feat: f32, as K2's f32 mode; rgb multiplies bf16(feat), which flips a
-    # bf16 ulp where feat differs in its last f32 bits
-    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-3)
-    torch.testing.assert_close(got[1], want[1], rtol=1.6e-2, atol=2e-2)
+    for cl, defines in _cluster_builds(shape, c):
+        if cl is not None:
+            assert decoder_block_info(c, k3=True, defines=defines)["cluster"] == cl
+        run = ((lambda: _launch_fused(*args, defines)) if defines else
+               (lambda: decoder_block_fused(*args)))
+        before = _lib.LAUNCHES["decoder_block_fused"]
+        got = run()
+        assert _lib.LAUNCHES["decoder_block_fused"] == before + 1
+        again = run()
+        torch.cuda.synchronize()
+        for g, a, w in zip(got, again, want):
+            assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+            assert torch.equal(g, a)
+        # feat: f32, as K2's f32 mode; rgb multiplies bf16(feat), which flips
+        # a bf16 ulp where feat differs in its last f32 bits
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-3)
+        torch.testing.assert_close(got[1], want[1], rtol=1.6e-2, atol=2e-2)
 
 
 def test_decoder_block_phase_split_counts_every_phase(dev):
@@ -369,13 +407,36 @@ def test_decoder_block_phase_split_counts_every_phase(dev):
     assert len(cycles) == len(PHASES) and all(c > 0 for c in cycles)
 
 
+def test_decoder_block_streamed_phase_split_counts_every_phase(dev):
+    """The instrumented streamed-weight kernel at y1 (64, 64, 1024) computes
+    what the plain build computes and counts cycles in each of its five
+    phases (producer, consumers' waits, wgmma, upsample, epilogue)."""
+    from cips3dpp_torch.kernels import decoder_block as kdb
+    from cips3dpp_torch.tools.decoder_block_phase_split import (
+        DEFINES, WIDE_PHASES, block_inputs, phase_cycles,
+    )
+
+    prep, y1 = block_inputs(64, 1024, torch.bfloat16, False, dev)
+    want = kdb.decoder_block_packed(y1, prepared=prep)
+    phase_cycles(reset=True, streamed=True)
+    got = kdb._launch(y1, prep, True, 1, DEFINES)
+    torch.cuda.synchronize()
+    cycles = phase_cycles(reset=False, streamed=True)
+    print(dict(zip(WIDE_PHASES, cycles)))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert len(cycles) == len(WIDE_PHASES) and all(c > 0 for c in cycles)
+
+
 def test_decoder_block_resources(dev):
     """Every K2 / K3 instantiation fits on the card with no spill, at every
-    C the kernels take; tiles hold 8192 values at C = 16 to 256, and 128,
-    64 or 32 pixels (32, 16 or 8 input columns) with the weight streamed
-    (C = 384-512, 640-1024, 1152-2048). A C outside the set raises."""
+    C the kernels take; tiles hold 8192 values at C = 16 to 256, and 64
+    or 32 pixels (16 or 8 input columns) with the weight streamed (C =
+    384-1024, 1152-2048) by clusters of CLUSTER_SIZES[0] CTAs, the plain
+    library's, the card can place (1 for the resident kernel). A C outside
+    the set raises."""
     from cips3dpp_torch.kernels.decoder_block import (
-        KERNEL_CHANNELS, decoder_block_info, tile_pixels,
+        KERNEL_CHANNELS, STREAMED_CHANNELS, decoder_block_info, tile_pixels,
     )
 
     for dt, hashed, k3 in ((torch.bfloat16, False, False), (torch.bfloat16, True, False),
@@ -387,9 +448,10 @@ def test_decoder_block_resources(dev):
             assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
             assert info["smem_bytes"] <= 232448
             assert info["tile_pixels"] == tile_pixels(c)
-            assert info["tile_pixels"] == (8192 // c if c <= 256 else
-                                           128 if c <= 512 else 64 if c <= 1024 else 32)
+            assert info["tile_pixels"] == (8192 // c if c <= 256 else 64 if c <= 1024 else 32)
             assert info["tile_input_columns"] * 4 == info["tile_pixels"]
+            assert info["cluster"] == (CLUSTER_SIZES[0] if c in STREAMED_CHANNELS else 1)
+            assert info["clusters_on_card"] >= 1
         for c in (192, 4096):
             with pytest.raises(ValueError, match="multiple of 128 from 384 to 2048"):
                 decoder_block_info(c, dt, hashed, k3)
