@@ -17,8 +17,9 @@ Phases, each fatal on failure:
      values that differ from the plain version's, and the bound per shape
      with its byte and operation terms from decoder_block_work, summed);
      then K3 (the v1 block, f32 in and out) at
-     the same shapes through its own entry point, and P1 (the elementwise
-     dtype probe) in f32 and bf16 through the probe tool, bit for bit;
+     the same shapes through its own entry point; P1 (the elementwise
+     dtype probe) in f32 and bf16 through the probe tool, bit for bit,
+     runs right after phase 3;
   5. the serving slice: a seeded full-width preset_serving Generator
      renders r1024 frames through prepare_trajectory / render_frame (8 yaws
      at F=1, one F=4 call); the launch counters must show 1 K1 + 4 K2 per
@@ -193,6 +194,14 @@ Phases, each fatal on failure:
      ms a frame, and the frame's device time by kernel group and idle
      share by the profiler), an f32 trajectory at m = 8 (phase 6's f32
      bounds) and `rendering-time --opts` at m = 8, 32 frames.
+ 17. a width-512 renderer, run after phase 16 in its child process:
+     preset_serving with renderer.hidden_dim 512 (the decoder at 512 input
+     channels), whose K1 is the wide kernel (wgmma on the weights streamed
+     in swizzled chunks, multicast across a cluster of 2): r1024 frames
+     (1 K1 + 4 K2 a frame, gated as 15b's, K1's part of the gap printed,
+     ms a frame, the frame's device time by kernel group and idle share by
+     the profiler) and `rendering-time --n-frames 128 --opts
+     G_cfg.renderer.hidden_dim 512`, every sweep's launches counted.
 Each path that launches kernels runs with the launch counts set to 0
 just before it and read just after. A kernel's "ms" is its device time a
 launch (torch.profiler), beside the time a call takes back to back (CUDA
@@ -267,20 +276,25 @@ def kernel_time(fn, kernel, iters=50):
     return _lib.device_ms(lambda i: fn(), iters, kernel), cuda_time(fn, iters)
 
 
-def main_kernel(fn):
+def main_kernel(fn, tries=5):
     """The name of the kernel on which one call of fn() spends the most
     device time (a library call, whose kernels' names are not known), by
-    the profiler: the name `_lib.device_ms` then times."""
+    the profiler: the name `_lib.device_ms` then times. The profiler at
+    times drops a run's device records (`_lib.device_ms`), so a run that
+    saw none is profiled again, up to `tries` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return max((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-               key=lambda e: e.self_device_time_total).key
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if events:
+            return max(events, key=lambda e: e.self_device_time_total).key
+    raise RuntimeError(f"the profiler saw no device time in {tries} runs")
 
 
 def bound(nbytes, bf16_flops=0.0, f32_flops=0.0, f32_apart=0.0):
@@ -342,9 +356,9 @@ def counted(name, want=None):
 
 
 @contextlib.contextmanager
-def plain_kernels(k1=True):
-    """Every entry point with the plain versions of K2 and, with `k1`, of
-    K1."""
+def plain_kernels(k1=True, k2=True):
+    """Every entry point with the plain versions of K2 (with `k2`) and of
+    K1 (with `k1`)."""
     from cips3dpp_torch import serving
     from cips3dpp_torch.kernels import decoder_block as kdb
     from cips3dpp_torch.kernels import decoder_fused as kdf
@@ -361,7 +375,8 @@ def plain_kernels(k1=True):
 
     if k1:
         serving.siren_render_prepared = ksr.siren_render_prepared = siren_plain
-    kdf.decoder_block_packed = block_plain
+    if k2:
+        kdf.decoder_block_packed = block_plain
     try:
         yield
     finally:
@@ -378,13 +393,16 @@ def profile_calls(fn, call_ms, n=10, what="frame", table="profile_frame.txt"):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    dev_events = [e for e in avgs if e.device_type == DeviceType.CUDA]
-    if not dev_events:
+    for _ in range(3):  # a run whose device records the profiler dropped is run again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        avgs = prof.key_averages()
+        dev_events = [e for e in avgs if e.device_type == DeviceType.CUDA]
+        if dev_events:
+            break
+    else:
         raise AssertionError("profile: the trace holds no device time")
 
     def group(name):
@@ -3133,38 +3151,58 @@ def multiplier_cfg(base, m):
                                                                  channel_multiplier=m))
 
 
-def serve_multiplier(dev, smi, m, seed, tag, profile=False):
-    """preset_serving at channel multiplier m, weights from `seed`: r1024
+def serve_multiplier(dev, smi, m, seed, tag, profile=False, cfg=None, what=None,
+                     k1_reorder=False):
+    """preset_serving at channel multiplier m (or the config `cfg`, named
+    `what`), weights from `seed`: r1024
     frames through prepare_trajectory / render_frame (1 K1 + 4 K2 a frame,
     the blocks' C checked against the channel table), against K2's plain
     version at phase 5's bounds and against the plain kernels at 1.5x the
-    plain path's own spread under another GEMM order, the same camera
-    bit-equal, ms a frame by CUDA events; with `profile`, the frame's
+    plain path's own spread under another GEMM order (with `k1_reorder`,
+    the larger of that and its spread under another sum order of K1's
+    products, `frame_gap_split.k1_sums_reordered`, and the max at 1.5x
+    that spread's where it passes 0.5), the same camera
+    bit-equal, ms a frame by CUDA events; the gap to K1's plain version
+    alone (K1's part); with `profile`, the frame's
     device time by kernel group and idle share (profile_calls). Returns
     (result, launches)."""
     from cips3dpp_torch import serving
     from cips3dpp_torch.models.generator import preset_serving
     from cips3dpp_torch.models.layers import channel_table
+    from cips3dpp_torch.tools.frame_gap_split import k1_sums_reordered
 
     yaws = torch.linspace(-0.3, 0.3, 4, device=dev)
     zero = torch.zeros(1, device=dev)
-    cfg = multiplier_cfg(preset_serving(), m)
+    cfg = multiplier_cfg(preset_serving(), m) if cfg is None else cfg
+    what = what or f"at channel multiplier {m}"
     model, zs, noise = make_model(cfg, dev, seed)
-    with counted(f"{tag} preset_serving at channel multiplier {m}: prepare_trajectory + 4 "
+    with counted(f"{tag} preset_serving {what}: prepare_trajectory + 4 "
                  "render_frame", {"siren_render": 4, "decoder_block": 16}) as got:
         prep = serving.prepare_trajectory(model, zs, noise_bufs=noise, device=dev)
         frames = [serving.render_frame(model, prep, yaws[i:i + 1], zero, device=dev)["rgb"]
                   for i in range(4)]
     chans = [b["bp"]["w2t"].shape[0] for b in prep["dec"]["blocks"] if "bp" in b]
-    table = [channel_table(m)[r] for r in cfg.decoder.upsample_list]
+    table = [channel_table(cfg.decoder.channel_multiplier)[r] for r in cfg.decoder.upsample_list]
     with plain_kernels(k1=False):
         ref_k2 = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
+    with plain_kernels(k2=False):
+        ref_k1 = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
     with plain_kernels():
         ref = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
         # the plain path against itself under another GEMM order (F = 4)
         ref4 = serving.render_frame(model, prep, yaws, yaws * 0, device=dev)["rgb"][:1]
+        if k1_reorder:
+            with k1_sums_reordered():
+                reord = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
     again = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
     g_k2, g, g_own = gap(frames[0], ref_k2), gap(frames[0], ref), gap(ref4, ref)
+    g_k1 = gap(frames[0], ref_k1)
+    # the spread the whole frame is held to: the plain path's own under
+    # another GEMM order; with k1_reorder also under another sum order of
+    # K1's products, which at width 512 moves the frame further
+    g_reord = gap(reord, ref) if k1_reorder else (0.0, 0.0)
+    spread = max(g_own[1], g_reord[1])
+    max_bound = max(0.5, 1.5 * g_reord[0])
     # K2's part at phase 5's bounds. The whole frame's mean gap is set by
     # K1's bf16 flips through the bf16 decoder, which at m = 1 and 4
     # (brighter frames) reaches phase 5's 1e-2, and is the size of the
@@ -3173,12 +3211,13 @@ def serve_multiplier(dev, smi, m, seed, tag, profile=False):
     if (chans != table or frames[0].shape != (1, cfg.out_size, cfg.out_size, 3)
             or not all(torch.isfinite(f).all() for f in frames)
             or not (g_k2[0] <= 0.5 and g_k2[1] <= 1e-2)
-            or not (g[0] <= 0.5 and g[1] <= 1.5 * g_own[1])
+            or not (g[0] <= max_bound and g[1] <= 1.5 * spread)
             or not torch.equal(again, frames[0])):
-        raise AssertionError(f"{tag} m = {m}: block C {chans}, frame "
+        raise AssertionError(f"{tag} {what}: block C {chans}, frame "
                              f"{tuple(frames[0].shape)}, max / mean |diff| to K2's plain "
                              f"version {g_k2} (bounds 0.5 / 1e-2), to the plain kernels {g} "
-                             f"(bounds 0.5 / 1.5 x {g_own[1]:.3e}, the plain path's own), "
+                             f"(bounds {max_bound:.3g} / 1.5 x {spread:.3e}, the plain path's "
+                             f"own), "
                              f"the same camera bit-equal {torch.equal(again, frames[0])}")
 
     def render_one():
@@ -3187,21 +3226,28 @@ def serve_multiplier(dev, smi, m, seed, tag, profile=False):
     torch.cuda.reset_peak_memory_stats()
     frame_ms = cuda_time(render_one, iters=10)
     peak = torch.cuda.max_memory_allocated()
-    log(f"[multipliers] {tag} preset_serving at channel multiplier {m} (blocks at C {chans}): "
+    log(f"[multipliers] {tag} preset_serving {what} (blocks at C {chans}): "
         f"{frame_ms:.3f} ms a r1024 frame (CUDA events, 10 frames), 1 K1 + 4 K2 a frame, peak "
         f"{peak / 2**20:.1f} MiB; max / mean |diff| to K2's plain version {g_k2[0]:.3e} / "
         f"{g_k2[1]:.3e} (bounds 0.5 / 1e-2), to the plain kernels {g[0]:.3e} / {g[1]:.3e} "
-        f"(bounds 0.5 / {1.5 * g_own[1]:.3e}; the plain path against itself at F = 4 "
-        f"{g_own[0]:.3e} / {g_own[1]:.3e}); mean |rgb| {float(ref.abs().mean()):.3f}; {smi}")
-    res = {"frame_ms": frame_ms, "peak_bytes": peak, "gap_k2": g_k2, "gap": g,
-           "gap_plain_own": g_own, "channels": chans, "mean_abs_rgb": float(ref.abs().mean())}
+        f"(bounds {max_bound:.3g} / {1.5 * spread:.3e}; the plain path against itself at F = 4 "
+        f"{g_own[0]:.3e} / {g_own[1]:.3e}"
+        + (f", with K1's products summed in 16-wide slices {g_reord[0]:.3e} / "
+           f"{g_reord[1]:.3e}" if k1_reorder else "")
+        + f"), to K1's plain version alone (K1's part) "
+        f"{g_k1[0]:.3e} / {g_k1[1]:.3e}; mean |rgb| {float(ref.abs().mean()):.3f}; {smi}")
+    res = {"frame_ms": frame_ms, "peak_bytes": peak, "gap_k2": g_k2, "gap_k1": g_k1, "gap": g,
+           "gap_plain_own": g_own, "gap_plain_k1_reorder": g_reord, "channels": chans,
+           "mean_abs_rgb": float(ref.abs().mean())}
     if profile:
-        res["profile"] = profile_calls(render_one, frame_ms, what=f"m = {m} frame",
-                                       table=f"profile_frame_m{m}.txt")
-        k2_calls = sum(k["calls_per_call"] for k in res["profile"]["kernels"]
-                       if k["group"] == "K2 decoder_block")
-        log(f"[multipliers] {tag} m = {m}: the profile saw {k2_calls:g} K2 launches a frame "
-            f"(4 launched)")
+        short = what.replace("at channel multiplier ", "m = ").replace("with ", "")
+        res["profile"] = profile_calls(render_one, frame_ms, what=f"{short} frame",
+                                       table="profile_frame_" + "".join(
+                                           c for c in short if c.isalnum()) + ".txt")
+        calls = {grp: sum(k["calls_per_call"] for k in res["profile"]["kernels"]
+                          if k["group"] == grp) for grp in ("K1 siren_render", "K2 decoder_block")}
+        log(f"[multipliers] {tag} {short}: the profile saw {calls['K1 siren_render']:g} K1 and "
+            f"{calls['K2 decoder_block']:g} K2 launches a frame (1 and 4 launched)")
     return res, got
 
 
@@ -3256,23 +3302,24 @@ def f32_trajectory_case(dev, m, seed, tag, spread=False):
     return {"s": traj_s, "gap": g, "gap_k2": g_k2, "gap_plain_own": g_own}, got
 
 
-def rendering_time_case(m, n, tag):
-    """`rendering-time --n-frames n --opts` at channel multiplier m in
-    preset_serving's bf16, through the command line: every sweep's launches
-    counted, its fps printed. Returns (result, launches)."""
+def rendering_time_case(m, n, tag, opts=None):
+    """`rendering-time --n-frames n --opts` at channel multiplier m (or
+    with the dotted overrides `opts` instead) in preset_serving's bf16,
+    through the command line: every sweep's launches counted, its fps
+    printed. Returns (result, launches)."""
     from cips3dpp_torch.apps import cli
 
     sweeps = cli.RENDER_REPS + 1
-    with counted(f"{tag} rendering-time --n-frames {n} at channel multiplier {m}",
+    opts = opts or ["G_cfg.decoder.channel_multiplier", str(m)]
+    with counted(f"{tag} rendering-time --n-frames {n} --opts {' '.join(opts)}",
                  {"siren_render": n * sweeps, "decoder_block": 4 * n * sweeps}) as got:
         t0 = time.perf_counter()
-        rt = cli_json(["rendering-time", "--n-frames", str(n), "--opts",
-                       "G_cfg.decoder.channel_multiplier", str(m), "G_cfg.renderer.dtype",
-                       "bfloat16", "G_cfg.decoder.dtype", "bfloat16"])
+        rt = cli_json(["rendering-time", "--n-frames", str(n), "--opts", *opts,
+                       "G_cfg.renderer.dtype", "bfloat16", "G_cfg.decoder.dtype", "bfloat16"])
         wall = time.perf_counter() - t0
     if rt["out_size"] != 1024 or not rt["value"] > 0:
-        raise AssertionError(f"{tag} rendering-time at m = {m}: {rt}")
-    log(f"[multipliers] {tag} rendering-time --opts G_cfg.decoder.channel_multiplier {m} "
+        raise AssertionError(f"{tag} rendering-time --opts {' '.join(opts)}: {rt}")
+    log(f"[multipliers] {tag} rendering-time --opts {' '.join(opts)} "
         f"(preset_serving's bf16), batch 1, {n} frames: {sweeps} sweeps of {n} K1 + {4 * n} K2 "
         f"counted; best {rt['value']:.2f} fps ({rt['ms_per_frame']:.3f} ms a frame, mean "
         f"{rt['mean_ms_per_frame']:.3f}), peak {rt['peak_bytes'] / 2**20:.1f} MiB, {wall:.2f} s "
@@ -3347,19 +3394,59 @@ def wide_multipliers_phase(dev, smi):
     return res
 
 
+WIDE_RENDERER_OPTS = ["G_cfg.renderer.hidden_dim", "512"]
+
+
+def wide_renderer_phase(dev, smi):
+    """Phase 17, run after phase 16 in the same child process
+    (child_phases), where the frame's profile sees every record: a
+    width-512 renderer served, whose K1 launches are the wide kernel's
+    (siren_render_kernel_wide). preset_serving with renderer.hidden_dim 512
+    (the decoder then takes 512 input channels): r1024 frames through
+    prepare_trajectory / render_frame (serve_multiplier: 1 K1 + 4 K2 a
+    frame, K2's part at phase 5's bounds, the frame at 1.5x the plain
+    path's own spread, the larger of the spreads under another GEMM order
+    and under another sum order of K1's products: at width 512 K1's bf16
+    flips move the frame up to twice as far as the first, through the
+    old kernel and the new alike (PERF.md), K1's part printed, the same camera bit-equal, ms a
+    frame by CUDA events, the frame's device time by kernel group and idle
+    share by the profiler), then `rendering-time --n-frames 128 --opts
+    G_cfg.renderer.hidden_dim 512` in preset_serving's bf16, every sweep's
+    launches counted."""
+    from cips3dpp_torch.models.generator import preset_serving
+
+    t_phase = time.perf_counter()
+    base = preset_serving()
+    cfg = dataclasses.replace(base, renderer=dataclasses.replace(base.renderer, hidden_dim=512))
+    res = {"card": smi}
+    launches = {}
+    res["serving_w512"], got = serve_multiplier(dev, smi, 2, SEED + 190, "17", profile=True,
+                                                cfg=cfg, what="with a width-512 renderer",
+                                                k1_reorder=True)
+    add_launches(launches, got)
+    torch.cuda.empty_cache()
+    res["rendering_time_w512"], got = rendering_time_case(2, 128, "17", WIDE_RENDERER_OPTS)
+    add_launches(launches, got)
+    torch.cuda.empty_cache()
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[wide renderer] phase 17: {res['phase_s']:.1f} s; launches on its paths {launches}")
+    return res
+
+
 CHILD_FLAG = "--child-15a-16"
 CHILD_RESULT = "[child result] "
 
 
 def child_phases():
-    """Phases 15a and 16 in a child process of this script, right after
+    """Phases 15a, 16 and 17 in a child process of this script, right after
     phase 4: one process's profiler drops device records once it has run
     some 50 profiled timings (0-46 of 50 launches seen in each of five
-    tries at 15a's 21st shape, after phases 3, 14a and 4), and these two
-    phases time 29 more. The child builds nothing (the libraries are
+    tries at 15a's 21st shape, after phases 3, 14a and 4), and these
+    phases time 30 more. The child builds nothing (the libraries are
     built), echoes its log and hands back its results, launch counts
     included, as JSON. Returns (k2_channels_phase's result,
-    wide_multipliers_phase's)."""
+    wide_multipliers_phase's, wide_renderer_phase's)."""
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), CHILD_FLAG],
                           capture_output=True, text=True, timeout=900)
     result = None
@@ -3371,16 +3458,17 @@ def child_phases():
     if proc.returncode != 0 or result is None:
         raise AssertionError(f"phases 15a and 16 (child process) failed, rc {proc.returncode}:\n"
                              f"{proc.stderr[-8000:]}")
-    return result["k2_channels"], result["wide"]
+    return result["k2_channels"], result["wide"], result["wide_renderer"]
 
 
 def child_main() -> int:
-    """The child process of child_phases: phases 15a and 16."""
+    """The child process of child_phases: phases 15a, 16 and 17."""
     sys.path.insert(0, ROOT)
     from cips3dpp_torch.kernels import _lib
     from cips3dpp_torch.kernels import siren_render as ksr
 
-    _lib.build([(name, ()) for name in _lib.SOURCES])  # built by the parent: nothing to do
+    # built by the parent: nothing to do
+    _lib.build([(name, ()) for name in _lib.SOURCES] + ksr.kernel_builds())
     ksr.plain_precision()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -3388,7 +3476,8 @@ def child_main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     result = {"k2_channels": k2_channels_phase(dev, smi),
-              "wide": wide_multipliers_phase(dev, smi)}
+              "wide": wide_multipliers_phase(dev, smi),
+              "wide_renderer": wide_renderer_phase(dev, smi)}
     print(CHILD_RESULT + json.dumps(result), flush=True)
     return 0
 
@@ -3516,6 +3605,10 @@ def main() -> int:
                     "bytes": k1_bytes, "bf16_flops": k1_bf16, "f32_dot_ops": k1_dot,
                     "f32_apart_ops": k1_apart, "bound_terms_ms": k1_terms}
 
+    # ---- P1 (early: late in a long process the profiler dropped one of
+    # its 40 records in each of five tries) ----
+    report["P1"] = p1_phase(dev)
+
     # ---- 14a. K1 at the other geometries (early: see k1_grid_phase) ----
     k1_grid = k1_grid_phase(dev, smi, ptxas)
 
@@ -3543,11 +3636,11 @@ def main() -> int:
     # ---- 15a and 16. K2 at C = 16 and 384-2048, K3 at 512-2048, the
     # models at channel multipliers 8 and 16 (in a child process: see
     # child_phases) ----
-    k2_channels, report["wide_multipliers"] = child_phases()
+    k2_channels, report["wide_multipliers"], report["wide_renderer"] = child_phases()
     wide = report["wide_multipliers"]["launches"]
+    wide_renderer = report["wide_renderer"]["launches"]
     channels = [b["w2t"].shape[0] for b in variants["K2"]]
     report["K3"] = k3_phase(gen, dev, [(cfg.img_size * 2**i, c) for i, c in enumerate(channels)])
-    report["P1"] = p1_phase(dev)
 
     # ---- 5. the serving slice: r1024 frames through prepare/render ----
     yaws = torch.linspace(-0.3, 0.3, 8, device=dev)
@@ -3700,10 +3793,11 @@ def main() -> int:
     # phase 13's (the default Projector, the 3x3 decoder's D steps),
     # phase 14's (the width-128 frames, the D steps at 48 samples, the ray
     # mesh's one-process render and ranks, auto_remat's probes and
-    # iteration) and phases 15's and 16's (the frames at channel
+    # iteration), phases 15's and 16's (the frames at channel
     # multipliers 1, 4, 8 and 16, the f32 trajectories, rendering-time at
-    # 4 and 8); K1's numbers are the serving geometry's (phase 3), the
-    # other geometries' are in the report's "geometry" grid
+    # 4 and 8) and phase 17's (the width-512 frames and rendering-time,
+    # through the wide kernel); K1's numbers are the serving geometry's
+    # (phase 3), the other geometries' are in the report's "geometry" grid
     loop, inversion = report["training_loop"]["launches"], report["inversion"]["launches"]
     rest = report["cli_rest"]["launches"]
     entry("siren_render", "cips3dpp_torch/csrc/siren_render.cu",
@@ -3712,10 +3806,12 @@ def main() -> int:
           + loop["siren_render"] + inversion["siren_render"]
           + report["data_parallel"]["launches"]["siren_render"] + rest["siren_render"]
           + variants["siren_render"] + geometry["siren_render"]
-          + multipliers["siren_render"] + wide["siren_render"])
+          + multipliers["siren_render"] + wide["siren_render"]
+          + wide_renderer["siren_render"])
     entry("decoder_block", K2_SRC, K2_TPU, report["K2"],
           serving_launches["decoder_block"] + rest["decoder_block"]
-          + geometry["decoder_block"] + multipliers["decoder_block"] + wide["decoder_block"])
+          + geometry["decoder_block"] + multipliers["decoder_block"] + wide["decoder_block"]
+          + wide_renderer["decoder_block"])
     entry("decoder_block_f32", K2_SRC, K2_TPU, report["K2-f32"],
           t32["launches_buffers"]["decoder_block_f32"] + loop["decoder_block_f32"]
           + inversion["decoder_block_f32"] + variants["decoder_block_f32"]
@@ -3741,7 +3837,8 @@ def main() -> int:
         f"{report['variants']['phase_s']:.1f} s, phase 14: "
         f"{report['geometry']['phase_s']:.1f} s, phase 15: "
         f"{report['multipliers']['phase_s']:.1f} s, phase 16: "
-        f"{report['wide_multipliers']['phase_s']:.1f} s)")
+        f"{report['wide_multipliers']['phase_s']:.1f} s, phase 17: "
+        f"{report['wide_renderer']['phase_s']:.1f} s)")
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     name = torch.cuda.get_device_name(0)

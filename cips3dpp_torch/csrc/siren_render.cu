@@ -17,11 +17,12 @@
 // issues as one instruction, at half the 67 TFLOP/s FMA peak: >= 35 us. The
 // dot products of layer 0 and the two heads (0.35 G) may contract: >= 5 us.
 // So >= ~41 us on the f32 pipe; the I/O is ~7 MB (2 us). The f32 pipe is the
-// floor this design is up against: the tensor work is the smaller of the
-// two, so wgmma would not lower the floor. A block runs its products and its
-// sine epilogues in turn, between barriers, so the two pipes rarely work at
-// once and the time is nearer their sum than the larger; overlapping them
-// needs warps specialised by role.
+// floor the design below is up against at widths up to 256: the tensor work
+// is the smaller of the two, so wgmma would not lower the floor there. A
+// block runs its products and its sine epilogues in turn, between barriers,
+// so the two pipes rarely work at once and the time is nearer their sum than
+// the larger; overlapping them needs warps specialised by role. Width 512
+// has a design of its own (siren_render_kernel_wide, at the end).
 //
 // Design:
 //  - Persistent blocks: the entry point launches one block per SM, and each
@@ -81,15 +82,13 @@
 // thread's accumulators stay on one ray; below TR = 8 a ray's samples are
 // spread over 8/TR threads of a row tile, and the feat partials are kept
 // by (row group, accumulator row g), then summed over the ray's g.
-// Width 512 takes 2-ray tiles of 16 samples: the 123 KB weight ring and
-// 33 KB of constants leave room for 32 rows of activations. Each 32-row
-// unit then streams both 512 x 512 weights (1 MiB) from L2: 4.3 GB a
-// launch at 4096 rays x 24 samples (two chunks a ray), 32x the serving
-// build's 134 MB. That stream, not the operations, bounds this build.
+// Width 512 is another kernel, siren_render_kernel_wide, below.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #ifndef K1_W
 #define K1_W 256
@@ -100,6 +99,54 @@
 
 namespace {
 
+constexpr float INV_2PI = 0.15915494309189535f;
+constexpr float TWO_PI = 6.283185307179586f;
+constexpr float SC0 = 0.9999727636431689f;
+constexpr float SC1 = -0.16661501432840328f;
+constexpr float SC2 = 0.008305441787505873f;
+constexpr float SC3 = -0.00019215724206787978f;
+constexpr float SC4 = 2.125150239026409e-06f;
+
+__device__ __forceinline__ float bfr(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// a*b + c with the product and the sum rounded separately (as PyTorch does)
+__device__ __forceinline__ float mul_add(float a, float b, float c) {
+  return __fadd_rn(__fmul_rn(a, b), c);
+}
+
+__device__ __forceinline__ float fast_sin(float x) {
+  float k = rintf(__fmul_rn(x, INV_2PI));  // round half to even
+  float r = __fsub_rn(x, __fmul_rn(k, TWO_PI));
+  float r2 = __fmul_rn(r, r);
+  float p = mul_add(r2, SC4, SC3);
+  p = mul_add(r2, p, SC2);
+  p = mul_add(r2, p, SC1);
+  p = mul_add(r2, p, SC0);
+  return __fmul_rn(r, p);
+}
+
+// a and b rounded to bf16 as one packed pair (one conversion), and the two
+// rounded values back as floats from its bits
+__device__ __forceinline__ __nv_bfloat162 pack_bf16(float a, float b, float& ra, float& rb) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(&p);
+  ra = __uint_as_float(u << 16);
+  rb = __uint_as_float(u & 0xffff0000u);
+  return p;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+}  // namespace
+
+#if K1_W != 512
+
+namespace {
+
 constexpr int W = K1_W;                // SIREN width
 constexpr int FIXED_S = K1_FIXED_S;    // samples per ray; 0: the launch's
 // TR rays a tile, SC samples a chunk, RG row groups x CQ column quarters
@@ -107,8 +154,6 @@ constexpr int FIXED_S = K1_FIXED_S;    // samples per ray; 0: the launch's
 constexpr int TR = 8, SC = 24, RG = 3, CQ = 2;
 #elif K1_W == 64 || K1_W == 128 || K1_W == 256
 constexpr int TR = 8, SC = 24, RG = 3, CQ = 4;
-#elif K1_W == 512
-constexpr int TR = 2, SC = 16, RG = 1, CQ = 8;
 #else
 #error "K1_W must be 32, 64, 128, 256 or 512"
 #endif
@@ -126,14 +171,6 @@ constexpr int VEC_LD = W + 8;          // padded per-ray rows (f32)
 constexpr int FG = 8 / TR;             // accumulator rows g of one ray
 static_assert(8 % TR == 0 && M % (16 * RG) == 0 && NTW % 2 == 0 && W % KC == 0,
               "tile layout");
-
-constexpr float INV_2PI = 0.15915494309189535f;
-constexpr float TWO_PI = 6.283185307179586f;
-constexpr float SC0 = 0.9999727636431689f;
-constexpr float SC1 = -0.16661501432840328f;
-constexpr float SC2 = 0.008305441787505873f;
-constexpr float SC3 = -0.00019215724206787978f;
-constexpr float SC4 = 2.125150239026409e-06f;
 
 struct Integ {
   float alpha[M];
@@ -190,40 +227,6 @@ __device__ unsigned long long g_phase_cycles[NPHASES];
   do {                \
   } while (0)
 #endif
-
-__device__ __forceinline__ float bfr(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// a*b + c with the product and the sum rounded separately (as PyTorch does)
-__device__ __forceinline__ float mul_add(float a, float b, float c) {
-  return __fadd_rn(__fmul_rn(a, b), c);
-}
-
-__device__ __forceinline__ float fast_sin(float x) {
-  float k = rintf(__fmul_rn(x, INV_2PI));  // round half to even
-  float r = __fsub_rn(x, __fmul_rn(k, TWO_PI));
-  float r2 = __fmul_rn(r, r);
-  float p = mul_add(r2, SC4, SC3);
-  p = mul_add(r2, p, SC2);
-  p = mul_add(r2, p, SC1);
-  p = mul_add(r2, p, SC0);
-  return __fmul_rn(r, p);
-}
-
-// a and b rounded to bf16 as one packed pair (one conversion), and the two
-// rounded values back as floats from its bits
-__device__ __forceinline__ __nv_bfloat162 pack_bf16(float a, float b, float& ra, float& rb) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
-  const uint32_t u = *reinterpret_cast<const uint32_t*>(&p);
-  ra = __uint_as_float(u << 16);
-  rb = __uint_as_float(u & 0xffff0000u);
-  return p;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
@@ -675,4 +678,835 @@ extern "C" int siren_render_forward(
       brgb, scale, sigmoid_beta, thumb, feat, xyz, maskd, sdf, n_rays, n_samples);
   return int(cudaGetLastError());
 }
+#else  // K1_W == 512: siren_render_kernel_wide
 
+// Width 512 (-DK1_W=512): what bounds it on the H100. At 4096 rays x 24
+// samples the two (rows,512)@(512,512) products are 103 GFLOP of bf16:
+// >= 104 us on the tensor cores. The f32 work, kept apart as above, is
+// 2.37 G operations (>= 71 us) and the dot products 0.70 G (>= 10 us).
+// Here the tensor work is the larger, so this build runs its products on
+// wgmma. Both weights (1 MiB in bf16) no longer fit beside the activations,
+// so they stream past them: the weight intake of a launch is (rows / rows
+// a unit) MiB, and what the design does about it is more rows a unit and a
+// weight shared across a cluster. With the stream cut so, the f32 work is
+// what keeps it from its bound: the sine epilogues and layer 0 take most
+// of the consumer warps' cycles, the producer waits on free slots most of
+// its time, and a cluster of 1 runs as fast as one of 2 (measured by
+// tools/siren_phase_split.py --width 512 and tools/k1_times.py --cluster).
+//
+//  - A unit is 8 rays x 8 samples = 64 rows, ray-major (row = ray * 8 + s):
+//    1.6 GB into the SMs at 4096 x 24 (three chunks a 24-sample ray, no
+//    padding), 0.8 GB from L2 with every chunk multicast to a cluster of 2
+//    (2-ray tiles of 16 samples, 32 rows, take in 4.3 GB and are bound by
+//    that stream). A ray of S samples is walked in ceil(S/8) units,
+//    carrying its transmittance, xyz, thumb and feat sums from unit to unit.
+//  - The products run transposed, out^T (features x rows) = W . act^T, on
+//    wgmma m64n64k16: the weight is the 64-row A operand and the bf16
+//    activation tile (64 rows x 512, 64 KB) the N = 64 B operand, both
+//    K-major in the 128-byte swizzle. siren_prepare lays each weight out as
+//    (128 out x 64 in) 16 KB chunks, pass by pass (128 output features over
+//    8 chunks), already swizzled (chunk_weight, kernels/decoder_block.py),
+//    so one 1-D bulk copy fills a ring slot; no tensor map. Warpgroup wg of
+//    the two consumer warpgroups takes chunk rows wg*64..: a pass leaves it
+//    64 features x 64 rows, 32 accumulators a thread.
+//  - The third warpgroup is the producer: its first thread keeps a 4-slot
+//    ring of chunks full under full / empty mbarriers, the same sequence
+//    in both CTAs of the cluster (w1's 32 chunks, then wv's, a unit); CTA
+//    q % 2 copies chunk q into both by .multicast::cluster. A consumer warpgroup waits
+//    for a chunk's full barrier, issues its 4 k16 wgmmas, and frees the
+//    slot of the previous chunk once that chunk's wgmma group is done, by a
+//    CTA-scope arrival on the slot's empty barrier in each CTA of the
+//    cluster. No block barrier a chunk. A CTA whose tile lies past the last
+//    one consumes every chunk and stores nothing.
+//  - Layer 0 (K = 3) on the CUDA cores writes h0 into the swizzled tile
+//    act0 with ordinary stores; each layer-1 pass's epilogue writes its 128
+//    features of h1 into act1 by stmatrix .trans (the accumulators are
+//    features x rows); fence.proxy.async and a consumer barrier before
+//    wgmma reads either. The sdf and rgb heads, which reduce over features,
+//    are summed in registers over the passes, then over a warp's 8 feature
+//    lanes by a shuffle reduce-scatter, then over the 8 warps in order. The
+//    feat sums (w * feat over a ray's samples) are summed over a lane's two
+//    samples, then over the four lanes of the ray by a reduce-scatter, and
+//    carried in registers from unit to unit.
+//  - Every sum keeps a fixed order, the same for every ray: two launches
+//    give the same bits, and a ray's outputs do not depend on which rays
+//    share its tile. The arithmetic and its rounding points are the other
+//    builds'.
+//  - A pass's epilogue runs in eight slices, one a ray, between the next
+//    pass's chunks while their wgmma groups run, so the f32 pipe works
+//    beside the tensor cores; the accumulators alternate between two sets
+//    by pass (64 registers a thread: setmaxnreg gives the consumer
+//    warpgroups 232 a thread, the producer warpgroup 40). Layer 0, the last
+//    pass's epilogue, integration and the outputs run in turn between
+//    consumer barriers, the ring streaming meanwhile up to its 4 slots.
+//  - Built with -DSIREN_PHASE_CLOCKS, every warp also counts its clock
+//    cycles by phase (WIDE_MARK); with -DK1_PLANT_RING_FAULT a consumer
+//    reads the ring slot after the one it waited for (a fault the card
+//    tests must catch).
+
+namespace {
+
+constexpr int W = 512;                     // SIREN width
+constexpr int FIXED_S = K1_FIXED_S;        // samples per ray; 0: the launch's
+constexpr int TR = 8;                      // rays a tile
+constexpr int SC = 8;                      // samples a chunk of a ray
+constexpr int M = TR * SC;                 // 64 rows a unit: wgmma's N
+constexpr int CONSUMERS = 256;             // two consumer warpgroups
+constexpr int NTHREADS = CONSUMERS + 128;  // and the producer warpgroup
+// registers a thread after setmaxnreg: the producer warpgroup gives the
+// consumers what the 384-thread launch (168 a thread) holds beyond its own
+constexpr int REGS_PRODUCER = 40, REGS_CONSUMER = 232;
+static_assert(CONSUMERS * REGS_CONSUMER + 128 * REGS_PRODUCER <= NTHREADS * 168,
+              "the CTA's register pool");
+constexpr int CHUNK_ROWS = 128;            // output features a chunk: a pass
+constexpr int CHUNK_K = 64;                // input features a chunk: 128-byte rows
+constexpr int CHUNK_BYTES = CHUNK_ROWS * CHUNK_K * 2;  // 16 KB
+constexpr int PASSES = W / CHUNK_ROWS;     // 4 passes a product
+constexpr int KCH = W / CHUNK_K;           // of 8 chunks each
+constexpr int PRODUCT_CHUNKS = PASSES * KCH;  // 32 chunks (512 KB) a weight
+constexpr int NS = 4;                      // ring slots
+constexpr int ACT_BLOCK = M * 128;         // 64 input features of the 64 rows: 8 KB
+constexpr int ACT_BYTES = KCH * ACT_BLOCK;  // a bf16 activation tile: 64 KB
+static_assert(KCH == TR, "a pass's epilogue runs in one slice a ray, one a chunk");
+constexpr int SMEM_LIMIT = 232448;         // a block's shared memory on sm_90
+constexpr unsigned FULL = 0xffffffffu;
+#ifndef K1_WIDE_CLUSTER
+#define K1_WIDE_CLUSTER 2                  // another size: a build with -D
+#endif
+constexpr int CLUSTER = K1_WIDE_CLUSTER;   // CTAs a cluster
+static_assert(CLUSTER >= 1 && CLUSTER <= 8, "a portable cluster size");
+
+// Everything but the two activation tiles and the ring
+struct __align__(16) Small {
+  unsigned long long full[NS], empty[NS];  // the ring's mbarriers
+  float vphase[TR * W];                    // per-ray view phase gv*vterm + bev
+  float part[8 * M * 3];                   // the consumer warps' head partials:
+                                           // sdf [warp][row], rgb [warp][row][3]
+  float pts[M * 3];
+  float xs[M * 3];                         // bf16(pts * scale): layer 0's operand
+  float z[M];
+  float alpha[M];
+  float fac[M];                            // 1 - alpha + 1e-10
+  float wgt[M];                            // compositing weights
+  float wsig[M * 3];                       // w * sigmoid(rgb + brgb)
+  float dnorm[TR];
+  float carry[TR * 4];                     // per ray, chunk to chunk: trans, xyz
+  float tcarry[TR * 3];                    // thumb sums, chunk to chunk
+};
+// from a 1024-byte aligned base (the swizzle's): act0 (h0), act1 (h1), ring, Small
+constexpr int SMEM_BYTES = 1024 + 2 * ACT_BYTES + NS * CHUNK_BYTES + int(sizeof(Small));
+static_assert(SMEM_BYTES <= SMEM_LIMIT, "shared memory over the 227 KB a block may use");
+
+struct Params {
+  const float *pts, *viewdirs, *z_vals, *dnorm, *w0, *g0, *be0;
+  const unsigned char* w1c;                // w1t in swizzled 16 KB chunks
+  const float *g1, *be1;
+  const unsigned char* wvhc;               // wvht in swizzled 16 KB chunks
+  const float *wvv, *gv, *bev, *wsdf, *bsdf, *wrgb, *brgb;
+  float scale, sbeta;
+  float *thumb, *feat, *xyz, *maskd, *sdf;
+  int n_rays, n_samples;
+};
+
+// Phases of the instrumented build (-DSIREN_PHASE_CLOCKS), by the names
+// tools/siren_phase_split.py prints (WIDE_PHASES there, in this order)
+enum WidePhase {
+  WP_producer_wait_empty,
+  WP_inputs_layer0,
+  WP_layer1_wait_full,
+  WP_layer1_wgmma,
+  WP_layer1_epilogue_sdf_head,
+  WP_integration,
+  WP_view_wait_full,
+  WP_view_wgmma,
+  WP_view_epilogue_feat_rgb_head,
+  WP_outputs,
+  NWIDE_PHASES
+};
+
+#ifdef SIREN_PHASE_CLOCKS
+// Instrumented build only (python -m cips3dpp_torch.tools.siren_phase_split
+// --width 512): every warp adds the SM clock cycles since its previous mark
+// to that phase's count in registers, and lane 0 adds its counts to these
+// totals at the end, so a phase's count is the warps' time in it, waits
+// included. No barrier is added.
+__device__ unsigned long long g_wide_cycles[NWIDE_PHASES];
+#define WIDE_MARK(k)                                   \
+  do {                                                 \
+    const long long now_ = clock64();                  \
+    wide_cyc[k] += (unsigned long long)(now_ - wmark); \
+    wmark = now_;                                      \
+  } while (0)
+#else
+#define WIDE_MARK(k) \
+  do {               \
+  } while (0)
+#endif
+
+// ---- Hopper primitives: mbarriers, bulk copies, clusters, wgmma ----
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// arrive on the barrier at the same offset in CTA `cta` of the cluster, with
+// the default CTA-scope release: what it orders is wgmma's reads of a ring
+// slot, complete by then, and a cluster-scope release fence would stall the
+// arriving warp (decoder_block.cu's block_kernel_wide found the same)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+// `bytes` from global memory into shared memory at `dst` of every CTA in
+// `mask` (the same offset in each), completing on the barrier at `bar`'s
+// offset in each
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar,
+                                          uint16_t mask, bool multicast) {
+  if (multicast)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+        "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+        "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+        "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_reg(int which) {
+  uint32_t v;
+  switch (which) {
+    case 0: asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(v)); break;
+    case 1: asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(v)); break;
+    case 2: asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(v)); break;
+    default: asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(v)); break;
+  }
+  return v;
+}
+
+// the 256 consumer threads only (named barrier 1; the producer warpgroup never joins)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+}
+
+// the activation tiles' generic-proxy stores, seen by wgmma (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
+// 1024 bytes apart (the leading offset is unused in this layout)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// the accumulators are not read or written by other code around here
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, f32) += A (64 x 16) . B (64 x 16)^T, bf16, both from shared memory
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// four 8x8 bf16 matrices from the mma fragment layout, each stored
+// transposed: the row of lane l holds column l % 8 of matrix l / 8
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+                   "r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+// One step of a reduce-scatter over the lanes that differ in `mask`: of
+// x[0 .. 2H), the lane keeps the upper half where its `mask` bit is set
+// and the lower where it is not, adds its partner's copy of that half,
+// and leaves the sums in x[0 .. H).
+template <int H>
+__device__ __forceinline__ void reduce_half(float* x, int mask, bool upper) {
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? x[i] : x[i + H], keep = upper ? x[i + H] : x[i];
+    x[i] = __fadd_rn(keep, __shfl_xor_sync(FULL, send, mask));
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bits(float a, float b, float& ra, float& rb) {
+  const __nv_bfloat162 p = pack_bf16(a, b, ra, rb);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// The byte offset of (row, input feature k) in a swizzled activation tile:
+// block k / 64 of 64 rows x 128 bytes, row `row`, 16-byte group
+// ((k / 8) % 8) ^ (row % 8), as wgmma's 128-byte swizzle reads it
+__device__ __forceinline__ uint32_t act_offset(int row, int k) {
+  return uint32_t((k >> 6) * ACT_BLOCK + row * 128 + ((((k >> 3) & 7) ^ (row & 7)) << 4) +
+                  (k & 7) * 2);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Params P) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t s_act0 = (raw + 1023u) & ~1023u;  // the swizzle wants 1024-byte alignment
+  const uint32_t s_act1 = s_act0 + ACT_BYTES, s_ring = s_act1 + ACT_BYTES;
+  unsigned char* const base = smem_raw + (s_act0 - raw);
+  Small& sm = *reinterpret_cast<Small*>(base + 2 * ACT_BYTES + NS * CHUNK_BYTES);
+  const uint32_t s_full = smem_u32(sm.full), s_empty = smem_u32(sm.empty);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const uint32_t rank = cluster_reg(0), ncta = cluster_reg(1), cid = cluster_reg(2),
+                 ncl = cluster_reg(3);
+  // samples a ray, and chunks of SC a ray: compile-time in a fixed build
+  const int S = FIXED_S > 0 ? FIXED_S : P.n_samples;
+  const int nch = (S + SC - 1) / SC;
+  const int n_tiles = (P.n_rays + TR - 1) / TR;
+  const int groups = (n_tiles + int(ncta) - 1) / int(ncta);  // a cluster's CL tiles
+#ifdef SIREN_PHASE_CLOCKS
+  unsigned long long wide_cyc[NWIDE_PHASES] = {};
+  long long wmark = clock64();
+#endif
+
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(s_full + 8 * s, 1);                // the producer's expect_tx
+      mbar_init(s_empty + 8 * s, 2 * int(ncta));   // each warpgroup of the cluster
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();  // every barrier of the cluster initialized before any copy or arrival
+  // each role ends here (the two never reconverge, so setmaxnreg holds)
+  auto finish = [&]() {
+#ifdef SIREN_PHASE_CLOCKS
+    if (lane == 0)
+      for (int k = 0; k < NWIDE_PHASES; ++k) atomicAdd(&g_wide_cycles[k], wide_cyc[k]);
+#endif
+    cluster_sync();  // no CTA leaves while a peer may still copy into it or arrive on it
+  };
+
+  if (warp >= CONSUMERS / 32) {
+    // ---- producer: chunk after chunk, the same sequence in every CTA of
+    //      the cluster; CTA q % CL copies chunk q into all of them ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS_PRODUCER));
+    if (warp == CONSUMERS / 32 && lane == 0) {
+      const uint16_t mask = uint16_t((1u << ncta) - 1);
+      int slot = 0;
+      uint32_t phase = 0, issuer = 0;
+      for (int grp = int(cid); grp < groups; grp += int(ncl))
+        for (int ch = 0; ch < nch; ++ch)
+          for (int q = 0; q < 2 * PRODUCT_CHUNKS; ++q) {
+#ifdef SIREN_PHASE_CLOCKS
+            wmark = clock64();
+#endif
+            mbar_wait(s_empty + 8 * slot, phase ^ 1);  // free in every CTA of the cluster
+            WIDE_MARK(WP_producer_wait_empty);
+            mbar_expect_tx(s_full + 8 * slot, CHUNK_BYTES);
+            if (issuer == rank)
+              bulk_load(s_ring + slot * CHUNK_BYTES,
+                        (q < PRODUCT_CHUNKS ? P.w1c : P.wvhc) +
+                            size_t(q % PRODUCT_CHUNKS) * CHUNK_BYTES,
+                        CHUNK_BYTES, s_full + 8 * slot, mask, ncta > 1);
+            if (++issuer == ncta) issuer = 0;
+            if (++slot == NS) slot = 0, phase ^= 1;
+          }
+    }
+    __syncwarp();
+    finish();
+  } else {
+    // ---- consumers: warpgroup wg takes rows wg*64 .. of each chunk (its
+    //      64 output features of the pass), warp wi of it 16 of them ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS_CONSUMER));
+    const int wg = warp >> 2, wi = warp & 3, g = lane >> 2, t = lane & 3;
+    const uint64_t desc_a = sw128_desc(s_ring + wg * 64 * 128);
+    const uint64_t desc_h0 = sw128_desc(s_act0), desc_h1 = sw128_desc(s_act1);
+    int slot = 0;
+    uint32_t phase = 0;
+
+    // free ring slot s in every CTA of the cluster, once a warpgroup
+    auto release = [&](int s) {
+      if (wi == 0 && lane < int(ncta)) mbar_arrive_cluster(s_empty + 8 * s, lane);
+    };
+    // One product: the four passes, each the warpgroup's 64 features x 64
+    // rows of act . W^T over its KCH chunks, each a full slot of the ring.
+    // A chunk's slot is freed once its wgmma group is done (one group left
+    // in flight); no barrier a chunk. The accumulators alternate between
+    // two sets by pass, and pass q's epilogue runs in KCH slices (ray j in
+    // slice j), one after each chunk of pass q + 1 is issued, while that
+    // chunk's wgmma group runs; the last pass's slices after the product.
+    // `slice(q, j, acc)` is the epilogue's slice.
+    auto product = [&](uint64_t desc_b, bool view, auto&& slice) {
+      float acc[2][32];
+      int prev = -1;
+#pragma unroll
+      for (int p = 0; p < PASSES; ++p) {
+#pragma unroll
+        for (int k = 0; k < 32; ++k) acc[p & 1][k] = 0.f;
+#pragma unroll
+        for (int j = 0; j < KCH; ++j) {
+          mbar_wait(s_full + 8 * slot, phase);
+#ifdef SIREN_PHASE_CLOCKS
+          if (view) WIDE_MARK(WP_view_wait_full);
+          else WIDE_MARK(WP_layer1_wait_full);
+#endif
+#ifdef K1_PLANT_RING_FAULT
+          // a planted fault for the card tests: read the slot after the
+          // one whose full barrier was waited on
+          const int rs = slot + 1 == NS ? 0 : slot + 1;
+#else
+          const int rs = slot;
+#endif
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < CHUNK_K / 16; ++ks)
+            wgmma_n64(acc[p & 1], desc_a + ((rs * CHUNK_BYTES + ks * 32) >> 4),
+                      desc_b + ((j * ACT_BLOCK + ks * 32) >> 4));
+          wgmma_commit();
+          if (prev >= 0) {  // the previous chunk's products are done: free its slot
+            wgmma_wait<1>();
+            release(prev);
+          }
+          prev = slot;
+          if (++slot == NS) slot = 0, phase ^= 1;
+#ifdef SIREN_PHASE_CLOCKS
+          if (view) WIDE_MARK(WP_view_wgmma);
+          else WIDE_MARK(WP_layer1_wgmma);
+#endif
+          if (p > 0) {
+            if (j == 0) fence_acc(acc[(p - 1) & 1]);  // the last pass is done
+            slice(p - 1, j, acc[(p - 1) & 1]);
+#ifdef SIREN_PHASE_CLOCKS
+            if (view) WIDE_MARK(WP_view_epilogue_feat_rgb_head);
+            else WIDE_MARK(WP_layer1_epilogue_sdf_head);
+#endif
+          }
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc[(PASSES - 1) & 1]);
+      release(prev);
+#ifdef SIREN_PHASE_CLOCKS
+      if (view) WIDE_MARK(WP_view_wgmma);
+      else WIDE_MARK(WP_layer1_wgmma);
+#endif
+#pragma unroll
+      for (int j = 0; j < KCH; ++j) slice(PASSES - 1, j, acc[(PASSES - 1) & 1]);
+    };
+
+    // Accumulator i of a pass holds feature fa + 8 * ((i >> 1) & 1) (fa =
+    // pass * 128 + wg * 64 + 16 * wi + g) of row 8 * (i >> 2) + 2 * t +
+    // (i & 1): ray j = i >> 2 of the tile, its samples 2t and 2t + 1.
+    float fcar[PASSES][4];  // the feat sums a lane keeps, chunk to chunk
+    for (int grp = int(cid); grp < groups; grp += int(ncl)) {
+      const int ray0 = (grp * int(ncta) + int(rank)) * TR;  // past n_rays: every ray dead
+      // one unit of the weight stream a chunk of SC samples
+      for (int ch = 0; ch < nch; ++ch) {
+        const int s0 = ch * SC;                        // the chunk's first sample
+        const int sn = S - s0 < SC ? S - s0 : SC;      // its real samples
+        const bool last = ch == nch - 1;
+        consumer_sync();  // the last unit is done with the small buffers
+
+        // ---- per-chunk inputs, rows ray-major (the view phase and |d|
+        //      once a tile) ----
+        if (tid < M) {
+          const int r = tid / SC, s = tid % SC, ray = ray0 + r;
+          const bool ok = ray < P.n_rays && s < sn;
+          const size_t src = size_t(ray) * S + s0 + s;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const float p = ok ? P.pts[src * 3 + c] : 0.f;
+            sm.pts[tid * 3 + c] = p;
+            sm.xs[tid * 3 + c] = bfr(__fmul_rn(p, P.scale));
+          }
+          sm.z[tid] = ok ? P.z_vals[src] : 0.f;
+        }
+        if (ch == 0) {
+          for (int i = tid; i < TR * W; i += CONSUMERS) {
+            const int r = i / W, n = i % W, ray = ray0 + r;
+            float vt = 0.f;
+            if (ray < P.n_rays) {
+              const float* v = P.viewdirs + size_t(ray) * 3;
+              vt = __fadd_rn(__fadd_rn(__fmul_rn(bfr(v[0]), bfr(__ldg(P.wvv + n))),
+                                       __fmul_rn(bfr(v[1]), bfr(__ldg(P.wvv + W + n)))),
+                             __fmul_rn(bfr(v[2]), bfr(__ldg(P.wvv + 2 * W + n))));
+            }
+            sm.vphase[i] = mul_add(__ldg(P.gv + n), vt, __ldg(P.bev + n));
+          }
+          if (tid < TR) sm.dnorm[tid] = ray0 + tid < P.n_rays ? P.dnorm[ray0 + tid] : 0.f;
+        }
+        consumer_sync();
+
+        // ---- layer 0 (K = 3) on the CUDA cores into h0: a thread takes 8
+        //      features (one 16-byte group) of every fourth row ----
+        {
+          const int n0 = 8 * (tid % 64);
+          float lw[3][8], lg[8], lb[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+#pragma unroll
+            for (int k = 0; k < 3; ++k) lw[k][e] = bfr(__ldg(P.w0 + k * W + n0 + e));
+            lg[e] = __ldg(P.g0 + n0 + e);
+            lb[e] = __ldg(P.be0 + n0 + e);
+          }
+#pragma unroll 1
+          for (int row = tid / 64; row < M; row += CONSUMERS / 64) {
+            const float x0 = sm.xs[row * 3], x1 = sm.xs[row * 3 + 1], x2 = sm.xs[row * 3 + 2];
+            uint32_t pk[4];
+#pragma unroll
+            for (int e = 0; e < 8; e += 2) {
+              float h[2], ra, rb;
+#pragma unroll
+              for (int d = 0; d < 2; ++d) {
+                const float lin = __fadd_rn(
+                    __fadd_rn(__fmul_rn(x0, lw[0][e + d]), __fmul_rn(x1, lw[1][e + d])),
+                    __fmul_rn(x2, lw[2][e + d]));
+                h[d] = fast_sin(mul_add(lg[e + d], lin, lb[e + d]));
+              }
+              pk[e / 2] = pack_bits(h[0], h[1], ra, rb);
+            }
+            *reinterpret_cast<uint4*>(base + act_offset(row, n0)) =
+                make_uint4(pk[0], pk[1], pk[2], pk[3]);
+          }
+        }
+        fence_proxy_async();
+        consumer_sync();  // h0 is complete
+        WIDE_MARK(WP_inputs_layer0);
+
+        // ---- layer 1 on the tensor cores; each pass's epilogue writes
+        //      its 128 features of h1 (stmatrix .trans into the swizzled
+        //      tile) and adds to the sdf head ----
+        float ps[2 * TR];  // sdf head partials of rows 8j + 2t + e, at 2j + e
+#pragma unroll
+        for (int v = 0; v < 2 * TR; ++v) ps[v] = 0.f;
+        {
+          float gc[2], bc[2], wc[2];  // the pass's constants at features fa, fa + 8
+          uint32_t pk[4];             // a stmatrix's two rays
+          // stmatrix: matrix m = lane / 8 of a store is rays j - 1 + m / 2,
+          // features fa - g + 8 (m % 2); lane l gives row l % 8 of it
+          const int m = lane >> 3;
+          product(desc_h0, false, [&](int q, int j, const float (&acc)[32]) {
+            const int fa = q * CHUNK_ROWS + wg * 64 + 16 * wi + g;
+            if (j == 0)
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                gc[u] = __ldg(P.g1 + fa + 8 * u);
+                bc[u] = __ldg(P.be1 + fa + 8 * u);
+                wc[u] = bfr(__ldg(P.wsdf + fa + 8 * u));
+              }
+            float r[2][2];  // [u][e]: the bf16-rounded h1
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+              pk[2 * (j & 1) + u] =
+                  pack_bits(fast_sin(mul_add(gc[u], acc[4 * j + 2 * u], bc[u])),
+                            fast_sin(mul_add(gc[u], acc[4 * j + 2 * u + 1], bc[u])), r[u][0],
+                            r[u][1]);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) ps[2 * j + e] += r[0][e] * wc[0] + r[1][e] * wc[1];
+            if (j & 1) {
+              const int row = 8 * (j - 1 + (m >> 1)) + (lane & 7);
+              stmatrix_x4_trans(s_act1 + (2 * q + wg) * ACT_BLOCK + row * 128 +
+                                    (((2 * wi + (m & 1)) ^ (row & 7)) << 4),
+                                pk);
+            }
+          });
+        }
+        WIDE_MARK(WP_layer1_epilogue_sdf_head);
+        fence_proxy_async();
+        // the sdf partials over the warp's 8 feature lanes g (a reduce-
+        // scatter: lane g keeps rows 8g + 2t + e), then the 8 warps' in order
+        {
+          reduce_half<8>(ps, 16, lane & 16);
+          reduce_half<4>(ps, 8, lane & 8);
+          reduce_half<2>(ps, 4, lane & 4);
+          sm.part[warp * M + 8 * g + 2 * t] = ps[0];
+          sm.part[warp * M + 8 * g + 2 * t + 1] = ps[1];
+        }
+        consumer_sync();  // h1 and the sdf partials are complete
+        WIDE_MARK(WP_layer1_epilogue_sdf_head);
+
+        // ---- integration: sigma and alpha over the rows in parallel ----
+        if (tid < M) {
+          const int r = tid / SC, s = tid % SC, sg = s0 + s, ray = ray0 + r;
+          float sd = sm.part[tid];
+#pragma unroll
+          for (int w = 1; w < 8; ++w) sd = __fadd_rn(sd, sm.part[w * M + tid]);
+          sd = __fadd_rn(sd, __ldg(P.bsdf));
+          // the gap to the next sample: in this chunk, in the next one (read
+          // from global memory), or the far gap after the ray's last sample
+          float gap = 1e10f;
+          if (sg + 1 < S) {
+            if (s + 1 < SC)
+              gap = __fsub_rn(sm.z[tid + 1], sm.z[tid]);
+            else if (ray < P.n_rays)
+              gap = __fsub_rn(P.z_vals[size_t(ray) * S + sg + 1], sm.z[tid]);
+          }
+          const float dist = __fmul_rn(gap, sm.dnorm[r]);
+          const float sig = __fdiv_rn(
+              __fdiv_rn(1.f, __fadd_rn(1.f, expf(__fdiv_rn(sd, P.sbeta)))), P.sbeta);
+          const float alpha = __fsub_rn(1.f, expf(-__fmul_rn(sig, dist)));
+          sm.alpha[tid] = alpha;
+          sm.fac[tid] = __fadd_rn(__fsub_rn(1.f, alpha), 1e-10f);
+          if (ray < P.n_rays && s < sn) P.sdf[size_t(ray) * S + sg] = sd;
+        }
+        consumer_sync();
+        // ... and the running transmittance product, one thread a ray,
+        // carried from chunk to chunk; the samples past S weigh 0
+        if (tid < TR) {
+          const int ray = ray0 + tid;
+          float* cy = sm.carry + tid * 4;
+          float trans = 1.f, x = 0.f, y = 0.f, zz = 0.f, w = 0.f;
+          if (ch > 0) {
+            trans = cy[0]; x = cy[1]; y = cy[2]; zz = cy[3];
+          }
+          for (int s = 0; s < sn; ++s) {
+            const int row = tid * SC + s;
+            w = __fmul_rn(sm.alpha[row], trans);
+            trans = __fmul_rn(trans, sm.fac[row]);
+            sm.wgt[row] = w;
+            x = __fadd_rn(x, __fmul_rn(w, sm.pts[row * 3]));
+            y = __fadd_rn(y, __fmul_rn(w, sm.pts[row * 3 + 1]));
+            zz = __fadd_rn(zz, __fmul_rn(w, sm.pts[row * 3 + 2]));
+          }
+          for (int s = sn; s < SC; ++s) sm.wgt[tid * SC + s] = 0.f;
+          if (!last) {
+            cy[0] = trans; cy[1] = x; cy[2] = y; cy[3] = zz;
+          } else if (ray < P.n_rays) {
+            P.xyz[size_t(ray) * 3] = x;
+            P.xyz[size_t(ray) * 3 + 1] = y;
+            P.xyz[size_t(ray) * 3 + 2] = zz;
+            P.maskd[size_t(ray) * 2] = w;
+            P.maskd[size_t(ray) * 2 + 1] = -sqrtf(x * x + y * y + zz * zz);
+          }
+        }
+        consumer_sync();  // the weights are complete
+        WIDE_MARK(WP_integration);
+
+        // ---- view layer on the tensor cores; its features are summed per
+        //      ray in registers and dotted with the rgb head ----
+        float pr[6 * TR];  // rgb head partials of rows 8j + 2t + e, at (2j + e) * 3 + k
+#pragma unroll
+        for (int v = 0; v < 6 * TR; ++v) pr[v] = 0.f;
+        {
+          float gvc[2], wr[2][3];  // the pass's constants at features fa, fa + 8
+          float fs[2 * TR];  // w * feat over the lane's two samples, (ray j, u) at 2j + u
+          product(desc_h1, true, [&](int q, int j, const float (&acc)[32]) {
+            const int fa = q * CHUNK_ROWS + wg * 64 + 16 * wi + g;
+            if (j == 0)
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                gvc[u] = __ldg(P.gv + fa + 8 * u);
+#pragma unroll
+                for (int k = 0; k < 3; ++k) wr[u][k] = bfr(__ldg(P.wrgb + (fa + 8 * u) * 3 + k));
+              }
+            const float w0r = sm.wgt[8 * j + 2 * t], w1r = sm.wgt[8 * j + 2 * t + 1];
+            float b[2][2];  // [u][e]: the rgb head's bf16 operands
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const float vp = sm.vphase[j * W + fa + 8 * u];
+              const float f0 = fast_sin(mul_add(gvc[u], acc[4 * j + 2 * u], vp));
+              const float f1 = fast_sin(mul_add(gvc[u], acc[4 * j + 2 * u + 1], vp));
+              fs[2 * j + u] = __fadd_rn(__fmul_rn(w0r, f0), __fmul_rn(w1r, f1));
+              pack_bf16(f0, f1, b[u][0], b[u][1]);
+            }
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+#pragma unroll
+              for (int k = 0; k < 3; ++k)
+                pr[(2 * j + e) * 3 + k] += b[0][e] * wr[0][k] + b[1][e] * wr[1][k];
+            if (j == TR - 1) {
+              // over the ray's 8 samples: the four lanes t (a reduce-
+              // scatter: lane t keeps rays 2t, 2t + 1), then chunk after chunk
+              reduce_half<8>(fs, 2, lane & 2);
+              reduce_half<4>(fs, 1, lane & 1);
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                fcar[q][k] = ch == 0 ? fs[k] : __fadd_rn(fcar[q][k], fs[k]);
+              if (last)
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                  const int ray = ray0 + 2 * t + (k >> 1);
+                  if (ray < P.n_rays) P.feat[size_t(ray) * W + fa + 8 * (k & 1)] = fcar[q][k];
+                }
+            }
+          });
+        }
+        WIDE_MARK(WP_view_epilogue_feat_rgb_head);
+        // the rgb partials over the warp's 8 feature lanes (lane g keeps
+        // rows 8g + 2t + e), then the 8 warps' in order
+        {
+          reduce_half<24>(pr, 16, lane & 16);
+          reduce_half<12>(pr, 8, lane & 8);
+          reduce_half<6>(pr, 4, lane & 4);
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+              sm.part[(warp * M + 8 * g + 2 * t + e) * 3 + k] = pr[3 * e + k];
+        }
+        consumer_sync();  // the rgb partials are complete
+
+        // ---- w*sigmoid(rgb) for thumb, then thumb, one thread a (ray,
+        //      channel), carried from chunk to chunk ----
+        for (int i = tid; i < M * 3; i += CONSUMERS) {
+          const int row = i / 3, k = i % 3;
+          float v = sm.part[i];
+#pragma unroll
+          for (int w = 1; w < 8; ++w) v = __fadd_rn(v, sm.part[w * M * 3 + i]);
+          v = __fadd_rn(v, __ldg(P.brgb + k));
+          sm.wsig[i] = __fmul_rn(sm.wgt[row], __fdiv_rn(1.f, __fadd_rn(1.f, expf(-v))));
+        }
+        consumer_sync();
+        if (tid < TR * 3) {
+          const int r = tid / 3, k = tid % 3;
+          float a = ch > 0 ? sm.tcarry[tid] : 0.f;
+          for (int s = 0; s < sn; ++s) a = __fadd_rn(a, sm.wsig[(r * SC + s) * 3 + k]);
+          if (!last)
+            sm.tcarry[tid] = a;
+          else if (ray0 + r < P.n_rays)
+            P.thumb[size_t(ray0 + r) * 3 + k] = -1.f + 2.f * a;
+        }
+        WIDE_MARK(WP_outputs);
+      }
+    }
+    finish();
+  }
+}
+
+// siren_render_kernel_wide on a persistent grid of clusters: as many as the
+// card holds at once (cudaOccupancyMaxActiveClusters), at most one a tile
+// group. A cluster the card cannot place is an error, never a fallback.
+// The shared-memory limit is set and the cluster count found once a
+// device, on the first launch; later launches read them. static: a local
+// static of a function with external linkage could be one object across
+// every build loaded in the process.
+constexpr int MAX_DEVICES = 16;
+
+static int launch_wide(const Params& P, cudaStream_t stream) {
+  static std::atomic<int> smem_set[MAX_DEVICES], clusters_at[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return int(err);
+  if (dev >= MAX_DEVICES) return int(cudaErrorInvalidDevice);
+  if (!smem_set[dev].load(std::memory_order_relaxed)) {
+    err = cudaFuncSetAttribute(siren_render_kernel_wide,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return int(err);
+    smem_set[dev].store(1, std::memory_order_relaxed);
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CLUSTER);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = clusters_at[dev].load(std::memory_order_relaxed);
+  if (clusters == 0) {
+    if ((err = cudaOccupancyMaxActiveClusters(&clusters, siren_render_kernel_wide, &cfg)) !=
+        cudaSuccess)
+      return int(err);
+    if (clusters < 1) return int(cudaErrorLaunchOutOfResources);
+    clusters_at[dev].store(clusters, std::memory_order_relaxed);
+  }
+  const int n_tiles = (P.n_rays + TR - 1) / TR;
+  const int groups = (n_tiles + CLUSTER - 1) / CLUSTER;
+  cfg.gridDim = dim3((clusters < groups ? clusters : groups) * CLUSTER);
+  if ((err = cudaLaunchKernelEx(&cfg, siren_render_kernel_wide, P)) != cudaSuccess)
+    return int(err);
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+
+#ifdef SIREN_PHASE_CLOCKS
+// Copies the phase counters to `out` (NWIDE_PHASES values) and, with
+// `reset`, sets them to 0. Returns NWIDE_PHASES through `n`.
+extern "C" int siren_render_phase_cycles(unsigned long long* out, int* n, int reset) {
+  *n = NWIDE_PHASES;
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_wide_cycles, sizeof(g_wide_cycles));
+  if (err == cudaSuccess && reset) {
+    static const unsigned long long zero[NWIDE_PHASES] = {};
+    err = cudaMemcpyToSymbol(g_wide_cycles, zero, sizeof(zero));
+  }
+  return int(err);
+}
+#endif
+
+// The same C entry as the other builds; w1t and wvht are the weights in
+// swizzled chunks (kernels/siren_render.py: siren_prepare's w1c, wvhc).
+// `n_samples` is each ray's sample count: any count >= 1, or in a fixed
+// build that build's count (cudaErrorInvalidValue otherwise).
+extern "C" int siren_render_forward(
+    const float* pts, const float* viewdirs, const float* z_vals,
+    const float* dnorm, const float* w0, const float* g0, const float* be0,
+    const void* w1t, const float* g1, const float* be1, const void* wvht,
+    const float* wvv, const float* gv, const float* bev, const float* wsdf,
+    const float* bsdf, const float* wrgb, const float* brgb, float scale,
+    float sigmoid_beta, float* thumb, float* feat, float* xyz, float* maskd,
+    float* sdf, int n_rays, int n_samples, void* stream) {
+  if (n_samples < 1 || (FIXED_S > 0 && n_samples != FIXED_S))
+    return int(cudaErrorInvalidValue);
+  const Params P{pts, viewdirs, z_vals, dnorm, w0, g0, be0,
+                 static_cast<const unsigned char*>(w1t), g1, be1,
+                 static_cast<const unsigned char*>(wvht), wvv, gv, bev, wsdf, bsdf, wrgb, brgb,
+                 scale, sigmoid_beta, thumb, feat, xyz, maskd, sdf, n_rays, n_samples};
+  return launch_wide(P, static_cast<cudaStream_t>(stream));
+}
+
+#endif  // K1_W

@@ -91,12 +91,15 @@ def siren_prepare(renderer, styles, near, far):
     """Trajectory-invariant half: FiLM folds, f32 weights, the kernel's
     bf16 (out, in) copies of the two W x W weights, and the constants
     [2/(far-near), sigmoid_beta]. `renderer` is a VolumeFeatureRenderer
-    of depth 2."""
+    of depth 2. At width WIDE_WIDTH the two bf16 weights are also laid out
+    as the wide kernel streams them (`w1c`, `wvhc`: `chunk_weight`)."""
+    from .decoder_block import chunk_weight
+
     weights = tuple(w.float().contiguous() for w in
                     _pack_siren_params(renderer.network, styles))
     scale = (2.0 / (far - near)).reshape(()).float()
     sbeta = renderer.sigmoid_beta.reshape(()).float()
-    return {
+    prepared = {
         "weights": weights,
         # f32 values as Python floats: the kernel takes them by value
         "consts": (float(scale), float(sbeta)),
@@ -104,6 +107,12 @@ def siren_prepare(renderer, styles, near, far):
         "w1t": weights[3].t().contiguous().to(torch.bfloat16),
         "wvht": weights[6].t().contiguous().to(torch.bfloat16),
     }
+    if weights[3].shape[1] == WIDE_WIDTH:
+        # 16 KB chunks of 128 output x 64 input features, pass by pass,
+        # pre-swizzled: the wgmma A operand, one bulk copy a chunk
+        prepared["w1c"] = chunk_weight(prepared["w1t"])
+        prepared["wvhc"] = chunk_weight(prepared["wvht"])
+    return prepared
 
 
 def siren_render_plain(prepared, pts, viewdirs, z_vals, dnorm):
@@ -144,6 +153,9 @@ def siren_render_plain(prepared, pts, viewdirs, z_vals, dnorm):
 KERNEL_WIDTHS = (32, 64, 128, 256, 512)
 KERNEL_MAX_SAMPLES = 64
 SERVING_GEOMETRY = (256, 24)
+# the width whose build is siren_render_kernel_wide (wgmma on a weight
+# streamed in swizzled chunks; csrc/siren_render.cu)
+WIDE_WIDTH = 512
 
 
 def kernel_defines(width: int, n_samples: int) -> tuple[str, ...]:
@@ -221,8 +233,14 @@ def _launch(prepared, pts, viewdirs, z_vals, dnorm, defines=()):
     for i, (wt, shp) in enumerate(zip(weights, shapes)):
         _lib.check(wt, f"weights[{i}]", shp, f32, dev)
     bf16 = torch.bfloat16
-    _lib.check(prepared["w1t"], "w1t", (width, width), bf16, dev)
-    _lib.check(prepared["wvht"], "wvht", (width, width), bf16, dev)
+    if width == WIDE_WIDTH:  # the wide kernel reads the chunked layout
+        w1, wvh = prepared["w1c"], prepared["wvhc"]
+        _lib.check(w1, "w1c", (width * width,), bf16, dev)
+        _lib.check(wvh, "wvhc", (width * width,), bf16, dev)
+    else:
+        w1, wvh = prepared["w1t"], prepared["wvht"]
+        _lib.check(w1, "w1t", (width, width), bf16, dev)
+        _lib.check(wvh, "wvht", (width, width), bf16, dev)
 
     thumb = torch.empty((r, 3), dtype=f32, device=dev)
     feat = torch.empty((r, width), dtype=f32, device=dev)
@@ -242,8 +260,8 @@ def _launch(prepared, pts, viewdirs, z_vals, dnorm, defines=()):
     p = _lib.ptr
     code = fn(
         p(pts), p(viewdirs), p(z_vals), p(dnorm),
-        p(w0), p(g0), p(be0), p(prepared["w1t"]), p(g1), p(be1),
-        p(prepared["wvht"]), p(wvv), p(gv), p(bev),
+        p(w0), p(g0), p(be0), p(w1), p(g1), p(be1),
+        p(wvh), p(wvv), p(gv), p(bev),
         p(wsdf), p(bsdf), p(wrgb), p(brgb),
         scale, sbeta,
         p(thumb), p(feat), p(xyz), p(maskd), p(sdf),

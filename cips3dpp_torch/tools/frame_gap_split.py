@@ -1,20 +1,24 @@
 """Where a served frame's gap to the plain path comes from, on the card.
 
     python -m cips3dpp_torch.tools.frame_gap_split [--multipliers 1 2 4] [--seeds 1234 1241]
-        [--preset serving|r1024]
+        [--preset serving|r1024] [--width 256]
 
 For each channel multiplier and seed: a full-width preset_serving
 Generator (bf16 storage; preset_r1024 with `--preset r1024`, the f32
-decoder of the sampling trajectories) with only the multiplier changed (weights from the seed, its
-zero-initialised noise weights and biases set to draws, as chip_smoke.py's
-models), one identity's r1024 frame at yaw -0.3 through prepare_trajectory
+decoder of the sampling trajectories) with only the multiplier changed,
+and the renderer's width with `--width` (512 takes K1's wide kernel);
+weights from the seed, its zero-initialised noise weights and biases set
+to draws, as chip_smoke.py's models; one identity's r1024 frame at yaw -0.3 through prepare_trajectory
 / render_frame, rendered four ways: both kernels (K1 and K2), K2's plain
 version only, K1's plain version only, and both plain. Then the plain path
 once more in one F = 4 call, whose cuBLAS GEMMs take another order: its
 gap to the F = 1 plain frame is the spread of bf16 flips that any change of
-f32 sum order gives. Prints one JSON line a (multiplier, seed): max / mean
-|diff| of the kernel frame to each of the others, the plain path's own
-spread, the mean |rgb|, and the card's name.
+f32 sum order gives; and once more with each of K1's products over the
+width summed in 16-wide slices, slice after slice (`k1_sums_reordered`),
+the spread of the flips that a change of K1's own sum order gives, which
+at width 512 exceeds the first. Prints one JSON line a (multiplier, seed): max / mean |diff| of the
+kernel frame to each of the others, the plain path's two spreads, the mean
+|rgb|, and the card's name.
 """
 
 from __future__ import annotations
@@ -49,11 +53,39 @@ def plain(k1: bool, k2: bool):
         serving.siren_render_prepared, ksr.siren_render_prepared, kdf.decoder_block_packed = saved
 
 
+@contextlib.contextmanager
+def k1_sums_reordered(step: int = 16):
+    """K1's plain version with each of its products over the width (layer
+    1, the view layer, the two heads) summed in slices of `step` input
+    features, slice after slice, as a kernel's tensor-core steps sum them:
+    the same arithmetic and rounding points in another f32 summation
+    order."""
+    from ..kernels import siren_render as ksr
+
+    saved = ksr._bdot
+
+    def sliced(a, b):
+        k = b.shape[0]
+        if k <= step:  # layer 0 and the view term: K = 3
+            return saved(a, b)
+        out = saved(a[..., :step], b[:step])
+        for i in range(step, k, step):
+            out = out + saved(a[..., i:i + step], b[i:i + step])
+        return out
+
+    ksr._bdot = sliced
+    try:
+        yield
+    finally:
+        ksr._bdot = saved
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--multipliers", type=int, nargs="+", default=[1, 2, 4])
     ap.add_argument("--seeds", type=int, nargs="+", default=[1234, 1241])
     ap.add_argument("--preset", choices=("serving", "r1024"), default="serving")
+    ap.add_argument("--width", type=int, default=None, help="the renderer's hidden_dim")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("frame_gap_split: needs a CUDA device")
@@ -65,6 +97,9 @@ def main(argv=None) -> int:
     plain_precision()
     dev = torch.device("cuda", 0)
     base = preset_serving() if args.preset == "serving" else preset_r1024()
+    if args.width is not None:
+        base = dataclasses.replace(base, renderer=dataclasses.replace(base.renderer,
+                                                                      hidden_dim=args.width))
     yaws = torch.linspace(-0.3, 0.3, 4, device=dev)
     gap = lambda a, b: [float((a - b).abs().max()), float((a - b).abs().mean())]
     with torch.inference_mode():
@@ -89,10 +124,14 @@ def main(argv=None) -> int:
                 with plain(True, True):
                     both = frame()
                     own = serving.render_frame(model, prep, yaws, yaws * 0, device=dev)["rgb"][:1]
+                    with k1_sums_reordered():
+                        reordered = frame()
                 print(json.dumps({
                     "preset": args.preset, "channel_multiplier": m, "seed": seed,
+                    "width": cfg.renderer.hidden_dim,
                     "to_k2_plain": gap(got, k2_plain), "to_k1_plain": gap(got, k1_plain),
                     "to_plain": gap(got, both), "plain_own_spread": gap(own, both),
+                    "plain_k1_reorder_spread": gap(reordered, both),
                     "mean_abs_rgb": float(both.abs().mean()),
                     "card": torch.cuda.get_device_name(dev)}), flush=True)
                 del model, prep

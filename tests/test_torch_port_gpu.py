@@ -51,10 +51,12 @@ def _siren_inputs(dev, width, s, r, seed=0):
 # = 8*125 + 1, ragged against the 8-ray tile, 5, less than one tile, and
 # 64*64, the serving shape, where the tiles outnumber the SMs; then the
 # width builds (the sample count taken at launch) at widths 32, 128 and 512
-# (2-ray tiles of 16 samples), 1 sample, 12 (a part chunk), 20 (no
-# multiple of the 24- or 16-sample chunk) and 48 (whole chunks)
+# (the wide kernel: 8-ray tiles of 8-sample chunks), 1 sample, 12 (a part
+# chunk), 20 (no multiple of the 24- or 8-sample chunk) and 48 (whole
+# chunks); and at width 512 also 24 (three whole chunks) and 64, the most
 K1_GEOMETRIES = [(256, 24, r) for r in (1001, 5, 4096)] + [
-    (w, s, r) for w in (32, 128, 512) for s in (1, 12, 20, 48) for r in (1001, 4096)]
+    (w, s, r) for w in (32, 128, 512) for s in (1, 12, 20, 48) for r in (1001, 4096)] + [
+    (512, s, r) for s in (24, 64) for r in (1001, 4096)]
 
 
 @pytest.mark.parametrize("width,s,r", K1_GEOMETRIES)
@@ -81,7 +83,7 @@ def test_siren_render_kernel_matches_plain(dev, width, s, r):
         assert torch.equal(g, g2)  # fixed summation order: same bits every launch
 
 
-@pytest.mark.parametrize("width,s", [(256, 24), (128, 48), (512, 20)])
+@pytest.mark.parametrize("width,s", [(256, 24), (128, 48), (512, 20), (512, 24)])
 def test_siren_render_ray_slices_equal_the_whole(dev, width, s):
     """Each ray's arithmetic is independent of its tile: two launches over
     the halves of 4096 rays give the bits of one launch over all (what the
@@ -119,6 +121,37 @@ def test_siren_phase_split_counts_every_phase(dev):
     assert all(v > 0 for v in out["share"].values())
     assert abs(sum(out["share"].values()) - 1.0) < 1e-9
     assert out["ms"] > 0 and out["instrumented_ms"] > 0
+
+
+def test_siren_wide_phase_split_counts_every_phase(dev):
+    """The same for the width-512 kernel's instrumented build, whose warps
+    count their own cycles (the producer's waits among them)."""
+    from cips3dpp_torch.tools.siren_phase_split import WIDE_PHASES, measure
+
+    out = measure(64, 2, dev, 512, 20)
+    assert list(out["share"]) == list(WIDE_PHASES)
+    assert all(v > 0 for v in out["share"].values())
+    assert abs(sum(out["share"].values()) - 1.0) < 1e-9
+    assert out["ms"] > 0 and out["instrumented_ms"] > 0
+
+
+@pytest.mark.parametrize("s,r", [(24, 4096), (12, 1001)])
+def test_siren_wide_planted_ring_fault_is_caught(dev, s, r):
+    """A width-512 build with a planted fault (-DK1_PLANT_RING_FAULT: each
+    consumer reads the ring slot after the one whose full barrier it waited
+    for) launches and returns, and the comparison the tests above make
+    against the plain version fails: they can catch a broken ring."""
+    from cips3dpp_torch.kernels import siren_render as ksr
+
+    prep, pts, vd, z, rd = _siren_inputs(dev, 512, s, r)
+    dnorm = torch.linalg.norm(rd, dim=-1, keepdim=True)
+    got = ksr._launch(prep, pts, vd, z, dnorm, ("-DK1_PLANT_RING_FAULT",))
+    want = ksr.siren_render_plain(prep, pts, vd, z, dnorm)
+    torch.cuda.synchronize()
+    atol = {"thumb": 1e-3, "feat": 5e-3, "sdf": 1e-3, "mask_depth": 1e-4, "xyz": 1e-4}
+    errs = {k: float((g - w).abs().max()) for k, g, w in zip(atol, got, want)}
+    print(f"planted ring fault, S={s} R={r}: max |kernel - plain| {errs}")
+    assert any(not e <= atol[k] for k, e in errs.items()), errs
 
 
 # (storage, noise): the serving mode (bf16, buffers), the f32 decoder
@@ -549,6 +582,116 @@ def test_siren_render_gradients_kernel_forward(dev, r):
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()))
+
+
+def test_siren_render_gradients_kernel_forward_width_512(dev):
+    """SirenRender at width 512, 20 samples (the wide kernel's forward, a
+    part chunk): one launch whose outputs are the kernel's, and the
+    replayed backward's gradients equal autograd's through the replayed
+    function, as at width 256."""
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.kernels.siren_render import (
+        SirenRender, siren_prepare, siren_render_prepared, siren_render_reference,
+    )
+    from cips3dpp_torch.models.layers import init_parameters
+    from cips3dpp_torch.models.renderer import VolumeFeatureRenderer
+
+    gen = torch.Generator().manual_seed(2)
+    rend = init_parameters(VolumeFeatureRenderer(depth=2, hidden_dim=512), gen).to(dev)
+    r, s = 1001, 20
+    styles = torch.randn((3, 256), generator=gen).to(dev).requires_grad_(True)
+    pts = (0.1 * torch.randn((r, s, 3), generator=gen)).to(dev).requires_grad_(True)
+    vd = torch.nn.functional.normalize(torch.randn((r, 3), generator=gen), dim=-1).to(dev)
+    z = (torch.linspace(0.88, 1.12, s)[None] + 1e-3 * torch.randn((r, 1), generator=gen)).to(dev)
+    rd = 1.05 * vd
+    near, far = torch.tensor(0.88, device=dev), torch.tensor(1.12, device=dev)
+    params = list(rend.parameters())
+    before = _lib.LAUNCHES["siren_render"]
+    outs = SirenRender.apply(rend, styles, pts, vd, z, rd, near, far, *params)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["siren_render"] == before + 1
+    with torch.no_grad():
+        kernel = siren_render_prepared(siren_prepare(rend, styles, near, far), pts, vd, z, rd)
+    for o, k in zip(outs, kernel):
+        assert torch.equal(o, k)  # K1 sums in a fixed order
+    cots = [torch.randn(o.shape, generator=gen).to(dev) for o in outs]
+    got = torch.autograd.grad(outs, [styles, pts] + params, cots)
+    want = torch.autograd.grad(siren_render_reference(rend, styles, pts, vd, z, rd, near, far),
+                               [styles, pts] + params, cots)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()))
+
+
+def test_fused_frame_with_a_width_512_renderer(dev):
+    """preset_serving with a width-512 renderer (the decoder then takes 512
+    input channels): an r1024 frame through prepare_trajectory /
+    render_frame launches 1 K1 (the wide kernel) + 4 K2, gives the same
+    bits for the same camera, and lies within chip_smoke.py phase 5's
+    bounds of the frame through K2's plain version; against the plain
+    versions of both kernels its mean gap, K1's bf16 flips through the 14
+    bf16 layers, is at most 1.5x the plain path's own: the larger of its
+    spread under another GEMM order (F = 4), which holds the frames at
+    other multipliers, and under another sum order of K1's products
+    (frame_gap_split.k1_sums_reordered); its max at 1.5x the latter's
+    where that passes phase 5's 0.5. At width 512 K1's flips move the
+    frame 1.7-2.1x as far as the first, through the kernel before this
+    design too (python -m cips3dpp_torch.tools.frame_gap_split --width
+    512)."""
+    import dataclasses
+
+    from cips3dpp_torch import serving
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.kernels import decoder_block as kdb
+    from cips3dpp_torch.kernels import decoder_fused as kdf
+    from cips3dpp_torch.kernels import siren_render as ksr
+    from cips3dpp_torch.models.generator import Generator, preset_serving
+    from cips3dpp_torch.models.layers import randomize_zero_init_
+    from cips3dpp_torch.tools.frame_gap_split import k1_sums_reordered
+
+    base = preset_serving()
+    cfg = dataclasses.replace(base, renderer=dataclasses.replace(base.renderer, hidden_dim=512))
+    model = Generator(cfg, device=dev, seed=40)
+    randomize_zero_init_(model, torch.Generator().manual_seed(40))
+    gen = torch.Generator().manual_seed(41)
+    zs = [torch.randn((1, 256), generator=gen).to(dev) for _ in range(2)]
+    noise = model.decoder.make_noise(gen, cfg.img_size, device=dev)
+    prep = serving.prepare_trajectory(model, zs, noise_bufs=noise, device=dev)
+    assert "w1c" in prep["siren"]
+    yaw, zero = torch.full((1,), 0.2, device=dev), torch.zeros(1, device=dev)
+    _lib.reset_launches()
+    got = serving.render_frame(model, prep, yaw, zero, device=dev)["rgb"]
+    torch.cuda.synchronize()
+    assert dict(_lib.LAUNCHES) == {"siren_render": 1, "decoder_block": 4}
+    again = serving.render_frame(model, prep, yaw, zero, device=dev)["rgb"]
+    assert torch.equal(got, again)
+    saved = serving.siren_render_prepared, ksr.siren_render_prepared, kdf.decoder_block_packed
+    kdf.decoder_block_packed = lambda y1, prepared, emit_feat=True, frames=1: \
+        kdb.decoder_block_plain(y1, prepared, emit_feat, frames)
+    try:
+        want_k2 = serving.render_frame(model, prep, yaw, zero, device=dev)["rgb"]
+        serving.siren_render_prepared = ksr.siren_render_prepared = (
+            lambda p, pts, vd, z, d: ksr.siren_render_plain(
+                p, pts, vd, z, torch.linalg.norm(d, dim=-1, keepdim=True)))
+        want = serving.render_frame(model, prep, yaw, zero, device=dev)["rgb"]
+        yaws = torch.cat([yaw, torch.zeros(3, device=dev)])
+        own = serving.render_frame(model, prep, yaws, yaws * 0, device=dev)["rgb"][:1]
+        with k1_sums_reordered():
+            reord = serving.render_frame(model, prep, yaw, zero, device=dev)["rgb"]
+    finally:
+        serving.siren_render_prepared, ksr.siren_render_prepared, kdf.decoder_block_packed = saved
+    assert got.shape == (1, 1024, 1024, 3) and torch.isfinite(got).all()
+    d_k2, d, d_own, d_reord = ((got - want_k2).abs(), (got - want).abs(), (own - want).abs(),
+                               (reord - want).abs())
+    spread = max(float(d_own.mean()), float(d_reord.mean()))
+    print(f"width-512 frame: to K2's plain {float(d_k2.max()):.3e} / {float(d_k2.mean()):.3e}, "
+          f"to the plain kernels {float(d.max()):.3e} / {float(d.mean()):.3e}, the plain "
+          f"path's own {float(d_own.max()):.3e} / {float(d_own.mean()):.3e}, with K1's "
+          f"products summed in 16-wide slices {float(d_reord.max()):.3e} / "
+          f"{float(d_reord.mean()):.3e}")
+    assert float(d_k2.max()) <= 0.5 and float(d_k2.mean()) <= 1e-2, float(d_k2.mean())
+    assert float(d.max()) <= max(0.5, 1.5 * float(d_reord.max())), float(d.max())
+    assert float(d.mean()) <= 1.5 * spread, (float(d.mean()), spread)
 
 
 def test_siren_render_camera_gradients_batch2(dev):
