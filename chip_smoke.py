@@ -177,9 +177,15 @@ Phases, each fatal on failure:
      in its four modes against its plain version (K2_TOL, twice bit-equal,
      device ms, plain ms, the bound term by term, ms / bound, the L2
      weight bytes the streamed kernel's clusters read, and torch.matmul's
-     device time on conv_b's product alone as a yardstick on no path), and
-     K3 at y1 (64, 64, C), C
-     = 512, 1024 and 2048, against its plain version at phase 4's bounds;
+     device time on conv_b's product alone as a yardstick on no path); and
+     the counts and widths no built kernel runs as they are, through the
+     entry point's zero padding (C = 1-8 at y1 (32, 128, C); (512, 512,
+     144) and (512, 512, 272) rgb only; (256, 256, 288), (128, 128, 576),
+     (64, 64, 2176), (64, 64, 4096) and (64, 64, 8192), the last three on
+     the streamed kernel's 16- and 8-pixel tiles; (64, 24, 256), Wp padded;
+     bound of the unpadded work); K3 at y1 (64, 64, C), C = 512, 1024,
+     2048, 640, 1152, 3, 48, 144 and 2176, against its plain version at
+     phase 4's bounds;
      (b) preset_serving at multipliers 1 and 4: r1024 frames (1 K1 + 4 K2
      a frame; against K2's plain version at phase 5's bounds, against the
      plain kernels at 1.5x the plain path's own spread under another GEMM
@@ -202,6 +208,12 @@ Phases, each fatal on failure:
      ms a frame, the frame's device time by kernel group and idle share by
      the profiler) and `rendering-time --n-frames 128 --opts
      G_cfg.renderer.hidden_dim 512`, every sweep's launches counted.
+ 18. the models at channel multipliers 9 and 17, run after phase 17 in its
+     child process: preset_serving frames (1 K1 + 4 K2 a frame, blocks at
+     C (1152, 576, 288, 144) and (2176, 1088, 544, 272), run at (1152,
+     640, 384, 256) and (2176, 1152, 640, 384) by the serving prepare's
+     zero padding, gated as 15b's, ms a frame, the frame's device time by
+     kernel group and idle share by the profiler).
 Each path that launches kernels runs with the launch counts set to 0
 just before it and read just after. A kernel's "ms" is its device time a
 launch (torch.profiler), beside the time a call takes back to back (CUDA
@@ -283,15 +295,23 @@ def main_kernel(fn, tries=5):
     times drops a run's device records (`_lib.device_ms`), so a run that
     saw none is profiled again, up to `tries` times."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a warm-up step traced and discarded, as _lib.device_ms does
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            prof.step()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        # (the step's own span is no kernel)
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")]
         if events:
             return max(events, key=lambda e: e.self_device_time_total).key
     raise RuntimeError(f"the profiler saw no device time in {tries} runs")
@@ -371,7 +391,7 @@ def plain_kernels(k1=True, k2=True):
         return ksr.siren_render_plain(p, pts, viewdirs, z_vals, dn)
 
     def block_plain(y1, prepared, emit_feat=True, frames=1):
-        return kdb.decoder_block_plain(y1, prepared, emit_feat, frames)
+        return kdb.decoder_block_packed_plain(y1, prepared, emit_feat, frames)
 
     if k1:
         serving.siren_render_prepared = ksr.siren_render_prepared = siren_plain
@@ -449,20 +469,24 @@ def make_model(cfg, dev, seed):
     return model, zs, noise
 
 
-def k2_case(label, bp, hp, last, gen, dev):
+def k2_case(label, bp, hp, last, gen, dev, wp=None):
     """K2 in the variant of `bp` (a decoder_block_prepare output) on a
-    random y1 (hp, hp, C) against its plain version: two launches
-    bit-equal, K2_TOL, timings, and the bound by decoder_block_work with
-    its byte and operation terms. `last`: the final block, which skips its
-    feature store, as in a frame."""
+    random y1 (hp, wp, C) (wp = hp unless given) at the block's C, through
+    its entry point (which pads to the kernel's C and width where they
+    differ), against the same route with the plain version in the
+    kernel's place: two launches bit-equal, K2_TOL, timings, and the bound
+    of the unpadded work by decoder_block_work with its byte and operation
+    terms. `last`: the final block, which skips its feature store, as in a
+    frame."""
     from cips3dpp_torch.kernels import decoder_block as kdb
 
-    c, dt = bp["w2t"].shape[0], bp["dtype"]
+    c, dt = bp["c"], bp["dtype"]
     hashed = "seeds" in bp
-    y1 = torch.randn((hp, hp, c), generator=gen).to(dev, dt)
+    wp = hp if wp is None else wp
+    y1 = torch.randn((hp, wp, c), generator=gen).to(dev, dt)
     got = kdb.decoder_block_packed(y1, prepared=bp, emit_feat=not last)
     again = kdb.decoder_block_packed(y1, prepared=bp, emit_feat=not last)
-    want = kdb.decoder_block_plain(y1, bp, emit_feat=not last)
+    want = kdb.decoder_block_packed_plain(y1, bp, emit_feat=not last)
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     again = again if isinstance(again, tuple) else (again,)
@@ -478,20 +502,25 @@ def k2_case(label, bp, hp, last, gen, dev):
     flips = float((got[0] != want[0]).float().mean()) if not last else None
     ms, call_ms = kernel_time(
         lambda: kdb.decoder_block_packed(y1, prepared=bp, emit_feat=not last), "block_kernel")
-    plain_ms = cuda_time(lambda: kdb.decoder_block_plain(y1, bp, emit_feat=not last), iters=5)
-    work = kdb.decoder_block_work(hp, hp, c, dt, hashed, emit_feat=not last)
+    plain_ms = cuda_time(lambda: kdb.decoder_block_packed_plain(y1, bp, emit_feat=not last),
+                         iters=5)
+    work = kdb.decoder_block_work(hp, wp, c, dt, hashed, emit_feat=not last)
     b_ms, b_by = bound(work["bytes"], work["bf16_flops"], work["f32_dot"], work["f32_apart"])
     terms = {"bytes_ms": work["bytes"] / PEAK_BYTES * 1e3,
              "f32_ms": (work["f32_dot"] / PEAK_F32 + work["f32_apart"] / PEAK_F32_APART) * 1e3,
              "bf16_tensor_ms": work["bf16_flops"] / PEAK_BF16 * 1e3}
     flip_txt = "feat skipped" if last else f"{100 * flips:.4f}% of feat values differ"
-    log(f"[{label}] y1 ({hp},{hp},{c}): max |kernel - plain| {err:.3e}, {flip_txt}, two "
+    ck = bp["w2t"].shape[0]
+    run_at = "" if (ck, kdb.kernel_width(wp)) == (c, wp) else (
+        f" (run at ({hp},{kdb.kernel_width(wp)},{ck}))")
+    log(f"[{label}] y1 ({hp},{wp},{c}){run_at}: max |kernel - plain| {err:.3e}, {flip_txt}, two "
         f"launches bit-equal; {ms:.4f} ms kernel ({call_ms:.4f} a call), {plain_ms:.4f} ms "
         f"plain, bound {b_ms:.4f} ms ({b_by}; bytes {terms['bytes_ms']:.4f} ms for "
         f"{work['bytes'] / 1e6:.2f} MB, f32 {terms['f32_ms']:.4f} ms for "
         f"{work['f32_apart'] / 1e6:.1f} M ops apart + {work['f32_dot'] / 1e6:.1f} M FMA "
         f"flops, bf16 tensor {terms['bf16_tensor_ms']:.4f} ms); {ms / b_ms:.2f}x the bound")
-    return {"y1": [hp, hp, c], "feat": not last, "err": err, "feat_flip_share": flips,
+    return {"y1": [hp, wp, c], "kernel_c": ck, "feat": not last, "err": err,
+            "feat_flip_share": flips,
             "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "bound_terms_ms": terms, **work}
 
@@ -3079,10 +3108,27 @@ def auto_remat_case(dev, smi, cfg, add):
     return res
 
 
-def k2_channels_phase(dev, smi):
-    """Phase 15a, run right after phase 4's K2 in a child process of its
-    own (child_phases: late in a process the profiler drops device records
-    of this kernel, 23 of 50 launches in each of five tries once): K2 in
+# Phase 15a's shapes by the child process that runs them (child_phases):
+# K2's (C, Hp, Wp, last) and K3's (Hp, C)
+K2_SHAPES = {
+    "15a-17": ([(512, 64, 64, False), (16, 512, 512, True), (1024, 64, 64, False),
+                (2048, 64, 64, False), (1024, 128, 128, False), (384, 64, 64, False),
+                (640, 64, 64, False), (1152, 64, 64, False)],
+               [(64, 512), (64, 1024), (64, 2048), (64, 640), (64, 1152)]),
+    "15a-padded": ([(c, 32, 128, False) for c in (1, 2, 4, 8)]
+                   + [(144, 512, 512, True), (272, 512, 512, True), (288, 256, 256, False),
+                      (576, 128, 128, False), (256, 64, 24, False)],
+                   [(64, 3), (64, 48), (64, 144)]),
+    "15a-wide-18": ([(2176, 64, 64, False), (4096, 64, 64, False), (8192, 64, 64, False)],
+                    [(64, 2176)]),
+}
+
+
+def k2_channels_phase(dev, smi, group):
+    """Phase 15a, the shapes of K2_SHAPES[group], run right after phase 4's
+    K2 in a child process of their own (child_phases: late in a process
+    the profiler drops device records of this kernel, 23 of 50 launches in
+    each of five tries once): K2 in
     its four modes against its plain version
     (k2_case), on seeded random operands, at the shapes only other channel
     multipliers reach: y1 (64, 64, 512) with feat stored (the 128^2 block
@@ -3092,8 +3138,16 @@ def k2_channels_phase(dev, smi):
     tiles), (128, 128, 1024) (m = 16's 256^2 block), (64, 64, 384) (a
     count that is no power of two, C fixed) and (64, 64, 640) and
     (64, 64, 1152) (C at run time, one at each tile size), all with feat
-    stored; then K3 at y1 (64, 64, C), C = 512, 1024, 2048, 640 and 1152
-    (k3_phase). Beside each
+    stored; then the counts and widths no built kernel runs as
+    they are, through the entry point's padding: y1 (32, 128, C) at C = 1,
+    2, 4 and 8 (run at 16), (512, 512, 144) and (512, 512, 272) rgb only
+    (the 1024^2 blocks of m = 9 and 17, run at 256 and 384), (256, 256,
+    288), (128, 128, 576) (m = 9's 512^2 and 256^2 blocks, run at 384 and
+    640), (64, 64, 2176) (m = 17's 128^2 block, 16-pixel tiles), (64, 64,
+    4096) and (64, 64, 8192) (m = 32's and 64's, 16- and 8-pixel tiles)
+    with feat stored, and (64, 24, 256) (Wp run at 32); the bound is the
+    unpadded work's. Then K3 at y1 (64, 64, C), C = 512, 1024, 2048, 640
+    and 1152, and 3, 48, 144 and 2176 (k3_phase). Beside each
     streamed shape: the L2 weight bytes the kernel reads (the whole weight
     once a tile group of a cluster) and, as a yardstick on no path, the
     device time of torch.matmul on conv_b's bf16 product alone, (4 Hp Wp,
@@ -3103,32 +3157,35 @@ def k2_channels_phase(dev, smi):
 
     t0 = time.perf_counter()
     res = {}
-    gen = torch.Generator().manual_seed(SEED + 150)
-    for c, hp, last in ((512, 64, False), (16, 512, True), (1024, 64, False),
-                        (2048, 64, False), (1024, 128, False), (384, 64, False),
-                        (640, 64, False), (1152, 64, False)):
+    gen = torch.Generator().manual_seed(SEED + 150 + list(K2_SHAPES).index(group))
+    shapes, k3_shapes = K2_SHAPES[group]
+    for c, hp, wp, last in shapes:
+        ck = kdb.kernel_channels(c)
         for dt in kdb.STORAGE:
             for hashed in (False, True):
                 rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
                 bp = kdb.decoder_block_prepare(
-                    rnd(2 * hp, 2 * hp, 1), rnd(2 * hp, 2 * hp, 1), rnd(c, c) / c**0.5,
+                    rnd(2 * hp, 2 * wp, 1), rnd(2 * hp, 2 * wp, 1), rnd(c, c) / c**0.5,
                     0.1 * rnd(c), 0.1 * rnd(c), 0.3, -0.2, rnd(c, 3) / c**0.5, dtype=dt,
                     noise_seeds=(NOISE_SEED, NOISE_SEED + 1) if hashed else None)
-                key = f"{kdb.launch_name(bp)} C={c} y1={hp}"
-                res[key] = k2_case(f"15a {kdb.launch_name(bp)}", bp, hp, last, gen, dev)
+                key = f"{kdb.launch_name(bp)} C={c} y1={hp}" + ("" if wp == hp else f"x{wp}")
+                res[key] = k2_case(f"15a {kdb.launch_name(bp)}", bp, hp, last, gen, dev, wp)
                 # the streamed kernel's cluster reads the whole weight from
                 # L2 once for each CL tiles, multicast to its CTAs
-                if c in kdb.STREAMED_CHANNELS:
-                    tiles = hp * hp * 4 // kdb.tile_pixels(c)
+                if ck in kdb.STREAMED_CHANNELS:
+                    tiles = hp * kdb.kernel_width(wp) * 4 // kdb.tile_pixels(c)
                     cl = kdb.decoder_block_info(c, dt, hashed)["cluster"]
                     res[key]["cluster"] = cl
-                    res[key]["l2_weight_bytes"] = -(-tiles // cl) * 2 * c * c
-        if c in kdb.STREAMED_CHANNELS:
+                    res[key]["l2_weight_bytes"] = -(-tiles // cl) * 2 * ck * ck
+                del bp
+        if ck in kdb.STREAMED_CHANNELS and hp == wp:
             a = torch.randn((4 * hp * hp, c), generator=gen).to(dev, torch.bfloat16)
             b = torch.randn((c, c), generator=gen).to(dev, torch.bfloat16)
             name = main_kernel(lambda: a @ b)
             res[f"matmul C={c} y1={hp}"] = {
                 "matmul_ms": _lib.device_ms(lambda i: a @ b, 50, name), "kernel": name}
+            del a, b
+        torch.cuda.empty_cache()
     log("[15a] ms / bound ms (ratio): " + "; ".join(
         f"{k} {v['ms']:.4f} / {v['bound_ms']:.4f} ({v['ms'] / v['bound_ms']:.2f}x)"
         for k, v in res.items() if "ms" in v) + f"; {smi}")
@@ -3140,8 +3197,7 @@ def k2_channels_phase(dev, smi):
     log("[15a] yardstick on no path, torch.matmul of conv_b's bf16 product alone (device "
         "ms): " + "; ".join(f"{k} {v['matmul_ms']:.4f} ({v['kernel']})" for k, v in res.items()
                             if "matmul_ms" in v))
-    k3 = k3_phase(gen, dev, [(64, 512), (64, 1024), (64, 2048), (64, 640), (64, 1152)],
-                  "15a K3")
+    k3 = k3_phase(gen, dev, k3_shapes, "15a K3")
     return {"k2": res, "k3": k3, "k2_s": time.perf_counter() - t0}
 
 
@@ -3181,7 +3237,8 @@ def serve_multiplier(dev, smi, m, seed, tag, profile=False, cfg=None, what=None,
         prep = serving.prepare_trajectory(model, zs, noise_bufs=noise, device=dev)
         frames = [serving.render_frame(model, prep, yaws[i:i + 1], zero, device=dev)["rgb"]
                   for i in range(4)]
-    chans = [b["bp"]["w2t"].shape[0] for b in prep["dec"]["blocks"] if "bp" in b]
+    chans = [b["bp"]["c"] for b in prep["dec"]["blocks"] if "bp" in b]
+    kernel_chans = [b["bp"]["w2t"].shape[0] for b in prep["dec"]["blocks"] if "bp" in b]
     table = [channel_table(cfg.decoder.channel_multiplier)[r] for r in cfg.decoder.upsample_list]
     with plain_kernels(k1=False):
         ref_k2 = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
@@ -3226,7 +3283,8 @@ def serve_multiplier(dev, smi, m, seed, tag, profile=False, cfg=None, what=None,
     torch.cuda.reset_peak_memory_stats()
     frame_ms = cuda_time(render_one, iters=10)
     peak = torch.cuda.max_memory_allocated()
-    log(f"[multipliers] {tag} preset_serving {what} (blocks at C {chans}): "
+    run_at = "" if kernel_chans == chans else f", run at {kernel_chans}"
+    log(f"[multipliers] {tag} preset_serving {what} (blocks at C {chans}{run_at}): "
         f"{frame_ms:.3f} ms a r1024 frame (CUDA events, 10 frames), 1 K1 + 4 K2 a frame, peak "
         f"{peak / 2**20:.1f} MiB; max / mean |diff| to K2's plain version {g_k2[0]:.3e} / "
         f"{g_k2[1]:.3e} (bounds 0.5 / 1e-2), to the plain kernels {g[0]:.3e} / {g[1]:.3e} "
@@ -3238,6 +3296,7 @@ def serve_multiplier(dev, smi, m, seed, tag, profile=False, cfg=None, what=None,
         f"{g_k1[0]:.3e} / {g_k1[1]:.3e}; mean |rgb| {float(ref.abs().mean()):.3f}; {smi}")
     res = {"frame_ms": frame_ms, "peak_bytes": peak, "gap_k2": g_k2, "gap_k1": g_k1, "gap": g,
            "gap_plain_own": g_own, "gap_plain_k1_reorder": g_reord, "channels": chans,
+           "kernel_channels": kernel_chans,
            "mean_abs_rgb": float(ref.abs().mean())}
     if profile:
         short = what.replace("at channel multiplier ", "m = ").replace("with ", "")
@@ -3434,35 +3493,79 @@ def wide_renderer_phase(dev, smi):
     return res
 
 
-CHILD_FLAG = "--child-15a-16"
+def padded_multipliers_phase(dev, smi):
+    """Phase 18, run after phase 17 in the same child process
+    (child_phases), where the frames' profile sees every record: the models
+    at channel multipliers 9 and 17, whose blocks (C 1152 / 576 / 288 / 144
+    and 2176 / 1088 / 544 / 272) no built kernel runs as they are: the
+    serving path's prepare pads them to the next count one does (1152 /
+    640 / 384 / 256 and 2176 / 1152 / 640 / 384) and a frame launches what
+    it launches at any other m. preset_serving at m = 9 and 17
+    (serve_multiplier: 1 K1 + 4 K2 a frame, the blocks' C checked against
+    the channel table, K2's part at phase 5's bounds, the frame at 1.5x the
+    plain path's own spread, the same camera bit-equal, ms a frame by CUDA
+    events, the frame's device time by kernel group and idle share by the
+    profiler)."""
+    t_phase = time.perf_counter()
+    res = {"card": smi}
+    launches = {}
+    for m in (9, 17):
+        res[f"serving_m{m}"], got = serve_multiplier(dev, smi, m, SEED + 200 + m, "18",
+                                                     profile=True)
+        add_launches(launches, got)
+        torch.cuda.empty_cache()
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[multipliers] phase 18: {res['phase_s']:.1f} s; launches on its paths {launches}")
+    return res
+
+
+CHILD_FLAG = "--child"
 CHILD_RESULT = "[child result] "
+# the phases each child process runs after its part of 15a
+CHILD_PHASES = {"15a-17": {"wide": "wide_multipliers_phase",
+                           "wide_renderer": "wide_renderer_phase"},
+                "15a-padded": {},
+                "15a-wide-18": {"padded_multipliers": "padded_multipliers_phase"}}
 
 
 def child_phases():
-    """Phases 15a, 16 and 17 in a child process of this script, right after
-    phase 4: one process's profiler drops device records once it has run
-    some 50 profiled timings (0-46 of 50 launches seen in each of five
-    tries at 15a's 21st shape, after phases 3, 14a and 4), and these
-    phases time 30 more. The child builds nothing (the libraries are
-    built), echoes its log and hands back its results, launch counts
-    included, as JSON. Returns (k2_channels_phase's result,
-    wide_multipliers_phase's, wide_renderer_phase's)."""
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), CHILD_FLAG],
-                          capture_output=True, text=True, timeout=900)
-    result = None
-    for line in proc.stdout.splitlines():
-        if line.startswith(CHILD_RESULT):
-            result = json.loads(line[len(CHILD_RESULT):])
-        else:
-            log(line)
-    if proc.returncode != 0 or result is None:
-        raise AssertionError(f"phases 15a and 16 (child process) failed, rc {proc.returncode}:\n"
-                             f"{proc.stderr[-8000:]}")
-    return result["k2_channels"], result["wide"], result["wide_renderer"]
+    """Phases 15a-18 in three child processes of this script, one after
+    another, right after phase 4: one process's profiler drops device
+    records once it has run some 50 profiled timings (0-46 of 50 launches
+    seen in each of five tries at 15a's 21st shape, after phases 3, 14a
+    and 4; in one process 15a's 80 timings saw none of a matmul's), so
+    each child runs at most ~40 (CHILD_PHASES). A child builds nothing
+    (the libraries are built), echoes its log and hands back its results,
+    launch counts included, as JSON. Returns (k2_channels_phase's results
+    merged, wide_multipliers_phase's, wide_renderer_phase's,
+    padded_multipliers_phase's)."""
+    results = {}
+    for group in CHILD_PHASES:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), CHILD_FLAG, group],
+                              capture_output=True, text=True, timeout=600)
+        result = None
+        for line in proc.stdout.splitlines():
+            if line.startswith(CHILD_RESULT):
+                result = json.loads(line[len(CHILD_RESULT):])
+            else:
+                log(line)
+        if proc.returncode != 0 or result is None:
+            raise AssertionError(f"phases {group} (child process) failed, rc "
+                                 f"{proc.returncode}:\n{proc.stderr[-8000:]}")
+        results[group] = result
+    parts = [r["k2_channels"] for r in results.values()]
+    k2_channels = {"k2": {k: v for p in parts for k, v in p["k2"].items()},
+                   "k3": {"launches": sum(p["k3"]["launches"] for p in parts),
+                          "parts": [p["k3"] for p in parts]},
+                   "k2_s": sum(p["k2_s"] for p in parts)}
+    return (k2_channels, results["15a-17"]["wide"], results["15a-17"]["wide_renderer"],
+            results["15a-wide-18"]["padded_multipliers"])
 
 
-def child_main() -> int:
-    """The child process of child_phases: phases 15a, 16 and 17."""
+def child_main(group) -> int:
+    """A child process of child_phases: the part `group` of 15a, then the
+    phases CHILD_PHASES[group] names."""
     sys.path.insert(0, ROOT)
     from cips3dpp_torch.kernels import _lib
     from cips3dpp_torch.kernels import siren_render as ksr
@@ -3475,9 +3578,9 @@ def child_main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    result = {"k2_channels": k2_channels_phase(dev, smi),
-              "wide": wide_multipliers_phase(dev, smi),
-              "wide_renderer": wide_renderer_phase(dev, smi)}
+    result = {"k2_channels": k2_channels_phase(dev, smi, group)}
+    for key, phase in CHILD_PHASES[group].items():
+        result[key] = globals()[phase](dev, smi)
     print(CHILD_RESULT + json.dumps(result), flush=True)
     return 0
 
@@ -3525,7 +3628,10 @@ def main() -> int:
     report["ptxas"] = ptxas
     # every K2 / K3 instantiation: shared memory (sizeof(Smem)), blocks an SM,
     # registers and local (spill) bytes a thread, tile geometry
+    # (logged at the resident counts, the fixed-C builds and the first and
+    # last count of each run-time-C tile; every count gated)
     report["decoder_block_info"] = {}
+    logged = {16, 32, 64, 128, 256, 384, 512, 640, 1024, 1152, 2048, 2176, 4096, 4224, 8192}
     for mode, (dt, hashed, k3) in {
             "bf16": (torch.bfloat16, False, False), "bf16-hash": (torch.bfloat16, True, False),
             "f32": (torch.float32, False, False), "f32-hash": (torch.float32, True, False),
@@ -3533,12 +3639,13 @@ def main() -> int:
         for c in kdb.KERNEL_CHANNELS:
             info = kdb.decoder_block_info(c, dt, hashed, k3)
             report["decoder_block_info"][f"{mode} C={c}"] = info
-            log(f"[build] {'block_kernel' if c <= 256 else 'block_kernel_wide'} {mode} C={c}: "
-                f"{info['smem_bytes']} B shared, "
-                f"{info['blocks_per_sm']} block(s) an SM, {info['registers']} registers, "
-                f"{info['local_bytes']} B local, tile {info['tile_input_columns']} input "
-                f"columns = {info['tile_pixels']} output pixels, clusters of "
-                f"{info['cluster']} ({info['clusters_on_card']} on the card at once)")
+            if c in logged:
+                log(f"[build] {'block_kernel' if c <= 256 else 'block_kernel_wide'} {mode} "
+                    f"C={c}: {info['smem_bytes']} B shared, "
+                    f"{info['blocks_per_sm']} block(s) an SM, {info['registers']} registers, "
+                    f"{info['local_bytes']} B local, tile {info['tile_input_columns']} input "
+                    f"columns = {info['tile_pixels']} output pixels, clusters of "
+                    f"{info['cluster']} ({info['clusters_on_card']} on the card at once)")
             if (info["local_bytes"] or info["smem_bytes"] > 232448 or info["blocks_per_sm"] < 1
                     or info["tile_pixels"] != kdb.tile_pixels(c)):
                 raise AssertionError(f"decoder block {mode} C={c}: {info}")
@@ -3636,9 +3743,11 @@ def main() -> int:
     # ---- 15a and 16. K2 at C = 16 and 384-2048, K3 at 512-2048, the
     # models at channel multipliers 8 and 16 (in a child process: see
     # child_phases) ----
-    k2_channels, report["wide_multipliers"], report["wide_renderer"] = child_phases()
+    (k2_channels, report["wide_multipliers"], report["wide_renderer"],
+     report["padded_multipliers"]) = child_phases()
     wide = report["wide_multipliers"]["launches"]
     wide_renderer = report["wide_renderer"]["launches"]
+    padded = report["padded_multipliers"]["launches"]
     channels = [b["w2t"].shape[0] for b in variants["K2"]]
     report["K3"] = k3_phase(gen, dev, [(cfg.img_size * 2**i, c) for i, c in enumerate(channels)])
 
@@ -3795,8 +3904,9 @@ def main() -> int:
     # mesh's one-process render and ranks, auto_remat's probes and
     # iteration), phases 15's and 16's (the frames at channel
     # multipliers 1, 4, 8 and 16, the f32 trajectories, rendering-time at
-    # 4 and 8) and phase 17's (the width-512 frames and rendering-time,
-    # through the wide kernel); K1's numbers are the serving geometry's
+    # 4 and 8), phase 17's (the width-512 frames and rendering-time,
+    # through the wide kernel) and phase 18's (the frames at channel
+    # multipliers 9 and 17); K1's numbers are the serving geometry's
     # (phase 3), the other geometries' are in the report's "geometry" grid
     loop, inversion = report["training_loop"]["launches"], report["inversion"]["launches"]
     rest = report["cli_rest"]["launches"]
@@ -3807,11 +3917,11 @@ def main() -> int:
           + report["data_parallel"]["launches"]["siren_render"] + rest["siren_render"]
           + variants["siren_render"] + geometry["siren_render"]
           + multipliers["siren_render"] + wide["siren_render"]
-          + wide_renderer["siren_render"])
+          + wide_renderer["siren_render"] + padded["siren_render"])
     entry("decoder_block", K2_SRC, K2_TPU, report["K2"],
           serving_launches["decoder_block"] + rest["decoder_block"]
           + geometry["decoder_block"] + multipliers["decoder_block"] + wide["decoder_block"]
-          + wide_renderer["decoder_block"])
+          + wide_renderer["decoder_block"] + padded["decoder_block"])
     entry("decoder_block_f32", K2_SRC, K2_TPU, report["K2-f32"],
           t32["launches_buffers"]["decoder_block_f32"] + loop["decoder_block_f32"]
           + inversion["decoder_block_f32"] + variants["decoder_block_f32"]
@@ -3838,7 +3948,8 @@ def main() -> int:
         f"{report['geometry']['phase_s']:.1f} s, phase 15: "
         f"{report['multipliers']['phase_s']:.1f} s, phase 16: "
         f"{report['wide_multipliers']['phase_s']:.1f} s, phase 17: "
-        f"{report['wide_renderer']['phase_s']:.1f} s)")
+        f"{report['wide_renderer']['phase_s']:.1f} s, phase 18: "
+        f"{report['padded_multipliers']['phase_s']:.1f} s)")
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     name = torch.cuda.get_device_name(0)
@@ -3851,4 +3962,4 @@ def main() -> int:
 
 if __name__ == "__main__":
     with torch.inference_mode():
-        sys.exit(child_main() if sys.argv[1:] == [CHILD_FLAG] else main())
+        sys.exit(child_main(sys.argv[2]) if sys.argv[1:2] == [CHILD_FLAG] else main())

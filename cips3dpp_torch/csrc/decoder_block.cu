@@ -5,7 +5,11 @@
 //     with bf16 or f32 storage, noise from buffers or hashed in the kernel,
 //     F frames stacked on rows and an optional ToRGB fold, at C = 16, 32,
 //     64, 128, 256 (block_kernel) and every multiple of 128 from 384 to
-//     2048 (block_kernel_wide);
+//     8192 (block_kernel_wide); the wrapper zero-pads every other C JAX's
+//     kernel admits up to the next of these (weights, biases and y1's
+//     extra channels zero: exact but for f32 summation order), and Wp up
+//     to a multiple of 16 (zero columns: the upsample's zero edge), with
+//     hash noise counting pixel ids in the caller's width (hash_wo);
 //   - decoder_block_fused_forward (K3): replaces _block_kernel (the v1 block,
 //     f32 in and out, the same channel counts), which adds the ToRGB bias
 //     and the upsampled RGB skip;
@@ -81,8 +85,8 @@
 //    trace of it.
 //  - C = 16 to 256 take this template (block_kernel). At C = 16 a tile is
 //    one row x 128 input columns (512 output pixels) and conv_b is one
-//    k-step. C = 384 to 2048 (the 64^2 to 256^2 blocks of decoders at
-//    channel multipliers 4, 8 and 16) have a kernel of their own,
+//    k-step. C = 384 to 8192 (the 64^2 to 256^2 blocks of decoders at
+//    channel multipliers 3 and up) have a kernel of their own,
 //    block_kernel_wide below: their weight cannot stay in shared memory.
 
 #include <cuda_runtime.h>
@@ -109,7 +113,12 @@ struct Params {
   const float* nw;       // (2,) noise weights
   const void* wrgbt;     // (3, C) T (K2) or bf16 (K3), or null: no rgb
   const float* skip;     // (Hp, Wp, 3) K3 only
-  const float* brgb;     // (3,) K3 only
+  union {               // K3 has no hash, K2 no ToRGB bias: one slot keeps
+    const float* brgb;   // Params at 128 bytes, where block_kernel<16, float>
+    int hash_wo;         // fits its registers (at 136 bytes ptxas spilled 36 B)
+  };                     // brgb: (3,) K3 only. hash_wo: hash mode, the output
+                         // width the pixel ids count in (2 Wp of the caller's
+                         // y1, which the wrapper may have padded past)
   void* feat;            // (2F*Hp, 2Wp, C) T, or null: not stored
   float* rgb;            // (2F*Hp, 2Wp, 3)
   int frames, hp, wp;
@@ -438,7 +447,7 @@ __global__ void __launch_bounds__(NTHREADS, C == 256 ? 1 : 2) block_kernel(const
       for (int i = tid; i < 2 * TM; i += NTHREADS) {
         const int m = i / TM, p = i % TM;
         const int orow = 2 * rf + p / TW, ocol = 2 * c0 + p % TW;
-        sm.nz[s][m][p] = hash_normal(uint32_t(orow) * uint32_t(wo) + uint32_t(ocol),
+        sm.nz[s][m][p] = hash_normal(uint32_t(orow) * uint32_t(P.hash_wo) + uint32_t(ocol),
                                      m ? P.seed2 : P.seed1);
       }
     } else {
@@ -689,23 +698,28 @@ __global__ void __launch_bounds__(NTHREADS, C == 256 ? 1 : 2) block_kernel(const
 #endif
 }
 
-// ---- C = 384 to 2048: block_kernel_wide, the conv_b weight streamed ----
+// ---- C = 384 to 8192: block_kernel_wide, the conv_b weight streamed ----
 //
 // From C = 384 up, conv_b's weight (C x C bf16: 288 KB at 384, 8 MB at
-// 2048) cannot stay in shared memory as in block_kernel. A tile is one
-// input row x TW_IN input columns whose bf16 activation tile (TM pixels x
-// C, 48-128 KB) stays in shared memory while the whole weight streams
-// past it: TM = 64 output pixels at C <= 1024, 32 above (2 output rows x
-// TM / 2 columns, TW_IN = TM / 4, so with Wp a multiple of 16 no tile is
-// ragged). At C <= 512 the 64-pixel tile gives y1 (64, 64, C) 256 tiles,
+// 2048, 128 MB at 8192) cannot stay in shared memory as in block_kernel.
+// A tile is one input row x TW_IN input columns whose bf16 activation tile
+// (TM pixels x C, 48-128 KB) stays in shared memory while the whole weight
+// streams past it: TM = 64 output pixels at C <= 1024, 32 to 2048, 16 to
+// 4096 and 8 to 8192 (2 output rows x TM / 2 columns, TW_IN = TM / 4, so
+// with Wp a multiple of 16 no tile is ragged). Past C = 2048 the small
+// tiles cost L2 reads: a cluster reads the whole weight once for each CL
+// tiles, ~16 GB a launch at y1 (64, 64, 4096) and ~128 GB at (64, 64,
+// 8192) with clusters of 2; staging the activation in K chunks would keep
+// 32-pixel tiles and read a quarter of that (not done). At C <= 512 the 64-pixel tile gives y1 (64, 64, C) 256 tiles,
 // enough for every SM. C is taken at run time; C = 384, 512, 1024 and
 // 2048 (the 128^2 blocks at channel multipliers 3, 4, 8 and 16) are also
 // built with C fixed (CT), which folds the index arithmetic.
 //
 // conv_b runs transposed, out^T (channels x pixels) = W (C out x C in) .
 // act^T, on wgmma: the weight is the 64-row A operand and the activation
-// tile the N = 32 / 64-column B operand, both K-major in shared memory in
-// the 128-byte swizzle, so a 32-pixel tile still fills wgmma's 64 rows.
+// tile the N = TM-column B operand (8 to 64), both K-major in shared
+// memory in the 128-byte swizzle, so a small tile still fills wgmma's 64
+// rows.
 // A consumer warpgroup takes the chunk's 64 rows of its half: 64 x TM
 // outputs, TM / 2 accumulators a thread.
 // decoder_block_prepare lays the weight out as (128 out x 64 in) chunks of
@@ -773,8 +787,11 @@ struct Wide {
   static constexpr int TW = TM / 2;                  // output columns a tile row
   static constexpr int TW_IN = TW / 2;               // input columns a tile
   static constexpr int RV = 3 * TM / 4;              // a thread's ToRGB partials
+  static constexpr int RVP = (RV + 7) / 8 * 8;       // ... padded for an 8-lane reduce-scatter
+  static constexpr int NB = TM / 8;                  // n-blocks of 8 pixels
+  static constexpr int NH = NB < 2 ? NB : 2;         // n-blocks an epilogue group (16 pixels)
   static_assert(TW_IN <= 16, "Wp, a multiple of 16, is a whole number of tiles");
-  static_assert(TM == 32 || TM == 64, "wgmma N");
+  static_assert(TM == 8 || TM == 16 || TM == 32 || TM == 64, "wgmma N");
 
   // Shared memory, from a 1024-byte aligned base: the activation tile (C /
   // 64 blocks of TM swizzled 128-byte rows), the ring, then the full and
@@ -936,10 +953,31 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b
       : "l"(a), "l"(b), "r"(1));
 }
 
-// d (64 x N) += A . B^T at N = 32 or 64
+// d (64 x 8 / 64 x 16, f32) += A (64 x 16) . B (8 / 16 x 16)^T: the tiles past C = 2048
+__device__ __forceinline__ void wgmma_n8(float (&d)[4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x N) += A . B^T at N = 8, 16, 32 or 64
 template <int N>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b) {
-  if constexpr (N == 32) wgmma_n32(d, a, b);
+  if constexpr (N == 8) wgmma_n8(d, a, b);
+  else if constexpr (N == 16) wgmma_n16(d, a, b);
+  else if constexpr (N == 32) wgmma_n32(d, a, b);
   else wgmma_n64(d, a, b);
 }
 
@@ -997,7 +1035,8 @@ __device__ unsigned long long g_wide_cycles[NWIDE_PHASES];
 template <int TM, int CT, typename T, bool HASH, bool RGB_BF16>
 __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Params P) {
   using W = Wide<TM>;
-  constexpr int TW_IN = W::TW_IN, TW = W::TW, RV = W::RV;
+  constexpr int TW_IN = W::TW_IN, TW = W::TW, RV = W::RV, RVP = W::RVP, NB = W::NB,
+                NH = W::NH;
   constexpr int SLD = W::template stage_ld<T>();
   constexpr bool F32 = std::is_same<T, float>::value;
   static_assert(F32 || !RGB_BF16, "K3 stores f32");
@@ -1089,7 +1128,7 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
           const int m = i / TM, p = i % TM;
           const int orow = 2 * rf + p / TW, ocol = 2 * c0 + p % TW;
           if constexpr (HASH)
-            nz[i] = hash_normal(uint32_t(orow) * uint32_t(wo) + uint32_t(ocol),
+            nz[i] = hash_normal(uint32_t(orow) * uint32_t(P.hash_wo) + uint32_t(ocol),
                                 m ? P.seed2 : P.seed1);
           else
             nz[i] = to_f(static_cast<const T*>(m ? P.n2 : P.n1)[size_t(orow) * wo + ocol]);
@@ -1134,20 +1173,20 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
       WIDE_MARK(3);
 
       // ToRGB partials, [n-block j][pixel 2tq + e][colour], summed over the
-      // passes; reduce_rgb reduces them over the warp's row lanes g (lane
-      // bits 2-4; lane g keeps values g * RV / 8 .. of its tq) into the
-      // warp's sums in shared memory
-      float srgb[RV];
+      // passes (RV of them, zeros up to RVP); reduce_rgb reduces them over
+      // the warp's row lanes g (lane bits 2-4; lane g keeps values
+      // g * RVP / 8 .. of its tq) into the warp's sums in shared memory
+      float srgb[RVP];
 #pragma unroll
-      for (int k = 0; k < RV; ++k) srgb[k] = 0.f;
+      for (int k = 0; k < RVP; ++k) srgb[k] = 0.f;
       auto reduce_rgb = [&]() {
-        reduce_half<RV / 2>(srgb, 16, lane & 16);
-        reduce_half<RV / 4>(srgb, 8, lane & 8);
-        reduce_half<RV / 8>(srgb, 4, lane & 4);
+        reduce_half<RVP / 2>(srgb, 16, lane & 16);
+        reduce_half<RVP / 4>(srgb, 8, lane & 8);
+        reduce_half<RVP / 8>(srgb, 4, lane & 4);
 #pragma unroll
-        for (int k = 0; k < RV / 8; ++k) {
-          const int vi = g * (RV / 8) + k, j = vi / 6, e = (vi / 3) & 1, jj = vi % 3;
-          rgbp[(warp * TM + 8 * j + 2 * tq + e) * 3 + jj] = srgb[k];
+        for (int k = 0; k < RVP / 8; ++k) {
+          const int vi = g * (RVP / 8) + k, j = vi / 6, e = (vi / 3) & 1, jj = vi % 3;
+          if (vi < RV) rgbp[(warp * TM + 8 * j + 2 * tq + e) * 3 + jj] = srgb[k];
         }
       };
 
@@ -1166,13 +1205,15 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
             wB[jj] = to_f(wrgbt[jj * C + cb + g + 8]);
           }
 #pragma unroll
-        for (int jq = 0; jq < TM / 16; ++jq) {  // 16 pixels: n-blocks 2 jq, 2 jq + 1
-          float v[2][2][2];  // [n-block of the pair][row g, g + 8][pixel 2tq + e]
+        for (int jq = 0; jq < NB / NH; ++jq) {  // 8 NH pixels: n-blocks NH jq .. NH jq + NH - 1
+          // [n-block of the group][row g, g + 8][pixel 2tq + e]; at NH = 1 the
+          // second n-block's values stay 0 and its staged rows are not stored
+          float v[2][2][2] = {};
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
+          for (int h = 0; h < NH; ++h)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              const int j = 2 * jq + h, p = 8 * j + 2 * tq + e;
+              const int j = NH * jq + h, p = 8 * j + 2 * tq + e;
               const float z = __fmul_rn(nw2, nz[TM + p]);
               float va = lrelu(__fadd_rn(__fadd_rn(acc[4 * j + e], z), bA));
               float vb = lrelu(__fadd_rn(__fadd_rn(acc[4 * j + 2 + e], z), bB));
@@ -1191,7 +1232,7 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
           // the warp's 16 pixels x 16 channels as staged rows of pixels
           if constexpr (F32) {
 #pragma unroll
-            for (int h = 0; h < 2; ++h)
+            for (int h = 0; h < NH; ++h)
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
                 float* row = reinterpret_cast<float*>(stw) + (8 * h + 2 * tq + e) * SLD;
@@ -1199,7 +1240,7 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
                 row[g + 8] = v[h][1][e];
               }
           } else {
-            // matrix 2h + u: rows g + 8u (channels) x pixels of n-block 2jq + h
+            // matrix 2h + u: rows g + 8u (channels) x pixels of n-block NH jq + h
             const uint32_t pk[4] = {pack_bf16(v[0][0][0], v[0][0][1]),
                                     pack_bf16(v[0][1][0], v[0][1][1]),
                                     pack_bf16(v[1][0][0], v[1][0][1]),
@@ -1212,9 +1253,9 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
           if (live) {
             constexpr int VPR = 16 * int(sizeof(T)) / 16;  // 16-byte vectors a staged row
 #pragma unroll
-            for (int u = lane; u < 16 * VPR; u += 32) {
+            for (int u = lane; u < 8 * NH * VPR; u += 32) {
               const int row = u / VPR, qv = u % VPR;
-              const int p = 16 * jq + row;
+              const int p = 8 * NH * jq + row;
               *reinterpret_cast<uint4*>(feat + (out0 + size_t(p / TW) * wo + p % TW) * C + cb +
                                         qv * (16 / int(sizeof(T)))) =
                   *reinterpret_cast<const uint4*>(stw + row * SLD + qv * (16 / int(sizeof(T))));
@@ -1347,7 +1388,8 @@ int launch(const Params& P, cudaStream_t stream, int* info) {
 // one object across every build loaded in the process (GNU unique
 // symbols), and another build's kernel would go without its setting.
 constexpr int MAX_DEVICES = 16;
-constexpr int WIDE_CS = (2048 - 384) / 128 + 1;       // the streamed channel counts
+constexpr int WIDE_MAX_C = 8192;                      // the largest streamed channel count
+constexpr int WIDE_CS = (WIDE_MAX_C - 384) / 128 + 1; // the streamed channel counts
 
 template <int TM, int CT, typename T, bool HASH, bool RGB_BF16>
 static int launch_wide(const Params& P, cudaStream_t stream, int* info) {
@@ -1393,8 +1435,11 @@ static int launch_wide(const Params& P, cudaStream_t stream, int* info) {
   return int(cudaGetLastError());
 }
 
-// C = 16 to 256: block_kernel; every multiple of 128 from 384 to 2048:
-// block_kernel_wide, its tile by C. K2 and K3 take the same channel counts.
+// C = 16 to 256: block_kernel; every multiple of 128 from 384 to 8192:
+// block_kernel_wide, its tile by C, so that the bf16 activation tile stays
+// at most 128 KB: 64 pixels to C = 1024, 32 to 2048, 16 to 4096, 8 to
+// 8192. K2 and K3 take the same channel counts; the wrapper pads any
+// other C with zeros up to the next of them, and Wp up to a multiple of 16.
 template <typename T, bool HASH, bool RGB_BF16>
 int launch_c(int c, const Params& P, cudaStream_t s, int* info = nullptr) {
   if (info == nullptr && (P.wp % 16 != 0 || P.frames < 1 || P.hp < 1))
@@ -1407,7 +1452,7 @@ int launch_c(int c, const Params& P, cudaStream_t s, int* info = nullptr) {
     case 256: return launch<256, T, HASH, RGB_BF16>(P, s, info);
     default: break;
   }
-  if (c < 384 || c > 2048 || c % 128 != 0 || P.c != c) return int(cudaErrorInvalidValue);
+  if (c < 384 || c > WIDE_MAX_C || c % 128 != 0 || P.c != c) return int(cudaErrorInvalidValue);
   switch (c) {  // the 128^2 blocks of decoders at channel multipliers 3, 4, 8 and 16
     case 384: return launch_wide<64, 384, T, HASH, RGB_BF16>(P, s, info);
     case 512: return launch_wide<64, 512, T, HASH, RGB_BF16>(P, s, info);
@@ -1416,7 +1461,9 @@ int launch_c(int c, const Params& P, cudaStream_t s, int* info = nullptr) {
     default: break;
   }
   if (c <= 1024) return launch_wide<64, 0, T, HASH, RGB_BF16>(P, s, info);
-  return launch_wide<32, 0, T, HASH, RGB_BF16>(P, s, info);
+  if (c <= 2048) return launch_wide<32, 0, T, HASH, RGB_BF16>(P, s, info);
+  if (c <= 4096) return launch_wide<16, 0, T, HASH, RGB_BF16>(P, s, info);
+  return launch_wide<8, 0, T, HASH, RGB_BF16>(P, s, info);
 }
 
 template <bool RGB_BF16>
@@ -1435,10 +1482,11 @@ extern "C" int decoder_block_forward(
     const void* y1, const void* n1, const void* n2, const void* w2t, const void* w2c,
     const float* b1, const float* b2, const float* nw, const void* wrgbt,
     void* feat, float* rgb, int frames, int hp, int wp, int c, int f32_storage,
-    int hash, unsigned int seed1, unsigned int seed2, void* stream) {
+    int hash, int hash_wo, unsigned int seed1, unsigned int seed2, void* stream) {
   using namespace dblock;
   Params P{y1, n1, n2, static_cast<const __nv_bfloat16*>(w2t), b1, b2, nw, wrgbt,
-           nullptr, nullptr, feat, rgb, frames, hp, wp, seed1, seed2, c, w2c};
+           nullptr, {nullptr}, feat, rgb, frames, hp, wp, seed1, seed2, c, w2c};
+  P.hash_wo = hash_wo;
   return launch_mode<false>(c, f32_storage, hash, P, static_cast<cudaStream_t>(stream),
                             nullptr);
 }
@@ -1450,7 +1498,7 @@ extern "C" int decoder_block_fused_forward(
     int c, void* stream) {
   using namespace dblock;
   Params P{y1, n1, n2, static_cast<const __nv_bfloat16*>(w2t), b1, b2, nw, wrgbt,
-           skip, brgb, feat, rgb, 1, hp, wp, 0u, 0u, c, w2c};
+           skip, {brgb}, feat, rgb, 1, hp, wp, 0u, 0u, c, w2c};
   return launch_mode<true>(c, 1, 0, P, static_cast<cudaStream_t>(stream), nullptr);
 }
 

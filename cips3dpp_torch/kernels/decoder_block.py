@@ -10,13 +10,23 @@ One decoder block at resolution r, after conv_a's matmul at r/2 (y1):
 
 `decoder_block_packed` (K2, the serving block) launches the CUDA kernel
 `csrc/decoder_block.cu` for tensors on the card and runs
-`decoder_block_plain` for tensors on the CPU. K2 and K3 take the channel
-counts of KERNEL_CHANNELS: at 16-256 conv_b's weight stays in shared
-memory (`block_kernel`), at every multiple of 128 from 384 to 2048 it is
+`decoder_block_plain` for tensors on the CPU. K2 takes every (C, Wp) the
+packed Pallas block admits (`check_k2`: C = 1, 2, 4, ..., 64 and every C
+>= 128, Wp a multiple of p = max(1, 128 // C)), K3 every C (`check_k3`),
+both up to C = MAX_CHANNELS. The built kernels run the channel counts of
+KERNEL_CHANNELS: at 16-256 conv_b's weight stays in shared memory
+(`block_kernel`), at every multiple of 128 from 384 to 8192 it is
 streamed from L2 in swizzled 16 KB chunks (`chunk_weight`), shared by a
 thread-block cluster (`block_kernel_wide`, its tile by C: `tile_pixels`).
-That covers every block of a decoder at channel multipliers 1, 2, 4, 8
-and 16. The storage
+Any other C runs at the next of them (`kernel_channels`): the prepare
+functions pad w2's rows and columns, wrgb's rows and b1 / b2 with zeros,
+so the padded channels hold lrelu(noise * nw), finite, and meet only zero
+weights (exact but for the order of f32 sums). y1 arrives padded from
+the serving path (decoder_fused pads conv_a's columns at prepare time) or
+is padded by one copy here; feat comes back at y1's C. The kernels take Wp
+in steps of 16 (`kernel_width`): a y1 of another width is padded with zero
+columns, which are the upsample's zero edge, the outputs are sliced back,
+and hash noise counts its pixel ids in the caller's width. The storage
 dtype `dtype` (bf16 or f32) fixes the rounding points, as the serving
 path of the JAX package has them: y1 and the noise buffers are stored in
 it, the row-upsampled values are rounded to it before the column blend,
@@ -41,6 +51,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import _lib
 from ..ops.upfirdn2d import _up_axis
@@ -49,15 +60,26 @@ from .siren_render import fast_sin
 # normalized [1,3,3,1]/8 * 2 gain (per-axis sqrt of the 4x 2-D gain)
 K4 = (0.25, 0.75, 0.75, 0.25)
 SQRT2 = 1.4142135623730951
-# The channel counts K2 and K3 take: 16-256 with the weight resident, and
-# the streamed ones, every multiple of 128 from 384 to 2048. Every C of the
-# decoder's channel table at channel multipliers 1, 2, 4, 8 and 16 lies in
-# them (16 at the 1024^2 block of m = 1, 2048 at the 128^2 block of m = 16;
-# tests/test_torch_port_decoder_block.py)
+# The channel counts the built kernels run at: 16-256 with the weight
+# resident, and the streamed ones, every multiple of 128 from 384 to
+# MAX_CHANNELS. Every other C is run at the next of them (kernel_channels).
+# MAX_CHANNELS is block_kernel_wide's ceiling: a tile's bf16 activations
+# stay in at most 128 KB of shared memory beside the weight ring, and its
+# smallest tile is 8 pixels (8 x 8192 x 2 = 131072 bytes): the 128^2 block
+# of a decoder at channel multiplier 64.
 RESIDENT_CHANNELS = (16, 32, 64, 128, 256)
-STREAMED_CHANNELS = tuple(range(384, 2049, 128))
-KERNEL_CHANNELS = RESIDENT_CHANNELS + STREAMED_CHANNELS
-TAKEN = "C in 16, 32, 64, 128, 256 or a multiple of 128 from 384 to 2048"
+MAX_CHANNELS = 8192
+STREAMED_CHANNELS = range(384, MAX_CHANNELS + 1, 128)
+KERNEL_CHANNELS = RESIDENT_CHANNELS + tuple(STREAMED_CHANNELS)
+# the kernels' Wp step: a tile's input columns divide it at every C
+WIDTH_STEP = 16
+# JAX's admission rules, quoted in the errors
+K2_RULE = ("JAX's packed block asserts (c * p) % 128 == 0 or c >= 128 and wp % p == 0, "
+           "p = max(1, 128 // c) (cips3dpp_tpu/kernels/decoder_block.py:754-756)")
+CEILING = (f"the decoder block kernels take C up to {MAX_CHANNELS}: block_kernel_wide "
+           "keeps a tile's bf16 activations, 8 pixels x C x 2 bytes, in at most 128 KB "
+           f"of shared memory beside its weight ring (8 x {MAX_CHANNELS} x 2 = "
+           f"{8 * MAX_CHANNELS * 2} bytes)")
 STORAGE = (torch.bfloat16, torch.float32)
 # block_kernel_wide's weight chunk: 128 output channels x 64 input channels
 CHUNK_ROWS, CHUNK_K = 128, 64
@@ -115,12 +137,66 @@ def layer_seed(base_seed: int, layer_idx: int) -> int:
     return hash_u32((int(base_seed) & _M32) ^ ((0xABC00000 + int(layer_idx)) & _M32))
 
 
-def hash_noise_map(height: int, width: int, seed: int, device=None) -> torch.Tensor:
+def hash_noise_map(height: int, width: int, seed: int, device=None,
+                   row_len: int | None = None) -> torch.Tensor:
     """(height, width, 1) f32 map equal to the kernel's in-kernel hash
-    realization (pixel id = row * width + col)."""
+    realization (pixel id = row * row_len + col; row_len is the map's
+    width unless the map runs past the caller's width, which the ids
+    count in)."""
     rows = torch.arange(height, dtype=torch.int64, device=device)[:, None]
     cols = torch.arange(width, dtype=torch.int64, device=device)[None, :]
-    return hash_normal(rows * width + cols, seed)[..., None]
+    return hash_normal(rows * (width if row_len is None else row_len) + cols, seed)[..., None]
+
+
+# ---- what the kernels take
+
+
+def check_k2(c: int, wp: int | None = None) -> None:
+    """Raise ValueError where JAX's packed block (K2) refuses C = c (and,
+    given, Wp = wp), or where C passes MAX_CHANNELS."""
+    p = max(1, 128 // c) if c >= 1 else 1
+    if c < 1 or not ((c * p) % 128 == 0 or c >= 128):
+        raise ValueError(f"decoder_block: C = {c} is not admitted ({K2_RULE})")
+    if wp is not None and wp % p:
+        raise ValueError(f"decoder_block: Wp = {wp} at C = {c} is not admitted (p = {p}; "
+                         f"{K2_RULE})")
+    if c > MAX_CHANNELS:
+        raise ValueError(f"decoder_block: C = {c}: {CEILING}")
+
+
+def check_k3(c: int) -> None:
+    """Raise ValueError where K3 cannot take C = c: JAX's v1 block takes
+    every C (it asserts only hp % t_rows == 0, cips3dpp_tpu/kernels/
+    decoder_block.py:127; the port's entry point has no row tile), so only
+    C < 1 and C past MAX_CHANNELS."""
+    if c < 1:
+        raise ValueError(f"decoder_block_fused: C = {c}: want C >= 1")
+    if c > MAX_CHANNELS:
+        raise ValueError(f"decoder_block_fused: C = {c}: {CEILING}")
+
+
+def kernel_channels(c: int) -> int:
+    """The channel count of the built kernel that runs a block at C = c:
+    the least of KERNEL_CHANNELS at or above it."""
+    if not 1 <= c <= MAX_CHANNELS:
+        raise ValueError(f"C = {c}: {CEILING}")
+    for r in RESIDENT_CHANNELS:
+        if c <= r:
+            return r
+    return max(384, -(-c // 128) * 128)
+
+
+def kernel_width(wp: int) -> int:
+    """The y1 width the kernels run a block of width wp at."""
+    return -(-wp // WIDTH_STEP) * WIDTH_STEP
+
+
+def _pad_to(x, *size):
+    """x zero-padded at the end of its trailing dims to `size`."""
+    pads = []
+    for have, want in zip(reversed(x.shape[-len(size):]), reversed(size)):
+        pads += [0, want - have]
+    return F.pad(x, pads) if any(pads) else x
 
 
 # ---- K2: the serving block
@@ -134,32 +210,40 @@ def decoder_block_prepare(noise1, noise2, w2, b1, b2, noise_w1, noise_w2,
     noise1/noise2 (H, W[, 1]) per-pixel maps, or `noise_seeds` (two uint32
     seeds, hash noise; the maps may then be None); w2 (C, C) (in, out)
     modulated conv_b weight, b1/b2 (C,), noise_w1/noise_w2 scalars, wrgb
-    (C, 3) modulated ToRGB weight or None (no rgb output)."""
+    (C, 3) modulated ToRGB weight or None (no rgb output).
+
+    Raises where JAX's packed block refuses C (check_k2). The operands are
+    kept at the kernel's channel count (kernel_channels(C), "c" holds C):
+    w2 padded with zero rows and columns, b1, b2 and wrgb with zeros; the
+    noise maps at the kernel's width (kernel_width), zero past W."""
     if dtype not in STORAGE:
         raise ValueError(f"decoder block storage dtype {dtype}: want one of {STORAGE}")
     c = w2.shape[0]
+    check_k2(c)
+    ck = kernel_channels(c)
     prep = {
         "dtype": dtype,
-        "w2": w2.float().contiguous(),
+        "c": c,
         # (out, in) bf16: the tensor-core B operand
-        "w2t": w2.t().contiguous().to(torch.bfloat16),
-        "b1": b1.reshape(c).float().contiguous(),
-        "b2": b2.reshape(c).float().contiguous(),
+        "w2t": _pad_to(w2.t(), ck, ck).contiguous().to(torch.bfloat16),
+        "b1": _pad_to(b1.reshape(c).float(), ck).contiguous(),
+        "b2": _pad_to(b2.reshape(c).float(), ck).contiguous(),
         "nw": torch.stack([
             torch.as_tensor(v, dtype=torch.float32, device=w2.device).reshape(())
             for v in (noise_w1, noise_w2)
         ]),
     }
-    if c in STREAMED_CHANNELS:
+    if ck in STREAMED_CHANNELS:
         prep["w2c"] = chunk_weight(prep["w2t"])
     if noise_seeds is not None:
         prep["seeds"] = tuple(int(s) & _M32 for s in noise_seeds)
     else:
         h, w = noise1.shape[:2]
-        prep["n1"] = noise1.reshape(h, w).to(dtype).contiguous()
-        prep["n2"] = noise2.reshape(h, w).to(dtype).contiguous()
+        wk = 2 * kernel_width(w // 2)
+        prep["n1"] = _pad_to(noise1.reshape(h, w).to(dtype), h, wk).contiguous()
+        prep["n2"] = _pad_to(noise2.reshape(h, w).to(dtype), h, wk).contiguous()
     if wrgb is not None:
-        prep["wrgbt"] = wrgb.t().contiguous().to(dtype)  # (3, C)
+        prep["wrgbt"] = _pad_to(wrgb.t().to(dtype), 3, ck).contiguous()  # (3, C)
     return prep
 
 
@@ -204,17 +288,20 @@ def decoder_block_work(hp, wp, c, dtype, hashed, emit_feat, emit_rgb=True, frame
             "f32_apart": K2_APART_PER_VALUE * px * c + 2 * px}
 
 
-def _noise_maps(prepared, hp, wp, device):
-    """The block's two (2Hp, 2Wp, 1) f32 noise maps."""
+def _noise_maps(prepared, hp, wp, device, width):
+    """The block's two (2Hp, 2Wp, 1) f32 noise maps; hash noise counts its
+    pixel ids in rows of 2 * width."""
     if "seeds" in prepared:
-        return tuple(hash_noise_map(2 * hp, 2 * wp, s, device)
+        return tuple(hash_noise_map(2 * hp, 2 * wp, s, device, row_len=2 * width)
                      for s in prepared["seeds"])
     return prepared["n1"].float()[..., None], prepared["n2"].float()[..., None]
 
 
-def decoder_block_plain(y1, prepared, emit_feat=True, frames=1):
+def decoder_block_plain(y1, prepared, emit_feat=True, frames=1, width=None):
     """Plain PyTorch version of the kernel, same rounding points.
-    y1 (F*Hp, Wp, C) with F frames stacked on rows."""
+    y1 (F*Hp, Wp, C) with F frames stacked on rows, at the kernel's C;
+    `width`: the caller's Wp where y1 was padded past it (the hash's
+    pixel ids count in it)."""
     dt = prepared["dtype"]
     rows, wp, c = y1.shape
     x = y1.to(dt).float().reshape(frames, rows // frames, wp, c)
@@ -222,7 +309,7 @@ def decoder_block_plain(y1, prepared, emit_feat=True, frames=1):
     x = x.to(dt).float()  # rounded before the column blend
     x = _up_axis(x, 2, K4)
     nw = prepared["nw"]
-    n1, n2 = _noise_maps(prepared, rows // frames, wp, y1.device)
+    n1, n2 = _noise_maps(prepared, rows // frames, wp, y1.device, width or wp)
     h = _lrelu(x + nw[0] * n1 + prepared["b1"])
     h2 = h.to(torch.bfloat16).float() @ prepared["w2t"].float().t()
     h2 = _lrelu(h2 + nw[1] * n2 + prepared["b2"])
@@ -238,21 +325,24 @@ def decoder_block_plain(y1, prepared, emit_feat=True, frames=1):
 
 
 def tile_pixels(c) -> int:
-    """Output pixels of the kernel's tile at C = c (2 output rows x half as
-    many columns): 8192 / C with the weight resident; with it streamed, 64
-    at C <= 1024 and 32 above, so that the bf16 activation tile stays at
-    most 128 KB of shared memory, beside the weight ring."""
-    if c not in KERNEL_CHANNELS:
-        raise ValueError(f"no decoder block kernel at C = {c} ({TAKEN})")
-    if c in RESIDENT_CHANNELS:
-        return 8192 // c
-    return 64 if c <= 1024 else 32
+    """Output pixels of the tile of the kernel that runs C = c (2 output
+    rows x half as many columns), at its channel count ck =
+    kernel_channels(c): 8192 / ck with the weight resident; with it
+    streamed, 64 at ck <= 1024, 32 to 2048, 16 to 4096 and 8 to 8192, so
+    that the bf16 activation tile stays at most 128 KB of shared memory,
+    beside the weight ring."""
+    ck = kernel_channels(c)
+    if ck in RESIDENT_CHANNELS:
+        return 8192 // ck
+    return 64 if ck <= 1024 else 32 if ck <= 2048 else 16 if ck <= 4096 else 8
 
 
-def _check_block_shape(what, rows, wp, c, frames):
-    if c not in KERNEL_CHANNELS or wp % 16 or rows % frames:
-        raise ValueError(f"{what} kernel: unsupported y1 {(rows, wp, c)} for "
-                         f"{frames} frames ({TAKEN}, none other; Wp % 16 == 0)")
+def _check_kernel_shape(what, rows, wp, c, frames):
+    """The shape a launch takes: y1 padded to a built kernel's C and to a
+    multiple of WIDTH_STEP columns (the entry points pad)."""
+    if c not in KERNEL_CHANNELS or wp % WIDTH_STEP or rows % frames:
+        raise ValueError(f"{what} kernel: y1 {(rows, wp, c)} for {frames} frames: the "
+                         f"kernel runs C in KERNEL_CHANNELS and Wp % {WIDTH_STEP} == 0")
 
 
 def _check_aligned(**tensors):
@@ -272,31 +362,35 @@ def decoder_block_info(c, dtype=torch.bfloat16, hashed=False, k3=False, defines=
     (spill) bytes a thread, input columns and output pixels of a tile, CTAs
     a cluster, and the clusters the card holds at once (blocks, for the
     resident kernel, whose cluster is 1). K3 (`k3=True`) is the f32
-    instantiation with the bias and skip epilogue. C = 384-2048 is the
-    streamed-weight kernel (block_kernel_wide): one instantiation a tile
-    size (`tile_pixels`) and mode with C at run time, and one each with C
-    fixed at 384, 512, 1024 and 2048; raises if the card cannot place its
-    cluster. `defines`: of the library built with those extra flags (the
-    cluster size is a build's, -DDBLOCK_WIDE_CLUSTER)."""
-    if c not in KERNEL_CHANNELS:
-        raise ValueError(f"decoder_block_info: no {'K3' if k3 else 'K2'} kernel at C = {c} "
-                         f"({TAKEN})")
+    instantiation with the bias and skip epilogue. C is the caller's: the
+    instantiation is the one that runs it, at kernel_channels(c); raises
+    where check_k2 (check_k3) refuses C, before any build. Kernel C =
+    384-8192 is the streamed-weight kernel (block_kernel_wide): one
+    instantiation a tile size (`tile_pixels`) and mode with C at run time,
+    and one each with C fixed at 384, 512, 1024 and 2048; raises if the
+    card cannot place its cluster. `defines`: of the library built with
+    those extra flags (the cluster size is a build's,
+    -DDBLOCK_WIDE_CLUSTER)."""
+    check_k3(c) if k3 else check_k2(c)
+    ck = kernel_channels(c)
     info = (ctypes.c_int * len(INFO_KEYS))()
     lib = _lib.load("decoder_block", defines)
     fn = lib.decoder_block_info
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    _lib.raise_on_error(fn(c, int(dtype == torch.float32), int(hashed), int(k3),
+    _lib.raise_on_error(fn(ck, int(dtype == torch.float32), int(hashed), int(k3),
                            ctypes.cast(info, ctypes.c_void_p)), "decoder_block_info")
     return dict(zip(INFO_KEYS, list(info)))
 
 
-def _launch(y1, prepared, emit_feat, frames, defines=()):
-    """Launch K2 (the library built with the extra flags `defines`)."""
+def _launch(y1, prepared, emit_feat, frames, defines=(), width=None):
+    """Launch K2 (the library built with the extra flags `defines`) on y1
+    at the kernel's shape; `width`: the caller's Wp where y1 was padded
+    past it (hash noise counts its pixel ids in it)."""
     dev = y1.device
     rows, wp, c = y1.shape
     dt = prepared["dtype"]
-    _check_block_shape("decoder_block", rows, wp, c, frames)
+    _check_kernel_shape("decoder_block", rows, wp, c, frames)
     hp = rows // frames
     emit_rgb = "wrgbt" in prepared
     hashed = "seeds" in prepared
@@ -320,17 +414,18 @@ def _launch(y1, prepared, emit_feat, frames, defines=()):
     _check_aligned(y1=y1, noise1=prepared.get("n1"), noise2=prepared.get("n2"),
                    w2t=prepared["w2t"], w2c=w2c)
     seed1, seed2 = prepared["seeds"] if hashed else (0, 0)
+    hash_wo = 2 * (wp if width is None else width)
     lib = _lib.load("decoder_block", defines)
     fn = lib.decoder_block_forward
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                    + [ctypes.c_uint32] * 2 + [ctypes.c_void_p])
     p = _lib.ptr
     code = fn(
         p(y1), p(prepared.get("n1")), p(prepared.get("n2")), p(prepared["w2t"]), p(w2c),
         p(prepared["b1"]), p(prepared["b2"]), p(prepared["nw"]),
         p(prepared.get("wrgbt")), p(feat), p(rgb),
-        frames, hp, wp, c, int(dt == torch.float32), int(hashed), seed1, seed2,
+        frames, hp, wp, c, int(dt == torch.float32), int(hashed), hash_wo, seed1, seed2,
         _lib.stream_ptr(dev),
     )
     _lib.raise_on_error(code, "decoder_block")
@@ -351,18 +446,55 @@ def decoder_block_packed(y1, noise1=None, noise2=None, w2=None, b1=None,
     Returns feat (2F*Hp, 2Wp, C) in `dtype` when there is no wrgb;
     (feat, rgb) with rgb (2F*Hp, 2Wp, 3) f32 (before ToRGB bias and skip)
     when there is; rgb alone when additionally emit_feat=False.
-    `prepared` (decoder_block_prepare) replaces the operand arguments."""
+    `prepared` (decoder_block_prepare) replaces the operand arguments.
+
+    C is the block's, or the kernel's (kernel_channels) where the caller
+    made y1 at it, as the serving path does; feat comes back at y1's C.
+    Raises where JAX's packed block refuses (C, Wp) (check_k2), before
+    any build or launch. y1 at another C or Wp than the kernel runs is
+    padded by one copy and the outputs sliced back (both devices take the
+    same route)."""
     if prepared is None:
         prepared = decoder_block_prepare(noise1, noise2, w2, b1, b2, noise_w1,
                                          noise_w2, wrgb, dtype=dtype,
                                          noise_seeds=noise_seeds)
+    if y1.device.type == "cuda":
+        run = _launch
+    elif y1.device.type == "cpu":
+        run = decoder_block_plain
+    else:
+        raise ValueError(f"decoder_block: no kernel for device {y1.device}")
+    return _padded(run, y1, prepared, emit_feat, frames)
+
+
+def decoder_block_packed_plain(y1, prepared, emit_feat=True, frames=1):
+    """decoder_block_packed's route with the plain version in the kernel's
+    place, on any device: what the kernel's launch is held against."""
+    return _padded(decoder_block_plain, y1, prepared, emit_feat, frames)
+
+
+def _padded(run, y1, prepared, emit_feat, frames):
+    """run(x, prepared, emit_feat, frames, width=Wp) on y1 padded to the
+    kernel's C and width, the outputs sliced back to y1's."""
     if not (emit_feat or "wrgbt" in prepared):
         raise ValueError("decoder_block_packed: nothing to emit")
-    if y1.device.type == "cuda":
-        return _launch(y1.contiguous(), prepared, emit_feat, frames)
-    if y1.device.type == "cpu":
-        return decoder_block_plain(y1, prepared, emit_feat, frames)
-    raise ValueError(f"decoder_block: no kernel for device {y1.device}")
+    rows, wp, cy = y1.shape
+    c, ck = prepared["c"], prepared["w2t"].shape[0]
+    check_k2(c, wp)
+    if cy not in (c, ck) or rows % frames:
+        raise ValueError(f"decoder_block_packed: y1 {tuple(y1.shape)} for {frames} frames: "
+                         f"want C = {c} (or the kernel's {ck}) and rows a multiple of F")
+    wk = kernel_width(wp)
+    out = run(_pad_to(y1, rows, wk, ck).contiguous(), prepared, emit_feat, frames, width=wp)
+    if (cy, wp) == (ck, wk):
+        return out
+    res = [out] if isinstance(out, torch.Tensor) else list(out)
+    if emit_feat:
+        res[0] = res[0][:, :2 * wp, :cy]
+    if "wrgbt" in prepared:
+        res[-1] = res[-1][:, :2 * wp]
+    res = [r.contiguous() for r in res]
+    return tuple(res) if len(res) > 1 else res[0]
 
 
 def decoder_block_packed_reference(y1, noise1, noise2, w2, b1, b2, noise_w1,
@@ -404,10 +536,11 @@ def decoder_block_fused_plain(y1, skip, noise1, noise2, w2, wrgb, b1, b2, brgb,
 
 def _launch_fused(y1, skip, noise1, noise2, w2, wrgb, b1, b2, brgb, noise_w1,
                   noise_w2, defines=()):
-    """Launch K3 (the library built with the extra flags `defines`)."""
+    """Launch K3 (the library built with the extra flags `defines`) on
+    operands at the kernel's shape."""
     dev = y1.device
     hp, wp, c = y1.shape
-    _check_block_shape("decoder_block_fused", hp, wp, c, 1)
+    _check_kernel_shape("decoder_block_fused", hp, wp, c, 1)
     f32, bf16 = torch.float32, torch.bfloat16
     ops = {
         "y1": y1.float().contiguous(),
@@ -456,10 +589,27 @@ def decoder_block_fused(y1, skip, noise1, noise2, w2, wrgb, b1, b2, brgb,
     """The v1 block: y1 (Hp, Wp, C) conv_a's matmul output, skip (Hp, Wp, 3)
     incoming rgb, noise1/noise2 (2Hp, 2Wp[, 1]), w2 (C, C) and wrgb (C, 3)
     modulated weights, b1/b2 (C,), brgb (3,), noise weights. Returns
-    (feat (2Hp, 2Wp, C), rgb (2Hp, 2Wp, 3)), both f32."""
+    (feat (2Hp, 2Wp, C), rgb (2Hp, 2Wp, 3)), both f32.
+
+    Takes every C (check_k3) and Wp: operands at another C or Wp than the
+    kernel runs (kernel_channels, kernel_width) are zero-padded, one copy
+    each, and the outputs sliced back (both devices take the same route)."""
+    hp, wp, c = y1.shape
+    check_k3(c)
+    ck, wk = kernel_channels(c), kernel_width(wp)
+    if (ck, wk) != (c, wp):
+        noise1, noise2 = (_pad_to(n.reshape(2 * hp, 2 * wp, 1), 2 * hp, 2 * wk, 1)
+                          for n in (noise1, noise2))
+        y1, skip = _pad_to(y1, hp, wk, ck), _pad_to(skip, hp, wk, 3)
+        w2, wrgb = _pad_to(w2, ck, ck), _pad_to(wrgb, ck, 3)
+        b1, b2 = _pad_to(b1.reshape(c), ck), _pad_to(b2.reshape(c), ck)
     args = (y1, skip, noise1, noise2, w2, wrgb, b1, b2, brgb, noise_w1, noise_w2)
     if y1.device.type == "cuda":
-        return _launch_fused(*args)
-    if y1.device.type == "cpu":
-        return decoder_block_fused_plain(*args)
-    raise ValueError(f"decoder_block_fused: no kernel for device {y1.device}")
+        feat, rgb = _launch_fused(*args)
+    elif y1.device.type == "cpu":
+        feat, rgb = decoder_block_fused_plain(*args)
+    else:
+        raise ValueError(f"decoder_block_fused: no kernel for device {y1.device}")
+    if (ck, wk) != (c, wp):
+        feat, rgb = feat[:, :2 * wp, :c].contiguous(), rgb[:, :2 * wp].contiguous()
+    return feat, rgb

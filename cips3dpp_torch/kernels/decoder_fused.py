@@ -16,6 +16,13 @@ Noise comes from buffers or from one `noise_seed`: then layer i's noise
 is the hash realization of `layer_seed(noise_seed, i)`, made by the block
 kernel for the upsample blocks and made once at prepare time as
 `hash_noise_map` buffers for the plain layers. Explicit buffers win.
+
+A block whose C no built kernel runs is run at the next count that one
+does (`kernel_channels`), padded at prepare time, never a frame: conv_a's
+output columns (so y1 comes at the kernel's C), the block's operands
+(`decoder_block_prepare`), and the input rows of whatever reads its feat
+next (the next conv_a, a plain layer's conv, the unfolded ToRGB), all
+with zeros. A frame launches what it launches at any other C.
 """
 
 from __future__ import annotations
@@ -28,8 +35,12 @@ from ..ops.fused_act import fused_leaky_relu
 from ..ops.modulated import modulate_weights_1x1
 from ..ops.upfirdn2d import upsample2x
 from .decoder_block import (
-    decoder_block_packed, decoder_block_prepare, hash_noise_map, layer_seed,
+    _pad_to, decoder_block_packed, decoder_block_prepare, hash_noise_map, kernel_channels,
+    layer_seed,
 )
+
+# the blur the block kernels and the skip's upsample2x apply
+BLUR = (1, 3, 3, 1)
 
 
 def _mod_style(mod, style):
@@ -66,10 +77,15 @@ def decoder_fused_prepare(decoder, styles, noise, *, fold_rgb=True,
     """Trajectory-invariant half. decoder: models.Decoder; styles
     (1, n_latent, style_dim); noise: list of num_layers (1, h, w, 1), or
     None with `noise_seed` (a uint32; then `feat_size`, the feature map's
-    side, is required). The kernels take the 1x1 decoder only."""
+    side, is required). The kernels take the 1x1 decoder with the (1, 3,
+    3, 1) blur only (JAX's fused path applies that blur whatever the
+    decoder's field says; this one raises)."""
     if decoder.kernel_size != 1:
         raise ValueError(f"the decoder block kernels take 1x1 modulated convs, this decoder "
                          f"has kernel_size {decoder.kernel_size}")
+    if tuple(decoder.blur_kernel) != BLUR:
+        raise ValueError(f"the decoder block kernels blur with {BLUR}, this decoder has "
+                         f"blur_kernel {tuple(decoder.blur_kernel)}")
     if styles.shape[0] != 1 or styles.shape[1] != decoder.n_latent:
         raise ValueError(f"styles {tuple(styles.shape)}: want (1, {decoder.n_latent}, D)")
     if noise is None and noise_seed is None:
@@ -88,17 +104,22 @@ def decoder_fused_prepare(decoder, styles, noise, *, fold_rgb=True,
             return noise[idx]
         return hash_noise_map(size, size, layer_seed(noise_seed, idx), dev)[None]
 
-    def conv_rec(sc, style, nbuf):
+    # the channels of the activations a step reads: a fused block's feat
+    # comes at its kernel's C, whose extra rows of the next weight are zero
+    cin = decoder.conv1.conv.weight.shape[1]
+
+    def conv_rec(sc, style, nbuf, rows=None):
+        w = _conv_weight(sc.conv, style)
         return {
-            "w": _conv_weight(sc.conv, style).to(dt),
+            "w": _pad_to(w, rows or w.shape[0], w.shape[1]).to(dt),
             "n": nbuf,
             "nw": sc.noise.weight.reshape(()),
             "b": sc.activate.bias,
         }
 
-    def rgb_rec(tr, style):
-        return {"w": _conv_weight(tr.conv, style, demodulate=False).to(dt),
-                "b": tr.bias.reshape(3)}
+    def rgb_rec(tr, style, rows=None):
+        w = _conv_weight(tr.conv, style, demodulate=False)
+        return {"w": _pad_to(w, rows or w.shape[0], 3).to(dt), "b": tr.bias.reshape(3)}
 
     cur = feat_size if feat_size is not None else noise[0].shape[1]
     prep = {
@@ -122,7 +143,6 @@ def decoder_fused_prepare(decoder, styles, noise, *, fold_rgb=True,
             else:
                 bufs, seeds = (noise[layer_i][0], noise[layer_i + 1][0]), None
             rec = {
-                "wa": _conv_weight(ca.conv, styles[:, layer_i]).to(dt),
                 "bp": decoder_block_prepare(
                     *bufs, _conv_weight(cb.conv, styles[:, layer_i + 1]),
                     ca.activate.bias, cb.activate.bias,
@@ -130,16 +150,22 @@ def decoder_fused_prepare(decoder, styles, noise, *, fold_rgb=True,
                     noise_seeds=seeds,
                 ),
             }
+            # y1 made at the kernel's C (decoder_block_prepare has refused a
+            # C JAX's block does not admit)
+            ck = kernel_channels(ca.conv.weight.shape[1])
+            rec["wa"] = _pad_to(_conv_weight(ca.conv, styles[:, layer_i]), cin, ck).to(dt)
             if fold_rgb:
                 rec["rgb_b"] = tr.bias.reshape(3)
             else:
-                rec["rgb"] = rgb_rec(tr, styles[:, layer_i + 2])
+                rec["rgb"] = rgb_rec(tr, styles[:, layer_i + 2], rows=ck)
+            cin = ck
         else:
             rec = {
-                "a": conv_rec(ca, styles[:, layer_i], get_noise(layer_i, cur)),
+                "a": conv_rec(ca, styles[:, layer_i], get_noise(layer_i, cur), rows=cin),
                 "b": conv_rec(cb, styles[:, layer_i + 1], get_noise(layer_i + 1, cur)),
                 "rgb": rgb_rec(tr, styles[:, layer_i + 2]),
             }
+            cin = ca.conv.weight.shape[1]
         prep["blocks"].append(rec)
         layer_i += 2
     return prep

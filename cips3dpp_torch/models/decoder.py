@@ -34,17 +34,22 @@ class Decoder(nn.Module):
         skip_dtype=torch.float32,
         remat: bool = False,
         kernel_size: int = 1,
+        blur_kernel: Sequence[int] = (1, 3, 3, 1),
     ):
         super().__init__()
         self.remat = remat
         self.kernel_size = kernel_size
+        self.blur_kernel = tuple(blur_kernel)
         self.size_start, self.size_end = size_start, size_end
         self.channel_multiplier = channel_multiplier
         self.upsample_list = tuple(upsample_list)
         self.dtype = dtype
         ch = channel_table(channel_multiplier)
+        # the StyledConvs take blur_kernel, the ToRGBs keep (1, 3, 3, 1) for
+        # the skip's upsample: JAX's Decoder passes it so
+        # (cips3dpp_tpu/models/decoder.py:108, 125, 131)
         self.conv1 = StyledConv(in_channel, ch[size_start], style_dim,
-                                kernel_size=kernel_size)
+                                kernel_size=kernel_size, blur_kernel=blur_kernel)
         self.to_rgb1 = ToRGB(ch[size_start], style_dim, upsample=False,
                              skip_dtype=skip_dtype)
         self.convs = nn.ModuleList()
@@ -54,9 +59,9 @@ class Decoder(nn.Module):
             res = 2**i
             up = res in self.upsample_list
             self.convs.append(StyledConv(cin, ch[res], style_dim, upsample=up,
-                                         kernel_size=kernel_size))
+                                         kernel_size=kernel_size, blur_kernel=blur_kernel))
             self.convs.append(StyledConv(ch[res], ch[res], style_dim,
-                                         kernel_size=kernel_size))
+                                         kernel_size=kernel_size, blur_kernel=blur_kernel))
             self.to_rgbs.append(ToRGB(ch[res], style_dim, upsample=up,
                                       skip_dtype=skip_dtype))
             cin = ch[res]

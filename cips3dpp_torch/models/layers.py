@@ -164,11 +164,14 @@ class ModulatedConv2d(nn.Module):
     modulate-then-upsample2x. At k > 1 one grouped conv (groups = batch):
     padding k // 2; with upsample a stride-2 transposed conv, then the
     gain-4 blur; with downsample the blur, then a stride-2 conv
-    (cips3dpp_tpu/models/layers.py:316-405)."""
+    (cips3dpp_tpu/models/layers.py:316-405). `blur_kernel`: the 1-D taps
+    of those blurs."""
 
     def __init__(self, in_channel, out_channel, style_dim, demodulate=True,
-                 upsample=False, kernel_size=1, downsample=False):
+                 upsample=False, kernel_size=1, downsample=False,
+                 blur_kernel=(1, 3, 3, 1)):
         super().__init__()
+        self.blur_kernel = tuple(blur_kernel)
         self.weight = nn.Parameter(
             torch.empty(1, out_channel, in_channel, kernel_size, kernel_size))
         self.modulation = EqualLinear(style_dim, in_channel, bias_init=1.0)
@@ -193,20 +196,21 @@ class ModulatedConv2d(nn.Module):
             y = modulated_matmul(
                 x.reshape(b, -1, cin), self.base_weight(), s, self.demodulate
             ).reshape(b, h, w, -1)
-            return upsample2x(y) if self.upsample else y
+            return upsample2x(y, self.blur_kernel) if self.upsample else y
         if not (self.upsample or self.downsample):
             return modulated_conv2d(x, self.weight[0], s, self.demodulate)
         wmod = modulate_weights_kxk(self.weight[0], s, self.demodulate)
         x = x.permute(0, 3, 1, 2)
+        taps = len(self.blur_kernel)
         if self.upsample:
             # (2h + k - 2)^2 out of the transposed conv, brought back to
-            # (2h)^2 by the [1,3,3,1] blur's pads
-            p = 2 - (k - 1)
+            # (2h)^2 by the blur's pads
+            p = taps - 2 - (k - 1)
             out = grouped_conv(x, wmod, stride=2, transpose=True)
-            out = blur(out, separable_taps((1, 3, 3, 1), 2), ((p + 1) // 2 + 1, p // 2 + 1))
+            out = blur(out, separable_taps(self.blur_kernel, 2), ((p + 1) // 2 + 1, p // 2 + 1))
         else:
-            p = 2 + (k - 1)
-            x = blur(x, separable_taps((1, 3, 3, 1)), ((p + 1) // 2, p // 2))
+            p = taps - 2 + (k - 1)
+            x = blur(x, separable_taps(self.blur_kernel), ((p + 1) // 2, p // 2))
             out = grouped_conv(x, wmod, stride=2)
         return out.permute(0, 2, 3, 1)
 
@@ -250,10 +254,11 @@ class StyledConv(nn.Module):
     state-dict keys match; it takes no part in the forward."""
 
     def __init__(self, in_channel, out_channel, style_dim, upsample=False,
-                 kernel_size=1):
+                 kernel_size=1, blur_kernel=(1, 3, 3, 1)):
         super().__init__()
         self.conv = ModulatedConv2d(in_channel, out_channel, style_dim,
-                                    upsample=upsample, kernel_size=kernel_size)
+                                    upsample=upsample, kernel_size=kernel_size,
+                                    blur_kernel=blur_kernel)
         self.noise = NoiseInjection()
         self.activate = FusedLeakyReLU(out_channel)
         self.bias = nn.Parameter(torch.zeros(1, out_channel, 1, 1))
@@ -268,15 +273,17 @@ class StyledConv(nn.Module):
 
 class ToRGB(nn.Module):
     """1x1 modulated conv (no demod) to RGB + upsampled skip
-    (model_v3.py:457-482). Bias stored (1, 3, 1, 1)."""
+    (model_v3.py:457-482). Bias stored (1, 3, 1, 1). `blur_kernel`: the
+    skip's upsample blur."""
 
     def __init__(self, in_channel, style_dim, upsample=True,
-                 skip_dtype=torch.float32):
+                 skip_dtype=torch.float32, blur_kernel=(1, 3, 3, 1)):
         super().__init__()
         self.conv = ModulatedConv2d(in_channel, 3, style_dim, demodulate=False)
         self.bias = nn.Parameter(torch.zeros(1, 3, 1, 1))
         self.upsample = upsample
         self.skip_dtype = skip_dtype
+        self.blur_kernel = tuple(blur_kernel)
 
     def reset_parameters(self, gen):
         with torch.no_grad():
@@ -288,7 +295,7 @@ class ToRGB(nn.Module):
         if skip is not None:
             skip = skip.to(dt)
             if self.upsample:
-                skip = upsample2x(skip)
+                skip = upsample2x(skip, self.blur_kernel)
             out = out + skip
         return out
 

@@ -51,13 +51,18 @@ def _upsample2x_separable_4tap(x: torch.Tensor, k1d) -> torch.Tensor:
 
 
 def upsample2x(x: torch.Tensor, blur_kernel=(1, 3, 3, 1)) -> torch.Tensor:
-    """StyleGAN2 Upsample (model_v3.py:84-102): 2x zero-stuff + 4x-gain blur.
-    Only the 4-tap separable case, the one the decoder uses."""
-    if len(blur_kernel) != 4:
-        raise NotImplementedError("upsample2x: only 4-tap blur kernels")
-    k1d = np.asarray(blur_kernel, np.float32)
-    k1d = k1d / k1d.sum() * 2  # sqrt of the 4x 2-D gain per axis
-    return _upsample2x_separable_4tap(x, k1d)
+    """StyleGAN2 Upsample (model_v3.py:84-102): 2x zero-stuff + 4x-gain blur,
+    x (B, H, W, C). A 4-tap kernel runs as shift-adds; any other through
+    upfirdn2d with the Upsample pads (pad0 = (p + 1) // 2 + 1, pad1 = p //
+    2, p = len(kernel) - 2), as cips3dpp_tpu/ops/upfirdn2d.py:164-175."""
+    if len(blur_kernel) == 4:
+        k1d = np.asarray(blur_kernel, np.float32)
+        k1d = k1d / k1d.sum() * 2  # sqrt of the 4x 2-D gain per axis
+        return _upsample2x_separable_4tap(x, k1d)
+    k = make_blur_kernel(blur_kernel, upsample_factor=2)
+    p = k.shape[0] - 2
+    out = upfirdn2d(x.permute(0, 3, 1, 2), k, up=2, pad=((p + 1) // 2 + 1, p // 2))
+    return out.permute(0, 2, 3, 1)
 
 
 def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1, down: int = 1,

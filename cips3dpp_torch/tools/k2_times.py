@@ -4,7 +4,8 @@
         [--root DIR] [--label L] [--cluster 2 4]
 
 Each shape HpxWpxC is a y1 of one frame with feat stored and ToRGB folded,
-on seeded random operands; each mode (bf16 / f32 storage x noise buffers /
+on seeded random operands (at the kernel's channel count where C is
+padded to one; Wp a multiple of 16); each mode (bf16 / f32 storage x noise buffers /
 hash noise) is timed by the profiler's device time over 50 launches
 (`_lib.device_ms`). `--root` times the package under another checkout
 instead of this one (its kernels built from its own sources there), so two
@@ -65,7 +66,9 @@ def main(argv=None) -> int:
                         rnd(2 * hp, 2 * wp, 1), rnd(2 * hp, 2 * wp, 1), rnd(c, c) / c**0.5,
                         0.1 * rnd(c), 0.1 * rnd(c), 0.3, -0.2, rnd(c, 3) / c**0.5, dtype=dt,
                         noise_seeds=(1, 2) if hashed else None)
-                    y1 = torch.randn((hp, wp, c), generator=gen).to(dev, dt)
+                    # at the kernel's C (the block's, or the count it is
+                    # padded to); Wp a multiple of 16
+                    y1 = torch.randn((hp, wp, bp["w2t"].shape[0]), generator=gen).to(dev, dt)
                     key = f"C={c} y1={hp}x{wp} {kdb.launch_name(bp)}"
                     streamed = args.cluster and c in kdb.STREAMED_CHANNELS
                     for cl in args.cluster if streamed else (None,):

@@ -7,9 +7,9 @@ that is no power of two): with ToRGB folded in, with the feature store
 skipped, and with two frames stacked on rows (the upsample halo must stop
 at each frame's edge). The plain versions are generic in C: the same
 code serves every C. Then K3's plain version at C = 32, 512 and 1024,
-the decoder's channel table at channel multipliers 1, 2, 4, 8 and 16
-against the channel counts the kernel takes and JAX's packed-block
-assertion, and the shape check at counts it does not take.
+the decoder's channel table at channel multipliers 1-17 and 32 against
+the channel counts K2 takes and JAX's packed-block assertion, and the
+admission check at counts JAX refuses.
 
 Why not exact: conv_b multiplies bf16-rounded activations and sums in f32
 in another order than the Pallas kernel; an activation that lands next to
@@ -147,43 +147,72 @@ def test_v1_block_plain_matches_pallas_and_oracle(c):
         np.testing.assert_allclose(a(rgb), a(want[1]), rtol=0, atol=2e-3)
 
 
-@pytest.mark.parametrize("m", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("m", list(range(1, 18)) + [32])
 def test_channel_table_blocks_lie_in_the_kernel(m):
     """Every upsample block of a decoder at channel multiplier m (128^2 to
-    1024^2) has a C that K2 and K3 take and that JAX's packed block admits
-    (cips3dpp_tpu/kernels/decoder_block.py: (c * p) % 128 == 0 or c >= 128
-    with p = max(1, 128 // c)), from both packages' channel tables."""
+    1024^2), from both packages' channel tables: K2 takes its C exactly
+    when JAX's packed block admits it (cips3dpp_tpu/kernels/
+    decoder_block.py:754: (c * p) % 128 == 0 or c >= 128 with p = max(1,
+    128 // c)), and then runs it at a built kernel's count no smaller, the
+    next multiple of 128 past 256 (the 1024^2 blocks at m = 3, 5, 6 and 7,
+    48 to 112 channels, JAX refuses)."""
     from cips3dpp_tpu.models.layers import channel_table as jax_table
-    from cips3dpp_torch.kernels.decoder_block import KERNEL_CHANNELS
+    from cips3dpp_torch.kernels import decoder_block as kdb
     from cips3dpp_torch.models.layers import channel_table
 
     assert channel_table(m) == jax_table(m)
     got = [channel_table(m)[r] for r in (128, 256, 512, 1024)]
-    assert got == {1: [128, 64, 32, 16], 2: [256, 128, 64, 32], 4: [512, 256, 128, 64],
-                   8: [1024, 512, 256, 128], 16: [2048, 1024, 512, 256]}[m]
+    assert got == [128 * m, 64 * m, 32 * m, 16 * m]
     for c in got:
         p = max(1, 128 // c)
-        assert c in KERNEL_CHANNELS and ((c * p) % 128 == 0 or c >= 128)
+        jax_admits = (c * p) % 128 == 0 or c >= 128
+        try:
+            kdb.check_k2(c)
+            taken = True
+        except ValueError as e:
+            assert "(c * p) % 128 == 0 or c >= 128" in str(e)
+            taken = False
+        assert taken == jax_admits, c
+        if taken:
+            ck = kdb.kernel_channels(c)
+            assert ck in kdb.KERNEL_CHANNELS and c <= ck
+            assert ck == c or ck == (-(-c // 128) * 128 if c > 256 else 256)
+    assert all(kdb.kernel_channels(c) == c for c in got) == (m in (1, 2, 4, 8, 16, 32))
 
 
-@pytest.mark.parametrize("c", [192, 4096])
+@pytest.mark.parametrize("c", [48, 96])
 def test_shape_check_names_the_channel_counts_taken(c):
-    """A C that neither kernel takes (192: a multiple of 16 the resident
-    tile does not divide; 4096: past the streamed kernel's largest) raises,
-    naming the set, before any library is built or loaded."""
+    """A C that JAX's packed block refuses (48 and 96: below 128 and no
+    divisor of it, the 1024^2 blocks at channel multipliers 3 and 6)
+    raises, quoting JAX's rule, before any library is built or loaded, at
+    every entry point of K2; K3, whose JAX block takes every C, takes it.
+    The kernel that runs an admitted C and its tile follow kernel_channels."""
+    from cips3dpp_torch.kernels import _lib
     from cips3dpp_torch.kernels import decoder_block as kdb
 
-    assert c not in kdb.KERNEL_CHANNELS
-    taken = "16, 32, 64, 128, 256 or a multiple of 128 from 384 to 2048"
-    with pytest.raises(ValueError, match=taken):
-        kdb._check_block_shape("decoder_block", 16, 16, c, 1)
-    for k3 in (False, True):
-        with pytest.raises(ValueError, match=taken):
-            kdb.decoder_block_info(c, k3=k3)
-    with pytest.raises(ValueError, match=taken):
-        kdb.tile_pixels(c)
-    assert [kdb.tile_pixels(c) for c in (16, 256, 384, 512, 640, 1024, 1152, 2048)] == [
-        512, 32, 64, 64, 64, 64, 32, 32]
+    rule = r"\(c \* p\) % 128 == 0 or c >= 128 and wp % p == 0"
+    built = []
+    saved = _lib.build, _lib.load
+    _lib.build = _lib.load = lambda *a, **k: built.append(a)
+    try:
+        with pytest.raises(ValueError, match=rule):
+            kdb.check_k2(c)
+        with pytest.raises(ValueError, match=rule):
+            kdb.decoder_block_info(c)
+        x = _inputs(c, seed=c)
+        with pytest.raises(ValueError, match=rule):
+            _port(x, torch.bfloat16)
+    finally:
+        _lib.build, _lib.load = saved
+    assert built == []
+    kdb.check_k3(c)
+    assert kdb.kernel_channels(c) == {48: 64, 96: 128}[c]
+    assert [kdb.tile_pixels(c) for c in (1, 16, 144, 256, 288, 384, 512, 640, 1024, 1152,
+                                         2048, 2176, 4096, 4224, 8192)] == [
+        512, 512, 32, 32, 64, 64, 64, 64, 64, 32, 32, 16, 16, 8, 8]
+    for bad in (0, 8193):
+        with pytest.raises(ValueError):
+            kdb.check_k3(bad)
 
 
 @pytest.mark.parametrize("c", [384, 1024, 2048])

@@ -378,6 +378,109 @@ def test_hash_noise_in_kernel_matches_its_map(dev):
         torch.testing.assert_close(g, w, rtol=0, atol=5e-3)
 
 
+# K2 at the (C, Hp, Wp, F) no built kernel runs as they are, each JAX's
+# packed block admits: C = 1-8 padded to 16 (Wp a multiple of 128 // C),
+# 144 to 256, 272 and 288 to 384, 576 to 640, 1088 to 1152, widths padded
+# to a multiple of 16 (Wp = 8 at C = 16, 6 at 64, 24 at 256, 20 and 40
+# streamed, with hash noise counting in the caller's width), and the
+# streamed kernel's 16- and 8-pixel tiles (C = 2176-4096, 4224-8192);
+# at Hp = 1 the cluster shapes, also run with clusters of 4
+PADDED_BLOCKS = [(1, 8, 128, 1), (2, 4, 64, 2), (4, 8, 32, 1), (8, 8, 16, 2), (8, 2, 48, 3),
+                 (16, 4, 8, 2), (64, 4, 6, 1), (144, 8, 16, 2), (144, 3, 20, 1),
+                 (256, 8, 24, 2), (272, 4, 16, 1), (288, 4, 40, 2), (576, 8, 16, 1),
+                 (1088, 4, 16, 1), (2176, 8, 16, 2), (2176, 1, 20, 1), (4096, 8, 16, 1),
+                 (4224, 1, 16, 1), (8192, 4, 16, 1), (8192, 1, 24, 2)]
+
+
+@pytest.mark.parametrize("mode", MODES, ids=["-".join(m) for m in MODES])
+@pytest.mark.parametrize("c,hp,wp,frames", PADDED_BLOCKS,
+                         ids=[f"C{c}-{hp}x{wp}-f{f}" for c, hp, wp, f in PADDED_BLOCKS])
+def test_decoder_block_kernel_at_padded_counts(dev, c, hp, wp, frames, mode):
+    """K2 through its entry point at C and Wp it runs padded: one launch a
+    call, twice bit-equal, against decoder_block_packed_plain (the same
+    route with the plain version in the kernel's place) at the card tests'
+    bounds, outputs at the caller's C and width."""
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.kernels.decoder_block import (
+        _launch, _padded, decoder_block_info, decoder_block_packed,
+        decoder_block_packed_plain, decoder_block_prepare, launch_name,
+    )
+    from cips3dpp_torch.tools.k2_times import cluster_defines
+
+    gen = torch.Generator().manual_seed(c + 10 * wp + frames)
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[mode[0]]
+    rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
+    prep = decoder_block_prepare(
+        rnd(2 * hp, 2 * wp, 1), rnd(2 * hp, 2 * wp, 1), rnd(c, c) / c**0.5,
+        0.1 * rnd(c), 0.1 * rnd(c), 0.3, -0.2, rnd(c, 3) / c**0.5, dtype=dt,
+        noise_seeds=(123, 456) if mode[1] == "hash" else None,
+    )
+    y1 = rnd(frames * hp, wp, c).to(dt)
+    name = launch_name(prep)
+    builds = [()] + ([cluster_defines(4)] if c > 2048 and hp == 1 else [])
+    for defines, emit_feat in [(d, e) for d in builds for e in (True, False)]:
+        if defines:
+            assert decoder_block_info(c, dt, mode[1] == "hash", defines=defines)["cluster"] == 4
+            run = lambda: _padded(
+                lambda x, *a, **k: _launch(x, *a, defines=defines, **k),
+                y1, prep, emit_feat, frames)
+        else:
+            run = lambda: decoder_block_packed(y1, prepared=prep, emit_feat=emit_feat,
+                                               frames=frames)
+        before = _lib.LAUNCHES.copy()
+        got = run()
+        assert _lib.LAUNCHES[name] == before.get(name, 0) + 1
+        assert sum(_lib.LAUNCHES.values()) == sum(before.values()) + 1
+        again = run()
+        want = decoder_block_packed_plain(y1, prep, emit_feat, frames)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert got[-1].shape[:2] == (2 * frames * hp, 2 * wp)
+        if emit_feat:
+            assert got[0].shape == (2 * frames * hp, 2 * wp, c)
+        for g, a, w in zip(got, again, want):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            assert torch.equal(g, a)
+            tol = (dict(rtol=0, atol=1e-3) if dt == torch.float32
+                   else dict(rtol=1.6e-2, atol=2e-2))
+            torch.testing.assert_close(g.float(), w.float(), **tol)
+
+
+# K3 at the C and Wp it runs padded (its JAX block takes every C): C = 3,
+# 48 and 144 as the CPU tests, 2176 and 4224 on the small streamed tiles
+K3_PADDED = [(3, 8, 16), (48, 8, 24), (144, 8, 16), (144, 2, 20), (2176, 4, 16),
+             (4224, 2, 20), (8192, 1, 16)]
+
+
+@pytest.mark.parametrize("c,hp,wp", K3_PADDED, ids=[f"C{c}-{h}x{w}" for c, h, w in K3_PADDED])
+def test_decoder_block_fused_kernel_at_padded_counts(dev, c, hp, wp):
+    """K3 through its entry point at C and Wp it runs padded: one launch,
+    twice bit-equal, against its plain version at the caller's shape."""
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.kernels.decoder_block import (
+        decoder_block_fused, decoder_block_fused_plain,
+    )
+
+    gen = torch.Generator().manual_seed(200 + c + wp)
+    rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
+    args = (rnd(hp, wp, c), rnd(hp, wp, 3), rnd(2 * hp, 2 * wp, 1), rnd(2 * hp, 2 * wp, 1),
+            rnd(c, c) / c**0.5, rnd(c, 3) / c**0.5, 0.1 * rnd(c), 0.1 * rnd(c),
+            0.1 * rnd(3), 0.3, 0.2)
+    before = _lib.LAUNCHES["decoder_block_fused"]
+    got = decoder_block_fused(*args)
+    assert _lib.LAUNCHES["decoder_block_fused"] == before + 1
+    again = decoder_block_fused(*args)
+    want = decoder_block_fused_plain(*args)
+    torch.cuda.synchronize()
+    assert got[0].shape == (2 * hp, 2 * wp, c) and got[1].shape == (2 * hp, 2 * wp, 3)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-3)
+    torch.testing.assert_close(got[1], want[1], rtol=1.6e-2, atol=2e-2)
+
+
 # K3 takes one frame: the same shapes as K2's, F = 1 ("cluster-ragged":
 # 5 and 10 tiles; "cluster-short": 1 and 2)
 K3_SHAPES = {"32x16": (32, 16), "ragged": (8, 48), "hp1": (1, 32), "large": None,
@@ -463,13 +566,17 @@ def test_decoder_block_streamed_phase_split_counts_every_phase(dev):
 
 def test_decoder_block_resources(dev):
     """Every K2 / K3 instantiation fits on the card with no spill, at every
-    C the kernels take; tiles hold 8192 values at C = 16 to 256, and 64
-    or 32 pixels (16 or 8 input columns) with the weight streamed (C =
-    384-1024, 1152-2048) by clusters of CLUSTER_SIZES[0] CTAs, the plain
-    library's, the card can place (1 for the resident kernel). A C outside
-    the set raises."""
+    C the built kernels run; tiles hold 8192 values at C = 16 to 256, and
+    64, 32, 16 or 8 pixels (16, 8, 4 or 2 input columns) with the weight
+    streamed (C = 384-1024, 1152-2048, 2176-4096, 4224-8192) by clusters
+    of CLUSTER_SIZES[0] CTAs, the plain library's, the card can place (1
+    for the resident kernel). A C no built kernel runs is run by the next
+    one's instantiation (192 and 4096 among them); a C JAX's packed block
+    refuses raises for K2 and is taken by K3, and C past MAX_CHANNELS
+    raises for both."""
     from cips3dpp_torch.kernels.decoder_block import (
-        KERNEL_CHANNELS, STREAMED_CHANNELS, decoder_block_info, tile_pixels,
+        KERNEL_CHANNELS, MAX_CHANNELS, STREAMED_CHANNELS, decoder_block_info, kernel_channels,
+        tile_pixels,
     )
 
     for dt, hashed, k3 in ((torch.bfloat16, False, False), (torch.bfloat16, True, False),
@@ -481,13 +588,23 @@ def test_decoder_block_resources(dev):
             assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
             assert info["smem_bytes"] <= 232448
             assert info["tile_pixels"] == tile_pixels(c)
-            assert info["tile_pixels"] == (8192 // c if c <= 256 else 64 if c <= 1024 else 32)
+            assert info["tile_pixels"] == (8192 // c if c <= 256 else 64 if c <= 1024 else
+                                           32 if c <= 2048 else 16 if c <= 4096 else 8)
             assert info["tile_input_columns"] * 4 == info["tile_pixels"]
             assert info["cluster"] == (CLUSTER_SIZES[0] if c in STREAMED_CHANNELS else 1)
             assert info["clusters_on_card"] >= 1
-        for c in (192, 4096):
-            with pytest.raises(ValueError, match="multiple of 128 from 384 to 2048"):
-                decoder_block_info(c, dt, hashed, k3)
+        for c in (1, 8, 144, 192, 288, 2176, 4096, 8064):
+            assert decoder_block_info(c, dt, hashed, k3) == decoder_block_info(
+                kernel_channels(c), dt, hashed, k3)
+        for c in (3, 48, 96):
+            if k3:
+                assert decoder_block_info(c, dt, hashed, k3) == decoder_block_info(
+                    kernel_channels(c), dt, hashed, k3)
+            else:
+                with pytest.raises(ValueError, match="c >= 128"):
+                    decoder_block_info(c, dt, hashed, k3)
+        with pytest.raises(ValueError, match=f"take C up to {MAX_CHANNELS}"):
+            decoder_block_info(MAX_CHANNELS + 128, dt, hashed, k3)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
