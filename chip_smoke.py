@@ -131,9 +131,10 @@ Phases, each fatal on failure:
  13. the model variants no shipped config uses, at the FFHQ r1024 model's
      full width (64^2 rays x 24 samples, SIREN width 256, the r1024
      decoder at channel multiplier 2), after phase 12: (a) a default
-     Projector on a width-96 depth-2 renderer (a width K1 does not take)
-     renders plainly with 0 K1 launches and says so once, and at widths
-     128 and 256 (24 samples) launches K1 twice a step;
+     Projector at widths 96 (zero-padded to 128), 128 and 256, depth 2,
+     24 samples, launches K1 twice a step, and on a depth-3 renderer (a
+     geometry K1 does not take) renders plainly with 0 K1 launches and
+     says so once;
      (b) the density renderer (with_sdf=False): a batch-1 frame through
      the plain render and 4 f32 K2 against the plain decoder (phase 5's
      frame bounds) and against K2's plain version on the same route
@@ -151,9 +152,9 @@ Phases, each fatal on failure:
      the double backward of an eikonal + image loss to the planes and the
      weights, a CPU f32 run at 64 rays (TRIPLANE_BOUND), and gradgradcheck
      of the sampler in float64 on cuda. ms and peak memory of each.
- 14. K1 at every geometry it takes and the rest of the mesh and training
-     loop, after phase 13 but for (a), run right after phase 3: (a) K1 at
-     widths 32, 64, 128, 256 and 512 x 12, 20, 24 and 48 samples (4096
+ 14. K1 at each of its build widths to 512 and the rest of the mesh and
+     training loop, after phase 13 but for (a), run right after phase 3:
+     (a) K1 at widths 32, 64, 128, 256 and 512 x 12, 20, 24 and 48 samples (4096
      rays; 256 / 24 is phase 3's) against its plain version at phase 3's
      bounds, twice bit-equal, with device ms, plain ms, the bound and each
      build's registers and spills; (b)
@@ -214,6 +215,21 @@ Phases, each fatal on failure:
      640, 384, 256) and (2176, 1152, 640, 384) by the serving prepare's
      zero padding, gated as 15b's, ms a frame, the frame's device time by
      kernel group and idle share by the profiler).
+ 19. K1 at every width and sample count JAX's kernel takes, in a child
+     process of its own after phase 18's: (a) K1 at 4096 rays over (W, S)
+     = (96, 24), (200, 48), (384, 24) (run zero-padded at 128, 256, 512),
+     (640, 24), (1024, 24), (2048, 24) (the run-time-width builds), (256,
+     96), (256, 256), (1024, 128) and (512, 72) (past 64 samples) against
+     its plain version on the same operands (K1_TOL; past width 512 the
+     larger of it and 1.5x the plain version's own spread under another
+     sum order), twice bit-equal, with device ms, plain ms, the bound of
+     the unpadded work and the build's registers and spills; (b)
+     preset_serving frames at renderer.hidden_dim 1024 and at hidden_dim
+     96 with 96 samples (1 K1 + 4 K2 a frame, gated as 17's, ms a frame,
+     the frame's device time by kernel group); (c) train_r1024 at
+     hidden_dim 1024, batch 4: a D step with lazy R1 (K1 = batch) and a G
+     step with fused_renderer_g (K1's forward under autograd, K1 =
+     batch), losses finite.
 Each path that launches kernels runs with the launch counts set to 0
 just before it and read just after. A kernel's "ms" is its device time a
 launch (torch.profiler), beside the time a call takes back to back (CUDA
@@ -2500,8 +2516,11 @@ def variants_phase(dev, smi, cfg_path=os.path.join(ROOT, "configs", "ffhq.yaml")
     target = torch.rand((1024, 1024, 3), generator=torch.Generator().manual_seed(SEED + 60)) * 2 - 1
     lrs, flip, mask_bg = inv.step_plan(0, icfg)
     res["route"] = {}
-    for width, want_k1 in ((96, 0), (128, 2), (256, 2)):
-        model, _, _ = make_model(variant(renderer={"hidden_dim": width}), dev, SEED + 61)
+    # every depth-2 width to 2048 takes K1 (96 zero-padded to 128); a
+    # depth-3 renderer does not
+    for width, depth, want_k1 in ((96, 2, 2), (128, 2, 2), (256, 2, 2), (256, 3, 0)):
+        model, _, _ = make_model(variant(renderer={"hidden_dim": width, "n_layers": depth}),
+                                 dev, SEED + 61)
         err = io.StringIO()
         with contextlib.redirect_stderr(err):
             proj = inv.Projector(model, vgg, icfg)
@@ -2509,20 +2528,20 @@ def variants_phase(dev, smi, cfg_path=os.path.join(ROOT, "configs", "ffhq.yaml")
         targets = proj.prepare_targets(target)
         t_rand = torch.rand((2, base.img_size, base.img_size, 1),
                             generator=torch.Generator().manual_seed(2)).to(dev)
-        with counted(f"13a default Projector, width {width}, one pose step",
+        with counted(f"13a default Projector, width {width}, depth {depth}, one pose step",
                      {"siren_render": want_k1} if want_k1 else {}) as got:
             state, metrics = proj.step(state, targets, t_rand, lrs, flip, mask_bg)
         add(got)
         said = err.getvalue().count("renders with the plain renderer")
         loss = float(metrics["loss"])
         if proj.fused != bool(want_k1) or said != (0 if want_k1 else 1) or not np.isfinite(loss):
-            raise AssertionError(f"13a width {width}: fused {proj.fused}, said {said} times, "
-                                 f"loss {loss}; stderr {err.getvalue()[-500:]}")
-        log(f"[variants] 13a default Projector at width {width}, 24 samples: fused "
+            raise AssertionError(f"13a width {width}, depth {depth}: fused {proj.fused}, said "
+                                 f"{said} times, loss {loss}; stderr {err.getvalue()[-500:]}")
+        log(f"[variants] 13a default Projector at width {width}, depth {depth}, 24 samples: fused "
             f"{proj.fused}, {got.get('siren_render', 0)} K1 launches a step, the plain route "
             f"said {said} time(s), loss {loss:.4f}")
-        res["route"][width] = {"fused": proj.fused, "k1": got.get("siren_render", 0),
-                               "loss": loss}
+        res["route"][f"{width}x{depth}"] = {"fused": proj.fused,
+                                            "k1": got.get("siren_render", 0), "loss": loss}
         del proj, model, state, targets
     del vgg
     torch.cuda.empty_cache()
@@ -2822,62 +2841,68 @@ def _ray_rank(mesh, width, s, r, seed):
             "render": out, "launches": dict(_lib.LAUNCHES), "counts": dict(mesh.counts)}
 
 
+def k1_case(dev, smi, width, s, seed, regs, tag):
+    """K1 at `width` x s samples x GRID_RAYS rays (k1_inputs from `seed`)
+    against its plain version on the same operands (K1_TOL; past width
+    512 the larger of it and 1.5x the plain version's own spread under
+    another sum order of its products, frame_gap_split.k1_bounds), twice
+    bit-equal, feat at the renderer's width; its device ms, plain ms, the
+    bound of the unpadded work, and its build's registers and spills from
+    `regs` (k1_ptxas). Logged under `tag`; returns the numbers."""
+    from cips3dpp_torch.kernels import siren_render as ksr
+    from cips3dpp_torch.tools.frame_gap_split import k1_bounds
+
+    _, _, prep, (pts, vd, z, rd), _ = k1_inputs(dev, width, s, GRID_RAYS, seed)
+    args = (prep, pts[0], vd[0], z[0], rd[0])
+    dnorm = torch.linalg.norm(rd[0], dim=-1, keepdim=True)
+    got = ksr.siren_render_prepared(*args)
+    again = ksr.siren_render_prepared(*args)
+    want = ksr.siren_render_plain(*args[:4], dnorm)
+    torch.cuda.synchronize()
+    tol = k1_bounds(K1_TOL, *args[:4], dnorm)
+    errs = {k: max_err(g, w) for k, g, w in zip(K1_TOL, got, want)}
+    bad = {k: e for k, e in errs.items() if not e <= tol[k]}
+    equal = all(torch.equal(g, a) for g, a in zip(got, again))
+    if (bad or not equal or got[1].shape != (GRID_RAYS, width)
+            or not all(torch.isfinite(g).all() for g in got)):
+        raise AssertionError(f"{tag} K1 at W={width} S={s}: {bad or errs} (bounds {tol}), "
+                             f"twice-equal {equal}, feat {tuple(got[1].shape)}")
+    del got, again, want
+    ms, call_ms = kernel_time(lambda: ksr.siren_render_prepared(*args), "siren_render_kernel")
+    plain_ms = cuda_time(lambda: ksr.siren_render_plain(*args[:4], dnorm), iters=3)
+    bound_ms, by = bound(*k1_work(GRID_RAYS, s, width))
+    build = ksr.kernel_build(width, s)
+    label = " ".join(("siren_render", *build.defines))
+    log(f"{tag} K1 W={width} (run at {build.width}) S={s} R={GRID_RAYS}: {ms:.4f} ms kernel "
+        f"({call_ms:.4f} a call), {plain_ms:.3f} ms plain, bound {bound_ms:.4f} ms ({by}, the "
+        f"unpadded work), {ms / bound_ms:.2f}x the bound; max |kernel - plain| "
+        f"{ {k: f'{e:.2e}' for k, e in errs.items()} } (bounds "
+        f"{ {k: f'{b:.1e}' for k, b in tol.items()} }), twice bit-equal; build `{label}`: "
+        f"{regs.get(label)}; {smi}")
+    return {"width": width, "samples": s, "rays": GRID_RAYS, "kernel_width": build.width,
+            "errs": errs, "bounds": tol, "err": max(errs.values()), "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "build": label, "ptxas": regs.get(label)}
+
+
 def k1_grid_phase(dev, smi, ptxas):
     """Phase 14a, run right after phase 3: K1 at each (W, S) of GRID_WIDTHS
-    x GRID_SAMPLES at 4096 rays against its plain version (K1_TOL, twice
-    bit-equal), with its device ms, plain ms, bound, and its build's
-    registers and spills. It runs early because late in a long process
-    the profiler once dropped the first 14 of 50 launches of the 34 us
-    width-32 kernel in each of three tries."""
+    x GRID_SAMPLES at 4096 rays against its plain version (k1_case). It
+    runs early because late in a long process the profiler once dropped
+    the first 14 of 50 launches of the 34 us width-32 kernel in each of
+    three tries."""
     from cips3dpp_torch.kernels import siren_render as ksr
 
     t0 = time.perf_counter()
-    grid, regs = {}, {}
-    for label, rep in ptxas.items():
-        if label.startswith("siren_render"):
-            regs[label] = [ln.split(":", 1)[-1].strip() for ln in rep.splitlines()
-                           if "registers" in ln or "spill" in ln]
-    for width in GRID_WIDTHS:
-        for s in GRID_SAMPLES:
-            if (width, s) == ksr.SERVING_GEOMETRY:
-                continue
-            _, _, prep, (pts, vd, z, rd), _ = k1_inputs(dev, width, s, GRID_RAYS,
-                                                        SEED + 80 + width + s)
-            args = (prep, pts[0], vd[0], z[0], rd[0])
-            dnorm = torch.linalg.norm(rd[0], dim=-1, keepdim=True)
-            got = ksr.siren_render_prepared(*args)
-            again = ksr.siren_render_prepared(*args)
-            want = ksr.siren_render_plain(*args[:4], dnorm)
-            torch.cuda.synchronize()
-            errs = {k: max_err(g, w) for k, g, w in zip(K1_TOL, got, want)}
-            bad = {k: e for k, e in errs.items() if not e <= K1_TOL[k]}
-            if bad or not all(torch.isfinite(g).all() for g in got) or not all(
-                    torch.equal(g, a) for g, a in zip(got, again)):
-                raise AssertionError(f"14a K1 at W={width} S={s}: {bad or errs}, twice-equal "
-                                     f"{all(torch.equal(g, a) for g, a in zip(got, again))}")
-            ms, call_ms = kernel_time(lambda: ksr.siren_render_prepared(*args),
-                                      "siren_render_kernel")
-            plain_ms = cuda_time(lambda: ksr.siren_render_plain(*args[:4], dnorm), iters=3)
-            nbytes, bf16, dot, apart = k1_work(GRID_RAYS, s, width)
-            bound_ms, by = bound(nbytes, bf16, dot, apart)
-            build = " ".join(("siren_render", *ksr.kernel_defines(width, s)))
-            grid[f"{width}x{s}"] = {
-                "width": width, "samples": s, "rays": GRID_RAYS, "errs": errs,
-                "err": max(errs.values()), "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": by, "build": build,
-                "ptxas": regs.get(build)}
-            log(f"[geometry] 14a K1 W={width} S={s} R={GRID_RAYS}: {ms:.4f} ms kernel, "
-                f"{plain_ms:.3f} ms plain, bound {bound_ms:.4f} ms ({by}), "
-                f"{ms / bound_ms:.2f}x the bound; max |kernel - plain| "
-                f"{ {k: f'{e:.2e}' for k, e in errs.items()} }; build `{build}`: "
-                f"{regs.get(build)}; {smi}")
-            del prep, args, got, again, want
+    regs = k1_ptxas(ptxas)
+    grid = {f"{w}x{s}": k1_case(dev, smi, w, s, SEED + 80 + w + s, regs, "[geometry] 14a")
+            for w in GRID_WIDTHS for s in GRID_SAMPLES if (w, s) != ksr.SERVING_GEOMETRY}
     torch.cuda.empty_cache()
     return {"grid": grid, "grid_s": time.perf_counter() - t0}
 
 
 def geometry_phase(dev, smi, grid, cfg_path=os.path.join(ROOT, "configs", "ffhq.yaml")):
-    """Phase 14: K1 at every width it takes and at sample counts other than
+    """Phase 14: K1 at its build widths to 512 and at sample counts other than
     24, after phase 13: (a) the grid, run right after phase 3 by
     `k1_grid_phase` (its result is `grid`); (b) whole paths at width 128 and at 48 samples: preset_serving
     frames with a width-128 renderer through prepare_trajectory /
@@ -3520,17 +3545,139 @@ def padded_multipliers_phase(dev, smi):
     return res
 
 
+# Phase 19's K1 geometries (W, S), each at 4096 rays: widths no build has
+# as its own (96, 200, 384: run zero-padded at 128, 256, 512), the
+# run-time-width builds (640, 1024: 32-row units; 2048: 16-row units),
+# sample counts past 64 (96, 256 and 128 at 1024: whole 24- and 8-sample
+# chunks, many of them) and 72 at 512 (nine 8-sample units)
+K1_WIDE_GEOMETRIES = [(96, 24), (200, 48), (384, 24), (640, 24), (1024, 24), (2048, 24),
+                      (256, 96), (256, 256), (1024, 128), (512, 72)]
+
+
+def k1_ptxas(reports):
+    """{K1 library label: its registers and spill lines} from _lib.build's
+    ptxas reports."""
+    return {label: [ln.split(":", 1)[-1].strip() for ln in rep.splitlines()
+                    if "registers" in ln or "spill" in ln]
+            for label, rep in reports.items() if label.startswith("siren_render")}
+
+
+def k1_geometries_phase(dev, smi):
+    """Phase 19, in a child process of its own (child_phases), where the
+    profiler sees every record: K1 at every width and sample count JAX's
+    kernel takes. (a) K1 at K1_WIDE_GEOMETRIES x 4096 rays against its
+    plain version on the same padded operands (K1_TOL, past width 512 the
+    larger of it and 1.5x the plain version's own spread under another
+    sum order of its products: frame_gap_split.k1_bounds), twice bit-equal,
+    with device ms, plain ms, the bound of the unpadded work (k1_work at
+    the renderer's width) and the build's registers and spills; (b)
+    preset_serving frames with renderer.hidden_dim 1024 (24 samples) and
+    with hidden_dim 96 and n_samples 96, through prepare_trajectory /
+    render_frame (serve_multiplier: 1 K1 + 4 K2 a frame, K2's part at phase
+    5's bounds, the whole frame at 1.5x the plain path's own spread under
+    another GEMM order or another sum order of K1's products, the same
+    camera bit-equal, ms a frame, the frame's device time by kernel group);
+    (c) train_r1024 at hidden_dim 1024, batch 4, with grad enabled as
+    training runs: a D step with lazy R1 whose default route renders the
+    fakes through K1 (K1 = batch), and a G step with fused_renderer_g whose
+    render runs K1's forward under autograd (SirenRender, K1 = batch), the
+    renderer's parameters moved; losses finite, each step timed."""
+    from cips3dpp_torch.io.config import (
+        generator_config_from_dict, load_command_config, train_config_from_dict,
+    )
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.kernels import siren_render as ksr
+    from cips3dpp_torch.models.discriminator import DStyleGANProgressive
+    from cips3dpp_torch.models.discriminator_pose import DVolumeRenderProgressive
+    from cips3dpp_torch.models.generator import Generator, preset_serving
+    from cips3dpp_torch.train import create_train_state, make_train_steps
+
+    t_phase = time.perf_counter()
+    res = {"card": smi, "geometries": {}}
+    launches = {}
+    # the K1 libraries' registers and spills, as their build reported them
+    regs = k1_ptxas({" ".join((name, *d)): _lib.ptxas_report(name, d) or ""
+                     for name, d in ksr.kernel_builds()})
+
+    # ---- a. K1 at the new geometries ----
+    t0 = time.perf_counter()
+    for width, s in K1_WIDE_GEOMETRIES:
+        res["geometries"][f"{width}x{s}"] = k1_case(dev, smi, width, s, SEED + 300 + width + s,
+                                                    regs, "[K1 widths] 19a")
+        torch.cuda.empty_cache()
+    res["grid_s"] = time.perf_counter() - t0
+
+    # ---- b. frames at hidden_dim 1024, and at 96 with 96 samples ----
+    base = preset_serving()
+    for width, s in ((1024, 24), (96, 96)):
+        cfg = dataclasses.replace(base, n_samples=s,
+                                  renderer=dataclasses.replace(base.renderer, hidden_dim=width))
+        res[f"serving_w{width}_s{s}"], got = serve_multiplier(
+            dev, smi, 2, SEED + 310 + width, "19", profile=True, cfg=cfg,
+            what=f"with a width-{width} renderer, {s} samples", k1_reorder=True)
+        add_launches(launches, got)
+        torch.cuda.empty_cache()
+
+    # ---- c. training steps at hidden_dim 1024 ----
+    t0 = time.perf_counter()
+    with torch.inference_mode(False), torch.enable_grad():
+        tcfg_all = load_command_config(os.path.join(ROOT, "configs", "ffhq.yaml"), "train_r1024")
+        gcfg = generator_config_from_dict(tcfg_all.get("G_cfg", {}))
+        gcfg = dataclasses.replace(gcfg, renderer=dataclasses.replace(gcfg.renderer,
+                                                                      hidden_dim=1024))
+        tcfg = dataclasses.replace(train_config_from_dict(tcfg_all), fused_renderer_g=True)
+        b = tcfg.batch
+        g = Generator(gcfg, device=dev, seed=SEED + 320)
+        d = DStyleGANProgressive(1024, 2, device=dev, seed=SEED + 321)
+        d_render = DVolumeRenderProgressive(1024, device=dev, seed=SEED + 322)
+        state = create_train_state(tcfg, g, d, d_render)
+        d_step, g_step = make_train_steps(gcfg, tcfg)[:2]
+        gen = torch.Generator(device=dev).manual_seed(SEED + 323)
+        real = torch.rand((b, 1024, 1024, 3), generator=gen, device=dev) * 2 - 1
+        steps = {}
+        for name, fn in (("D step with lazy R1", lambda: d_step(state, real, gen, 0.5, True)[1]),
+                         ("G step, fused_renderer_g", lambda: g_step(state, gen, 0.5)[1])):
+            before = [p.detach().clone() for p in state.g.renderer.parameters()]
+            with counted(f"19c train_r1024 at hidden_dim 1024, {name}",
+                         {"siren_render": b}) as got:
+                metrics, ms, peak = _timed_call(fn)
+            add_launches(launches, got)
+            moved = sum(not torch.equal(p, q) for p, q in
+                        zip(before, state.g.renderer.parameters()))
+            bad = {k: float(v) for k, v in metrics.items() if not torch.isfinite(v)}
+            # the D step leaves G alone; the G step moves the renderer
+            if bad or (moved > 0) != name.startswith("G"):
+                raise AssertionError(f"19c {name} at hidden_dim 1024: non-finite {bad}, "
+                                     f"renderer tensors moved {moved}")
+            log(f"[K1 widths] 19c train_r1024 at renderer.hidden_dim 1024, batch {b}, {name}: "
+                f"{ms:.1f} ms (CUDA events, the first call), peak {peak / 2**30:.2f} GiB, K1 "
+                f"{b} launches, losses finite, renderer tensors moved {moved}; {smi}")
+            steps[name] = {"ms": ms, "peak_bytes": peak, "moved": moved,
+                           "metrics": {k: float(v) for k, v in metrics.items()}}
+        del g, d, d_render, state, real
+    torch.cuda.empty_cache()
+    res["steps_w1024"] = steps
+    res["steps_s"] = time.perf_counter() - t0
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[K1 widths] phase 19: {res['phase_s']:.1f} s (19a {res['grid_s']:.1f} s, 19c "
+        f"{res['steps_s']:.1f} s); launches on its paths {launches}")
+    return res
+
+
 CHILD_FLAG = "--child"
 CHILD_RESULT = "[child result] "
-# the phases each child process runs after its part of 15a
+# the phases each child process runs after its part of 15a (K2_SHAPES;
+# "19" has none)
 CHILD_PHASES = {"15a-17": {"wide": "wide_multipliers_phase",
                            "wide_renderer": "wide_renderer_phase"},
                 "15a-padded": {},
-                "15a-wide-18": {"padded_multipliers": "padded_multipliers_phase"}}
+                "15a-wide-18": {"padded_multipliers": "padded_multipliers_phase"},
+                "19": {"k1_geometries": "k1_geometries_phase"}}
 
 
 def child_phases():
-    """Phases 15a-18 in three child processes of this script, one after
+    """Phases 15a-19 in four child processes of this script, one after
     another, right after phase 4: one process's profiler drops device
     records once it has run some 50 profiled timings (0-46 of 50 launches
     seen in each of five tries at 15a's 21st shape, after phases 3, 14a
@@ -3539,7 +3686,7 @@ def child_phases():
     (the libraries are built), echoes its log and hands back its results,
     launch counts included, as JSON. Returns (k2_channels_phase's results
     merged, wide_multipliers_phase's, wide_renderer_phase's,
-    padded_multipliers_phase's)."""
+    padded_multipliers_phase's, k1_geometries_phase's)."""
     results = {}
     for group in CHILD_PHASES:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), CHILD_FLAG, group],
@@ -3554,23 +3701,24 @@ def child_phases():
             raise AssertionError(f"phases {group} (child process) failed, rc "
                                  f"{proc.returncode}:\n{proc.stderr[-8000:]}")
         results[group] = result
-    parts = [r["k2_channels"] for r in results.values()]
+    parts = [r["k2_channels"] for r in results.values() if "k2_channels" in r]
     k2_channels = {"k2": {k: v for p in parts for k, v in p["k2"].items()},
                    "k3": {"launches": sum(p["k3"]["launches"] for p in parts),
                           "parts": [p["k3"] for p in parts]},
                    "k2_s": sum(p["k2_s"] for p in parts)}
     return (k2_channels, results["15a-17"]["wide"], results["15a-17"]["wide_renderer"],
-            results["15a-wide-18"]["padded_multipliers"])
+            results["15a-wide-18"]["padded_multipliers"], results["19"]["k1_geometries"])
 
 
 def child_main(group) -> int:
-    """A child process of child_phases: the part `group` of 15a, then the
-    phases CHILD_PHASES[group] names."""
+    """A child process of child_phases: the part `group` of 15a (if it has
+    one), then the phases CHILD_PHASES[group] names."""
     sys.path.insert(0, ROOT)
     from cips3dpp_torch.kernels import _lib
     from cips3dpp_torch.kernels import siren_render as ksr
 
     # built by the parent: nothing to do
+    os.makedirs(OUT, exist_ok=True)
     _lib.build([(name, ()) for name in _lib.SOURCES] + ksr.kernel_builds())
     ksr.plain_precision()
     dev = torch.device("cuda", 0)
@@ -3578,7 +3726,7 @@ def child_main(group) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    result = {"k2_channels": k2_channels_phase(dev, smi, group)}
+    result = {"k2_channels": k2_channels_phase(dev, smi, group)} if group in K2_SHAPES else {}
     for key, phase in CHILD_PHASES[group].items():
         result[key] = globals()[phase](dev, smi)
     print(CHILD_RESULT + json.dumps(result), flush=True)
@@ -3744,10 +3892,11 @@ def main() -> int:
     # models at channel multipliers 8 and 16 (in a child process: see
     # child_phases) ----
     (k2_channels, report["wide_multipliers"], report["wide_renderer"],
-     report["padded_multipliers"]) = child_phases()
+     report["padded_multipliers"], report["k1_geometries"]) = child_phases()
     wide = report["wide_multipliers"]["launches"]
     wide_renderer = report["wide_renderer"]["launches"]
     padded = report["padded_multipliers"]["launches"]
+    k1_geometries = report["k1_geometries"]["launches"]
     channels = [b["w2t"].shape[0] for b in variants["K2"]]
     report["K3"] = k3_phase(gen, dev, [(cfg.img_size * 2**i, c) for i, c in enumerate(channels)])
 
@@ -3882,7 +4031,7 @@ def main() -> int:
         report["variants"] = variants_phase(dev, smi)
     variants = report["variants"]["launches"]
 
-    # ---- 14. K1 at every width and sample count, the ray axis, auto_remat ----
+    # ---- 14. K1 at its build widths to 512, the ray axis, auto_remat ----
     torch.cuda.empty_cache()
     with torch.inference_mode(False), torch.enable_grad():
         report["geometry"] = geometry_phase(dev, smi, k1_grid)
@@ -3905,9 +4054,11 @@ def main() -> int:
     # iteration), phases 15's and 16's (the frames at channel
     # multipliers 1, 4, 8 and 16, the f32 trajectories, rendering-time at
     # 4 and 8), phase 17's (the width-512 frames and rendering-time,
-    # through the wide kernel) and phase 18's (the frames at channel
-    # multipliers 9 and 17); K1's numbers are the serving geometry's
-    # (phase 3), the other geometries' are in the report's "geometry" grid
+    # through the wide kernel), phase 18's (the frames at channel
+    # multipliers 9 and 17) and phase 19's (the frames at renderer widths
+    # 1024 and 96, the D and G steps at 1024); K1's numbers are the serving
+    # geometry's (phase 3), the other geometries' are in the report's
+    # "geometry" grid and "k1_geometries"
     loop, inversion = report["training_loop"]["launches"], report["inversion"]["launches"]
     rest = report["cli_rest"]["launches"]
     entry("siren_render", "cips3dpp_torch/csrc/siren_render.cu",
@@ -3917,11 +4068,13 @@ def main() -> int:
           + report["data_parallel"]["launches"]["siren_render"] + rest["siren_render"]
           + variants["siren_render"] + geometry["siren_render"]
           + multipliers["siren_render"] + wide["siren_render"]
-          + wide_renderer["siren_render"] + padded["siren_render"])
+          + wide_renderer["siren_render"] + padded["siren_render"]
+          + k1_geometries["siren_render"])
     entry("decoder_block", K2_SRC, K2_TPU, report["K2"],
           serving_launches["decoder_block"] + rest["decoder_block"]
           + geometry["decoder_block"] + multipliers["decoder_block"] + wide["decoder_block"]
-          + wide_renderer["decoder_block"] + padded["decoder_block"])
+          + wide_renderer["decoder_block"] + padded["decoder_block"]
+          + k1_geometries["decoder_block"])
     entry("decoder_block_f32", K2_SRC, K2_TPU, report["K2-f32"],
           t32["launches_buffers"]["decoder_block_f32"] + loop["decoder_block_f32"]
           + inversion["decoder_block_f32"] + variants["decoder_block_f32"]
@@ -3949,7 +4102,8 @@ def main() -> int:
         f"{report['multipliers']['phase_s']:.1f} s, phase 16: "
         f"{report['wide_multipliers']['phase_s']:.1f} s, phase 17: "
         f"{report['wide_renderer']['phase_s']:.1f} s, phase 18: "
-        f"{report['padded_multipliers']['phase_s']:.1f} s)")
+        f"{report['padded_multipliers']['phase_s']:.1f} s, phase 19: "
+        f"{report['k1_geometries']['phase_s']:.1f} s)")
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     name = torch.cuda.get_device_name(0)

@@ -68,10 +68,15 @@
 //    of it.
 //
 // Other geometries. One library is built per (width, sample mode):
-// -DK1_W=<32|64|128|256|512> picks the width and its tile layout below, and
-// -DK1_FIXED_S=<S> fixes the sample count at compile time (0: the count is
-// the launch's, any S >= 1). The build without flags is width 256 with S
-// fixed at 24, the serving geometry, and compiles to the design above. A
+// -DK1_W=<32|64|128|256|512|1024|2048> picks the width and its tile layout
+// below, and -DK1_FIXED_S=<S> fixes the sample count at compile time (0:
+// the count is the launch's, any S >= 1). The build without flags is width
+// 256 with S fixed at 24, the serving geometry, and compiles to the design
+// above. Any other width runs in the build of the next width up, its
+// operands zero-padded by the caller (kernels/siren_render.py:
+// kernel_build): a padded unit has g = 0 and beff = 0, so its phase is 0,
+// its sine exactly 0, and it meets zero weight rows. Every build takes the
+// caller's width as feat's row stride and stores only its columns. A
 // tile is TR rays x SC samples; a ray of S samples is walked in ceil(S/SC)
 // chunks of SC, each a unit of the weight stream, carrying each ray's
 // running transmittance, xyz, thumb sums and feat partials from chunk to
@@ -82,7 +87,9 @@
 // thread's accumulators stay on one ray; below TR = 8 a ray's samples are
 // spread over 8/TR threads of a row tile, and the feat partials are kept
 // by (row group, accumulator row g), then summed over the ray's g.
-// Width 512 is another kernel, siren_render_kernel_wide, below.
+// Widths 512, 1024 and 2048 are another kernel, siren_render_kernel_wide,
+// below: at 512 its width is fixed, the 1024 and 2048 builds take any
+// multiple of 128 past 512 up to theirs at launch.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -143,7 +150,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 }  // namespace
 
-#if K1_W != 512
+#if K1_W != 512 && K1_W != 1024 && K1_W != 2048
 
 namespace {
 
@@ -155,7 +162,7 @@ constexpr int TR = 8, SC = 24, RG = 3, CQ = 2;
 #elif K1_W == 64 || K1_W == 128 || K1_W == 256
 constexpr int TR = 8, SC = 24, RG = 3, CQ = 4;
 #else
-#error "K1_W must be 32, 64, 128, 256 or 512"
+#error "K1_W must be 32, 64, 128, 256, 512, 1024 or 2048"
 #endif
 constexpr int M = TR * SC;             // rows per tile: 192 at width 256
 constexpr int NWARPS = RG * CQ;        // 12 warps: (row group, column quarter)
@@ -323,6 +330,10 @@ __device__ __forceinline__ void gemm(Smem& sm, const __nv_bfloat16* __restrict__
   }
 }
 
+// PAD: the caller's width (feat's row stride) is less than W, the operands
+// zero-padded to W; without it feat is stored as before padded widths were
+// taken, its stride W
+template <bool PAD>
 __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel(
     const float* __restrict__ pts, const float* __restrict__ viewdirs,
     const float* __restrict__ z_vals, const float* __restrict__ dnorm,
@@ -336,7 +347,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel(
     float scale, float sbeta, float* __restrict__ thumb,
     float* __restrict__ feat, float* __restrict__ xyz,
     float* __restrict__ maskd, float* __restrict__ sdf_out, int n_rays,
-    int n_samples) {
+    int n_samples, int feat_width) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -594,7 +605,12 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel(
 #pragma unroll
           for (int j = 1; j < RG * FG; ++j)
             f = __fadd_rn(f, fp[((j / FG) * 8 + (j % FG) * TR) * VEC_LD]);
-          if (ray0 + r < n_rays) feat[size_t(ray0) * W + i] = f;
+          if constexpr (PAD) {  // in the caller's width: the padded units' columns go
+            if (ray0 + r < n_rays && n < feat_width)
+              feat[size_t(ray0 + r) * feat_width + n] = f;
+          } else if (ray0 + r < n_rays) {
+            feat[size_t(ray0) * W + i] = f;
+          }
         }
       }
       for (int i = tid; i < M * 3; i += NTHREADS) {
@@ -644,8 +660,9 @@ extern "C" int siren_render_phase_cycles(unsigned long long* out, int* n, int re
 // One block an SM (at most one a tile); each block walks the TR-ray tiles
 // with a stride of the grid. The SM count is read once: it sets only how the
 // tiles are shared, never what a launch computes. `n_samples` is each ray's
-// sample count: any count >= 1, or in a fixed build that build's count
-// (cudaErrorInvalidValue otherwise).
+// sample count: any count >= 1, or in a fixed build that build's count;
+// `width` the operands' width, the build's; `feat_width` the caller's, feat's
+// row stride, 1 to `width` (cudaErrorInvalidValue otherwise).
 extern "C" int siren_render_forward(
     const float* pts, const float* viewdirs, const float* z_vals,
     const float* dnorm, const float* w0, const float* g0, const float* be0,
@@ -653,8 +670,9 @@ extern "C" int siren_render_forward(
     const float* wvv, const float* gv, const float* bev, const float* wsdf,
     const float* bsdf, const float* wrgb, const float* brgb, float scale,
     float sigmoid_beta, float* thumb, float* feat, float* xyz, float* maskd,
-    float* sdf, int n_rays, int n_samples, void* stream) {
-  if (n_samples < 1 || (FIXED_S > 0 && n_samples != FIXED_S))
+    float* sdf, int n_rays, int n_samples, int width, int feat_width, void* stream) {
+  if (n_samples < 1 || (FIXED_S > 0 && n_samples != FIXED_S) || width != W ||
+      feat_width < 1 || feat_width > W)
     return int(cudaErrorInvalidValue);
   static int sms = 0;
   cudaError_t err;
@@ -666,19 +684,19 @@ extern "C" int siren_render_forward(
     if (err != cudaSuccess) return int(err);
   }
   const int smem = int(sizeof(Smem));
-  err = cudaFuncSetAttribute(
-      siren_render_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto* kernel = feat_width < W ? siren_render_kernel<true> : siren_render_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
   const int tiles = (n_rays + TR - 1) / TR;
   const int blocks = tiles < sms ? tiles : sms;
-  siren_render_kernel<<<blocks, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       pts, viewdirs, z_vals, dnorm, w0, g0, be0,
       static_cast<const __nv_bfloat16*>(w1t), g1, be1,
       static_cast<const __nv_bfloat16*>(wvht), wvv, gv, bev, wsdf, bsdf, wrgb,
-      brgb, scale, sigmoid_beta, thumb, feat, xyz, maskd, sdf, n_rays, n_samples);
+      brgb, scale, sigmoid_beta, thumb, feat, xyz, maskd, sdf, n_rays, n_samples, feat_width);
   return int(cudaGetLastError());
 }
-#else  // K1_W == 512: siren_render_kernel_wide
+#else  // K1_W = 512, 1024 or 2048: siren_render_kernel_wide
 
 // Width 512 (-DK1_W=512): what bounds it on the H100. At 4096 rays x 24
 // samples the two (rows,512)@(512,512) products are 103 GFLOP of bf16:
@@ -694,25 +712,37 @@ extern "C" int siren_render_forward(
 // its time, and a cluster of 1 runs as fast as one of 2 (measured by
 // tools/siren_phase_split.py --width 512 and tools/k1_times.py --cluster).
 //
-//  - A unit is 8 rays x 8 samples = 64 rows, ray-major (row = ray * 8 + s):
-//    1.6 GB into the SMs at 4096 x 24 (three chunks a 24-sample ray, no
-//    padding), 0.8 GB from L2 with every chunk multicast to a cluster of 2
-//    (2-ray tiles of 16 samples, 32 rows, take in 4.3 GB and are bound by
-//    that stream). A ray of S samples is walked in ceil(S/8) units,
-//    carrying its transmittance, xyz, thumb and feat sums from unit to unit.
+// Past 512 (-DK1_W=1024, -DK1_W=2048: the width read at launch, any
+// multiple of 128 above 512 up to the build's) the products grow as W^2 a
+// row and the weights as W^2 a unit, so the weight stream from L2 is what
+// bounds these builds: at 4096 x 24 and W = 1024 the products are 412
+// GFLOP (>= 0.42 ms) and the units take in 12.9 GB (6.4 GB from L2 with
+// a cluster of 2), at 2048 1.65 TFLOP (>= 1.67 ms) and 52 GB from L2. The
+// two activation tiles stay at 128 KB by taking fewer rows a unit: 4 rays
+// (32 rows, wgmma N = 32) to 1024, 2 rays (16 rows, N = 16) to 2048.
+//
+//  - A unit is TR rays x 8 samples = M rows, ray-major (row = ray * 8 + s;
+//    at 512 TR = 8, M = 64): 1.6 GB into the SMs at 4096 x 24 (three chunks
+//    a 24-sample ray, no padding), 0.8 GB from L2 with every chunk
+//    multicast to a cluster of 2 (2-ray tiles of 16 samples, 32 rows, take
+//    in 4.3 GB and are bound by that stream). A ray of S samples is walked
+//    in ceil(S/8) units, carrying its transmittance, xyz, thumb and feat
+//    sums from unit to unit.
 //  - The products run transposed, out^T (features x rows) = W . act^T, on
-//    wgmma m64n64k16: the weight is the 64-row A operand and the bf16
-//    activation tile (64 rows x 512, 64 KB) the N = 64 B operand, both
+//    wgmma m64nMk16: the weight is the 64-row A operand and the bf16
+//    activation tile (M rows x W, 64 KB at W_MAX) the N = M B operand, both
 //    K-major in the 128-byte swizzle. siren_prepare lays each weight out as
 //    (128 out x 64 in) 16 KB chunks, pass by pass (128 output features over
-//    8 chunks), already swizzled (chunk_weight, kernels/decoder_block.py),
-//    so one 1-D bulk copy fills a ring slot; no tensor map. Warpgroup wg of
-//    the two consumer warpgroups takes chunk rows wg*64..: a pass leaves it
-//    64 features x 64 rows, 32 accumulators a thread.
+//    W / 64 chunks), already swizzled (chunk_weight,
+//    kernels/decoder_block.py), so one 1-D bulk copy fills a ring slot; no
+//    tensor map. Warpgroup wg of the two consumer warpgroups takes chunk
+//    rows wg*64..: a pass leaves it 64 features x M rows, M / 2
+//    accumulators a thread.
 //  - The third warpgroup is the producer: its first thread keeps a 4-slot
 //    ring of chunks full under full / empty mbarriers, the same sequence
-//    in both CTAs of the cluster (w1's 32 chunks, then wv's, a unit); CTA
-//    q % 2 copies chunk q into both by .multicast::cluster. A consumer warpgroup waits
+//    in both CTAs of the cluster (w1's W^2 / 8192 chunks, then wv's, a
+//    unit); CTA q % 2 copies chunk q into both by .multicast::cluster. A
+//    consumer warpgroup waits
 //    for a chunk's full barrier, issues its 4 k16 wgmmas, and frees the
 //    slot of the previous chunk once that chunk's wgmma group is done, by a
 //    CTA-scope arrival on the slot's empty barrier in each CTA of the
@@ -724,18 +754,21 @@ extern "C" int siren_render_forward(
 //    features x rows); fence.proxy.async and a consumer barrier before
 //    wgmma reads either. The sdf and rgb heads, which reduce over features,
 //    are summed in registers over the passes, then over a warp's 8 feature
-//    lanes by a shuffle reduce-scatter, then over the 8 warps in order. The
-//    feat sums (w * feat over a ray's samples) are summed over a lane's two
-//    samples, then over the four lanes of the ray by a reduce-scatter, and
-//    carried in registers from unit to unit.
+//    lanes by a shuffle reduce-scatter (its last step an all-reduce at 16
+//    rows), then over the 8 warps in order. The feat sums (w * feat over a
+//    ray's samples) are summed over a lane's two samples, then over the
+//    four lanes of the ray by a reduce-scatter, and carried from unit to
+//    unit: in registers at 512, in feat itself past 512 (each value has one
+//    owning lane, which reads back what it wrote the unit before), where
+//    the passes are counted at run time and registers cannot be indexed.
 //  - Every sum keeps a fixed order, the same for every ray: two launches
 //    give the same bits, and a ray's outputs do not depend on which rays
 //    share its tile. The arithmetic and its rounding points are the other
 //    builds'.
-//  - A pass's epilogue runs in eight slices, one a ray, between the next
-//    pass's chunks while their wgmma groups run, so the f32 pipe works
-//    beside the tensor cores; the accumulators alternate between two sets
-//    by pass (64 registers a thread: setmaxnreg gives the consumer
+//  - A pass's epilogue runs in TR slices, one a ray, after each of the
+//    next pass's first TR chunks while their wgmma groups run, so the f32
+//    pipe works beside the tensor cores; the accumulators alternate between
+//    two sets by pass (M registers a thread: setmaxnreg gives the consumer
 //    warpgroups 232 a thread, the producer warpgroup 40). Layer 0, the last
 //    pass's epilogue, integration and the outputs run in turn between
 //    consumer barriers, the ring streaming meanwhile up to its 4 slots.
@@ -746,11 +779,14 @@ extern "C" int siren_render_forward(
 
 namespace {
 
-constexpr int W = 512;                     // SIREN width
+constexpr int W_MAX = K1_W;                // SIREN width: the build's widest
+// at 512 the width is the build's; the 1024 and 2048 builds read it at launch
+constexpr bool RUN_TIME_W = K1_W != 512;
 constexpr int FIXED_S = K1_FIXED_S;        // samples per ray; 0: the launch's
-constexpr int TR = 8;                      // rays a tile
+constexpr int TR = K1_W == 512 ? 8 : K1_W == 1024 ? 4 : 2;  // rays a tile
 constexpr int SC = 8;                      // samples a chunk of a ray
-constexpr int M = TR * SC;                 // 64 rows a unit: wgmma's N
+constexpr int M = TR * SC;                 // 64 / 32 / 16 rows a unit: wgmma's N
+constexpr int NACC = M / 2;                // accumulators a thread a pass
 constexpr int CONSUMERS = 256;             // two consumer warpgroups
 constexpr int NTHREADS = CONSUMERS + 128;  // and the producer warpgroup
 // registers a thread after setmaxnreg: the producer warpgroup gives the
@@ -761,13 +797,13 @@ static_assert(CONSUMERS * REGS_CONSUMER + 128 * REGS_PRODUCER <= NTHREADS * 168,
 constexpr int CHUNK_ROWS = 128;            // output features a chunk: a pass
 constexpr int CHUNK_K = 64;                // input features a chunk: 128-byte rows
 constexpr int CHUNK_BYTES = CHUNK_ROWS * CHUNK_K * 2;  // 16 KB
-constexpr int PASSES = W / CHUNK_ROWS;     // 4 passes a product
-constexpr int KCH = W / CHUNK_K;           // of 8 chunks each
-constexpr int PRODUCT_CHUNKS = PASSES * KCH;  // 32 chunks (512 KB) a weight
 constexpr int NS = 4;                      // ring slots
-constexpr int ACT_BLOCK = M * 128;         // 64 input features of the 64 rows: 8 KB
-constexpr int ACT_BYTES = KCH * ACT_BLOCK;  // a bf16 activation tile: 64 KB
-static_assert(KCH == TR, "a pass's epilogue runs in one slice a ray, one a chunk");
+constexpr int ACT_BLOCK = M * 128;         // 64 input features of the M rows
+constexpr int ACT_BYTES = W_MAX / CHUNK_K * ACT_BLOCK;  // a bf16 activation tile: 64 KB
+static_assert(K1_W == 512 || K1_W == 1024 || K1_W == 2048, "K1_W of the wide kernel");
+static_assert(ACT_BYTES == 65536 && ACT_BLOCK % 1024 == 0, "activation tiles");
+// the passes are unrolled two at a time at 512, where their count is known
+constexpr int PASS_UNROLL = RUN_TIME_W ? 1 : W_MAX / CHUNK_ROWS / 2;
 constexpr int SMEM_LIMIT = 232448;         // a block's shared memory on sm_90
 constexpr unsigned FULL = 0xffffffffu;
 #ifndef K1_WIDE_CLUSTER
@@ -779,7 +815,7 @@ static_assert(CLUSTER >= 1 && CLUSTER <= 8, "a portable cluster size");
 // Everything but the two activation tiles and the ring
 struct __align__(16) Small {
   unsigned long long full[NS], empty[NS];  // the ring's mbarriers
-  float vphase[TR * W];                    // per-ray view phase gv*vterm + bev
+  float vphase[TR * W_MAX];                // per-ray view phase gv*vterm + bev
   float part[8 * M * 3];                   // the consumer warps' head partials:
                                            // sdf [warp][row], rgb [warp][row][3]
   float pts[M * 3];
@@ -806,6 +842,8 @@ struct Params {
   float scale, sbeta;
   float *thumb, *feat, *xyz, *maskd, *sdf;
   int n_rays, n_samples;
+  int width;                               // the operands' (a multiple of 128)
+  int feat_width;                          // the caller's: feat's row stride
 };
 
 // Phases of the instrumented build (-DSIREN_PHASE_CLOCKS), by the names
@@ -943,9 +981,9 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // the accumulators are not read or written by other code around here
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+__device__ __forceinline__ void fence_acc(float (&d)[NACC]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 64, f32) += A (64 x 16) . B (64 x 16)^T, bf16, both from shared memory
@@ -962,6 +1000,36 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 32 / 64 x 16, f32) += A (64 x 16) . B (32 / 16 x 16)^T: the units past width 512
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x N) += A . B^T at N = 16, 32 or 64 (the build's M)
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b) {
+  if constexpr (N == 64) wgmma_n64(d, a, b);
+  else if constexpr (N == 32) wgmma_n32(d, a, b);
+  else wgmma_n16(d, a, b);
 }
 
 // four 8x8 bf16 matrices from the mma fragment layout, each stored
@@ -985,6 +1053,37 @@ __device__ __forceinline__ void reduce_half(float* x, int mask, bool upper) {
   }
 }
 
+// The consumer warp's head partials x of rows 8j + 2t + e at (2j + e) * K
+// + k (K head outputs) summed over its 8 feature lanes g (lane masks 16,
+// 8, 4): a reduce-scatter while a lane keeps two or more rows, the last
+// step at 16-row units an all-reduce, then the warp's sums into
+// part[warp][row][k]. Every row's sum takes the same tree of adds.
+template <int K>
+__device__ __forceinline__ void head_partials(float (&x)[2 * TR * K], float* part, int warp,
+                                              int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  reduce_half<TR * K>(x, 16, lane & 16);
+  reduce_half<TR * K / 2>(x, 8, lane & 8);
+  if constexpr (TR >= 4) {
+    reduce_half<TR * K / 4>(x, 4, lane & 4);
+#pragma unroll
+    for (int i = 0; i < TR / 4; ++i) {  // lane g keeps the rows v = g * TR / 4 + i
+      const int v = g * (TR / 4) + i;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        part[(warp * M + 8 * (v >> 1) + 2 * t + (v & 1)) * K + k] = x[i * K + k];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) x[k] = __fadd_rn(x[k], __shfl_xor_sync(FULL, x[k], 4));
+    if (!(lane & 4)) {  // lanes g and g + 1 hold row v = g / 2
+      const int v = g >> 1;
+#pragma unroll
+      for (int k = 0; k < K; ++k) part[(warp * M + 8 * (v >> 1) + 2 * t + (v & 1)) * K + k] = x[k];
+    }
+  }
+}
+
 __device__ __forceinline__ uint32_t pack_bits(float a, float b, float& ra, float& rb) {
   const __nv_bfloat162 p = pack_bf16(a, b, ra, rb);
   return *reinterpret_cast<const uint32_t*>(&p);
@@ -998,6 +1097,9 @@ __device__ __forceinline__ uint32_t act_offset(int row, int k) {
                   (k & 7) * 2);
 }
 
+// PAD: the caller's width (feat's row stride) is less than the operands'
+// (at 512; past it feat carries the sums at the caller's stride in either)
+template <bool PAD>
 __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Params P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -1014,6 +1116,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
   const int nch = (S + SC - 1) / SC;
   const int n_tiles = (P.n_rays + TR - 1) / TR;
   const int groups = (n_tiles + int(ncta) - 1) / int(ncta);  // a cluster's CL tiles
+  // the width, and the passes and chunks of a product: compile-time at 512
+  const int W = RUN_TIME_W ? P.width : W_MAX;
+  const int PASSES = W / CHUNK_ROWS, KCH = W / CHUNK_K;
+  const int PRODUCT_CHUNKS = PASSES * KCH;
 #ifdef SIREN_PHASE_CLOCKS
   unsigned long long wide_cyc[NWIDE_PHASES] = {};
   long long wmark = clock64();
@@ -1078,76 +1184,94 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
     auto release = [&](int s) {
       if (wi == 0 && lane < int(ncta)) mbar_arrive_cluster(s_empty + 8 * s, lane);
     };
-    // One product: the four passes, each the warpgroup's 64 features x 64
+    // One product: PASSES passes, each the warpgroup's 64 features x M
     // rows of act . W^T over its KCH chunks, each a full slot of the ring.
     // A chunk's slot is freed once its wgmma group is done (one group left
     // in flight); no barrier a chunk. The accumulators alternate between
-    // two sets by pass, and pass q's epilogue runs in KCH slices (ray j in
-    // slice j), one after each chunk of pass q + 1 is issued, while that
-    // chunk's wgmma group runs; the last pass's slices after the product.
-    // `slice(q, j, acc)` is the epilogue's slice.
+    // two sets by pass, and pass q's epilogue runs in TR slices (ray j in
+    // slice j), one after each of the first TR chunks of pass q + 1 is
+    // issued, while that chunk's wgmma group runs; the last pass's slices
+    // after the product. `slice(q, j, acc)` is the epilogue's slice.
     auto product = [&](uint64_t desc_b, bool view, auto&& slice) {
-      float acc[2][32];
+      float acc[2][NACC];
       int prev = -1;
-#pragma unroll
-      for (int p = 0; p < PASSES; ++p) {
-#pragma unroll
-        for (int k = 0; k < 32; ++k) acc[p & 1][k] = 0.f;
-#pragma unroll
-        for (int j = 0; j < KCH; ++j) {
-          mbar_wait(s_full + 8 * slot, phase);
+      // chunk j of the pass, into `cur`
+      auto chunk = [&](int j, float (&cur)[NACC]) {
+        mbar_wait(s_full + 8 * slot, phase);
 #ifdef SIREN_PHASE_CLOCKS
-          if (view) WIDE_MARK(WP_view_wait_full);
-          else WIDE_MARK(WP_layer1_wait_full);
+        if (view) WIDE_MARK(WP_view_wait_full);
+        else WIDE_MARK(WP_layer1_wait_full);
 #endif
 #ifdef K1_PLANT_RING_FAULT
-          // a planted fault for the card tests: read the slot after the
-          // one whose full barrier was waited on
-          const int rs = slot + 1 == NS ? 0 : slot + 1;
+        // a planted fault for the card tests: read the slot after the
+        // one whose full barrier was waited on
+        const int rs = slot + 1 == NS ? 0 : slot + 1;
 #else
-          const int rs = slot;
+        const int rs = slot;
 #endif
-          wgmma_fence();
+        wgmma_fence();
 #pragma unroll
-          for (int ks = 0; ks < CHUNK_K / 16; ++ks)
-            wgmma_n64(acc[p & 1], desc_a + ((rs * CHUNK_BYTES + ks * 32) >> 4),
-                      desc_b + ((j * ACT_BLOCK + ks * 32) >> 4));
-          wgmma_commit();
-          if (prev >= 0) {  // the previous chunk's products are done: free its slot
-            wgmma_wait<1>();
-            release(prev);
-          }
-          prev = slot;
-          if (++slot == NS) slot = 0, phase ^= 1;
+        for (int ks = 0; ks < CHUNK_K / 16; ++ks)
+          wgmma<M>(cur, desc_a + ((rs * CHUNK_BYTES + ks * 32) >> 4),
+                   desc_b + ((j * ACT_BLOCK + ks * 32) >> 4));
+        wgmma_commit();
+        if (prev >= 0) {  // the previous chunk's products are done: free its slot
+          wgmma_wait<1>();
+          release(prev);
+        }
+        prev = slot;
+        if (++slot == NS) slot = 0, phase ^= 1;
 #ifdef SIREN_PHASE_CLOCKS
-          if (view) WIDE_MARK(WP_view_wgmma);
-          else WIDE_MARK(WP_layer1_wgmma);
+        if (view) WIDE_MARK(WP_view_wgmma);
+        else WIDE_MARK(WP_layer1_wgmma);
 #endif
+      };
+      // pass p into `cur`, with the slices of pass p - 1 (in `last`)
+      auto pass = [&](int p, float (&cur)[NACC], float (&last)[NACC]) {
+#pragma unroll
+        for (int k = 0; k < NACC; ++k) cur[k] = 0.f;
+#pragma unroll
+        for (int j = 0; j < TR; ++j) {
+          chunk(j, cur);
           if (p > 0) {
-            if (j == 0) fence_acc(acc[(p - 1) & 1]);  // the last pass is done
-            slice(p - 1, j, acc[(p - 1) & 1]);
+            if (j == 0) fence_acc(last);  // the last pass is done
+            slice(p - 1, j, last);
 #ifdef SIREN_PHASE_CLOCKS
             if (view) WIDE_MARK(WP_view_epilogue_feat_rgb_head);
             else WIDE_MARK(WP_layer1_epilogue_sdf_head);
 #endif
           }
         }
+#pragma unroll 1
+        for (int j = TR; j < KCH; ++j) chunk(j, cur);
+      };
+#pragma unroll PASS_UNROLL
+      for (int p = 0; p < PASSES; p += 2) {
+        pass(p, acc[0], acc[1]);
+        if (p + 1 < PASSES) pass(p + 1, acc[1], acc[0]);
       }
       wgmma_wait<0>();
-      fence_acc(acc[(PASSES - 1) & 1]);
-      release(prev);
+      auto last_pass = [&](float (&last)[NACC]) {
+        fence_acc(last);
+        release(prev);
 #ifdef SIREN_PHASE_CLOCKS
-      if (view) WIDE_MARK(WP_view_wgmma);
-      else WIDE_MARK(WP_layer1_wgmma);
+        if (view) WIDE_MARK(WP_view_wgmma);
+        else WIDE_MARK(WP_layer1_wgmma);
 #endif
 #pragma unroll
-      for (int j = 0; j < KCH; ++j) slice(PASSES - 1, j, acc[(PASSES - 1) & 1]);
+        for (int j = 0; j < TR; ++j) slice(PASSES - 1, j, last);
+      };
+      if ((PASSES - 1) & 1)
+        last_pass(acc[1]);
+      else
+        last_pass(acc[0]);
     };
 
     // Accumulator i of a pass holds feature fa + 8 * ((i >> 1) & 1) (fa =
     // pass * 128 + wg * 64 + 16 * wi + g) of row 8 * (i >> 2) + 2 * t +
     // (i & 1): ray j = i >> 2 of the tile, its samples 2t and 2t + 1.
-    float fcar[PASSES][4];  // the feat sums a lane keeps, chunk to chunk
+    // the feat sums a lane keeps, chunk to chunk (at 512; past it in feat)
+    float fcar[RUN_TIME_W ? 1 : W_MAX / CHUNK_ROWS][TR / 2];
     for (int grp = int(cid); grp < groups; grp += int(ncl)) {
       const int ray0 = (grp * int(ncta) + int(rank)) * TR;  // past n_rays: every ray dead
       // one unit of the weight stream a chunk of SC samples
@@ -1188,9 +1312,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
         consumer_sync();
 
         // ---- layer 0 (K = 3) on the CUDA cores into h0: a thread takes 8
-        //      features (one 16-byte group) of every fourth row ----
-        {
-          const int n0 = 8 * (tid % 64);
+        //      features (one 16-byte group) of every RS-th row (RS = 4 at
+        //      width 512) ----
+        if (const int NG = W / 8, RS = CONSUMERS / NG; tid < NG * RS) {
+          const int n0 = 8 * (tid % NG);
           float lw[3][8], lg[8], lb[8];
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
@@ -1200,7 +1325,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
             lb[e] = __ldg(P.be0 + n0 + e);
           }
 #pragma unroll 1
-          for (int row = tid / 64; row < M; row += CONSUMERS / 64) {
+          for (int row = tid / NG; row < M; row += RS) {
             const float x0 = sm.xs[row * 3], x1 = sm.xs[row * 3 + 1], x2 = sm.xs[row * 3 + 2];
             uint32_t pk[4];
 #pragma unroll
@@ -1235,7 +1360,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
           // stmatrix: matrix m = lane / 8 of a store is rays j - 1 + m / 2,
           // features fa - g + 8 (m % 2); lane l gives row l % 8 of it
           const int m = lane >> 3;
-          product(desc_h0, false, [&](int q, int j, const float (&acc)[32]) {
+          product(desc_h0, false, [&](int q, int j, const float (&acc)[NACC]) {
             const int fa = q * CHUNK_ROWS + wg * 64 + 16 * wi + g;
             if (j == 0)
 #pragma unroll
@@ -1263,15 +1388,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
         }
         WIDE_MARK(WP_layer1_epilogue_sdf_head);
         fence_proxy_async();
-        // the sdf partials over the warp's 8 feature lanes g (a reduce-
-        // scatter: lane g keeps rows 8g + 2t + e), then the 8 warps' in order
-        {
-          reduce_half<8>(ps, 16, lane & 16);
-          reduce_half<4>(ps, 8, lane & 8);
-          reduce_half<2>(ps, 4, lane & 4);
-          sm.part[warp * M + 8 * g + 2 * t] = ps[0];
-          sm.part[warp * M + 8 * g + 2 * t + 1] = ps[1];
-        }
+        // the sdf partials over the warp's 8 feature lanes g, then the 8
+        // warps' in order
+        head_partials<1>(ps, sm.part, warp, lane);
         consumer_sync();  // h1 and the sdf partials are complete
         WIDE_MARK(WP_layer1_epilogue_sdf_head);
 
@@ -1340,15 +1459,32 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
         {
           float gvc[2], wr[2][3];  // the pass's constants at features fa, fa + 8
           float fs[2 * TR];  // w * feat over the lane's two samples, (ray j, u) at 2j + u
-          product(desc_h1, true, [&](int q, int j, const float (&acc)[32]) {
+          float fprev[TR / 2];  // past 512: the feat sums of the units before
+          // after the reduce-scatter below, lane t keeps (ray j, u) at v =
+          // t * TR / 2 + k = 2j + u: its feat value, and whether it is stored
+          auto feat_at = [&](int fa, int k, bool& mine) {
+            const int v = t * (TR / 2) + k, ray = ray0 + (v >> 1), n = fa + 8 * (v & 1);
+            mine = ray < P.n_rays && n < P.feat_width;
+            return P.feat + size_t(ray) * P.feat_width + n;
+          };
+          product(desc_h1, true, [&](int q, int j, const float (&acc)[NACC]) {
             const int fa = q * CHUNK_ROWS + wg * 64 + 16 * wi + g;
-            if (j == 0)
+            if (j == 0) {
 #pragma unroll
               for (int u = 0; u < 2; ++u) {
                 gvc[u] = __ldg(P.gv + fa + 8 * u);
 #pragma unroll
                 for (int k = 0; k < 3; ++k) wr[u][k] = bfr(__ldg(P.wrgb + (fa + 8 * u) * 3 + k));
               }
+              if constexpr (RUN_TIME_W) {
+#pragma unroll
+                for (int k = 0; k < TR / 2; ++k) {
+                  bool mine;
+                  const float* at = feat_at(fa, k, mine);
+                  fprev[k] = ch > 0 && mine ? *at : 0.f;
+                }
+              }
+            }
             const float w0r = sm.wgt[8 * j + 2 * t], w1r = sm.wgt[8 * j + 2 * t + 1];
             float b[2][2];  // [u][e]: the rgb head's bf16 operands
 #pragma unroll
@@ -1366,34 +1502,43 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
                 pr[(2 * j + e) * 3 + k] += b[0][e] * wr[0][k] + b[1][e] * wr[1][k];
             if (j == TR - 1) {
               // over the ray's 8 samples: the four lanes t (a reduce-
-              // scatter: lane t keeps rays 2t, 2t + 1), then chunk after chunk
-              reduce_half<8>(fs, 2, lane & 2);
-              reduce_half<4>(fs, 1, lane & 1);
+              // scatter), then chunk after chunk; stored in the caller's
+              // width (the padded units' columns go)
+              reduce_half<TR>(fs, 2, lane & 2);
+              reduce_half<TR / 2>(fs, 1, lane & 1);
 #pragma unroll
-              for (int k = 0; k < 4; ++k)
-                fcar[q][k] = ch == 0 ? fs[k] : __fadd_rn(fcar[q][k], fs[k]);
-              if (last)
-#pragma unroll
-                for (int k = 0; k < 4; ++k) {
-                  const int ray = ray0 + 2 * t + (k >> 1);
-                  if (ray < P.n_rays) P.feat[size_t(ray) * W + fa + 8 * (k & 1)] = fcar[q][k];
+              for (int k = 0; k < TR / 2; ++k) {
+                if constexpr (RUN_TIME_W) {
+                  bool mine;
+                  float* at = feat_at(fa, k, mine);
+                  const float f = ch == 0 ? fs[k] : __fadd_rn(fprev[k], fs[k]);
+                  if (mine) *at = f;
+                } else {
+                  fcar[q][k] = ch == 0 ? fs[k] : __fadd_rn(fcar[q][k], fs[k]);
                 }
+              }
+              if constexpr (!RUN_TIME_W) {
+                if (last) {
+#pragma unroll
+                  for (int k = 0; k < TR / 2; ++k) {
+                    if constexpr (PAD) {
+                      bool mine;
+                      float* at = feat_at(fa, k, mine);
+                      if (mine) *at = fcar[q][k];
+                    } else {
+                      const int ray = ray0 + 2 * t + (k >> 1);
+                      if (ray < P.n_rays) P.feat[size_t(ray) * W + fa + 8 * (k & 1)] = fcar[q][k];
+                    }
+                  }
+                }
+              }
             }
           });
         }
         WIDE_MARK(WP_view_epilogue_feat_rgb_head);
-        // the rgb partials over the warp's 8 feature lanes (lane g keeps
-        // rows 8g + 2t + e), then the 8 warps' in order
-        {
-          reduce_half<24>(pr, 16, lane & 16);
-          reduce_half<12>(pr, 8, lane & 8);
-          reduce_half<6>(pr, 4, lane & 4);
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-#pragma unroll
-            for (int k = 0; k < 3; ++k)
-              sm.part[(warp * M + 8 * g + 2 * t + e) * 3 + k] = pr[3 * e + k];
-        }
+        // the rgb partials over the warp's 8 feature lanes, then the 8
+        // warps' in order
+        head_partials<3>(pr, sm.part, warp, lane);
         consumer_sync();  // the rgb partials are complete
 
         // ---- w*sigmoid(rgb) for thumb, then thumb, one thread a (ray,
@@ -1432,6 +1577,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
 // every build loaded in the process.
 constexpr int MAX_DEVICES = 16;
 
+template <bool PAD>
 static int launch_wide(const Params& P, cudaStream_t stream) {
   static std::atomic<int> smem_set[MAX_DEVICES], clusters_at[MAX_DEVICES];
   int dev = 0;
@@ -1439,7 +1585,7 @@ static int launch_wide(const Params& P, cudaStream_t stream) {
   if (err != cudaSuccess) return int(err);
   if (dev >= MAX_DEVICES) return int(cudaErrorInvalidDevice);
   if (!smem_set[dev].load(std::memory_order_relaxed)) {
-    err = cudaFuncSetAttribute(siren_render_kernel_wide,
+    err = cudaFuncSetAttribute(siren_render_kernel_wide<PAD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (err != cudaSuccess) return int(err);
     smem_set[dev].store(1, std::memory_order_relaxed);
@@ -1458,8 +1604,8 @@ static int launch_wide(const Params& P, cudaStream_t stream) {
   cfg.numAttrs = 1;
   int clusters = clusters_at[dev].load(std::memory_order_relaxed);
   if (clusters == 0) {
-    if ((err = cudaOccupancyMaxActiveClusters(&clusters, siren_render_kernel_wide, &cfg)) !=
-        cudaSuccess)
+    if ((err = cudaOccupancyMaxActiveClusters(&clusters, siren_render_kernel_wide<PAD>,
+                                              &cfg)) != cudaSuccess)
       return int(err);
     if (clusters < 1) return int(cudaErrorLaunchOutOfResources);
     clusters_at[dev].store(clusters, std::memory_order_relaxed);
@@ -1467,7 +1613,7 @@ static int launch_wide(const Params& P, cudaStream_t stream) {
   const int n_tiles = (P.n_rays + TR - 1) / TR;
   const int groups = (n_tiles + CLUSTER - 1) / CLUSTER;
   cfg.gridDim = dim3((clusters < groups ? clusters : groups) * CLUSTER);
-  if ((err = cudaLaunchKernelEx(&cfg, siren_render_kernel_wide, P)) != cudaSuccess)
+  if ((err = cudaLaunchKernelEx(&cfg, siren_render_kernel_wide<PAD>, P)) != cudaSuccess)
     return int(err);
   return int(cudaGetLastError());
 }
@@ -1491,7 +1637,10 @@ extern "C" int siren_render_phase_cycles(unsigned long long* out, int* n, int re
 // The same C entry as the other builds; w1t and wvht are the weights in
 // swizzled chunks (kernels/siren_render.py: siren_prepare's w1c, wvhc).
 // `n_samples` is each ray's sample count: any count >= 1, or in a fixed
-// build that build's count (cudaErrorInvalidValue otherwise).
+// build that build's count; `width` the operands' width: 512 in that
+// build, a multiple of 128 past 512 up to K1_W in the others;
+// `feat_width` the caller's, feat's row stride, 1 to `width`
+// (cudaErrorInvalidValue otherwise).
 extern "C" int siren_render_forward(
     const float* pts, const float* viewdirs, const float* z_vals,
     const float* dnorm, const float* w0, const float* g0, const float* be0,
@@ -1499,14 +1648,21 @@ extern "C" int siren_render_forward(
     const float* wvv, const float* gv, const float* bev, const float* wsdf,
     const float* bsdf, const float* wrgb, const float* brgb, float scale,
     float sigmoid_beta, float* thumb, float* feat, float* xyz, float* maskd,
-    float* sdf, int n_rays, int n_samples, void* stream) {
-  if (n_samples < 1 || (FIXED_S > 0 && n_samples != FIXED_S))
+    float* sdf, int n_rays, int n_samples, int width, int feat_width, void* stream) {
+  const bool width_ok = RUN_TIME_W ? width > 512 && width <= W_MAX && width % CHUNK_ROWS == 0
+                                   : width == W_MAX;
+  if (n_samples < 1 || (FIXED_S > 0 && n_samples != FIXED_S) || !width_ok ||
+      feat_width < 1 || feat_width > width)
     return int(cudaErrorInvalidValue);
   const Params P{pts, viewdirs, z_vals, dnorm, w0, g0, be0,
                  static_cast<const unsigned char*>(w1t), g1, be1,
                  static_cast<const unsigned char*>(wvht), wvv, gv, bev, wsdf, bsdf, wrgb, brgb,
-                 scale, sigmoid_beta, thumb, feat, xyz, maskd, sdf, n_rays, n_samples};
-  return launch_wide(P, static_cast<cudaStream_t>(stream));
+                 scale, sigmoid_beta, thumb, feat, xyz, maskd, sdf, n_rays, n_samples, width,
+                 feat_width};
+  // past 512 the kernel takes feat's stride at run time in one instantiation
+  if (!RUN_TIME_W && feat_width < width)
+    return launch_wide<!RUN_TIME_W>(P, static_cast<cudaStream_t>(stream));
+  return launch_wide<false>(P, static_cast<cudaStream_t>(stream));
 }
 
 #endif  // K1_W

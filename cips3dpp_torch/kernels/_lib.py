@@ -66,7 +66,8 @@ def build(jobs) -> dict[str, str]:
     """Compile every missing library of `jobs`, pairs (name, defines), in
     parallel (one nvcc each). Returns {label: ptxas report} for the
     libraries built by this call, labelled by name and, after a space,
-    the defines of a variant."""
+    the defines of a variant; each report is also kept beside its library
+    (`ptxas_report`)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, defines in dict.fromkeys((n, tuple(d)) for n, d in jobs):
@@ -85,6 +86,7 @@ def build(jobs) -> dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"{label}:\n{log}")
             continue
+        out.with_suffix(".ptxas.txt").write_text(log)
         os.replace(tmp, out)
         reports[label] = log
     if failed:
@@ -95,6 +97,13 @@ def build(jobs) -> dict[str, str]:
 def build_all(names=SOURCES, defines=()) -> dict[str, str]:
     """`build` of every source in `names` with the extra flags `defines`."""
     return build((name, defines) for name in names)
+
+
+def ptxas_report(name: str, defines=()) -> str | None:
+    """The nvcc / ptxas output of the library's build (registers, spills
+    by entry), or None if it was not built here."""
+    path = _lib_path(name, defines).with_suffix(".ptxas.txt")
+    return path.read_text() if path.exists() else None
 
 
 def load(name: str, defines=()) -> ctypes.CDLL:

@@ -17,6 +17,7 @@ use the same degree-9 polynomial sin, so they agree to f32 summation order.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -91,23 +92,41 @@ def siren_prepare(renderer, styles, near, far):
     """Trajectory-invariant half: FiLM folds, f32 weights, the kernel's
     bf16 (out, in) copies of the two W x W weights, and the constants
     [2/(far-near), sigmoid_beta]. `renderer` is a VolumeFeatureRenderer
-    of depth 2. At width WIDE_WIDTH the two bf16 weights are also laid out
-    as the wide kernel streams them (`w1c`, `wvhc`: `chunk_weight`)."""
+    of depth 2. The folded operands are zero-padded to the width of the
+    build that renders this width (`kernel_build`; past the ceiling not at
+    all, the plain version taking any width): columns of w0, g*, be*, wvv,
+    rows and columns of w1 and wvh, rows of wsdf and wrgb. A padded unit
+    has g = 0 and beff = 0, so its phase is 0 and its sine exactly 0, and
+    it meets zero weight rows: the padding changes no output but the f32
+    order of the real terms' sums. `width` is the renderer's own; feat
+    comes out at it. At the wide kernel's widths (512 and up) the two bf16
+    weights are also laid out as it streams them (`w1c`, `wvhc`:
+    `chunk_weight`)."""
     from .decoder_block import chunk_weight
 
     weights = tuple(w.float().contiguous() for w in
                     _pack_siren_params(renderer.network, styles))
+    width = weights[3].shape[1]
+    build = kernel_build(width, 1)
+    kw = build.width if isinstance(build, K1Build) else width
+    if kw != width:
+        # (rows, columns) of zeros to add to each operand, in _pack order
+        grow = [(0, 1), (0, 1), (0, 1), (1, 1), (0, 1), (0, 1), (1, 1), (0, 1), (0, 1),
+                (0, 1), (1, 0), (0, 0), (1, 0), (0, 0)]
+        weights = tuple(torch.nn.functional.pad(w, (0, c * (kw - width), 0, r * (kw - width)))
+                        for w, (r, c) in zip(weights, grow))
     scale = (2.0 / (far - near)).reshape(()).float()
     sbeta = renderer.sigmoid_beta.reshape(()).float()
     prepared = {
         "weights": weights,
+        "width": width,
         # f32 values as Python floats: the kernel takes them by value
         "consts": (float(scale), float(sbeta)),
         # (out, in) bf16 for the tensor-core B operand
         "w1t": weights[3].t().contiguous().to(torch.bfloat16),
         "wvht": weights[6].t().contiguous().to(torch.bfloat16),
     }
-    if weights[3].shape[1] == WIDE_WIDTH:
+    if isinstance(build, K1Build) and kw == build.width >= WIDE_WIDTH:
         # 16 KB chunks of 128 output x 64 input features, pass by pass,
         # pre-swizzled: the wgmma A operand, one bulk copy a chunk
         prepared["w1c"] = chunk_weight(prepared["w1t"])
@@ -139,53 +158,78 @@ def siren_render_plain(prepared, pts, viewdirs, z_vals, dnorm):
     vis = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=1)
     w = (alpha * vis)[..., None]  # (R,S,1)
     thumb = -1.0 + 2.0 * torch.sum(w * torch.sigmoid(rgb), dim=1)
-    feat = torch.sum(w * feats, dim=1)
+    feat = torch.sum(w * feats, dim=1)[:, :prepared["width"]]  # the padded units' go
     xyz = torch.sum(w * pts, dim=1)
     depth = -torch.sqrt(torch.sum(xyz * xyz, dim=-1, keepdim=True))
     maskd = torch.cat([w[:, -1], depth], dim=-1)
     return thumb, feat, sdf[..., None], maskd, xyz
 
 
-# The geometries K1 renders on the card: a depth-2 SDF SIREN of one of these
-# widths with 1 to KERNEL_MAX_SAMPLES samples a ray. csrc/siren_render.cu is
-# built once a width (the sample count taken at launch) and once more for
-# the serving geometry, whose build fixes the sample count at compile time.
-KERNEL_WIDTHS = (32, 64, 128, 256, 512)
-KERNEL_MAX_SAMPLES = 64
-SERVING_GEOMETRY = (256, 24)
-# the width whose build is siren_render_kernel_wide (wgmma on a weight
-# streamed in swizzled chunks; csrc/siren_render.cu)
+# The geometries K1 renders on the card: a depth-2 SDF SIREN of any width
+# from 1 to MAX_WIDTH with any sample count >= 1. csrc/siren_render.cu is
+# built once a width build (the sample count taken at launch) and once more
+# for the serving geometry, whose build fixes the sample count at compile
+# time. A width runs at the next width a build takes, its operands
+# zero-padded by siren_prepare: 32, 64, 128 or 256 (the mma.sync template),
+# 512 (siren_render_kernel_wide, its width fixed at compile time), and past
+# 512 the next multiple of 128 in the wide kernel's run-time-width builds
+# (-DK1_W=1024: 32-row units of 4 rays x 8 samples; -DK1_W=2048: 16-row
+# units of 2 rays, so the two bf16 activation tiles stay at 128 KB).
+NARROW_WIDTHS = (32, 64, 128, 256)
 WIDE_WIDTH = 512
+RUNTIME_WIDE_BUILDS = (1024, 2048)
+MAX_WIDTH = RUNTIME_WIDE_BUILDS[-1]
+BUILD_WIDTHS = NARROW_WIDTHS + (WIDE_WIDTH,) + RUNTIME_WIDE_BUILDS
+SERVING_GEOMETRY = (256, 24)
+
+
+class K1Build(NamedTuple):
+    width: int  # the width the kernel runs at: the operands padded to it
+    defines: tuple[str, ...]  # the nvcc flags of its library
+
+
+def kernel_build(width: int, n_samples: int) -> K1Build | str:
+    """The K1 build that renders a depth-2 SDF SIREN of `width` with
+    `n_samples` samples a ray on the card, or why none does (a width past
+    MAX_WIDTH, the ceiling)."""
+    if width < 1 or n_samples < 1:
+        return (f"the renderer has width {width} and {n_samples} samples, K1 takes widths "
+                f"1 to {MAX_WIDTH} and 1 or more samples")
+    if width > MAX_WIDTH:
+        return (f"the renderer has width {width}, K1 takes widths 1 to {MAX_WIDTH}: its "
+                f"widest build keeps two bf16 activation tiles of 16 rows x {MAX_WIDTH} "
+                f"features in 128 KB of shared memory")
+    if width <= WIDE_WIDTH:
+        kw = build = next(w for w in BUILD_WIDTHS if w >= width)
+    else:
+        kw = -(-width // 128) * 128
+        build = next(w for w in RUNTIME_WIDE_BUILDS if w >= kw)
+    if (kw, n_samples) == SERVING_GEOMETRY:
+        return K1Build(kw, ())
+    return K1Build(kw, (f"-DK1_W={build}", "-DK1_FIXED_S=0"))
 
 
 def kernel_defines(width: int, n_samples: int) -> tuple[str, ...]:
-    """The nvcc flags of the K1 library that renders `width` x `n_samples`:
-    none for the serving geometry, else the width's build, which takes any
-    sample count."""
-    if (width, n_samples) == SERVING_GEOMETRY:
-        return ()
-    return (f"-DK1_W={width}", "-DK1_FIXED_S=0")
+    """The nvcc flags of the K1 library that renders `width` x
+    `n_samples` (`kernel_build`); raises past the ceiling."""
+    build = kernel_build(width, n_samples)
+    if isinstance(build, str):
+        raise ValueError(f"siren_render kernel: {build}")
+    return build.defines
 
 
 def kernel_builds() -> list[tuple[str, tuple[str, ...]]]:
     """(source, defines) of every K1 library, for `_lib.build`."""
-    return [("siren_render", ())] + [("siren_render", kernel_defines(w, 0))
-                                     for w in KERNEL_WIDTHS]
-
-
-def _geometry_refusal(width: int, n_samples: int) -> str | None:
-    if width in KERNEL_WIDTHS and 1 <= n_samples <= KERNEL_MAX_SAMPLES:
-        return None
-    return (f"the renderer has width {width} and {n_samples} samples, K1 takes widths "
-            f"{', '.join(map(str, KERNEL_WIDTHS))} and 1 to {KERNEL_MAX_SAMPLES} samples")
+    return [("siren_render", ())] + [("siren_render", kernel_defines(w, 1))
+                                     for w in BUILD_WIDTHS]
 
 
 def kernel_route_refusal(depth: int, width: int, n_samples: int, with_sdf: bool,
                          device) -> str | None:
     """Why a renderer of this geometry cannot render through K1 on
     `device`, or None if it can. K1 renders a depth-2 SDF SIREN; on the
-    card its kernel takes the widths KERNEL_WIDTHS and 1 to
-    KERNEL_MAX_SAMPLES samples, on the CPU its plain version takes any.
+    card its kernel takes widths 1 to MAX_WIDTH and any sample count
+    (`kernel_build`), on the CPU its plain version takes any.
     The training steps decide their route with it once, from the
     configuration (the JAX package's gate,
     cips3dpp_tpu/models/renderer.py:86-90)."""
@@ -194,7 +238,8 @@ def kernel_route_refusal(depth: int, width: int, n_samples: int, with_sdf: bool,
     if depth != 2:
         return f"the renderer has depth {depth}, K1 renders depth 2"
     if torch.device(device).type == "cuda":
-        return _geometry_refusal(width, n_samples)
+        build = kernel_build(width, n_samples)
+        return build if isinstance(build, str) else None
     return None
 
 
@@ -214,33 +259,34 @@ def default_kernel_route(depth: int, width: int, n_samples: int, with_sdf: bool,
 
 def _launch(prepared, pts, viewdirs, z_vals, dnorm, defines=()):
     """The kernel on the card, from the library of the geometry's build;
-    `defines` selects an instrumented build of it (`_lib.load`)."""
+    `defines` selects an instrumented build of it (`_lib.load`). The
+    operands are at the build's width; feat comes out at the renderer's."""
     dev = pts.device
     r, s, _ = pts.shape
     weights = prepared["weights"]
-    width = weights[3].shape[1]
-    why = _geometry_refusal(width, s)
-    if why is not None:
-        raise ValueError(f"siren_render kernel: {why}")
+    width = prepared["width"]
+    build = kernel_build(width, s)
+    if isinstance(build, str):
+        raise ValueError(f"siren_render kernel: {build}")
+    kw = build.width
     f32 = torch.float32
     _lib.check(pts, "pts", (r, s, 3), f32, dev)
     _lib.check(viewdirs, "viewdirs", (r, 3), f32, dev)
     _lib.check(z_vals, "z_vals", (r, s), f32, dev)
     _lib.check(dnorm, "dnorm", (r, 1), f32, dev)
-    shapes = [(3, width), (1, width), (1, width), (width, width), (1, width),
-              (1, width), (width, width), (3, width), (1, width), (1, width),
-              (width, 1), (1, 1), (width, 3), (1, 3)]
+    shapes = [(3, kw), (1, kw), (1, kw), (kw, kw), (1, kw), (1, kw), (kw, kw), (3, kw),
+              (1, kw), (1, kw), (kw, 1), (1, 1), (kw, 3), (1, 3)]
     for i, (wt, shp) in enumerate(zip(weights, shapes)):
         _lib.check(wt, f"weights[{i}]", shp, f32, dev)
     bf16 = torch.bfloat16
-    if width == WIDE_WIDTH:  # the wide kernel reads the chunked layout
+    if kw >= WIDE_WIDTH:  # the wide kernel reads the chunked layout
         w1, wvh = prepared["w1c"], prepared["wvhc"]
-        _lib.check(w1, "w1c", (width * width,), bf16, dev)
-        _lib.check(wvh, "wvhc", (width * width,), bf16, dev)
+        _lib.check(w1, "w1c", (kw * kw,), bf16, dev)
+        _lib.check(wvh, "wvhc", (kw * kw,), bf16, dev)
     else:
         w1, wvh = prepared["w1t"], prepared["wvht"]
-        _lib.check(w1, "w1t", (width, width), bf16, dev)
-        _lib.check(wvh, "wvht", (width, width), bf16, dev)
+        _lib.check(w1, "w1t", (kw, kw), bf16, dev)
+        _lib.check(wvh, "wvht", (kw, kw), bf16, dev)
 
     thumb = torch.empty((r, 3), dtype=f32, device=dev)
     feat = torch.empty((r, width), dtype=f32, device=dev)
@@ -249,11 +295,11 @@ def _launch(prepared, pts, viewdirs, z_vals, dnorm, defines=()):
     sdf = torch.empty((r, s), dtype=f32, device=dev)
     if r == 0:
         return thumb, feat, sdf[..., None], maskd, xyz
-    lib = _lib.load("siren_render", kernel_defines(width, s) + tuple(defines))
+    lib = _lib.load("siren_render", build.defines + tuple(defines))
     fn = lib.siren_render_forward
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_float] * 2 + \
-        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     (w0, g0, be0, _, g1, be1, _, wvv, gv, bev,
      wsdf, bsdf, wrgb, brgb) = weights
     scale, sbeta = prepared["consts"]
@@ -265,7 +311,7 @@ def _launch(prepared, pts, viewdirs, z_vals, dnorm, defines=()):
         p(wsdf), p(bsdf), p(wrgb), p(brgb),
         scale, sbeta,
         p(thumb), p(feat), p(xyz), p(maskd), p(sdf),
-        r, s, _lib.stream_ptr(dev),
+        r, s, kw, width, _lib.stream_ptr(dev),
     )
     _lib.raise_on_error(code, "siren_render")
     _lib.LAUNCHES["siren_render"] += 1

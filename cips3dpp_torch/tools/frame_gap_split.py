@@ -80,6 +80,24 @@ def k1_sums_reordered(step: int = 16):
         ksr._bdot = saved
 
 
+def k1_bounds(tol: dict, prepared, pts, viewdirs, z_vals, dnorm) -> dict:
+    """K1's bounds against its plain version by output (keys of `tol`, in
+    the order the render returns them): `tol` up to width 512; past it,
+    where the products sum over 640 to 2048 features and the bf16 flips of
+    any change of f32 order grow with them, the larger of `tol` and 1.5x
+    the plain version's own spread under another sum order of its
+    products (`k1_sums_reordered`) on the same inputs."""
+    from ..kernels import siren_render as ksr
+
+    if ksr.kernel_build(prepared["width"], pts.shape[1]).width <= ksr.WIDE_WIDTH:
+        return dict(tol)
+    want = ksr.siren_render_plain(prepared, pts, viewdirs, z_vals, dnorm)
+    with k1_sums_reordered():
+        other = ksr.siren_render_plain(prepared, pts, viewdirs, z_vals, dnorm)
+    spread = {k: float((a - b).abs().max()) for k, a, b in zip(tol, want, other)}
+    return {k: max(tol[k], 1.5 * spread[k]) for k in tol}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--multipliers", type=int, nargs="+", default=[1, 2, 4])

@@ -4,17 +4,19 @@
         [--rays 4096] [--root DIR] [--label L] [--cluster 1 2 4]
 
 Each geometry WxS is a seeded depth-2 SDF renderer of width W (the model's
-init) over R rays x S samples of random points; its K1 library (the
-serving build at 256x24, else the width's build: `kernel_defines`) is
-timed by the profiler's device time over 50 launches (`_lib.device_ms`).
+init) over R rays x S samples of random points, any width and sample
+count K1 takes; its K1 library (the serving build at 256x24, else the
+build the width runs in, padded: `kernel_defines`) is timed by the
+profiler's device time over 50 launches (`_lib.device_ms`).
 `--root` times the package under another checkout instead of this one
 (its kernels built from its own sources there), so two versions compare
 in one call on one card: run parent, change, change, parent. `--cluster`
-times the width-512 build once at each cluster size given, each in a
-library of its own built with -DK1_WIDE_CLUSTER=n, the keys then ending
-in " CL=n". Prints one JSON line: the label, the package's path, the
-card's name, {"WxS": ms} and each library's registers and spills as
-ptxas reports them when this call builds it.
+times each geometry past width 256 (the wide kernel's builds) once at
+each cluster size given, each in a library of its own built with
+-DK1_WIDE_CLUSTER=n, the keys then ending in " CL=n". Prints one JSON
+line: the label, the package's path, the card's name, {"WxS": ms} and
+each library's registers and spills as ptxas reports them when this call
+builds it.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=None, help="a checkout whose package is timed")
     ap.add_argument("--label", default="")
     ap.add_argument("--cluster", type=int, nargs="+", default=None,
-                    help="cluster sizes of the width-512 build to time")
+                    help="cluster sizes of the wide kernel's builds to time")
     args = ap.parse_args(argv)
     if args.root is not None:
         root = os.path.abspath(args.root)
@@ -52,7 +54,7 @@ def main(argv=None) -> int:
     geos = [tuple(int(v) for v in spec.split("x")) for spec in args.geometries]
     jobs = {}
     for w, s in geos:
-        for cl in (args.cluster if args.cluster and w == 512 else (None,)):
+        for cl in (args.cluster if args.cluster and w > 256 else (None,)):
             extra = () if cl is None else (f"-DK1_WIDE_CLUSTER={cl}",)
             jobs[(w, s, cl)] = ksr.kernel_defines(w, s) + extra
     reports = _lib.build([("siren_render", d) for d in jobs.values()])

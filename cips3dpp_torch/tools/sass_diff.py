@@ -25,12 +25,16 @@ import subprocess
 
 def parse_sass(text: str) -> dict[str, list[str]]:
     """{entry function: its instructions} from `cuobjdump -sass` output,
-    each instruction line without its address comment."""
+    each instruction line without its address comment. An entry in an
+    anonymous namespace is named without the two hashes of its source
+    file's contents that its mangled name carries, so it pairs with the
+    same entry of an edited source."""
     funcs, name = {}, None
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            name = m.group(1)
+            name = re.sub(r"(_GLOBAL__N__)[0-9a-f]{8}(_\d+_\w+?_cu_)[0-9a-f]{8}", r"\1\2",
+                          m.group(1))
             funcs[name] = []
         elif name is not None and "/*" in line:
             ins = re.sub(r"\s+", " ", re.sub(r"/\*[0-9a-fx]+\*/", "", line)).strip()

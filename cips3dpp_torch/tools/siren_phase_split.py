@@ -6,11 +6,12 @@
 Builds the K1 library of the geometry (`kernel_defines`) a second time
 with -DSIREN_PHASE_CLOCKS and runs it on a seeded renderer of `--width`
 over R rays x `--samples` samples (default: the serving shape, 4096 x 24
-at width 256). Up to width 256, thread 0 of each block adds the SM clock
+at width 256); any width K1 takes runs in its build, padded
+(`kernel_build`). Up to width 256, thread 0 of each block adds the SM clock
 cycles of each phase of a tile (constants, inputs, layer 0, layer 1
 product, its epilogue, sigma and alpha, transmittance, view product, view
 epilogue, feat output, thumb) to a counter; each mark follows a block
-barrier, some of them added by the instrumentation. At width 512
+barrier, some of them added by the instrumentation. Past 256
 (siren_render_kernel_wide) every warp counts its own cycles by phase and
 no barrier is added: the producer's waits for an empty ring slot, the
 consumers' inputs and layer 0, and for each product the waits for a full
@@ -43,8 +44,8 @@ WIDE_PHASES = ("producer_wait_empty", "inputs_layer0", "layer1_wait_full", "laye
 
 
 def phases(width: int) -> tuple[str, ...]:
-    """The phase names of the K1 build of `width`."""
-    return WIDE_PHASES if width == ksr.WIDE_WIDTH else PHASES
+    """The phase names of the K1 build that renders `width`."""
+    return WIDE_PHASES if ksr.kernel_build(width, 1).width >= ksr.WIDE_WIDTH else PHASES
 
 
 def render_inputs(rays: int, device: torch.device, width: int = 256, samples: int = 24,
@@ -114,9 +115,12 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rays", type=int, default=4096)
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--width", type=int, default=256, choices=ksr.KERNEL_WIDTHS)
+    ap.add_argument("--width", type=int, default=256,
+                    help=f"1 to {ksr.MAX_WIDTH}: K1's widths (kernel_build)")
     ap.add_argument("--samples", type=int, default=24)
     args = ap.parse_args(argv)
+    if not 1 <= args.width <= ksr.MAX_WIDTH:
+        ap.error(f"--width {args.width}: K1 takes widths 1 to {ksr.MAX_WIDTH}")
     with torch.inference_mode():
         print(json.dumps(measure(args.rays, args.iters, torch.device("cuda", 0), args.width,
                                  args.samples)))

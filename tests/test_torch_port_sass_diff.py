@@ -32,3 +32,13 @@ def test_compare_counts_differing_lines_of_common_entries():
     assert compare(a, parse_sass(moved)) == {"_Z1fv": 0, "_Z1gv": 0}
     assert compare(a, parse_sass(changed)) == {"_Z1fv": 1, "_Z1gv": 0}
     assert compare(a, parse_sass(changed), match="1f") == {"_Z1fv": 1}
+
+
+def test_anonymous_namespace_entries_pair_across_edited_sources():
+    """nvcc names an anonymous namespace by hashes of its file's contents:
+    the same kernel of an edited source pairs with the parent's."""
+    old = DUMP.replace("_Z1gv", "_ZN48_GLOBAL__N__0d9ccce3_15_siren_render_cu_7487e3a84kernEv")
+    new = DUMP.replace("_Z1gv", "_ZN48_GLOBAL__N__1a2b3c4d_15_siren_render_cu_deadbeef4kernEv")
+    a, b = parse_sass(old), parse_sass(new)
+    assert list(a) == list(b) == ["_Z1fv", "_ZN48_GLOBAL__N___15_siren_render_cu_4kernEv"]
+    assert compare(a, b) == {"_Z1fv": 0, "_ZN48_GLOBAL__N___15_siren_render_cu_4kernEv": 0}

@@ -22,15 +22,15 @@ def test_phase_names_match_the_kernel_marks():
 
 
 def test_wide_phase_names_match_the_kernel_marks():
-    """The width-512 kernel's phases: its enum names them in the tool's
-    order, and each is marked somewhere in the kernel."""
+    """The wide kernel's phases (every width past 256): its enum names
+    them in the tool's order, and each is marked somewhere in the kernel."""
     src = (_lib.CSRC / "siren_render.cu").read_text()
     enum = re.search(r"enum WidePhase \{(.*?)NWIDE_PHASES", src, re.S).group(1)
     assert tuple(re.findall(r"WP_(\w+),", enum)) == WIDE_PHASES
     marked = set(re.findall(r"WIDE_MARK\(WP_(\w+)\);", src))
     assert marked == set(WIDE_PHASES)
-    assert phases(ksr.WIDE_WIDTH) == WIDE_PHASES
-    assert all(phases(w) == PHASES for w in ksr.KERNEL_WIDTHS if w != ksr.WIDE_WIDTH)
+    assert all(phases(w) == WIDE_PHASES for w in (257, 512, 640, 1024, 2048))
+    assert all(phases(w) == PHASES for w in ksr.NARROW_WIDTHS + (8, 96, 200))
 
 
 def test_instrumented_build_is_a_separate_library():
