@@ -218,18 +218,20 @@ Phases, each fatal on failure:
  19. K1 at every width and sample count JAX's kernel takes, in a child
      process of its own after phase 18's: (a) K1 at 4096 rays over (W, S)
      = (96, 24), (200, 48), (384, 24) (run zero-padded at 128, 256, 512),
-     (640, 24), (1024, 24), (2048, 24) (the run-time-width builds), (256,
+     (640, 24), (1024, 24), (2048, 24), (2176, 24), (3000, 24) (at 3072)
+     and (4096, 24) (the run-time-width build, no width ceiling), (256,
      96), (256, 256), (1024, 128) and (512, 72) (past 64 samples) against
      its plain version on the same operands (K1_TOL; past width 512 the
      larger of it and 1.5x the plain version's own spread under another
      sum order), twice bit-equal, with device ms, plain ms, the bound of
-     the unpadded work and the build's registers and spills; (b)
-     preset_serving frames at renderer.hidden_dim 1024 and at hidden_dim
-     96 with 96 samples (1 K1 + 4 K2 a frame, gated as 17's, ms a frame,
-     the frame's device time by kernel group); (c) train_r1024 at
-     hidden_dim 1024, batch 4: a D step with lazy R1 (K1 = batch) and a G
-     step with fused_renderer_g (K1's forward under autograd, K1 =
-     batch), losses finite.
+     the unpadded work, the rows a unit, the bytes into the SMs and the
+     build's registers, spills and any C7514; (b) preset_serving frames
+     at renderer.hidden_dim 1024 and 4096 and at hidden_dim 96 with 96
+     samples (1 K1 + 4 K2 a frame, gated as 17's, ms a frame, the frame's
+     device time by kernel group); (c) train_r1024 at hidden_dim 1024,
+     batch 4: a D step with lazy R1 (K1 = batch) and a G step with
+     fused_renderer_g (K1's forward under autograd, K1 = batch), and at
+     hidden_dim 4096 the D step, its default route K1; losses finite.
 Each path that launches kernels runs with the launch counts set to 0
 just before it and read just after. A kernel's "ms" is its device time a
 launch (torch.profiler), beside the time a call takes back to back (CUDA
@@ -2873,16 +2875,19 @@ def k1_case(dev, smi, width, s, seed, regs, tag):
     bound_ms, by = bound(*k1_work(GRID_RAYS, s, width))
     build = ksr.kernel_build(width, s)
     label = " ".join(("siren_render", *build.defines))
+    rows, units, intake = k1_intake(width, s, GRID_RAYS)
     log(f"{tag} K1 W={width} (run at {build.width}) S={s} R={GRID_RAYS}: {ms:.4f} ms kernel "
         f"({call_ms:.4f} a call), {plain_ms:.3f} ms plain, bound {bound_ms:.4f} ms ({by}, the "
         f"unpadded work), {ms / bound_ms:.2f}x the bound; max |kernel - plain| "
         f"{ {k: f'{e:.2e}' for k, e in errs.items()} } (bounds "
-        f"{ {k: f'{b:.1e}' for k, b in tol.items()} }), twice bit-equal; build `{label}`: "
-        f"{regs.get(label)}; {smi}")
+        f"{ {k: f'{b:.1e}' for k, b in tol.items()} }), twice bit-equal; {rows} rows a unit, "
+        f"{units} units, {intake / 1e9:.2f} GB of weights and staged activations into the SMs "
+        f"({intake / ms / 1e9:.2f} TB/s); build `{label}`: {regs.get(label)}; {smi}")
     return {"width": width, "samples": s, "rays": GRID_RAYS, "kernel_width": build.width,
             "errs": errs, "bounds": tol, "err": max(errs.values()), "ms": ms,
             "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "build": label, "ptxas": regs.get(label)}
+            "build": label, "ptxas": regs.get(label), "unit_rows": rows, "units": units,
+            "intake_bytes": intake}
 
 
 def k1_grid_phase(dev, smi, ptxas):
@@ -3547,19 +3552,36 @@ def padded_multipliers_phase(dev, smi):
 
 # Phase 19's K1 geometries (W, S), each at 4096 rays: widths no build has
 # as its own (96, 200, 384: run zero-padded at 128, 256, 512), the
-# run-time-width builds (640, 1024: 32-row units; 2048: 16-row units),
-# sample counts past 64 (96, 256 and 128 at 1024: whole 24- and 8-sample
-# chunks, many of them) and 72 at 512 (nine 8-sample units)
+# run-time-width build (64-row units at every width past 512: 640, 1024,
+# 2048, and past 2048 2176, 3000 at 3072 and 4096), sample counts past 64
+# (96, 256 and 128 at 1024: whole 24- and 8-sample chunks, many of them)
+# and 72 at 512 (nine 8-sample units)
 K1_WIDE_GEOMETRIES = [(96, 24), (200, 48), (384, 24), (640, 24), (1024, 24), (2048, 24),
-                      (256, 96), (256, 256), (1024, 128), (512, 72)]
+                      (256, 96), (256, 256), (1024, 128), (512, 72), (2176, 24), (3000, 24),
+                      (4096, 24)]
 
 
 def k1_ptxas(reports):
-    """{K1 library label: its registers and spill lines} from _lib.build's
-    ptxas reports."""
+    """{K1 library label: its registers and spill lines, and any line of
+    ptxas serializing wgmma (C7514)} from _lib.build's ptxas reports."""
     return {label: [ln.split(":", 1)[-1].strip() for ln in rep.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln or "C7514" in ln]
             for label, rep in reports.items() if label.startswith("siren_render")}
+
+
+def k1_intake(width, s, r):
+    """(rows a unit, units, bytes into the SMs a launch) of K1 at `width` x
+    s samples x r rays, in the build that renders it: up to width 256 a
+    unit is 8 rays x 24 samples and takes in both bf16 weights; from 512
+    8 rays x 8 samples, and past 512 also its h0 and h1 from the scratch,
+    each read once a pass of its product (2 W^2 bytes a unit in all)."""
+    from cips3dpp_torch.kernels import siren_render as ksr
+
+    kw = ksr.kernel_build(width, s).width
+    rays, samples = 8, (24 if kw < ksr.WIDE_WIDTH else 8)
+    units = -(-r // rays) * -(-s // samples)
+    per_unit = 4 * kw * kw + (2 * kw * kw if kw > ksr.WIDE_WIDTH else 0)
+    return rays * samples, units, units * per_unit
 
 
 def k1_geometries_phase(dev, smi):
@@ -3570,9 +3592,11 @@ def k1_geometries_phase(dev, smi):
     larger of it and 1.5x the plain version's own spread under another
     sum order of its products: frame_gap_split.k1_bounds), twice bit-equal,
     with device ms, plain ms, the bound of the unpadded work (k1_work at
-    the renderer's width) and the build's registers and spills; (b)
-    preset_serving frames with renderer.hidden_dim 1024 (24 samples) and
-    with hidden_dim 96 and n_samples 96, through prepare_trajectory /
+    the renderer's width), the rows a unit, the bytes into the SMs
+    (k1_intake) and the build's registers, spills and any wgmma
+    serialization (C7514); (b) preset_serving frames with
+    renderer.hidden_dim 1024 and 4096 (24 samples) and with hidden_dim 96
+    and n_samples 96, through prepare_trajectory /
     render_frame (serve_multiplier: 1 K1 + 4 K2 a frame, K2's part at phase
     5's bounds, the whole frame at 1.5x the plain path's own spread under
     another GEMM order or another sum order of K1's products, the same
@@ -3581,7 +3605,9 @@ def k1_geometries_phase(dev, smi):
     training runs: a D step with lazy R1 whose default route renders the
     fakes through K1 (K1 = batch), and a G step with fused_renderer_g whose
     render runs K1's forward under autograd (SirenRender, K1 = batch), the
-    renderer's parameters moved; losses finite, each step timed."""
+    renderer's parameters moved; and the D step at hidden_dim 4096, past
+    the width 2048 that was once K1's ceiling, its default route K1 too;
+    losses finite, each step timed."""
     from cips3dpp_torch.io.config import (
         generator_config_from_dict, load_command_config, train_config_from_dict,
     )
@@ -3607,9 +3633,9 @@ def k1_geometries_phase(dev, smi):
         torch.cuda.empty_cache()
     res["grid_s"] = time.perf_counter() - t0
 
-    # ---- b. frames at hidden_dim 1024, and at 96 with 96 samples ----
+    # ---- b. frames at hidden_dim 1024 and 4096, and at 96 with 96 samples ----
     base = preset_serving()
-    for width, s in ((1024, 24), (96, 96)):
+    for width, s in ((1024, 24), (4096, 24), (96, 96)):
         cfg = dataclasses.replace(base, n_samples=s,
                                   renderer=dataclasses.replace(base.renderer, hidden_dim=width))
         res[f"serving_w{width}_s{s}"], got = serve_multiplier(
@@ -3618,45 +3644,50 @@ def k1_geometries_phase(dev, smi):
         add_launches(launches, got)
         torch.cuda.empty_cache()
 
-    # ---- c. training steps at hidden_dim 1024 ----
+    # ---- c. training steps at hidden_dim 1024 (D and G) and 4096 (D) ----
     t0 = time.perf_counter()
+    res["steps_w1024"], res["steps_w4096"] = {}, {}
     with torch.inference_mode(False), torch.enable_grad():
         tcfg_all = load_command_config(os.path.join(ROOT, "configs", "ffhq.yaml"), "train_r1024")
-        gcfg = generator_config_from_dict(tcfg_all.get("G_cfg", {}))
-        gcfg = dataclasses.replace(gcfg, renderer=dataclasses.replace(gcfg.renderer,
-                                                                      hidden_dim=1024))
-        tcfg = dataclasses.replace(train_config_from_dict(tcfg_all), fused_renderer_g=True)
-        b = tcfg.batch
-        g = Generator(gcfg, device=dev, seed=SEED + 320)
-        d = DStyleGANProgressive(1024, 2, device=dev, seed=SEED + 321)
-        d_render = DVolumeRenderProgressive(1024, device=dev, seed=SEED + 322)
-        state = create_train_state(tcfg, g, d, d_render)
-        d_step, g_step = make_train_steps(gcfg, tcfg)[:2]
-        gen = torch.Generator(device=dev).manual_seed(SEED + 323)
-        real = torch.rand((b, 1024, 1024, 3), generator=gen, device=dev) * 2 - 1
-        steps = {}
-        for name, fn in (("D step with lazy R1", lambda: d_step(state, real, gen, 0.5, True)[1]),
-                         ("G step, fused_renderer_g", lambda: g_step(state, gen, 0.5)[1])):
-            before = [p.detach().clone() for p in state.g.renderer.parameters()]
-            with counted(f"19c train_r1024 at hidden_dim 1024, {name}",
-                         {"siren_render": b}) as got:
-                metrics, ms, peak = _timed_call(fn)
-            add_launches(launches, got)
-            moved = sum(not torch.equal(p, q) for p, q in
-                        zip(before, state.g.renderer.parameters()))
-            bad = {k: float(v) for k, v in metrics.items() if not torch.isfinite(v)}
-            # the D step leaves G alone; the G step moves the renderer
-            if bad or (moved > 0) != name.startswith("G"):
-                raise AssertionError(f"19c {name} at hidden_dim 1024: non-finite {bad}, "
-                                     f"renderer tensors moved {moved}")
-            log(f"[K1 widths] 19c train_r1024 at renderer.hidden_dim 1024, batch {b}, {name}: "
-                f"{ms:.1f} ms (CUDA events, the first call), peak {peak / 2**30:.2f} GiB, K1 "
-                f"{b} launches, losses finite, renderer tensors moved {moved}; {smi}")
-            steps[name] = {"ms": ms, "peak_bytes": peak, "moved": moved,
-                           "metrics": {k: float(v) for k, v in metrics.items()}}
-        del g, d, d_render, state, real
-    torch.cuda.empty_cache()
-    res["steps_w1024"] = steps
+        for width, kinds in ((1024, ("D", "G")), (4096, ("D",))):
+            gcfg = generator_config_from_dict(tcfg_all.get("G_cfg", {}))
+            gcfg = dataclasses.replace(gcfg, renderer=dataclasses.replace(gcfg.renderer,
+                                                                          hidden_dim=width))
+            tcfg = dataclasses.replace(train_config_from_dict(tcfg_all), fused_renderer_g=True)
+            b = tcfg.batch
+            g = Generator(gcfg, device=dev, seed=SEED + 320)
+            d = DStyleGANProgressive(1024, 2, device=dev, seed=SEED + 321)
+            d_render = DVolumeRenderProgressive(1024, device=dev, seed=SEED + 322)
+            state = create_train_state(tcfg, g, d, d_render)
+            d_step, g_step = make_train_steps(gcfg, tcfg)[:2]
+            gen = torch.Generator(device=dev).manual_seed(SEED + 323)
+            real = torch.rand((b, 1024, 1024, 3), generator=gen, device=dev) * 2 - 1
+            steps = {"D step with lazy R1": lambda: d_step(state, real, gen, 0.5, True)[1],
+                     "G step, fused_renderer_g": lambda: g_step(state, gen, 0.5)[1]}
+            for name, fn in steps.items():
+                if name[0] not in kinds:
+                    continue
+                before = [p.detach().clone() for p in state.g.renderer.parameters()]
+                with counted(f"19c train_r1024 at hidden_dim {width}, {name}",
+                             {"siren_render": b}) as got:
+                    metrics, ms, peak = _timed_call(fn)
+                add_launches(launches, got)
+                moved = sum(not torch.equal(p, q) for p, q in
+                            zip(before, state.g.renderer.parameters()))
+                bad = {k: float(v) for k, v in metrics.items() if not torch.isfinite(v)}
+                # the D step leaves G alone; the G step moves the renderer
+                if bad or (moved > 0) != name.startswith("G"):
+                    raise AssertionError(f"19c {name} at hidden_dim {width}: non-finite {bad}, "
+                                         f"renderer tensors moved {moved}")
+                log(f"[K1 widths] 19c train_r1024 at renderer.hidden_dim {width}, batch {b}, "
+                    f"{name}: {ms:.1f} ms (CUDA events, the first call), peak "
+                    f"{peak / 2**30:.2f} GiB, K1 {b} launches by the step's default route, "
+                    f"losses finite, renderer tensors moved {moved}; {smi}")
+                res[f"steps_w{width}"][name] = {
+                    "ms": ms, "peak_bytes": peak, "moved": moved,
+                    "metrics": {k: float(v) for k, v in metrics.items()}}
+            del g, d, d_render, state, real
+            torch.cuda.empty_cache()
     res["steps_s"] = time.perf_counter() - t0
     res["launches"] = launches
     res["phase_s"] = time.perf_counter() - t_phase
@@ -4056,7 +4087,8 @@ def main() -> int:
     # 4 and 8), phase 17's (the width-512 frames and rendering-time,
     # through the wide kernel), phase 18's (the frames at channel
     # multipliers 9 and 17) and phase 19's (the frames at renderer widths
-    # 1024 and 96, the D and G steps at 1024); K1's numbers are the serving
+    # 1024, 4096 and 96, the D and G steps at 1024, the D step at 4096);
+    # K1's numbers are the serving
     # geometry's (phase 3), the other geometries' are in the report's
     # "geometry" grid and "k1_geometries"
     loop, inversion = report["training_loop"]["launches"], report["inversion"]["launches"]

@@ -68,9 +68,10 @@
 //    of it.
 //
 // Other geometries. One library is built per (width, sample mode):
-// -DK1_W=<32|64|128|256|512|1024|2048> picks the width and its tile layout
-// below, and -DK1_FIXED_S=<S> fixes the sample count at compile time (0:
-// the count is the launch's, any S >= 1). The build without flags is width
+// -DK1_W=<32|64|128|256|512> picks the width and its tile layout below
+// (-DK1_W=0: the width read at launch, any multiple of 128 past 512), and
+// -DK1_FIXED_S=<S> fixes the sample count at compile time (0: the count is
+// the launch's, any S >= 1). The build without flags is width
 // 256 with S fixed at 24, the serving geometry, and compiles to the design
 // above. Any other width runs in the build of the next width up, its
 // operands zero-padded by the caller (kernels/siren_render.py:
@@ -87,9 +88,9 @@
 // thread's accumulators stay on one ray; below TR = 8 a ray's samples are
 // spread over 8/TR threads of a row tile, and the feat partials are kept
 // by (row group, accumulator row g), then summed over the ray's g.
-// Widths 512, 1024 and 2048 are another kernel, siren_render_kernel_wide,
-// below: at 512 its width is fixed, the 1024 and 2048 builds take any
-// multiple of 128 past 512 up to theirs at launch.
+// Width 512 and every width past it are another kernel,
+// siren_render_kernel_wide, below: at 512 its width is fixed, the
+// run-time-width build (-DK1_W=0) takes any multiple of 128 past 512.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -150,7 +151,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 }  // namespace
 
-#if K1_W != 512 && K1_W != 1024 && K1_W != 2048
+#if K1_W != 512 && K1_W != 0
 
 namespace {
 
@@ -162,7 +163,7 @@ constexpr int TR = 8, SC = 24, RG = 3, CQ = 2;
 #elif K1_W == 64 || K1_W == 128 || K1_W == 256
 constexpr int TR = 8, SC = 24, RG = 3, CQ = 4;
 #else
-#error "K1_W must be 32, 64, 128, 256, 512, 1024 or 2048"
+#error "K1_W must be 32, 64, 128, 256, 512 or 0 (the width read at launch)"
 #endif
 constexpr int M = TR * SC;             // rows per tile: 192 at width 256
 constexpr int NWARPS = RG * CQ;        // 12 warps: (row group, column quarter)
@@ -662,7 +663,8 @@ extern "C" int siren_render_phase_cycles(unsigned long long* out, int* n, int re
 // tiles are shared, never what a launch computes. `n_samples` is each ray's
 // sample count: any count >= 1, or in a fixed build that build's count;
 // `width` the operands' width, the build's; `feat_width` the caller's, feat's
-// row stride, 1 to `width` (cudaErrorInvalidValue otherwise).
+// row stride, 1 to `width` (cudaErrorInvalidValue otherwise). `scratch` is
+// read only by the run-time-width build (below).
 extern "C" int siren_render_forward(
     const float* pts, const float* viewdirs, const float* z_vals,
     const float* dnorm, const float* w0, const float* g0, const float* be0,
@@ -670,7 +672,8 @@ extern "C" int siren_render_forward(
     const float* wvv, const float* gv, const float* bev, const float* wsdf,
     const float* bsdf, const float* wrgb, const float* brgb, float scale,
     float sigmoid_beta, float* thumb, float* feat, float* xyz, float* maskd,
-    float* sdf, int n_rays, int n_samples, int width, int feat_width, void* stream) {
+    float* sdf, int n_rays, int n_samples, int width, int feat_width, void* stream,
+    void* scratch, long long scratch_bytes) {
   if (n_samples < 1 || (FIXED_S > 0 && n_samples != FIXED_S) || width != W ||
       feat_width < 1 || feat_width > W)
     return int(cudaErrorInvalidValue);
@@ -696,7 +699,7 @@ extern "C" int siren_render_forward(
       brgb, scale, sigmoid_beta, thumb, feat, xyz, maskd, sdf, n_rays, n_samples, feat_width);
   return int(cudaGetLastError());
 }
-#else  // K1_W = 512, 1024 or 2048: siren_render_kernel_wide
+#else  // K1_W = 512 or 0 (the width read at launch): siren_render_kernel_wide
 
 // Width 512 (-DK1_W=512): what bounds it on the H100. At 4096 rays x 24
 // samples the two (rows,512)@(512,512) products are 103 GFLOP of bf16:
@@ -712,66 +715,118 @@ extern "C" int siren_render_forward(
 // its time, and a cluster of 1 runs as fast as one of 2 (measured by
 // tools/siren_phase_split.py --width 512 and tools/k1_times.py --cluster).
 //
-// Past 512 (-DK1_W=1024, -DK1_W=2048: the width read at launch, any
-// multiple of 128 above 512 up to the build's) the products grow as W^2 a
-// row and the weights as W^2 a unit, so the weight stream from L2 is what
-// bounds these builds: at 4096 x 24 and W = 1024 the products are 412
-// GFLOP (>= 0.42 ms) and the units take in 12.9 GB (6.4 GB from L2 with
-// a cluster of 2), at 2048 1.65 TFLOP (>= 1.67 ms) and 52 GB from L2. The
-// two activation tiles stay at 128 KB by taking fewer rows a unit: 4 rays
-// (32 rows, wgmma N = 32) to 1024, 2 rays (16 rows, N = 16) to 2048.
+// Past 512 (-DK1_W=0: the width W read at launch, any multiple of 128
+// above 512, no ceiling) the products grow as W^2 a row and the weights as
+// W^2 a unit, so the weight stream is what bounds this build: at 4096 x 24
+// the products are 412 GFLOP at W = 1024 (>= 0.42 ms) and 1.65 TFLOP at
+// 2048 (>= 1.67 ms). Every unit takes in both weights whatever its rows,
+// so the intake into the SMs is (rows / rows a unit) x 4 W^2 bytes: this
+// build keeps the 512 build's 64-row units at every width (6.4 GB at
+// 1024, 25.8 GB at 2048) by staging the activations in 64-feature
+// K-chunks beside the weight chunks, so that nothing in shared memory
+// grows with W (~204 KB at every width, of the 227 KB a block may use):
 //
-//  - A unit is TR rays x 8 samples = M rows, ray-major (row = ray * 8 + s;
-//    at 512 TR = 8, M = 64): 1.6 GB into the SMs at 4096 x 24 (three chunks
-//    a 24-sample ray, no padding), 0.8 GB from L2 with every chunk
-//    multicast to a cluster of 2 (2-ray tiles of 16 samples, 32 rows, take
-//    in 4.3 GB and are bound by that stream). A ray of S samples is walked
-//    in ceil(S/8) units, carrying its transmittance, xyz, thumb and feat
-//    sums from unit to unit.
+//  - h0 and h1 go through a scratch in global memory, one tile of each a
+//    CTA (64 rows x W bf16 each, 256 W bytes a CTA in all, allocated by
+//    the caller), laid out as the swizzled 8 KB K-chunks wgmma reads (64
+//    rows x 64 features, a row's 16-byte group j at j ^ (row % 8)). A ring
+//    slot holds a 16 KB weight chunk and the 8 KB activation chunk it
+//    multiplies; the producer copies the latter from its CTA's own scratch
+//    by a bulk copy (no multicast: the rays are the CTA's own), both
+//    completing on the slot's full barrier. A unit writes 64 x W x 2 bytes
+//    of each activation once and reads them back W / 128 times: at 2048, 8
+//    MB against the unit's 16 MB of weights.
+//  - Why h0 is not recomputed for each layer-1 pass instead (layer 0 has
+//    K = 3): that is W / 128 x 64 x W sines a unit, 2.1 M at 2048, ~190 us
+//    of the consumers' f32 pipe against the unit's 143 us of tensor work,
+//    where the f32 pipe already sets the 512 build's pace; the scratch
+//    costs 4 MB of L2 reads instead. Why h1 is not split across the
+//    cluster's shared memory: 64 x W bf16 is 256 KB at 2048, more than a
+//    CTA has, and it grows with W. So both take one path: one layout, one
+//    producer loop and one descriptor form for both products.
+//  - Layer 0 is made by the producer warpgroup's other three warps, a unit
+//    ahead of the consumers: a unit's h0 as soon as the last unit's layer
+//    1 has consumed the old one (its h1 ready), so it runs beside the last
+//    unit's view product and is off the consumers' path. Each layer-1
+//    pass's epilogue writes its 128 features of h1 with 4-byte stores (a
+//    shuffle pairs two features of one row in a lane). The writers fence
+//    the generic proxy against the async one (fence.proxy.async.global),
+//    meet at a barrier, and one thread arrives on the product's ready
+//    mbarrier. The producer waits on it before it copies the product's
+//    first activation chunk; until then it copies the weight chunks of up
+//    to NS slots ahead.
+//  - The view phase is made in registers, per pass, for a thread's two
+//    features (gv * (bf16(d) . bf16(wvv)) + bev, the 512 build's
+//    roundings); the feat sums carry from unit to unit in feat itself; the
+//    unit's inputs (points, depths, view directions) are read after the
+//    layer-1 product, which needs none of them.
+//  - The pass loop is peeled (pass 0, then pairs of passes, the two
+//    accumulator sets by name, then the odd pass left), so no branch
+//    decides at run time whether a pass has slices before it, and each
+//    pass ends in a wait for its wgmma groups, with the loads of its
+//    epilogue constants issued just before. Without that wait a group in
+//    flight crossed the run-time pass loop's back-edge and tail into code
+//    that reads the other accumulator set, and ptxas serialized every
+//    wgmma of the build (C7514, "non wgmma instructions reading
+//    accumulator registers of a wgmma between start and end of the
+//    pipeline stage").
+//  - 8 ring slots of 24 KB: what the 512 build's two activation tiles held
+//    goes to a deeper ring.
+//
+// Both builds:
+//
+//  - A unit is 8 rays x 8 samples = 64 rows, ray-major (row = ray * 8 +
+//    s): 1.6 GB into the SMs at 512, 4096 x 24 (three chunks a 24-sample
+//    ray, no padding), 0.8 GB from L2 with every weight chunk multicast to
+//    a cluster of 2. A ray of S samples is walked in ceil(S/8) units,
+//    carrying its transmittance, xyz, thumb and feat sums from unit to
+//    unit.
 //  - The products run transposed, out^T (features x rows) = W . act^T, on
-//    wgmma m64nMk16: the weight is the 64-row A operand and the bf16
-//    activation tile (M rows x W, 64 KB at W_MAX) the N = M B operand, both
-//    K-major in the 128-byte swizzle. siren_prepare lays each weight out as
-//    (128 out x 64 in) 16 KB chunks, pass by pass (128 output features over
-//    W / 64 chunks), already swizzled (chunk_weight,
+//    wgmma m64n64k16: the weight is the 64-row A operand and the bf16
+//    activation (64 rows x 64 features a K-chunk) the N = 64 B operand,
+//    both K-major in the 128-byte swizzle. siren_prepare lays each weight
+//    out as (128 out x 64 in) 16 KB chunks, pass by pass (128 output
+//    features over W / 64 chunks), already swizzled (chunk_weight,
 //    kernels/decoder_block.py), so one 1-D bulk copy fills a ring slot; no
 //    tensor map. Warpgroup wg of the two consumer warpgroups takes chunk
-//    rows wg*64..: a pass leaves it 64 features x M rows, M / 2
-//    accumulators a thread.
-//  - The third warpgroup is the producer: its first thread keeps a 4-slot
-//    ring of chunks full under full / empty mbarriers, the same sequence
-//    in both CTAs of the cluster (w1's W^2 / 8192 chunks, then wv's, a
-//    unit); CTA q % 2 copies chunk q into both by .multicast::cluster. A
-//    consumer warpgroup waits
-//    for a chunk's full barrier, issues its 4 k16 wgmmas, and frees the
-//    slot of the previous chunk once that chunk's wgmma group is done, by a
-//    CTA-scope arrival on the slot's empty barrier in each CTA of the
-//    cluster. No block barrier a chunk. A CTA whose tile lies past the last
-//    one consumes every chunk and stores nothing.
-//  - Layer 0 (K = 3) on the CUDA cores writes h0 into the swizzled tile
-//    act0 with ordinary stores; each layer-1 pass's epilogue writes its 128
-//    features of h1 into act1 by stmatrix .trans (the accumulators are
-//    features x rows); fence.proxy.async and a consumer barrier before
+//    rows wg*64..: a pass leaves it 64 features x 64 rows, 32 accumulators
+//    a thread. At 512 the activations are two whole tiles in shared
+//    memory (act0 h0, act1 h1, 64 KB each); past it the ring's chunks.
+//  - The third warpgroup is the producer: its first thread keeps the ring
+//    of chunks full under full / empty mbarriers, the same sequence in
+//    both CTAs of the cluster (w1's W^2 / 8192 chunks, then wv's, a unit);
+//    CTA q % 2 copies weight chunk q into both by .multicast::cluster. A
+//    consumer warpgroup waits for a chunk's full barrier, issues its 4 k16
+//    wgmmas, and frees the slot of the previous chunk once that chunk's
+//    wgmma group is done, by a CTA-scope arrival on the slot's empty
+//    barrier in each CTA of the cluster. No block barrier a chunk. A CTA
+//    whose tile lies past the last one consumes every chunk and stores
+//    nothing.
+//  - At 512 layer 0 (K = 3) on the CUDA cores writes h0 into the swizzled
+//    tile act0 with ordinary stores; each layer-1 pass's epilogue writes
+//    its 128 features of h1 into act1 by stmatrix .trans (the accumulators
+//    are features x rows); fence.proxy.async and a consumer barrier before
 //    wgmma reads either. The sdf and rgb heads, which reduce over features,
 //    are summed in registers over the passes, then over a warp's 8 feature
-//    lanes by a shuffle reduce-scatter (its last step an all-reduce at 16
-//    rows), then over the 8 warps in order. The feat sums (w * feat over a
-//    ray's samples) are summed over a lane's two samples, then over the
-//    four lanes of the ray by a reduce-scatter, and carried from unit to
-//    unit: in registers at 512, in feat itself past 512 (each value has one
-//    owning lane, which reads back what it wrote the unit before), where
-//    the passes are counted at run time and registers cannot be indexed.
+//    lanes by a shuffle reduce-scatter, then over the 8 warps in order. The
+//    feat sums (w * feat over a ray's samples) are summed over a lane's two
+//    samples, then over the four lanes of the ray by a reduce-scatter, and
+//    carried from unit to unit: in registers at 512, in feat itself past
+//    it (each value has one owning lane, which reads back what it wrote
+//    the unit before), where the passes are counted at run time and
+//    registers cannot be indexed.
 //  - Every sum keeps a fixed order, the same for every ray: two launches
 //    give the same bits, and a ray's outputs do not depend on which rays
 //    share its tile. The arithmetic and its rounding points are the other
 //    builds'.
-//  - A pass's epilogue runs in TR slices, one a ray, after each of the
-//    next pass's first TR chunks while their wgmma groups run, so the f32
-//    pipe works beside the tensor cores; the accumulators alternate between
-//    two sets by pass (M registers a thread: setmaxnreg gives the consumer
-//    warpgroups 232 a thread, the producer warpgroup 40). Layer 0, the last
-//    pass's epilogue, integration and the outputs run in turn between
-//    consumer barriers, the ring streaming meanwhile up to its 4 slots.
+//  - A pass's epilogue runs in 8 slices, one a ray, after each of the next
+//    pass's first 8 chunks while their wgmma groups run, so the f32 pipe
+//    works beside the tensor cores; the accumulators alternate between two
+//    sets by pass (64 registers a thread: setmaxnreg gives the consumer
+//    warpgroups 232 a thread, the producer warpgroup 40). The last pass's
+//    epilogue, integration and the outputs (at 512 layer 0 too) run in
+//    turn between consumer barriers, the ring streaming meanwhile up to
+//    its slots.
 //  - Built with -DSIREN_PHASE_CLOCKS, every warp also counts its clock
 //    cycles by phase (WIDE_MARK); with -DK1_PLANT_RING_FAULT a consumer
 //    reads the ring slot after the one it waited for (a fault the card
@@ -779,13 +834,12 @@ extern "C" int siren_render_forward(
 
 namespace {
 
-constexpr int W_MAX = K1_W;                // SIREN width: the build's widest
-// at 512 the width is the build's; the 1024 and 2048 builds read it at launch
-constexpr bool RUN_TIME_W = K1_W != 512;
+constexpr int FIXED_W = K1_W;              // SIREN width at 512; 0: read at launch
+constexpr bool RUN_TIME_W = FIXED_W == 0;
 constexpr int FIXED_S = K1_FIXED_S;        // samples per ray; 0: the launch's
-constexpr int TR = K1_W == 512 ? 8 : K1_W == 1024 ? 4 : 2;  // rays a tile
+constexpr int TR = 8;                      // rays a tile
 constexpr int SC = 8;                      // samples a chunk of a ray
-constexpr int M = TR * SC;                 // 64 / 32 / 16 rows a unit: wgmma's N
+constexpr int M = TR * SC;                 // 64 rows a unit: wgmma's N
 constexpr int NACC = M / 2;                // accumulators a thread a pass
 constexpr int CONSUMERS = 256;             // two consumer warpgroups
 constexpr int NTHREADS = CONSUMERS + 128;  // and the producer warpgroup
@@ -797,13 +851,18 @@ static_assert(CONSUMERS * REGS_CONSUMER + 128 * REGS_PRODUCER <= NTHREADS * 168,
 constexpr int CHUNK_ROWS = 128;            // output features a chunk: a pass
 constexpr int CHUNK_K = 64;                // input features a chunk: 128-byte rows
 constexpr int CHUNK_BYTES = CHUNK_ROWS * CHUNK_K * 2;  // 16 KB
-constexpr int NS = 4;                      // ring slots
-constexpr int ACT_BLOCK = M * 128;         // 64 input features of the M rows
-constexpr int ACT_BYTES = W_MAX / CHUNK_K * ACT_BLOCK;  // a bf16 activation tile: 64 KB
-static_assert(K1_W == 512 || K1_W == 1024 || K1_W == 2048, "K1_W of the wide kernel");
-static_assert(ACT_BYTES == 65536 && ACT_BLOCK % 1024 == 0, "activation tiles");
+constexpr int ACT_BLOCK = M * 128;         // 64 input features of the M rows: 8 KB
+// at 512 a whole bf16 activation tile (64 KB), two of them; past it none
+constexpr int ACT_BYTES = RUN_TIME_W ? 0 : FIXED_W / CHUNK_K * ACT_BLOCK;
+// a ring slot: a weight chunk, and past 512 the activation chunk it multiplies
+constexpr int SLOT_BYTES = CHUNK_BYTES + (RUN_TIME_W ? ACT_BLOCK : 0);
+constexpr int NS = RUN_TIME_W ? 8 : 4;     // ring slots
+static_assert(FIXED_W == 512 || RUN_TIME_W, "K1_W of the wide kernel");
+static_assert(ACT_BYTES == (RUN_TIME_W ? 0 : 65536) && ACT_BLOCK % 1024 == 0 &&
+                  SLOT_BYTES % 1024 == 0,
+              "activation tiles and ring slots keep the swizzle's 1024-byte alignment");
 // the passes are unrolled two at a time at 512, where their count is known
-constexpr int PASS_UNROLL = RUN_TIME_W ? 1 : W_MAX / CHUNK_ROWS / 2;
+[[maybe_unused]] constexpr int PASS_UNROLL = RUN_TIME_W ? 1 : FIXED_W / CHUNK_ROWS / 2;
 constexpr int SMEM_LIMIT = 232448;         // a block's shared memory on sm_90
 constexpr unsigned FULL = 0xffffffffu;
 #ifndef K1_WIDE_CLUSTER
@@ -815,7 +874,7 @@ static_assert(CLUSTER >= 1 && CLUSTER <= 8, "a portable cluster size");
 // Everything but the two activation tiles and the ring
 struct __align__(16) Small {
   unsigned long long full[NS], empty[NS];  // the ring's mbarriers
-  float vphase[TR * W_MAX];                // per-ray view phase gv*vterm + bev
+  float vphase[RUN_TIME_W ? 1 : TR * FIXED_W];  // at 512: per-ray view phase gv*vterm + bev
   float part[8 * M * 3];                   // the consumer warps' head partials:
                                            // sdf [warp][row], rgb [warp][row][3]
   float pts[M * 3];
@@ -828,9 +887,15 @@ struct __align__(16) Small {
   float dnorm[TR];
   float carry[TR * 4];                     // per ray, chunk to chunk: trans, xyz
   float tcarry[TR * 3];                    // thumb sums, chunk to chunk
+  // past 512: bf16(viewdir) a ray; layer 0's operand of the unit the
+  // layer-0 warps are on; and the mbarriers on which h0 and h1 are
+  // reported complete in the scratch
+  float vdir[TR * 3];
+  float xs0[M * 3];
+  unsigned long long ready[2];
 };
 // from a 1024-byte aligned base (the swizzle's): act0 (h0), act1 (h1), ring, Small
-constexpr int SMEM_BYTES = 1024 + 2 * ACT_BYTES + NS * CHUNK_BYTES + int(sizeof(Small));
+constexpr int SMEM_BYTES = 1024 + 2 * ACT_BYTES + NS * SLOT_BYTES + int(sizeof(Small));
 static_assert(SMEM_BYTES <= SMEM_LIMIT, "shared memory over the 227 KB a block may use");
 
 struct Params {
@@ -844,6 +909,7 @@ struct Params {
   int n_rays, n_samples;
   int width;                               // the operands' (a multiple of 128)
   int feat_width;                          // the caller's: feat's row stride
+  unsigned char* scratch;                  // past 512: h0 and h1, 2 x W x 128 bytes a CTA
 };
 
 // Phases of the instrumented build (-DSIREN_PHASE_CLOCKS), by the names
@@ -957,9 +1023,26 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
 }
 
+// past 512: the producer warpgroup's three layer-0 warps (named barrier 2)
+constexpr int L0_THREADS = 96;
+[[maybe_unused]] __device__ __forceinline__ void l0_sync() {
+  asm volatile("bar.sync 2, %0;\n" ::"n"(L0_THREADS) : "memory");
+}
+
 // the activation tiles' generic-proxy stores, seen by wgmma (async proxy)
-__device__ __forceinline__ void fence_proxy_async() {
+[[maybe_unused]] __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// past 512: the scratch's generic-proxy stores, seen by the bulk copies
+// (async proxy) that read them back
+[[maybe_unused]] __device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// arrive on a barrier of this CTA (release at CTA scope)
+[[maybe_unused]] __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
 // wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
@@ -1002,39 +1085,10 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b
       : "l"(a), "l"(b), "r"(1));
 }
 
-// d (64 x 32 / 64 x 16, f32) += A (64 x 16) . B (32 / 16 x 16)^T: the units past width 512
-__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(1));
-}
-__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// d (64 x N) += A . B^T at N = 16, 32 or 64 (the build's M)
-template <int N>
-__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b) {
-  if constexpr (N == 64) wgmma_n64(d, a, b);
-  else if constexpr (N == 32) wgmma_n32(d, a, b);
-  else wgmma_n16(d, a, b);
-}
-
 // four 8x8 bf16 matrices from the mma fragment layout, each stored
 // transposed: the row of lane l holds column l % 8 of matrix l / 8
-__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, const uint32_t (&r)[4]) {
+[[maybe_unused]] __device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr,
+                                                                   const uint32_t (&r)[4]) {
   asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
                    "r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
                : "memory");
@@ -1055,32 +1109,21 @@ __device__ __forceinline__ void reduce_half(float* x, int mask, bool upper) {
 
 // The consumer warp's head partials x of rows 8j + 2t + e at (2j + e) * K
 // + k (K head outputs) summed over its 8 feature lanes g (lane masks 16,
-// 8, 4): a reduce-scatter while a lane keeps two or more rows, the last
-// step at 16-row units an all-reduce, then the warp's sums into
-// part[warp][row][k]. Every row's sum takes the same tree of adds.
+// 8, 4) by a reduce-scatter, then the warp's sums into part[warp][row][k].
+// Every row's sum takes the same tree of adds.
 template <int K>
 __device__ __forceinline__ void head_partials(float (&x)[2 * TR * K], float* part, int warp,
                                               int lane) {
   const int g = lane >> 2, t = lane & 3;
   reduce_half<TR * K>(x, 16, lane & 16);
   reduce_half<TR * K / 2>(x, 8, lane & 8);
-  if constexpr (TR >= 4) {
-    reduce_half<TR * K / 4>(x, 4, lane & 4);
+  reduce_half<TR * K / 4>(x, 4, lane & 4);
 #pragma unroll
-    for (int i = 0; i < TR / 4; ++i) {  // lane g keeps the rows v = g * TR / 4 + i
-      const int v = g * (TR / 4) + i;
+  for (int i = 0; i < TR / 4; ++i) {  // lane g keeps the rows v = g * TR / 4 + i
+    const int v = g * (TR / 4) + i;
 #pragma unroll
-      for (int k = 0; k < K; ++k)
-        part[(warp * M + 8 * (v >> 1) + 2 * t + (v & 1)) * K + k] = x[i * K + k];
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < K; ++k) x[k] = __fadd_rn(x[k], __shfl_xor_sync(FULL, x[k], 4));
-    if (!(lane & 4)) {  // lanes g and g + 1 hold row v = g / 2
-      const int v = g >> 1;
-#pragma unroll
-      for (int k = 0; k < K; ++k) part[(warp * M + 8 * (v >> 1) + 2 * t + (v & 1)) * K + k] = x[k];
-    }
+    for (int k = 0; k < K; ++k)
+      part[(warp * M + 8 * (v >> 1) + 2 * t + (v & 1)) * K + k] = x[i * K + k];
   }
 }
 
@@ -1106,8 +1149,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
   const uint32_t s_act0 = (raw + 1023u) & ~1023u;  // the swizzle wants 1024-byte alignment
   const uint32_t s_act1 = s_act0 + ACT_BYTES, s_ring = s_act1 + ACT_BYTES;
   unsigned char* const base = smem_raw + (s_act0 - raw);
-  Small& sm = *reinterpret_cast<Small*>(base + 2 * ACT_BYTES + NS * CHUNK_BYTES);
+  Small& sm = *reinterpret_cast<Small*>(base + 2 * ACT_BYTES + NS * SLOT_BYTES);
   const uint32_t s_full = smem_u32(sm.full), s_empty = smem_u32(sm.empty);
+  const uint32_t s_ready = smem_u32(sm.ready);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const uint32_t rank = cluster_reg(0), ncta = cluster_reg(1), cid = cluster_reg(2),
                  ncl = cluster_reg(3);
@@ -1117,9 +1161,13 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
   const int n_tiles = (P.n_rays + TR - 1) / TR;
   const int groups = (n_tiles + int(ncta) - 1) / int(ncta);  // a cluster's CL tiles
   // the width, and the passes and chunks of a product: compile-time at 512
-  const int W = RUN_TIME_W ? P.width : W_MAX;
+  const int W = RUN_TIME_W ? P.width : FIXED_W;
   const int PASSES = W / CHUNK_ROWS, KCH = W / CHUNK_K;
   const int PRODUCT_CHUNKS = PASSES * KCH;
+  // past 512: the CTA's h0 (0) or h1 (1) tile in the scratch, KCH K-chunks
+  auto h_tile = [&](int which) {
+    return P.scratch + (size_t(blockIdx.x) * 2 + which) * size_t(KCH) * ACT_BLOCK;
+  };
 #ifdef SIREN_PHASE_CLOCKS
   unsigned long long wide_cyc[NWIDE_PHASES] = {};
   long long wmark = clock64();
@@ -1130,6 +1178,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
       mbar_init(s_full + 8 * s, 1);                // the producer's expect_tx
       mbar_init(s_empty + 8 * s, 2 * int(ncta));   // each warpgroup of the cluster
     }
+    if constexpr (RUN_TIME_W)
+      for (int b = 0; b < 2; ++b) mbar_init(s_ready + 8 * b, 1);  // one consumer thread
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   cluster_sync();  // every barrier of the cluster initialized before any copy or arrival
@@ -1150,6 +1200,56 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
       const uint16_t mask = uint16_t((1u << ncta) - 1);
       int slot = 0;
       uint32_t phase = 0, issuer = 0;
+      if constexpr (RUN_TIME_W) {
+        // each product's weight chunks as at 512; beside each, the K-chunk
+        // of h0 (layer 1) or h1 (the view layer) it multiplies, from this
+        // CTA's scratch once the consumers report it complete
+        uint32_t ready_parity = 0;
+        for (int grp = int(cid); grp < groups; grp += int(ncl))
+          for (int ch = 0; ch < nch; ++ch, ready_parity ^= 1)
+            for (int prod = 0; prod < 2; ++prod) {
+              const unsigned char* const wsrc = prod ? P.wvhc : P.w1c;
+              const unsigned char* const asrc = h_tile(prod);
+              const int slot0 = slot;
+              int acts = 0;  // the product's chunks whose activation copy is issued
+              bool ready = false;
+              auto issue_acts = [&](int upto) {
+                if (!ready) {
+#ifdef SIREN_PHASE_CLOCKS
+                  wmark = clock64();
+#endif
+                  mbar_wait(s_ready + 8 * prod, ready_parity);
+                  WIDE_MARK(WP_producer_wait_empty);
+                  fence_proxy_async_global();
+                  ready = true;
+                }
+                for (; acts < upto; ++acts) {
+                  const int s = (slot0 + acts) % NS;
+                  bulk_load(s_ring + s * SLOT_BYTES + CHUNK_BYTES,
+                            asrc + size_t(acts % KCH) * ACT_BLOCK, ACT_BLOCK, s_full + 8 * s, 0,
+                            false);
+                }
+              };
+              for (int q = 0; q < PRODUCT_CHUNKS; ++q) {
+                // the slot of chunk q holds chunk q - NS, whose activation
+                // must be issued before the slot can free
+                if (q - acts == NS) issue_acts(q);
+#ifdef SIREN_PHASE_CLOCKS
+                wmark = clock64();
+#endif
+                mbar_wait(s_empty + 8 * slot, phase ^ 1);  // free in every CTA of the cluster
+                WIDE_MARK(WP_producer_wait_empty);
+                mbar_expect_tx(s_full + 8 * slot, SLOT_BYTES);
+                if (issuer == rank)
+                  bulk_load(s_ring + slot * SLOT_BYTES, wsrc + size_t(q) * CHUNK_BYTES,
+                            CHUNK_BYTES, s_full + 8 * slot, mask, ncta > 1);
+                if (++issuer == ncta) issuer = 0;
+                if (ready) issue_acts(q + 1);
+                if (++slot == NS) slot = 0, phase ^= 1;
+              }
+              issue_acts(PRODUCT_CHUNKS);
+            }
+      } else {
       for (int grp = int(cid); grp < groups; grp += int(ncl))
         for (int ch = 0; ch < nch; ++ch)
           for (int q = 0; q < 2 * PRODUCT_CHUNKS; ++q) {
@@ -1167,6 +1267,73 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
             if (++issuer == ncta) issuer = 0;
             if (++slot == NS) slot = 0, phase ^= 1;
           }
+      }
+    }
+    if constexpr (RUN_TIME_W) {
+      if (warp > CONSUMERS / 32) {
+        // ---- past 512, the producer warpgroup's other three warps: layer 0
+        //      (K = 3) of each unit into h0 in the scratch, a unit ahead of
+        //      the consumers: a unit's h0 once the last unit's layer 1 has
+        //      consumed the old one (h1 ready), while the consumers run the
+        //      last unit's view product ----
+        const int lt = tid - CONSUMERS - 32;
+        unsigned char* const h0 = h_tile(0);
+        const int NP = W / 2;  // feature pairs
+        uint32_t parity = 0;
+        bool first = true;
+        for (int grp = int(cid); grp < groups; grp += int(ncl))
+          for (int ch = 0; ch < nch; ++ch) {
+            if (!first) {
+              mbar_wait(s_ready + 8, parity);
+              parity ^= 1;
+            }
+            first = false;
+#ifdef SIREN_PHASE_CLOCKS
+            wmark = clock64();  // the warps' layer-0 time, not their wait for h1
+#endif
+            const int ray0 = (grp * int(ncta) + int(rank)) * TR, s0 = ch * SC;
+            const int sn = S - s0 < SC ? S - s0 : SC;
+            for (int i = lt; i < M * 3; i += L0_THREADS) {
+              const int row = i / 3, r = row / SC, s = row % SC, ray = ray0 + r;
+              const bool ok = ray < P.n_rays && s < sn;
+              sm.xs0[i] =
+                  ok ? bfr(__fmul_rn(P.pts[(size_t(ray) * S + s0 + s) * 3 + i % 3], P.scale))
+                     : 0.f;
+            }
+            l0_sync();
+#pragma unroll 1
+            for (int it = lt; it < NP * (M / 8); it += L0_THREADS) {
+              const int n0 = 2 * (it % NP), r0 = 8 * (it / NP);
+              float lw[3][2], lg[2], lb[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+#pragma unroll
+                for (int k = 0; k < 3; ++k) lw[k][e] = bfr(__ldg(P.w0 + k * W + n0 + e));
+                lg[e] = __ldg(P.g0 + n0 + e);
+                lb[e] = __ldg(P.be0 + n0 + e);
+              }
+#pragma unroll 2
+              for (int row = r0; row < r0 + 8; ++row) {
+                const float x0 = sm.xs0[row * 3], x1 = sm.xs0[row * 3 + 1],
+                            x2 = sm.xs0[row * 3 + 2];
+                float h[2], ra, rb;
+#pragma unroll
+                for (int d = 0; d < 2; ++d) {
+                  const float lin =
+                      __fadd_rn(__fadd_rn(__fmul_rn(x0, lw[0][d]), __fmul_rn(x1, lw[1][d])),
+                                __fmul_rn(x2, lw[2][d]));
+                  h[d] = fast_sin(mul_add(lg[d], lin, lb[d]));
+                }
+                *reinterpret_cast<uint32_t*>(h0 + act_offset(row, n0)) =
+                    pack_bits(h[0], h[1], ra, rb);
+              }
+            }
+            fence_proxy_async_global();
+            l0_sync();  // h0 is complete: the producer may copy it
+            if (lt == 0) mbar_arrive(s_ready);
+            WIDE_MARK(WP_inputs_layer0);
+          }
+      }
     }
     __syncwarp();
     finish();
@@ -1176,7 +1343,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS_CONSUMER));
     const int wg = warp >> 2, wi = warp & 3, g = lane >> 2, t = lane & 3;
     const uint64_t desc_a = sw128_desc(s_ring + wg * 64 * 128);
-    const uint64_t desc_h0 = sw128_desc(s_act0), desc_h1 = sw128_desc(s_act1);
+    // the B operand: at 512 the activation tiles, past it the ring slot's
+    // activation chunk
+    const uint64_t desc_h0 = sw128_desc(RUN_TIME_W ? s_ring + CHUNK_BYTES : s_act0);
+    const uint64_t desc_h1 = sw128_desc(RUN_TIME_W ? s_ring + CHUNK_BYTES : s_act1);
     int slot = 0;
     uint32_t phase = 0;
 
@@ -1191,8 +1361,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
     // two sets by pass, and pass q's epilogue runs in TR slices (ray j in
     // slice j), one after each of the first TR chunks of pass q + 1 is
     // issued, while that chunk's wgmma group runs; the last pass's slices
-    // after the product. `slice(q, j, acc)` is the epilogue's slice.
-    auto product = [&](uint64_t desc_b, bool view, auto&& slice) {
+    // after the product. `slice(q, j, acc)` is the epilogue's slice;
+    // `prep(q)` loads pass q's epilogue constants (past 512, at the end of
+    // pass q; at 512 the slices load them at j = 0).
+    auto product = [&](uint64_t desc_b, bool view, auto&& prep, auto&& slice) {
       float acc[2][NACC];
       int prev = -1;
       // chunk j of the pass, into `cur`
@@ -1212,10 +1384,13 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < CHUNK_K / 16; ++ks)
-          wgmma<M>(cur, desc_a + ((rs * CHUNK_BYTES + ks * 32) >> 4),
-                   desc_b + ((j * ACT_BLOCK + ks * 32) >> 4));
+          wgmma_n64(cur, desc_a + ((rs * SLOT_BYTES + ks * 32) >> 4),
+                    desc_b + (((RUN_TIME_W ? rs * SLOT_BYTES : j * ACT_BLOCK) + ks * 32) >> 4));
         wgmma_commit();
-        if (prev >= 0) {  // the previous chunk's products are done: free its slot
+        if constexpr (RUN_TIME_W) {  // a wait every chunk: nothing in flight at a product's first
+          wgmma_wait<1>();
+          if (prev >= 0) release(prev);
+        } else if (prev >= 0) {  // the previous chunk's products are done: free its slot
           wgmma_wait<1>();
           release(prev);
         }
@@ -1244,13 +1419,15 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
         }
 #pragma unroll 1
         for (int j = TR; j < KCH; ++j) chunk(j, cur);
+        if constexpr (RUN_TIME_W) {
+          // the loads of this pass's epilogue constants go out before the
+          // wait, and no accumulator set crosses the pass loop with a
+          // group in flight (ptxas serializes wgmma if one does: C7514)
+          prep(p);
+          wgmma_wait<0>();
+        }
       };
-#pragma unroll PASS_UNROLL
-      for (int p = 0; p < PASSES; p += 2) {
-        pass(p, acc[0], acc[1]);
-        if (p + 1 < PASSES) pass(p + 1, acc[1], acc[0]);
-      }
-      wgmma_wait<0>();
+      // the last pass's slices, its products done
       auto last_pass = [&](float (&last)[NACC]) {
         fence_acc(last);
         release(prev);
@@ -1261,17 +1438,43 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
 #pragma unroll
         for (int j = 0; j < TR; ++j) slice(PASSES - 1, j, last);
       };
-      if ((PASSES - 1) & 1)
-        last_pass(acc[1]);
-      else
-        last_pass(acc[0]);
+      if constexpr (RUN_TIME_W) {
+        // pass 0, then pairs of passes, then the odd pass left: whether a
+        // pass has slices before it is never decided at run time
+        pass(0, acc[0], acc[1]);
+        int p = 1;
+#pragma unroll 1
+        for (; p + 1 < PASSES; p += 2) {
+          pass(p, acc[1], acc[0]);
+          pass(p + 1, acc[0], acc[1]);
+        }
+        // the odd pass left, then the last pass's slices, each branch
+        // naming its accumulator set
+        if (p < PASSES) {
+          pass(p, acc[1], acc[0]);
+          last_pass(acc[1]);
+        } else {
+          last_pass(acc[0]);
+        }
+      } else {
+#pragma unroll PASS_UNROLL
+        for (int p = 0; p < PASSES; p += 2) {
+          pass(p, acc[0], acc[1]);
+          if (p + 1 < PASSES) pass(p + 1, acc[1], acc[0]);
+        }
+        wgmma_wait<0>();
+        if ((PASSES - 1) & 1)
+          last_pass(acc[1]);
+        else
+          last_pass(acc[0]);
+      }
     };
 
     // Accumulator i of a pass holds feature fa + 8 * ((i >> 1) & 1) (fa =
     // pass * 128 + wg * 64 + 16 * wi + g) of row 8 * (i >> 2) + 2 * t +
     // (i & 1): ray j = i >> 2 of the tile, its samples 2t and 2t + 1.
     // the feat sums a lane keeps, chunk to chunk (at 512; past it in feat)
-    float fcar[RUN_TIME_W ? 1 : W_MAX / CHUNK_ROWS][TR / 2];
+    [[maybe_unused]] float fcar[RUN_TIME_W ? 1 : FIXED_W / CHUNK_ROWS][TR / 2];
     for (int grp = int(cid); grp < groups; grp += int(ncl)) {
       const int ray0 = (grp * int(ncta) + int(rank)) * TR;  // past n_rays: every ray dead
       // one unit of the weight stream a chunk of SC samples
@@ -1279,73 +1482,79 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
         const int s0 = ch * SC;                        // the chunk's first sample
         const int sn = S - s0 < SC ? S - s0 : SC;      // its real samples
         const bool last = ch == nch - 1;
-        consumer_sync();  // the last unit is done with the small buffers
 
         // ---- per-chunk inputs, rows ray-major (the view phase and |d|
-        //      once a tile) ----
-        if (tid < M) {
-          const int r = tid / SC, s = tid % SC, ray = ray0 + r;
-          const bool ok = ray < P.n_rays && s < sn;
-          const size_t src = size_t(ray) * S + s0 + s;
+        //      once a tile); past 512 after the layer-1 product (below),
+        //      which reads none of them ----
+        if constexpr (!RUN_TIME_W) {
+          consumer_sync();  // the last unit is done with the small buffers
+          if (tid < M) {
+            const int r = tid / SC, s = tid % SC, ray = ray0 + r;
+            const bool ok = ray < P.n_rays && s < sn;
+            const size_t src = size_t(ray) * S + s0 + s;
 #pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            const float p = ok ? P.pts[src * 3 + c] : 0.f;
-            sm.pts[tid * 3 + c] = p;
-            sm.xs[tid * 3 + c] = bfr(__fmul_rn(p, P.scale));
-          }
-          sm.z[tid] = ok ? P.z_vals[src] : 0.f;
-        }
-        if (ch == 0) {
-          for (int i = tid; i < TR * W; i += CONSUMERS) {
-            const int r = i / W, n = i % W, ray = ray0 + r;
-            float vt = 0.f;
-            if (ray < P.n_rays) {
-              const float* v = P.viewdirs + size_t(ray) * 3;
-              vt = __fadd_rn(__fadd_rn(__fmul_rn(bfr(v[0]), bfr(__ldg(P.wvv + n))),
-                                       __fmul_rn(bfr(v[1]), bfr(__ldg(P.wvv + W + n)))),
-                             __fmul_rn(bfr(v[2]), bfr(__ldg(P.wvv + 2 * W + n))));
+            for (int c = 0; c < 3; ++c) {
+              const float p = ok ? P.pts[src * 3 + c] : 0.f;
+              sm.pts[tid * 3 + c] = p;
+              sm.xs[tid * 3 + c] = bfr(__fmul_rn(p, P.scale));
             }
-            sm.vphase[i] = mul_add(__ldg(P.gv + n), vt, __ldg(P.bev + n));
+            sm.z[tid] = ok ? P.z_vals[src] : 0.f;
           }
-          if (tid < TR) sm.dnorm[tid] = ray0 + tid < P.n_rays ? P.dnorm[ray0 + tid] : 0.f;
-        }
-        consumer_sync();
-
-        // ---- layer 0 (K = 3) on the CUDA cores into h0: a thread takes 8
-        //      features (one 16-byte group) of every RS-th row (RS = 4 at
-        //      width 512) ----
-        if (const int NG = W / 8, RS = CONSUMERS / NG; tid < NG * RS) {
-          const int n0 = 8 * (tid % NG);
-          float lw[3][8], lg[8], lb[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-#pragma unroll
-            for (int k = 0; k < 3; ++k) lw[k][e] = bfr(__ldg(P.w0 + k * W + n0 + e));
-            lg[e] = __ldg(P.g0 + n0 + e);
-            lb[e] = __ldg(P.be0 + n0 + e);
-          }
-#pragma unroll 1
-          for (int row = tid / NG; row < M; row += RS) {
-            const float x0 = sm.xs[row * 3], x1 = sm.xs[row * 3 + 1], x2 = sm.xs[row * 3 + 2];
-            uint32_t pk[4];
-#pragma unroll
-            for (int e = 0; e < 8; e += 2) {
-              float h[2], ra, rb;
-#pragma unroll
-              for (int d = 0; d < 2; ++d) {
-                const float lin = __fadd_rn(
-                    __fadd_rn(__fmul_rn(x0, lw[0][e + d]), __fmul_rn(x1, lw[1][e + d])),
-                    __fmul_rn(x2, lw[2][e + d]));
-                h[d] = fast_sin(mul_add(lg[e + d], lin, lb[e + d]));
+          if (ch == 0) {
+            for (int i = tid; i < TR * W; i += CONSUMERS) {
+              const int r = i / W, n = i % W, ray = ray0 + r;
+              float vt = 0.f;
+              if (ray < P.n_rays) {
+                const float* v = P.viewdirs + size_t(ray) * 3;
+                vt = __fadd_rn(__fadd_rn(__fmul_rn(bfr(v[0]), bfr(__ldg(P.wvv + n))),
+                                         __fmul_rn(bfr(v[1]), bfr(__ldg(P.wvv + W + n)))),
+                               __fmul_rn(bfr(v[2]), bfr(__ldg(P.wvv + 2 * W + n))));
               }
-              pk[e / 2] = pack_bits(h[0], h[1], ra, rb);
+              sm.vphase[i] = mul_add(__ldg(P.gv + n), vt, __ldg(P.bev + n));
             }
-            *reinterpret_cast<uint4*>(base + act_offset(row, n0)) =
-                make_uint4(pk[0], pk[1], pk[2], pk[3]);
+            if (tid < TR) sm.dnorm[tid] = ray0 + tid < P.n_rays ? P.dnorm[ray0 + tid] : 0.f;
           }
+          consumer_sync();
         }
-        fence_proxy_async();
-        consumer_sync();  // h0 is complete
+
+        // ---- layer 0 (K = 3) on the CUDA cores into h0 at 512: a thread
+        //      takes 8 features (one 16-byte group) of every RS-th row (RS =
+        //      4); past 512 the producer warpgroup's layer-0 warps make h0
+        //      (above) ----
+        if constexpr (!RUN_TIME_W) {
+          if (const int NG = W / 8, RS = CONSUMERS / NG; tid < NG * RS) {
+            const int n0 = 8 * (tid % NG);
+            float lw[3][8], lg[8], lb[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+#pragma unroll
+              for (int k = 0; k < 3; ++k) lw[k][e] = bfr(__ldg(P.w0 + k * W + n0 + e));
+              lg[e] = __ldg(P.g0 + n0 + e);
+              lb[e] = __ldg(P.be0 + n0 + e);
+            }
+#pragma unroll 1
+            for (int row = tid / NG; row < M; row += RS) {
+              const float x0 = sm.xs[row * 3], x1 = sm.xs[row * 3 + 1], x2 = sm.xs[row * 3 + 2];
+              uint32_t pk[4];
+#pragma unroll
+              for (int e = 0; e < 8; e += 2) {
+                float h[2], ra, rb;
+#pragma unroll
+                for (int d = 0; d < 2; ++d) {
+                  const float lin = __fadd_rn(
+                      __fadd_rn(__fmul_rn(x0, lw[0][e + d]), __fmul_rn(x1, lw[1][e + d])),
+                      __fmul_rn(x2, lw[2][e + d]));
+                  h[d] = fast_sin(mul_add(lg[e + d], lin, lb[e + d]));
+                }
+                pk[e / 2] = pack_bits(h[0], h[1], ra, rb);
+              }
+              *reinterpret_cast<uint4*>(base + act_offset(row, n0)) =
+                  make_uint4(pk[0], pk[1], pk[2], pk[3]);
+            }
+          }
+          fence_proxy_async();
+          consumer_sync();  // h0 is complete
+        }
         WIDE_MARK(WP_inputs_layer0);
 
         // ---- layer 1 on the tensor cores; each pass's epilogue writes
@@ -1359,16 +1568,19 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
           uint32_t pk[4];             // a stmatrix's two rays
           // stmatrix: matrix m = lane / 8 of a store is rays j - 1 + m / 2,
           // features fa - g + 8 (m % 2); lane l gives row l % 8 of it
-          const int m = lane >> 3;
-          product(desc_h0, false, [&](int q, int j, const float (&acc)[NACC]) {
+          [[maybe_unused]] const int m = lane >> 3;
+          auto prep = [&](int q) {
             const int fa = q * CHUNK_ROWS + wg * 64 + 16 * wi + g;
-            if (j == 0)
 #pragma unroll
-              for (int u = 0; u < 2; ++u) {
-                gc[u] = __ldg(P.g1 + fa + 8 * u);
-                bc[u] = __ldg(P.be1 + fa + 8 * u);
-                wc[u] = bfr(__ldg(P.wsdf + fa + 8 * u));
-              }
+            for (int u = 0; u < 2; ++u) {
+              gc[u] = __ldg(P.g1 + fa + 8 * u);
+              bc[u] = __ldg(P.be1 + fa + 8 * u);
+              wc[u] = bfr(__ldg(P.wsdf + fa + 8 * u));
+            }
+          };
+          product(desc_h0, false, prep, [&](int q, int j, const float (&acc)[NACC]) {
+            [[maybe_unused]] const int fa = q * CHUNK_ROWS + wg * 64 + 16 * wi + g;
+            if (j == 0 && !RUN_TIME_W) prep(q);
             float r[2][2];  // [u][e]: the bf16-rounded h1
 #pragma unroll
             for (int u = 0; u < 2; ++u)
@@ -1378,7 +1590,24 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
                             r[u][1]);
 #pragma unroll
             for (int e = 0; e < 2; ++e) ps[2 * j + e] += r[0][e] * wc[0] + r[1][e] * wc[1];
-            if (j & 1) {
+            if constexpr (RUN_TIME_W) {
+              // into the scratch: lanes g and g ^ 1 (features fa and fa + 1)
+              // swap halves by a shuffle, so the even lane holds both
+              // features of row 8j + 2t and the odd lane both of row 8j +
+              // 2t + 1, each stored as one 4-byte pair (per u: a warp's
+              // store, 8 rows x 16 bytes)
+              unsigned char* const h1 = h_tile(1);
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                const uint32_t mine = pk[2 * (j & 1) + u];
+                const uint32_t other = __shfl_xor_sync(FULL, mine, 4);
+                const int odd = g & 1;
+                const uint32_t v = odd ? __byte_perm(other, mine, 0x7632)
+                                       : __byte_perm(mine, other, 0x5410);
+                *reinterpret_cast<uint32_t*>(h1 + act_offset(8 * j + 2 * t + odd,
+                                                             fa + 8 * u - odd)) = v;
+              }
+            } else if (j & 1) {
               const int row = 8 * (j - 1 + (m >> 1)) + (lane & 7);
               stmatrix_x4_trans(s_act1 + (2 * q + wg) * ACT_BLOCK + row * 128 +
                                     (((2 * wi + (m & 1)) ^ (row & 7)) << 4),
@@ -1387,11 +1616,34 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
           });
         }
         WIDE_MARK(WP_layer1_epilogue_sdf_head);
-        fence_proxy_async();
+        if constexpr (RUN_TIME_W) {
+          fence_proxy_async_global();
+          // the unit's inputs (the view directions and |d| once a tile):
+          // the last unit's readers of them are past its barriers
+          if (tid < M) {
+            const int r = tid / SC, s = tid % SC, ray = ray0 + r;
+            const bool ok = ray < P.n_rays && s < sn;
+            const size_t src = size_t(ray) * S + s0 + s;
+#pragma unroll
+            for (int c = 0; c < 3; ++c) sm.pts[tid * 3 + c] = ok ? P.pts[src * 3 + c] : 0.f;
+            sm.z[tid] = ok ? P.z_vals[src] : 0.f;
+          }
+          if (ch == 0) {
+            if (tid < TR * 3) {
+              const int ray = ray0 + tid / 3;
+              sm.vdir[tid] = ray < P.n_rays ? bfr(P.viewdirs[size_t(ray) * 3 + tid % 3]) : 0.f;
+            }
+            if (tid < TR) sm.dnorm[tid] = ray0 + tid < P.n_rays ? P.dnorm[ray0 + tid] : 0.f;
+          }
+        } else {
+          fence_proxy_async();
+        }
         // the sdf partials over the warp's 8 feature lanes g, then the 8
         // warps' in order
         head_partials<1>(ps, sm.part, warp, lane);
-        consumer_sync();  // h1 and the sdf partials are complete
+        consumer_sync();  // h1 and the sdf partials (past 512 the inputs) are complete
+        if constexpr (RUN_TIME_W)
+          if (tid == 0) mbar_arrive(s_ready + 8);  // the producer may copy h1
         WIDE_MARK(WP_layer1_epilogue_sdf_head);
 
         // ---- integration: sigma and alpha over the rows in parallel ----
@@ -1458,8 +1710,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
         for (int v = 0; v < 6 * TR; ++v) pr[v] = 0.f;
         {
           float gvc[2], wr[2][3];  // the pass's constants at features fa, fa + 8
+          [[maybe_unused]] float wv[2][3], bv[2];  // past 512 also bf16(wvv) and bev there
           float fs[2 * TR];  // w * feat over the lane's two samples, (ray j, u) at 2j + u
-          float fprev[TR / 2];  // past 512: the feat sums of the units before
+          [[maybe_unused]] float fprev[TR / 2];  // past 512: the feat sums of the units before
           // after the reduce-scatter below, lane t keeps (ray j, u) at v =
           // t * TR / 2 + k = 2j + u: its feat value, and whether it is stored
           auto feat_at = [&](int fa, int k, bool& mine) {
@@ -1467,29 +1720,47 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
             mine = ray < P.n_rays && n < P.feat_width;
             return P.feat + size_t(ray) * P.feat_width + n;
           };
-          product(desc_h1, true, [&](int q, int j, const float (&acc)[NACC]) {
+          auto prep = [&](int q) {
             const int fa = q * CHUNK_ROWS + wg * 64 + 16 * wi + g;
-            if (j == 0) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              gvc[u] = __ldg(P.gv + fa + 8 * u);
+#pragma unroll
+              for (int k = 0; k < 3; ++k) wr[u][k] = bfr(__ldg(P.wrgb + (fa + 8 * u) * 3 + k));
+            }
+            if constexpr (RUN_TIME_W) {
 #pragma unroll
               for (int u = 0; u < 2; ++u) {
-                gvc[u] = __ldg(P.gv + fa + 8 * u);
 #pragma unroll
-                for (int k = 0; k < 3; ++k) wr[u][k] = bfr(__ldg(P.wrgb + (fa + 8 * u) * 3 + k));
+                for (int k = 0; k < 3; ++k) wv[u][k] = bfr(__ldg(P.wvv + k * W + fa + 8 * u));
+                bv[u] = __ldg(P.bev + fa + 8 * u);
               }
-              if constexpr (RUN_TIME_W) {
 #pragma unroll
-                for (int k = 0; k < TR / 2; ++k) {
-                  bool mine;
-                  const float* at = feat_at(fa, k, mine);
-                  fprev[k] = ch > 0 && mine ? *at : 0.f;
-                }
+              for (int k = 0; k < TR / 2; ++k) {
+                bool mine;
+                const float* at = feat_at(fa, k, mine);
+                fprev[k] = ch > 0 && mine ? *at : 0.f;
               }
             }
+          };
+          product(desc_h1, true, prep, [&](int q, int j, const float (&acc)[NACC]) {
+            const int fa = q * CHUNK_ROWS + wg * 64 + 16 * wi + g;
+            if (j == 0 && !RUN_TIME_W) prep(q);
             const float w0r = sm.wgt[8 * j + 2 * t], w1r = sm.wgt[8 * j + 2 * t + 1];
             float b[2][2];  // [u][e]: the rgb head's bf16 operands
 #pragma unroll
             for (int u = 0; u < 2; ++u) {
-              const float vp = sm.vphase[j * W + fa + 8 * u];
+              float vp;  // the view phase of ray j at feature fa + 8u: past 512 made here
+              if constexpr (RUN_TIME_W) {
+                const float* d = sm.vdir + 3 * j;
+                vp = mul_add(gvc[u],
+                             __fadd_rn(__fadd_rn(__fmul_rn(d[0], wv[u][0]),
+                                                 __fmul_rn(d[1], wv[u][1])),
+                                       __fmul_rn(d[2], wv[u][2])),
+                             bv[u]);
+              } else {
+                vp = sm.vphase[j * W + fa + 8 * u];
+              }
               const float f0 = fast_sin(mul_add(gvc[u], acc[4 * j + 2 * u], vp));
               const float f1 = fast_sin(mul_add(gvc[u], acc[4 * j + 2 * u + 1], vp));
               fs[2 * j + u] = __fadd_rn(__fmul_rn(w0r, f0), __fmul_rn(w1r, f1));
@@ -1578,7 +1849,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) siren_render_kernel_wide(const Pa
 constexpr int MAX_DEVICES = 16;
 
 template <bool PAD>
-static int launch_wide(const Params& P, cudaStream_t stream) {
+static int launch_wide(const Params& P, cudaStream_t stream, long long scratch_bytes) {
   static std::atomic<int> smem_set[MAX_DEVICES], clusters_at[MAX_DEVICES];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1613,6 +1884,10 @@ static int launch_wide(const Params& P, cudaStream_t stream) {
   const int n_tiles = (P.n_rays + TR - 1) / TR;
   const int groups = (n_tiles + CLUSTER - 1) / CLUSTER;
   cfg.gridDim = dim3((clusters < groups ? clusters : groups) * CLUSTER);
+  // past 512: h0 and h1 of every CTA of the grid in the caller's scratch
+  if (RUN_TIME_W && (P.scratch == nullptr ||
+                     (long long)cfg.gridDim.x * 256 * P.width > scratch_bytes))
+    return int(cudaErrorInvalidValue);
   if ((err = cudaLaunchKernelEx(&cfg, siren_render_kernel_wide<PAD>, P)) != cudaSuccess)
     return int(err);
   return int(cudaGetLastError());
@@ -1638,8 +1913,10 @@ extern "C" int siren_render_phase_cycles(unsigned long long* out, int* n, int re
 // swizzled chunks (kernels/siren_render.py: siren_prepare's w1c, wvhc).
 // `n_samples` is each ray's sample count: any count >= 1, or in a fixed
 // build that build's count; `width` the operands' width: 512 in that
-// build, a multiple of 128 past 512 up to K1_W in the others;
-// `feat_width` the caller's, feat's row stride, 1 to `width`
+// build, any multiple of 128 past 512 in the run-time-width build;
+// `feat_width` the caller's, feat's row stride, 1 to `width`; `scratch`
+// (run-time width only) `scratch_bytes` of device memory, at least 256 x
+// `width` bytes a CTA of the grid, one CTA an SM at most
 // (cudaErrorInvalidValue otherwise).
 extern "C" int siren_render_forward(
     const float* pts, const float* viewdirs, const float* z_vals,
@@ -1648,9 +1925,9 @@ extern "C" int siren_render_forward(
     const float* wvv, const float* gv, const float* bev, const float* wsdf,
     const float* bsdf, const float* wrgb, const float* brgb, float scale,
     float sigmoid_beta, float* thumb, float* feat, float* xyz, float* maskd,
-    float* sdf, int n_rays, int n_samples, int width, int feat_width, void* stream) {
-  const bool width_ok = RUN_TIME_W ? width > 512 && width <= W_MAX && width % CHUNK_ROWS == 0
-                                   : width == W_MAX;
+    float* sdf, int n_rays, int n_samples, int width, int feat_width, void* stream,
+    void* scratch, long long scratch_bytes) {
+  const bool width_ok = RUN_TIME_W ? width > 512 && width % CHUNK_ROWS == 0 : width == FIXED_W;
   if (n_samples < 1 || (FIXED_S > 0 && n_samples != FIXED_S) || !width_ok ||
       feat_width < 1 || feat_width > width)
     return int(cudaErrorInvalidValue);
@@ -1658,11 +1935,11 @@ extern "C" int siren_render_forward(
                  static_cast<const unsigned char*>(w1t), g1, be1,
                  static_cast<const unsigned char*>(wvht), wvv, gv, bev, wsdf, bsdf, wrgb, brgb,
                  scale, sigmoid_beta, thumb, feat, xyz, maskd, sdf, n_rays, n_samples, width,
-                 feat_width};
+                 feat_width, static_cast<unsigned char*>(scratch)};
   // past 512 the kernel takes feat's stride at run time in one instantiation
   if (!RUN_TIME_W && feat_width < width)
-    return launch_wide<!RUN_TIME_W>(P, static_cast<cudaStream_t>(stream));
-  return launch_wide<false>(P, static_cast<cudaStream_t>(stream));
+    return launch_wide<!RUN_TIME_W>(P, static_cast<cudaStream_t>(stream), scratch_bytes);
+  return launch_wide<false>(P, static_cast<cudaStream_t>(stream), scratch_bytes);
 }
 
 #endif  // K1_W

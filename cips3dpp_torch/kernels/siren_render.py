@@ -93,8 +93,7 @@ def siren_prepare(renderer, styles, near, far):
     bf16 (out, in) copies of the two W x W weights, and the constants
     [2/(far-near), sigmoid_beta]. `renderer` is a VolumeFeatureRenderer
     of depth 2. The folded operands are zero-padded to the width of the
-    build that renders this width (`kernel_build`; past the ceiling not at
-    all, the plain version taking any width): columns of w0, g*, be*, wvv,
+    build that renders this width (`kernel_build`): columns of w0, g*, be*, wvv,
     rows and columns of w1 and wvh, rows of wsdf and wrgb. A padded unit
     has g = 0 and beff = 0, so its phase is 0 and its sine exactly 0, and
     it meets zero weight rows: the padding changes no output but the f32
@@ -108,7 +107,7 @@ def siren_prepare(renderer, styles, near, far):
                     _pack_siren_params(renderer.network, styles))
     width = weights[3].shape[1]
     build = kernel_build(width, 1)
-    kw = build.width if isinstance(build, K1Build) else width
+    kw = build.width
     if kw != width:
         # (rows, columns) of zeros to add to each operand, in _pack order
         grow = [(0, 1), (0, 1), (0, 1), (1, 1), (0, 1), (0, 1), (1, 1), (0, 1), (0, 1),
@@ -126,7 +125,7 @@ def siren_prepare(renderer, styles, near, far):
         "w1t": weights[3].t().contiguous().to(torch.bfloat16),
         "wvht": weights[6].t().contiguous().to(torch.bfloat16),
     }
-    if isinstance(build, K1Build) and kw == build.width >= WIDE_WIDTH:
+    if kw >= WIDE_WIDTH:
         # 16 KB chunks of 128 output x 64 input features, pass by pass,
         # pre-swizzled: the wgmma A operand, one bulk copy a chunk
         prepared["w1c"] = chunk_weight(prepared["w1t"])
@@ -166,21 +165,23 @@ def siren_render_plain(prepared, pts, viewdirs, z_vals, dnorm):
 
 
 # The geometries K1 renders on the card: a depth-2 SDF SIREN of any width
-# from 1 to MAX_WIDTH with any sample count >= 1. csrc/siren_render.cu is
-# built once a width build (the sample count taken at launch) and once more
-# for the serving geometry, whose build fixes the sample count at compile
-# time. A width runs at the next width a build takes, its operands
-# zero-padded by siren_prepare: 32, 64, 128 or 256 (the mma.sync template),
-# 512 (siren_render_kernel_wide, its width fixed at compile time), and past
-# 512 the next multiple of 128 in the wide kernel's run-time-width builds
-# (-DK1_W=1024: 32-row units of 4 rays x 8 samples; -DK1_W=2048: 16-row
-# units of 2 rays, so the two bf16 activation tiles stay at 128 KB).
+# >= 1 with any sample count >= 1. csrc/siren_render.cu is built once a
+# width build (the sample count taken at launch) and once more for the
+# serving geometry, whose build fixes the sample count at compile time. A
+# width runs at the next width a build takes, its operands zero-padded by
+# siren_prepare: 32, 64, 128 or 256 (the mma.sync template), 512
+# (siren_render_kernel_wide, its width fixed at compile time), and past
+# 512 the next multiple of 128 in the wide kernel's run-time-width build
+# (-DK1_W=0: 64-row units of 8 rays x 8 samples, h0 and h1 staged through
+# a scratch in 64-feature K-chunks, so its shared memory does not grow
+# with the width).
 NARROW_WIDTHS = (32, 64, 128, 256)
 WIDE_WIDTH = 512
-RUNTIME_WIDE_BUILDS = (1024, 2048)
-MAX_WIDTH = RUNTIME_WIDE_BUILDS[-1]
-BUILD_WIDTHS = NARROW_WIDTHS + (WIDE_WIDTH,) + RUNTIME_WIDE_BUILDS
+BUILD_WIDTHS = NARROW_WIDTHS + (WIDE_WIDTH,)
+RUN_TIME_WIDTH_DEFINE = "-DK1_W=0"
 SERVING_GEOMETRY = (256, 24)
+# the wide kernel's unit: 8 rays x 8 samples, the rows of its activation tiles
+WIDE_UNIT_ROWS = 64
 
 
 class K1Build(NamedTuple):
@@ -190,28 +191,26 @@ class K1Build(NamedTuple):
 
 def kernel_build(width: int, n_samples: int) -> K1Build | str:
     """The K1 build that renders a depth-2 SDF SIREN of `width` with
-    `n_samples` samples a ray on the card, or why none does (a width past
-    MAX_WIDTH, the ceiling)."""
+    `n_samples` samples a ray on the card: every width >= 1 and every
+    sample count >= 1 has one. Anything else (a count < 1) gets the
+    reason as a string."""
     if width < 1 or n_samples < 1:
         return (f"the renderer has width {width} and {n_samples} samples, K1 takes widths "
-                f"1 to {MAX_WIDTH} and 1 or more samples")
-    if width > MAX_WIDTH:
-        return (f"the renderer has width {width}, K1 takes widths 1 to {MAX_WIDTH}: its "
-                f"widest build keeps two bf16 activation tiles of 16 rows x {MAX_WIDTH} "
-                f"features in 128 KB of shared memory")
+                f"1 and up and 1 or more samples")
     if width <= WIDE_WIDTH:
-        kw = build = next(w for w in BUILD_WIDTHS if w >= width)
+        kw = next(w for w in BUILD_WIDTHS if w >= width)
+        defines = (f"-DK1_W={kw}", "-DK1_FIXED_S=0")
     else:
         kw = -(-width // 128) * 128
-        build = next(w for w in RUNTIME_WIDE_BUILDS if w >= kw)
+        defines = (RUN_TIME_WIDTH_DEFINE, "-DK1_FIXED_S=0")
     if (kw, n_samples) == SERVING_GEOMETRY:
         return K1Build(kw, ())
-    return K1Build(kw, (f"-DK1_W={build}", "-DK1_FIXED_S=0"))
+    return K1Build(kw, defines)
 
 
 def kernel_defines(width: int, n_samples: int) -> tuple[str, ...]:
     """The nvcc flags of the K1 library that renders `width` x
-    `n_samples` (`kernel_build`); raises past the ceiling."""
+    `n_samples` (`kernel_build`); raises for a count < 1."""
     build = kernel_build(width, n_samples)
     if isinstance(build, str):
         raise ValueError(f"siren_render kernel: {build}")
@@ -219,17 +218,39 @@ def kernel_defines(width: int, n_samples: int) -> tuple[str, ...]:
 
 
 def kernel_builds() -> list[tuple[str, tuple[str, ...]]]:
-    """(source, defines) of every K1 library, for `_lib.build`."""
+    """(source, defines) of every K1 library, for `_lib.build`: the
+    serving build, one a build width, and the run-time-width build."""
     return [("siren_render", ())] + [("siren_render", kernel_defines(w, 1))
-                                     for w in BUILD_WIDTHS]
+                                     for w in BUILD_WIDTHS + (WIDE_WIDTH + 128,)]
+
+
+def wide_scratch_bytes(kernel_width: int) -> int:
+    """Bytes of scratch one CTA of the run-time-width build uses: its h0
+    and h1 tiles, each WIDE_UNIT_ROWS rows x `kernel_width` bf16
+    (`wide_activation_layout`)."""
+    return 2 * WIDE_UNIT_ROWS * kernel_width * 2
+
+
+def wide_activation_layout(h: torch.Tensor) -> torch.Tensor:
+    """An activation tile (WIDE_UNIT_ROWS rows x W features, W a multiple
+    of 64) as the run-time-width build keeps it in its scratch: W / 64
+    K-chunks of 64 rows x 64 features (8 KB in bf16), in order; within a
+    chunk, row n's 16-byte group j of 8 features sits at j ^ (n % 8), the
+    swizzle of `chunk_weight`'s chunks, so one bulk copy puts a chunk in a
+    ring slot as wgmma reads it. Returns the tile flat."""
+    m, w = h.shape
+    x = h.reshape(m, w // 64, 8, 8).permute(1, 0, 2, 3)  # chunk, row, group, value
+    rows = torch.arange(m, device=h.device)[:, None]
+    swizzle = torch.arange(8, device=h.device)[None, :] ^ (rows % 8)
+    return torch.gather(x, 2, swizzle[None, :, :, None].expand(x.shape)).reshape(-1)
 
 
 def kernel_route_refusal(depth: int, width: int, n_samples: int, with_sdf: bool,
                          device) -> str | None:
     """Why a renderer of this geometry cannot render through K1 on
     `device`, or None if it can. K1 renders a depth-2 SDF SIREN; on the
-    card its kernel takes widths 1 to MAX_WIDTH and any sample count
-    (`kernel_build`), on the CPU its plain version takes any.
+    card its kernel takes every width and sample count (`kernel_build`),
+    on the CPU its plain version too.
     The training steps decide their route with it once, from the
     configuration (the JAX package's gate,
     cips3dpp_tpu/models/renderer.py:86-90)."""
@@ -257,10 +278,13 @@ def default_kernel_route(depth: int, width: int, n_samples: int, with_sdf: bool,
     return why is None and torch.device(device).type == "cuda", why
 
 
-def _launch(prepared, pts, viewdirs, z_vals, dnorm, defines=()):
+def _launch(prepared, pts, viewdirs, z_vals, dnorm, defines=(), scratch=None):
     """The kernel on the card, from the library of the geometry's build;
     `defines` selects an instrumented build of it (`_lib.load`). The
-    operands are at the build's width; feat comes out at the renderer's."""
+    operands are at the build's width; feat comes out at the renderer's.
+    Past width 512 the kernel stages h0 and h1 through a scratch of
+    `wide_scratch_bytes` a CTA, one CTA an SM at most: allocated here, or
+    `scratch` (uint8 on the card) for a caller that reads it back."""
     dev = pts.device
     r, s, _ = pts.shape
     weights = prepared["weights"]
@@ -288,6 +312,11 @@ def _launch(prepared, pts, viewdirs, z_vals, dnorm, defines=()):
         _lib.check(w1, "w1t", (kw, kw), bf16, dev)
         _lib.check(wvh, "wvht", (kw, kw), bf16, dev)
 
+    if kw > WIDE_WIDTH and scratch is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        scratch = torch.empty(sms * wide_scratch_bytes(kw), dtype=torch.uint8, device=dev)
+    elif scratch is not None:
+        _lib.check(scratch, "scratch", (scratch.numel(),), torch.uint8, dev)
     thumb = torch.empty((r, 3), dtype=f32, device=dev)
     feat = torch.empty((r, width), dtype=f32, device=dev)
     xyz = torch.empty((r, 3), dtype=f32, device=dev)
@@ -299,7 +328,8 @@ def _launch(prepared, pts, viewdirs, z_vals, dnorm, defines=()):
     fn = lib.siren_render_forward
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_float] * 2 + \
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2 + \
+        [ctypes.c_longlong]
     (w0, g0, be0, _, g1, be1, _, wvv, gv, bev,
      wsdf, bsdf, wrgb, brgb) = weights
     scale, sbeta = prepared["consts"]
@@ -312,6 +342,7 @@ def _launch(prepared, pts, viewdirs, z_vals, dnorm, defines=()):
         scale, sbeta,
         p(thumb), p(feat), p(xyz), p(maskd), p(sdf),
         r, s, kw, width, _lib.stream_ptr(dev),
+        p(scratch), 0 if scratch is None else scratch.numel(),
     )
     _lib.raise_on_error(code, "siren_render")
     _lib.LAUNCHES["siren_render"] += 1

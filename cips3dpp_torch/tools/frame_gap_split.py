@@ -83,7 +83,7 @@ def k1_sums_reordered(step: int = 16):
 def k1_bounds(tol: dict, prepared, pts, viewdirs, z_vals, dnorm) -> dict:
     """K1's bounds against its plain version by output (keys of `tol`, in
     the order the render returns them): `tol` up to width 512; past it,
-    where the products sum over 640 to 2048 features and the bf16 flips of
+    where the products sum over 640 or more features and the bf16 flips of
     any change of f32 order grow with them, the larger of `tol` and 1.5x
     the plain version's own spread under another sum order of its
     products (`k1_sums_reordered`) on the same inputs."""

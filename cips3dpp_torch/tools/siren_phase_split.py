@@ -13,7 +13,8 @@ product, its epilogue, sigma and alpha, transmittance, view product, view
 epilogue, feat output, thumb) to a counter; each mark follows a block
 barrier, some of them added by the instrumentation. Past 256
 (siren_render_kernel_wide) every warp counts its own cycles by phase and
-no barrier is added: the producer's waits for an empty ring slot, the
+no barrier is added: the producer's waits for an empty ring slot (past
+512 also for h0 and h1 to be complete in the scratch), the
 consumers' inputs and layer 0, and for each product the waits for a full
 slot, wgmma (issue and group waits) and the epilogue, then integration and
 the outputs. Prints one JSON line: each phase's share of the counted
@@ -116,11 +117,11 @@ def main(argv=None) -> None:
     ap.add_argument("--rays", type=int, default=4096)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--width", type=int, default=256,
-                    help=f"1 to {ksr.MAX_WIDTH}: K1's widths (kernel_build)")
+                    help="any width >= 1: K1's widths (kernel_build)")
     ap.add_argument("--samples", type=int, default=24)
     args = ap.parse_args(argv)
-    if not 1 <= args.width <= ksr.MAX_WIDTH:
-        ap.error(f"--width {args.width}: K1 takes widths 1 to {ksr.MAX_WIDTH}")
+    if args.width < 1:
+        ap.error(f"--width {args.width}: K1 takes widths 1 and up")
     with torch.inference_mode():
         print(json.dumps(measure(args.rays, args.iters, torch.device("cuda", 0), args.width,
                                  args.samples)))

@@ -17,8 +17,8 @@ through the SIREN render kernel: one launch per batch item. The route is
 decided once for each device, from the configuration
 (`default_kernel_route`), as the JAX package's renderer gates its kernel:
 off the card the steps render plainly (JAX's fused flags are inert off the
-TPU); a renderer K1 does not take (depth 8, no SDF, another width on the
-card) renders plainly, and the steps say so once. The same rule holds for
+TPU); a renderer K1 does not take (depth 8, no SDF) renders plainly, and
+the steps say so once. The same rule holds for
 cfg.fused_renderer_g. Gradients are taken with
 torch.autograd.grad with respect to the updated module only, so no
 `.grad` of another module is touched.

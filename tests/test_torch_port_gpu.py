@@ -58,9 +58,13 @@ def _siren_inputs(dev, width, s, r, seed=0):
 # build), 200 (the serving build at 24 samples, the width-256 build at
 # 48), 384 and 300 (the width-512 build); sample counts past 64: 65 (one
 # past a 24- and an 8-sample chunk), 72 and 96, 128 and 256 (many
-# chunks); and the run-time-width builds at 640 (10 chunks a pass), 700
-# (padded to 768) and 1024 (32-row units) and 1152 and 2048 (16-row
-# units), at 1, 20 (no multiple of the 8-sample chunk), 24 and 65 samples
+# chunks); and the run-time-width build (64-row units, h0 and h1 staged
+# through its scratch) at 640 (10 chunks a pass, 5 passes: an odd count),
+# 1024 and 2048 at 1, 20 (no multiple of the 8-sample unit), 24 and 65
+# samples over 1001 and 4096 rays; at 8 (one whole unit) and 96 samples
+# there and at 2049 (padded to 2176), 2176, 3000 (padded to 3072) and
+# 4096, which also run 1 and 24 samples; 4096 at 24 over 4096 rays; 700
+# (padded to 768) and 1152 (9 passes)
 K1_GEOMETRIES = [(256, 24, r) for r in (1001, 5, 4096)] + [
     (w, s, r) for w in (32, 128, 512) for s in (1, 12, 20, 48) for r in (1001, 4096)] + [
     (512, s, r) for s in (24, 64) for r in (1001, 4096)] + [
@@ -68,7 +72,9 @@ K1_GEOMETRIES = [(256, 24, r) for r in (1001, 5, 4096)] + [
     (300, 72, 1001), (256, 65, 1001), (256, 96, 4096), (128, 256, 1001), (512, 128, 1001),
     (512, 96, 4096)] + [
     (w, s, r) for w in (640, 1024, 2048) for s in (1, 20, 24, 65) for r in (1001, 4096)] + [
-    (700, 24, 1001), (1152, 48, 1001)]
+    (w, s, 1001) for w in (640, 1024, 2048, 2049, 2176, 3000, 4096) for s in (8, 96)] + [
+    (w, s, 1001) for w in (2049, 2176, 3000, 4096) for s in (1, 24)] + [
+    (4096, 24, 4096), (700, 24, 1001), (1152, 48, 1001)]
 
 
 @pytest.mark.parametrize("width,s,r", K1_GEOMETRIES)
@@ -101,7 +107,7 @@ def test_siren_render_kernel_matches_plain(dev, width, s, r):
 
 
 @pytest.mark.parametrize("width,s", [(256, 24), (128, 48), (512, 20), (512, 24), (96, 65),
-                                     (640, 20), (1024, 24), (2048, 65)])
+                                     (640, 20), (1024, 24), (2048, 65), (2176, 24), (4096, 8)])
 def test_siren_render_ray_slices_equal_the_whole(dev, width, s):
     """Each ray's arithmetic is independent of its tile: two launches over
     the halves of 4096 rays give the bits of one launch over all (what the
@@ -117,22 +123,98 @@ def test_siren_render_ray_slices_equal_the_whole(dev, width, s):
 
 
 def test_siren_render_refuses_other_geometries(dev):
-    """Every width to the ceiling and any sample count launch K1 (a width
-    no build has as its own zero-padded, feat at the renderer's width); a
-    width past the ceiling raises before launching, naming it."""
+    """Every width and any sample count launch K1 (a width no build has
+    as its own zero-padded, feat at the renderer's width), past 2048 too
+    (2049 at 2176, 4096); a sample count below 1 raises before launching,
+    naming it."""
     from cips3dpp_torch.kernels import _lib
     from cips3dpp_torch.kernels.siren_render import siren_render_prepared
 
-    for width, s in ((96, 24), (256, 65), (1024, 24), (2048, 96)):
+    for width, s in ((96, 24), (256, 65), (1024, 24), (2048, 96), (2049, 24), (4096, 24)):
         prep, pts, vd, z, rd = _siren_inputs(dev, width, s, 8)
         before = _lib.LAUNCHES["siren_render"]
         out = siren_render_prepared(prep, pts, vd, z, rd)
         assert _lib.LAUNCHES["siren_render"] == before + 1 and out[1].shape == (8, width)
     prep, pts, vd, z, rd = _siren_inputs(dev, 2049, 24, 8)
     before = _lib.LAUNCHES["siren_render"]
-    with pytest.raises(ValueError, match="width 2049, K1 takes widths 1 to 2048"):
-        siren_render_prepared(prep, pts, vd, z, rd)
+    with pytest.raises(ValueError, match="0 samples, K1 takes widths 1 and up and 1 or more"):
+        siren_render_prepared(prep, pts[:, :0], vd, z[:, :0], rd)
     assert _lib.LAUNCHES["siren_render"] == before
+
+
+@pytest.mark.parametrize("width", [640, 2176])
+def test_siren_wide_scratch_holds_h0_and_h1(dev, width):
+    """The run-time-width build stages h0 and h1 through its scratch in
+    the layout `wide_activation_layout` describes: after a launch over one
+    unit (8 rays x 8 samples, the first CTA's), the CTA's two tiles hold
+    the plain version's h0 and h1 in bf16, a value off by at most one bf16
+    step where another f32 sum order flips a rounding (layer 0's three
+    terms, layer 1's products), and few of them."""
+    from cips3dpp_torch.kernels import siren_render as ksr
+
+    prep, pts, vd, z, rd = _siren_inputs(dev, width, 8, 8)
+    dnorm = torch.linalg.norm(rd, dim=-1, keepdim=True)
+    kw = prep["weights"][3].shape[0]
+    per_cta = ksr.wide_scratch_bytes(kw)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    scratch = torch.zeros(sms * per_cta, dtype=torch.uint8, device=dev)
+    ksr._launch(prep, pts, vd, z, dnorm, scratch=scratch)
+    torch.cuda.synchronize()
+    w0, g0, be0, w1, g1, be1 = prep["weights"][:6]
+    x = (pts * prep["consts"][0]).reshape(64, 3)  # rows ray-major, as the kernel's unit
+    h0 = ksr.fast_sin(g0 * ksr._bdot(x, w0) + be0).to(torch.bfloat16)
+    h1 = ksr.fast_sin(g1 * ksr._bdot(h0, w1) + be1).to(torch.bfloat16)
+    tiles = scratch[:per_cta].view(torch.bfloat16)
+    for name, want, got in (("h0", h0, tiles[:64 * kw]), ("h1", h1, tiles[64 * kw:])):
+        d = (got.float() - ksr.wide_activation_layout(want).float()).abs()
+        off = float((d > 0).float().mean())
+        print(f"W={width} {name}: max |scratch - plain| {float(d.max()):.3e}, share off {off:.4f}")
+        assert float(d.max()) <= 2**-7 and off <= 0.01, (name, float(d.max()), off)
+
+
+# sha1 of each entry's SASS instructions (sass_diff.parse_sass, the text
+# and first encoding word of each line) in the K1 builds up to width 512:
+# the serving build and the width builds 32-512, by (defines, the PAD
+# instantiation). Recorded on the H100 machine (CUDA 12.8) from the
+# libraries those builds compiled to before the run-time-width build was
+# redesigned, identical to them line for line (sass_diff): that redesign
+# leaves these builds' code as it was.
+NARROW_SASS = {
+    ((), 0): "966f5e04f46e6f8af0912b536dadad4f8921172e",
+    ((), 1): "01e0379cecf92039ff6825246939c7f7ab9c68bf",
+    (("-DK1_W=32", "-DK1_FIXED_S=0"), 0): "001d1d9ecef3bb5eae802814c9d997c2d77eb344",
+    (("-DK1_W=32", "-DK1_FIXED_S=0"), 1): "fc52dab23df5e85577b3e7da63f2f76c7a6c10eb",
+    (("-DK1_W=64", "-DK1_FIXED_S=0"), 0): "60612654bfa2194d44df534920eabaf19e0ad38e",
+    (("-DK1_W=64", "-DK1_FIXED_S=0"), 1): "d3e1298c33aac03b018f0e8955a44a0300109cbf",
+    (("-DK1_W=128", "-DK1_FIXED_S=0"), 0): "f5ce1f8e939e313ece2ecacc334301d41aab67d3",
+    (("-DK1_W=128", "-DK1_FIXED_S=0"), 1): "d8152ec4cd4e1c573c9dd9c52a1e662e6d94c1ca",
+    (("-DK1_W=256", "-DK1_FIXED_S=0"), 0): "c65866f8717c381198f6a918a5f9baf5b7f2623b",
+    (("-DK1_W=256", "-DK1_FIXED_S=0"), 1): "0588285464f390e701315366a56cacd45191d324",
+    (("-DK1_W=512", "-DK1_FIXED_S=0"), 0): "df13a3ac32285946d27d8b1d230ff3fc082d4318",
+    (("-DK1_W=512", "-DK1_FIXED_S=0"), 1): "779a1818a847a23bafdc52dd0c12e5cc3c4dfbee",
+}
+
+
+def test_siren_narrow_builds_keep_their_sass(dev):
+    """The K1 builds up to width 512 compile to the SASS in NARROW_SASS,
+    entry by entry (both instantiations of each), so the run-time-width
+    build's code shares none of their instructions' fate."""
+    import hashlib
+    import subprocess
+
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.kernels import siren_render as ksr
+    from cips3dpp_torch.tools import sass_diff
+
+    builds = [(n, d) for n, d in ksr.kernel_builds() if ksr.RUN_TIME_WIDTH_DEFINE not in d]
+    _lib.build(builds)
+    seen = {}
+    for name, defines in builds:
+        text = subprocess.run([sass_diff._cuobjdump(), "-sass", str(_lib._lib_path(name, defines))],
+                              capture_output=True, text=True, check=True).stdout
+        for entry, ins in sass_diff.parse_sass(text).items():
+            seen[(defines, int("ILb1" in entry))] = hashlib.sha1("\n".join(ins).encode()).hexdigest()
+    assert seen == NARROW_SASS, {k: v for k, v in seen.items() if NARROW_SASS.get(k) != v}
 
 
 def test_siren_phase_split_counts_every_phase(dev):
@@ -159,9 +241,10 @@ def test_siren_wide_phase_split_counts_every_phase(dev):
     assert out["ms"] > 0 and out["instrumented_ms"] > 0
 
 
-@pytest.mark.parametrize("width,s,r", [(512, 24, 4096), (512, 12, 1001), (1024, 24, 4096)])
+@pytest.mark.parametrize("width,s,r", [(512, 24, 4096), (512, 12, 1001), (1024, 24, 4096),
+                                       (2176, 24, 1001)])
 def test_siren_wide_planted_ring_fault_is_caught(dev, width, s, r):
-    """A wide build (512, and the run-time-width build at 1024) with a
+    """A wide build (512, and the run-time-width build at 1024 and 2176) with a
     planted fault (-DK1_PLANT_RING_FAULT: each consumer reads the ring
     slot after the one whose full barrier it waited for) launches and
     returns, and the comparison the tests above make against the plain

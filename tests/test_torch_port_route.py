@@ -60,19 +60,23 @@ def test_default_projector_renders_plainly_off_the_card(capsys):
 
 def test_default_route_rule():
     """`default_kernel_route` takes K1 on the card at K1's geometry only
-    (a depth-2 SDF renderer of width 1 to 2048, any sample count, as JAX's
-    gate); off the card it renders plainly without a word, and a geometry
-    K1 does not take is refused with its reason on any device (only
-    torch.device(...).type is read: no card needed)."""
-    from cips3dpp_torch.kernels.siren_render import default_kernel_route, kernel_route_refusal
+    (a depth-2 SDF renderer of any width and sample count, as JAX's gate);
+    off the card it renders plainly without a word, and a geometry K1
+    does not take is refused with its reason on any device (only
+    torch.device(...).type is read: no card needed). Widths past 2048
+    take K1 too, at the next multiple of 128 in the run-time-width build."""
+    from cips3dpp_torch.kernels.siren_render import (
+        RUN_TIME_WIDTH_DEFINE, default_kernel_route, kernel_build, kernel_route_refusal,
+    )
 
     assert default_kernel_route(2, 256, 24, True, "cuda") == (True, None)
     assert default_kernel_route(2, 256, 24, True, "cpu") == (False, None)
     assert default_kernel_route(2, 32, 4, True, "cpu") == (False, None)
-    take, why = default_kernel_route(2, 2049, 24, True, "cuda")
-    assert not take and "width 2049" in why and "1 to 2048" in why
-    assert why == kernel_route_refusal(2, 2049, 24, True, torch.device("cuda", 0))
-    assert default_kernel_route(2, 2049, 24, True, "cpu") == (False, None)
+    for width, kw in ((2049, 2176), (4096, 4096)):
+        assert default_kernel_route(2, width, 24, True, "cuda") == (True, None)
+        assert kernel_route_refusal(2, width, 24, True, torch.device("cuda", 0)) is None
+        assert kernel_build(width, 24) == (kw, (RUN_TIME_WIDTH_DEFINE, "-DK1_FIXED_S=0"))
+        assert default_kernel_route(2, width, 24, True, "cpu") == (False, None)
     for width, n in ((32, 1), (128, 24), (512, 64), (256, 48), (96, 24), (256, 65),
                      (1024, 24), (2048, 96), (1, 1), (700, 257)):
         assert default_kernel_route(2, width, n, True, "cuda") == (True, None)

@@ -64,18 +64,17 @@ def test_wide_weight_chunks_hold_every_value_once(field):
     assert torch.equal(prep[field], prep[src].reshape(-1)[placed])
 
 
-@pytest.mark.parametrize("width", [32, 64, 128, 256, 512, 384, 640, 1024, 1152])
+@pytest.mark.parametrize("width", [32, 64, 128, 256, 512, 384, 640, 1024, 1152, 2176])
 def test_wide_weight_chunks_only_at_width_512(width):
     """Only the wide kernel's builds read the chunked weights: siren_prepare
     makes them at every width they run (512, and past it each multiple of
-    128, in the run-time-width builds 1024 and 2048) and at no width the
-    mma.sync builds run, beside the (out, in) copies every build's checks
-    see, all at the build's width."""
+    128, in the one run-time-width build) and at no width the mma.sync
+    builds run, beside the (out, in) copies every build's checks see, all
+    at the build's width."""
     prep = _prepared(width, seed=width)
     kw = ksr.kernel_build(width, 24).width
     wide = kw >= ksr.WIDE_WIDTH
     assert ("w1c" in prep) == wide and ("wvhc" in prep) == wide
     assert prep["w1t"].shape == prep["wvht"].shape == (kw, kw)
-    build = kw if kw <= ksr.WIDE_WIDTH else 1024 if kw <= 1024 else 2048
-    assert ksr.kernel_defines(width, 24 if width != 256 else 20) == (
-        f"-DK1_W={build}", "-DK1_FIXED_S=0")
+    build = f"-DK1_W={kw}" if kw <= ksr.WIDE_WIDTH else ksr.RUN_TIME_WIDTH_DEFINE
+    assert ksr.kernel_defines(width, 24 if width != 256 else 20) == (build, "-DK1_FIXED_S=0")

@@ -358,12 +358,12 @@ def test_kernel_route_refusal():
     assert kernel_route_refusal(2, 32, 4, True, "cpu") is None  # K1's plain version
     assert "depth 8" in kernel_route_refusal(8, 256, 24, True, "cpu")
     assert kernel_route_refusal(2, 128, 24, True, "cuda") is None
-    # every width to the ceiling and any sample count take K1 (padded)
-    for width, n in ((96, 24), (256, 65), (1024, 24), (2048, 96)):
+    # every width and any sample count take K1 (padded), past 2048 too
+    for width, n in ((96, 24), (256, 65), (1024, 24), (2048, 96), (2049, 24), (4096, 8)):
         assert kernel_route_refusal(2, width, n, True, "cuda") is None
-    why = kernel_route_refusal(2, 2049, 24, True, "cuda")
-    assert "width 2049" in why and "widths 1 to 2048" in why
     assert kernel_route_refusal(2, 2049, 24, True, "cpu") is None  # the plain version
+    why = kernel_route_refusal(2, 2049, 0, True, "cuda")
+    assert "0 samples" in why and "1 or more samples" in why
     assert "no SDF" in kernel_route_refusal(2, 256, 24, False, "cuda")
 
 
