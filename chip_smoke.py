@@ -176,17 +176,18 @@ Phases, each fatal on failure:
      2048), (128, 128, 1024) and (64, 64, 384) (the streamed kernel at
      its 64- and 32-pixel tiles, and at a count that is no power of two),
      in its four modes against its plain version (K2_TOL, twice bit-equal,
-     device ms, plain ms, the bound term by term, ms / bound, the L2
-     weight bytes the streamed kernel's clusters read, and torch.matmul's
+     device ms, plain ms, the bound term by term, ms / bound, the bytes
+     the streamed kernel takes into the SMs (decoder_block_intake), and torch.matmul's
      device time on conv_b's product alone as a yardstick on no path); and
      the counts and widths no built kernel runs as they are, through the
      entry point's zero padding (C = 1-8 at y1 (32, 128, C); (512, 512,
      144) and (512, 512, 272) rgb only; (256, 256, 288), (128, 128, 576),
-     (64, 64, 2176), (64, 64, 4096) and (64, 64, 8192), the last three on
-     the streamed kernel's 16- and 8-pixel tiles; (64, 24, 256), Wp padded;
+     (64, 64, 2176), (64, 64, 4096), (64, 64, 8192), (64, 64, 8320) and
+     (8, 16, 16384), the last five on the streamed kernel's staged build
+     (past 8192 where the port once stopped); (64, 24, 256), Wp padded;
      bound of the unpadded work); K3 at y1 (64, 64, C), C = 512, 1024,
-     2048, 640, 1152, 3, 48, 144 and 2176, against its plain version at
-     phase 4's bounds;
+     2048, 640, 1152, 3, 48, 144, 2176 and 8320, against its plain version
+     at phase 4's bounds;
      (b) preset_serving at multipliers 1 and 4: r1024 frames (1 K1 + 4 K2
      a frame; against K2's plain version at phase 5's bounds, against the
      plain kernels at 1.5x the plain path's own spread under another GEMM
@@ -209,11 +210,14 @@ Phases, each fatal on failure:
      ms a frame, the frame's device time by kernel group and idle share by
      the profiler) and `rendering-time --n-frames 128 --opts
      G_cfg.renderer.hidden_dim 512`, every sweep's launches counted.
- 18. the models at channel multipliers 9 and 17, run after phase 17 in its
-     child process: preset_serving frames (1 K1 + 4 K2 a frame, blocks at
-     C (1152, 576, 288, 144) and (2176, 1088, 544, 272), run at (1152,
-     640, 384, 256) and (2176, 1152, 640, 384) by the serving prepare's
-     zero padding, gated as 15b's, ms a frame, the frame's device time by
+ 18. the models at channel multipliers 9, 17 and 65, run after phase 17
+     in its child process: preset_serving frames (1 K1 + 4 K2 a frame,
+     blocks at C (1152, 576, 288, 144), (2176, 1088, 544, 272) and (8320,
+     4160, 2080, 1040), run at (1152, 640, 384, 256), (2176, 1152, 640,
+     384) and (8320, 4224, 2176, 1152) by the serving prepare's zero
+     padding, the blocks past 2048 on the staged build, gated as 15b's,
+     at m = 65 also each block's K2 on its own input in the frame against
+     its plain version at K2_TOL, ms a frame, the frame's device time by
      kernel group and idle share by the profiler).
  19. K1 at every width and sample count JAX's kernel takes, in a child
      process of its own after phase 18's: (a) K1 at 4096 rays over (W, S)
@@ -244,6 +248,7 @@ chiprun_out/chip_smoke.json. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -421,6 +426,53 @@ def plain_kernels(k1=True, k2=True):
         serving.siren_render_prepared, ksr.siren_render_prepared, kdf.decoder_block_packed = saved
 
 
+@contextlib.contextmanager
+def recorded_blocks():
+    """Every K2 call the decoder makes, recorded (a copy of y1, prepared,
+    emit_feat, frames) into the yielded list, the call itself made as it
+    would be (inside plain_kernels: the plain version)."""
+    from cips3dpp_torch.kernels import decoder_fused as kdf
+
+    saved, calls = kdf.decoder_block_packed, []
+
+    def record(y1, prepared, emit_feat=True, frames=1):
+        calls.append((y1.clone(), prepared, emit_feat, frames))
+        return saved(y1, prepared=prepared, emit_feat=emit_feat, frames=frames)
+
+    kdf.decoder_block_packed = record
+    try:
+        yield calls
+    finally:
+        kdf.decoder_block_packed = saved
+
+
+def frame_blocks_case(calls, label):
+    """K2 on each block input a frame gave it (recorded_blocks), against its
+    plain version on the same input: two launches bit-equal, K2_TOL.
+    Returns [{"y1", "err", "feat_flip_share"}] by block."""
+    from cips3dpp_torch.kernels import decoder_block as kdb
+
+    res = []
+    for y1, bp, emit_feat, frames in calls:
+        run = lambda: kdb.decoder_block_packed(y1, prepared=bp, emit_feat=emit_feat,
+                                               frames=frames)
+        got, again = run(), run()
+        want = kdb.decoder_block_packed_plain(y1, bp, emit_feat, frames)
+        torch.cuda.synchronize()
+        got, again, want = ((v if isinstance(v, tuple) else (v,)) for v in (got, again, want))
+        for g, a, w in zip(got, again, want):
+            if not (torch.isfinite(g.float()).all() and torch.equal(g, a)):
+                raise AssertionError(f"{label} y1 {tuple(y1.shape)}: not finite, or two "
+                                     "launches on the same input differ")
+            torch.testing.assert_close(g.float(), w.float(), **K2_TOL[bp["dtype"]])
+        res.append({"y1": list(y1.shape), "err": max(max_err(g, w) for g, w in zip(got, want)),
+                    "feat_flip_share": float((got[0] != want[0]).float().mean())
+                    if emit_feat else None})
+        del got, again, want
+        torch.cuda.empty_cache()
+    return res
+
+
 def profile_calls(fn, call_ms, n=10, what="frame", table="profile_frame.txt"):
     """Device time per call of fn by kernel over n calls (torch.profiler),
     the groups K1 / K2 / convolution / matmul / other, and the device idle
@@ -580,12 +632,14 @@ def k3_phase(gen, dev, shapes, label="K3"):
         cases.append((rnd(hp, hp, c), rnd(hp, hp, 3), rnd(2 * hp, 2 * hp, 1),
                       rnd(2 * hp, 2 * hp, 1), rnd(c, c) / c**0.5, rnd(c, 3) / c**0.5,
                       0.1 * rnd(c), 0.1 * rnd(c), 0.1 * rnd(3), 0.3, -0.2))
+    want = collections.Counter(kdb.fused_launch_name(args[0].shape[-1]) for args in cases)
     with counted(f"{label} path (decoder_block_fused at {len(cases)} shapes)",
-                 {"decoder_block_fused": len(cases)}) as launches:
+                 dict(want)) as launches:
         for args in cases:
             kdb.decoder_block_fused(*args)
+    # launches by build: the staged build's past C = 2048 apart
     res = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0, "bytes": 0.0,
-           "flops": 0.0, "shapes": [], "launches": launches["decoder_block_fused"]}
+           "flops": 0.0, "shapes": [], "launches": dict(launches)}
     for args in cases:
         hp, _, c = args[0].shape
         got = kdb.decoder_block_fused(*args)
@@ -3149,8 +3203,9 @@ K2_SHAPES = {
                    + [(144, 512, 512, True), (272, 512, 512, True), (288, 256, 256, False),
                       (576, 128, 128, False), (256, 64, 24, False)],
                    [(64, 3), (64, 48), (64, 144)]),
-    "15a-wide-18": ([(2176, 64, 64, False), (4096, 64, 64, False), (8192, 64, 64, False)],
-                    [(64, 2176)]),
+    "15a-wide-18": ([(2176, 64, 64, False), (4096, 64, 64, False), (8192, 64, 64, False),
+                     (8320, 64, 64, False), (16384, 8, 16, False)],
+                    [(64, 2176), (64, 4096), (64, 8192), (64, 8320)]),
 }
 
 
@@ -3173,13 +3228,16 @@ def k2_channels_phase(dev, smi, group):
     2, 4 and 8 (run at 16), (512, 512, 144) and (512, 512, 272) rgb only
     (the 1024^2 blocks of m = 9 and 17, run at 256 and 384), (256, 256,
     288), (128, 128, 576) (m = 9's 512^2 and 256^2 blocks, run at 384 and
-    640), (64, 64, 2176) (m = 17's 128^2 block, 16-pixel tiles), (64, 64,
-    4096) and (64, 64, 8192) (m = 32's and 64's, 16- and 8-pixel tiles)
+    640), (64, 64, 2176) (m = 17's 128^2 block), (64, 64, 4096), (64, 64,
+    8192) and (64, 64, 8320) (m = 32's, 64's and 65's) and (8, 16, 16384)
+    on the staged build (64-pixel tiles, activations through the scratch)
     with feat stored, and (64, 24, 256) (Wp run at 32); the bound is the
     unpadded work's. Then K3 at y1 (64, 64, C), C = 512, 1024, 2048, 640
-    and 1152, and 3, 48, 144 and 2176 (k3_phase). Beside each
-    streamed shape: the L2 weight bytes the kernel reads (the whole weight
-    once a tile group of a cluster) and, as a yardstick on no path, the
+    and 1152, and 3, 48, 144, 2176, 4096, 8192 and 8320 (k3_phase). Beside each
+    streamed shape: the bytes the kernel takes into the SMs
+    (decoder_block_intake: the whole weight once a tile group of a
+    cluster, and past 2048 the staged activations) and, as a yardstick on
+    no path, the
     device time of torch.matmul on conv_b's bf16 product alone, (4 Hp Wp,
     C) x (C, C)."""
     from cips3dpp_torch.kernels import _lib
@@ -3200,15 +3258,16 @@ def k2_channels_phase(dev, smi, group):
                     noise_seeds=(NOISE_SEED, NOISE_SEED + 1) if hashed else None)
                 key = f"{kdb.launch_name(bp)} C={c} y1={hp}" + ("" if wp == hp else f"x{wp}")
                 res[key] = k2_case(f"15a {kdb.launch_name(bp)}", bp, hp, last, gen, dev, wp)
-                # the streamed kernel's cluster reads the whole weight from
-                # L2 once for each CL tiles, multicast to its CTAs
-                if ck in kdb.STREAMED_CHANNELS:
-                    tiles = hp * kdb.kernel_width(wp) * 4 // kdb.tile_pixels(c)
+                # the streamed kernel's bytes into the SMs: the whole
+                # weight once for each CL tiles (multicast to the cluster's
+                # CTAs), and past C = 2048 each tile's staged activations
+                # once a 128-channel pass
+                if kdb.is_streamed(ck):
                     cl = kdb.decoder_block_info(c, dt, hashed)["cluster"]
                     res[key]["cluster"] = cl
-                    res[key]["l2_weight_bytes"] = -(-tiles // cl) * 2 * ck * ck
+                    res[key]["intake"] = kdb.decoder_block_intake(hp, wp, c, cluster=cl)
                 del bp
-        if ck in kdb.STREAMED_CHANNELS and hp == wp:
+        if kdb.is_streamed(ck) and hp == wp:
             a = torch.randn((4 * hp * hp, c), generator=gen).to(dev, torch.bfloat16)
             b = torch.randn((c, c), generator=gen).to(dev, torch.bfloat16)
             name = main_kernel(lambda: a @ b)
@@ -3219,11 +3278,14 @@ def k2_channels_phase(dev, smi, group):
     log("[15a] ms / bound ms (ratio): " + "; ".join(
         f"{k} {v['ms']:.4f} / {v['bound_ms']:.4f} ({v['ms'] / v['bound_ms']:.2f}x)"
         for k, v in res.items() if "ms" in v) + f"; {smi}")
-    log("[15a] L2 weight reads of the streamed kernel (the whole weight once a tile group "
-        "of a cluster): " + "; ".join(
-            f"{k} CL={v['cluster']} {v['l2_weight_bytes'] / 1e6:.0f} MB, "
-            f"{v['l2_weight_bytes'] / v['ms'] / 1e9:.2f} TB/s"
-            for k, v in res.items() if "l2_weight_bytes" in v))
+    log("[15a] bytes into the SMs of the streamed kernel (decoder_block_intake: the whole "
+        "weight once a tile group of a cluster, plus past C = 2048 the staged activations "
+        "once a tile and pass): " + "; ".join(
+            f"{k} CL={v['cluster']} tile {v['intake']['tile_pixels']} px, weight "
+            f"{v['intake']['weight_bytes'] / 1e6:.0f} MB + activation "
+            f"{v['intake']['activation_bytes'] / 1e6:.0f} MB = "
+            f"{v['intake']['bytes'] / 1e6:.0f} MB, {v['intake']['bytes'] / v['ms'] / 1e9:.2f} TB/s"
+            for k, v in res.items() if "intake" in v))
     log("[15a] yardstick on no path, torch.matmul of conv_b's bf16 product alone (device "
         "ms): " + "; ".join(f"{k} {v['matmul_ms']:.4f} ({v['kernel']})" for k, v in res.items()
                             if "matmul_ms" in v))
@@ -3238,7 +3300,7 @@ def multiplier_cfg(base, m):
 
 
 def serve_multiplier(dev, smi, m, seed, tag, profile=False, cfg=None, what=None,
-                     k1_reorder=False):
+                     k1_reorder=False, spread_frames=4, block_check=False):
     """preset_serving at channel multiplier m (or the config `cfg`, named
     `what`), weights from `seed`: r1024
     frames through prepare_trajectory / render_frame (1 K1 + 4 K2 a frame,
@@ -3247,12 +3309,18 @@ def serve_multiplier(dev, smi, m, seed, tag, profile=False, cfg=None, what=None,
     plain path's own spread under another GEMM order (with `k1_reorder`,
     the larger of that and its spread under another sum order of K1's
     products, `frame_gap_split.k1_sums_reordered`, and the max at 1.5x
-    that spread's where it passes 0.5), the same camera
+    that spread's where it passes 0.5; the other GEMM order is that of
+    `spread_frames` frames at once), the same camera
     bit-equal, ms a frame by CUDA events; the gap to K1's plain version
     alone (K1's part); with `profile`, the frame's
-    device time by kernel group and idle share (profile_calls). Returns
-    (result, launches)."""
+    device time by kernel group and idle share (profile_calls). With
+    `block_check`, where the plain path's own spread passes phase 5's mean
+    bound: K2 on each block's own input in the frame against its plain
+    version at K2_TOL (frame_blocks_case), and K2's part of the frame's
+    gap at the larger of 1e-2 and 1.5x that spread. Returns (result,
+    launches)."""
     from cips3dpp_torch import serving
+    from cips3dpp_torch.kernels import decoder_block as kdb
     from cips3dpp_torch.models.generator import preset_serving
     from cips3dpp_torch.models.layers import channel_table
     from cips3dpp_torch.tools.frame_gap_split import k1_sums_reordered
@@ -3263,21 +3331,34 @@ def serve_multiplier(dev, smi, m, seed, tag, profile=False, cfg=None, what=None,
     what = what or f"at channel multiplier {m}"
     model, zs, noise = make_model(cfg, dev, seed)
     with counted(f"{tag} preset_serving {what}: prepare_trajectory + 4 "
-                 "render_frame", {"siren_render": 4, "decoder_block": 16}) as got:
+                 "render_frame") as got:
         prep = serving.prepare_trajectory(model, zs, noise_bufs=noise, device=dev)
         frames = [serving.render_frame(model, prep, yaws[i:i + 1], zero, device=dev)["rgb"]
                   for i in range(4)]
+    # 1 K1 + 4 K2 a frame, K2 counted by build (the staged build's blocks
+    # past C = 2048 apart)
+    want = collections.Counter({"siren_render": 4})
+    for b in prep["dec"]["blocks"]:
+        if "bp" in b:
+            want[kdb.launch_name(b["bp"])] += 4
+    if got != dict(want):
+        raise AssertionError(f"{tag} {what}: want launches {dict(want)}, got {got}")
     chans = [b["bp"]["c"] for b in prep["dec"]["blocks"] if "bp" in b]
     kernel_chans = [b["bp"]["w2t"].shape[0] for b in prep["dec"]["blocks"] if "bp" in b]
     table = [channel_table(cfg.decoder.channel_multiplier)[r] for r in cfg.decoder.upsample_list]
-    with plain_kernels(k1=False):
+    with plain_kernels(k1=False), recorded_blocks() as calls:
         ref_k2 = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
+    blocks = frame_blocks_case(calls, f"{tag} {what}") if block_check else None
+    del calls
     with plain_kernels(k2=False):
         ref_k1 = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
     with plain_kernels():
         ref = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
-        # the plain path against itself under another GEMM order (F = 4)
-        ref4 = serving.render_frame(model, prep, yaws, yaws * 0, device=dev)["rgb"][:1]
+        # the plain path against itself under another GEMM order (F =
+        # spread_frames)
+        torch.cuda.empty_cache()
+        ref4 = serving.render_frame(model, prep, yaws[:spread_frames], yaws[:spread_frames] * 0,
+                                    device=dev)["rgb"][:1]
         if k1_reorder:
             with k1_sums_reordered():
                 reord = serving.render_frame(model, prep, yaws[:1], zero, device=dev)["rgb"]
@@ -3290,6 +3371,7 @@ def serve_multiplier(dev, smi, m, seed, tag, profile=False, cfg=None, what=None,
     g_reord = gap(reord, ref) if k1_reorder else (0.0, 0.0)
     spread = max(g_own[1], g_reord[1])
     max_bound = max(0.5, 1.5 * g_reord[0])
+    k2_mean_bound = max(1e-2, 1.5 * g_own[1]) if block_check else 1e-2
     # K2's part at phase 5's bounds. The whole frame's mean gap is set by
     # K1's bf16 flips through the bf16 decoder, which at m = 1 and 4
     # (brighter frames) reaches phase 5's 1e-2, and is the size of the
@@ -3297,12 +3379,13 @@ def serve_multiplier(dev, smi, m, seed, tag, profile=False, cfg=None, what=None,
     # (cips3dpp_torch.tools.frame_gap_split): at most 1.5x that spread
     if (chans != table or frames[0].shape != (1, cfg.out_size, cfg.out_size, 3)
             or not all(torch.isfinite(f).all() for f in frames)
-            or not (g_k2[0] <= 0.5 and g_k2[1] <= 1e-2)
+            or not (g_k2[0] <= 0.5 and g_k2[1] <= k2_mean_bound)
             or not (g[0] <= max_bound and g[1] <= 1.5 * spread)
             or not torch.equal(again, frames[0])):
         raise AssertionError(f"{tag} {what}: block C {chans}, frame "
                              f"{tuple(frames[0].shape)}, max / mean |diff| to K2's plain "
-                             f"version {g_k2} (bounds 0.5 / 1e-2), to the plain kernels {g} "
+                             f"version {g_k2} (bounds 0.5 / {k2_mean_bound:.3e}), to the plain "
+                             f"kernels {g} "
                              f"(bounds {max_bound:.3g} / 1.5 x {spread:.3e}, the plain path's "
                              f"own), "
                              f"the same camera bit-equal {torch.equal(again, frames[0])}")
@@ -3317,15 +3400,27 @@ def serve_multiplier(dev, smi, m, seed, tag, profile=False, cfg=None, what=None,
     log(f"[multipliers] {tag} preset_serving {what} (blocks at C {chans}{run_at}): "
         f"{frame_ms:.3f} ms a r1024 frame (CUDA events, 10 frames), 1 K1 + 4 K2 a frame, peak "
         f"{peak / 2**20:.1f} MiB; max / mean |diff| to K2's plain version {g_k2[0]:.3e} / "
-        f"{g_k2[1]:.3e} (bounds 0.5 / 1e-2), to the plain kernels {g[0]:.3e} / {g[1]:.3e} "
-        f"(bounds {max_bound:.3g} / {1.5 * spread:.3e}; the plain path against itself at F = 4 "
+        f"{g_k2[1]:.3e} (bounds 0.5 / {k2_mean_bound:.3e}"
+        + (", the larger of 1e-2 and 1.5x the plain path's own mean spread"
+           if block_check else "")
+        + f"), to the plain kernels {g[0]:.3e} / {g[1]:.3e} "
+        f"(bounds {max_bound:.3g} / {1.5 * spread:.3e}; the plain path against itself at F = "
+        f"{spread_frames} "
         f"{g_own[0]:.3e} / {g_own[1]:.3e}"
         + (f", with K1's products summed in 16-wide slices {g_reord[0]:.3e} / "
            f"{g_reord[1]:.3e}" if k1_reorder else "")
         + f"), to K1's plain version alone (K1's part) "
         f"{g_k1[0]:.3e} / {g_k1[1]:.3e}; mean |rgb| {float(ref.abs().mean()):.3f}; {smi}")
+    if blocks is not None:
+        log(f"[multipliers] {tag} {what}: K2 on each block's own input in the frame against "
+            f"its plain version (K2_TOL, two launches bit-equal): " + "; ".join(
+                f"y1 {tuple(b['y1'])} max |kernel - plain| {b['err']:.3e}"
+                + ("" if b["feat_flip_share"] is None
+                   else f", {100 * b['feat_flip_share']:.4f}% of feat values differ")
+                for b in blocks))
     res = {"frame_ms": frame_ms, "peak_bytes": peak, "gap_k2": g_k2, "gap_k1": g_k1, "gap": g,
            "gap_plain_own": g_own, "gap_plain_k1_reorder": g_reord, "channels": chans,
+           "k2_mean_bound": k2_mean_bound, "frame_blocks": blocks,
            "kernel_channels": kernel_chans,
            "mean_abs_rgb": float(ref.abs().mean())}
     if profile:
@@ -3530,18 +3625,32 @@ def padded_multipliers_phase(dev, smi):
     and 2176 / 1088 / 544 / 272) no built kernel runs as they are: the
     serving path's prepare pads them to the next count one does (1152 /
     640 / 384 / 256 and 2176 / 1152 / 640 / 384) and a frame launches what
-    it launches at any other m. preset_serving at m = 9 and 17
+    it launches at any other m; and at 65, the first multiplier past C =
+    8192 (blocks at 8320 / 4160 / 2080 / 1040, run at 8320 / 4224 / 2176 /
+    1152: three on the staged build). preset_serving at m = 9, 17 and 65
     (serve_multiplier: 1 K1 + 4 K2 a frame, the blocks' C checked against
     the channel table, K2's part at phase 5's bounds, the frame at 1.5x the
     plain path's own spread, the same camera bit-equal, ms a frame by CUDA
     events, the frame's device time by kernel group and idle share by the
-    profiler)."""
+    profiler); at m = 65 also K2 on each block's own input in the frame at
+    K2_TOL (block_check)."""
     t_phase = time.perf_counter()
     res = {"card": smi}
     launches = {}
-    for m in (9, 17):
+    for m in (9, 17, 65):
+        # m = 65: the plain path's own spread at F = 2 and under K1's
+        # reordered sums, the larger: at F = 4 its f32 temporaries pass the
+        # card's 80 GB (the 512^2 block's at C = 2176 take 9 GB each). Its
+        # own mean spread at F = 2 (1.024e-2 on an H100 80GB HBM3 at 700 W)
+        # passes phase 5's 1e-2, so the frame's mean cannot tell K2's
+        # faults from the reference's rounding: each block is held at
+        # K2_TOL on its own input instead, and K2's part of the frame at
+        # 1.5x that spread where it passes 1e-2
+        big = m == 65
         res[f"serving_m{m}"], got = serve_multiplier(dev, smi, m, SEED + 200 + m, "18",
-                                                     profile=True)
+                                                     profile=True, k1_reorder=big,
+                                                     spread_frames=2 if big else 4,
+                                                     block_check=big)
         add_launches(launches, got)
         torch.cuda.empty_cache()
     res["launches"] = launches
@@ -3734,7 +3843,8 @@ def child_phases():
         results[group] = result
     parts = [r["k2_channels"] for r in results.values() if "k2_channels" in r]
     k2_channels = {"k2": {k: v for p in parts for k, v in p["k2"].items()},
-                   "k3": {"launches": sum(p["k3"]["launches"] for p in parts),
+                   "k3": {"launches": dict(sum((collections.Counter(p["k3"]["launches"])
+                                                for p in parts), collections.Counter())),
                           "parts": [p["k3"] for p in parts]},
                    "k2_s": sum(p["k2_s"] for p in parts)}
     return (k2_channels, results["15a-17"]["wide"], results["15a-17"]["wide_renderer"],
@@ -3807,26 +3917,31 @@ def main() -> int:
     report["ptxas"] = ptxas
     # every K2 / K3 instantiation: shared memory (sizeof(Smem)), blocks an SM,
     # registers and local (spill) bytes a thread, tile geometry
-    # (logged at the resident counts, the fixed-C builds and the first and
-    # last count of each run-time-C tile; every count gated)
+    # (logged at the resident counts, the fixed-C builds, the first and
+    # last count of each run-time-C tile and the staged build past 2048 to
+    # 16384; every count to 8320 gated, and 16384; the staged build's
+    # resources the same at every C)
     report["decoder_block_info"] = {}
-    logged = {16, 32, 64, 128, 256, 384, 512, 640, 1024, 1152, 2048, 2176, 4096, 4224, 8192}
+    logged = {16, 32, 64, 128, 256, 384, 512, 640, 1024, 1152, 2048, 2176, 8320, 16384}
     for mode, (dt, hashed, k3) in {
             "bf16": (torch.bfloat16, False, False), "bf16-hash": (torch.bfloat16, True, False),
             "f32": (torch.float32, False, False), "f32-hash": (torch.float32, True, False),
             "K3": (torch.float32, False, True)}.items():
-        for c in kdb.KERNEL_CHANNELS:
+        for c in kdb.RESIDENT_CHANNELS + tuple(range(384, 8321, 128)) + (16384,):
             info = kdb.decoder_block_info(c, dt, hashed, k3)
             report["decoder_block_info"][f"{mode} C={c}"] = info
             if c in logged:
-                log(f"[build] {'block_kernel' if c <= 256 else 'block_kernel_wide'} {mode} "
+                log(f"[build] {'block_kernel' if c <= 256 else 'block_kernel_wide'}"
+                    f"{' (staged)' if kdb.is_staged(c) else ''} {mode} "
                     f"C={c}: {info['smem_bytes']} B shared, "
                     f"{info['blocks_per_sm']} block(s) an SM, {info['registers']} registers, "
                     f"{info['local_bytes']} B local, tile {info['tile_input_columns']} input "
                     f"columns = {info['tile_pixels']} output pixels, clusters of "
                     f"{info['cluster']} ({info['clusters_on_card']} on the card at once)")
             if (info["local_bytes"] or info["smem_bytes"] > 232448 or info["blocks_per_sm"] < 1
-                    or info["tile_pixels"] != kdb.tile_pixels(c)):
+                    or info["tile_pixels"] != kdb.tile_pixels(c)
+                    or (kdb.is_staged(c)
+                        and info != report["decoder_block_info"][f"{mode} C=2176"])):
                 raise AssertionError(f"decoder block {mode} C={c}: {info}")
 
     # ---- models and trajectory state ----
@@ -4117,7 +4232,19 @@ def main() -> int:
           t32["launches_seed"]["decoder_block_hash_f32"])
     entry("decoder_block_fused", K2_SRC,
           "cips3dpp_tpu/kernels/decoder_block.py:64", report["K3"],
-          report["K3"]["launches"] + k2_channels["k3"]["launches"])
+          report["K3"]["launches"]["decoder_block_fused"]
+          + k2_channels["k3"]["launches"]["decoder_block_fused"])
+    # the staged build past C = 2048 (its launches counted apart): K2 in
+    # the m = 17 and 65 frames (phase 18), its numbers those of y1 (64, 64,
+    # 8320) in bf16 with noise buffers (15a); K3 on 15a's path, its numbers
+    # those of y1 (64, 64, 8320)
+    entry("decoder_block_staged", K2_SRC, K2_TPU,
+          k2_channels["k2"]["decoder_block_staged C=8320 y1=64"],
+          padded["decoder_block_staged"])
+    k3_staged = next(sh for p in k2_channels["k3"]["parts"] for sh in p["shapes"]
+                     if sh["y1"] == [64, 64, 8320])
+    entry("decoder_block_fused_staged", K2_SRC, "cips3dpp_tpu/kernels/decoder_block.py:64",
+          k3_staged, k2_channels["k3"]["launches"]["decoder_block_fused_staged"])
     for short in ("f32", "bf16"):
         p = report["P1"][short]
         entry(f"elem_probe_{short}", "cips3dpp_torch/csrc/elem_probe.cu",

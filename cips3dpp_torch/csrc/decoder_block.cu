@@ -4,8 +4,8 @@
 //     cips3dpp_tpu/kernels/decoder_block.py:_packed_kernel, the serving block
 //     with bf16 or f32 storage, noise from buffers or hashed in the kernel,
 //     F frames stacked on rows and an optional ToRGB fold, at C = 16, 32,
-//     64, 128, 256 (block_kernel) and every multiple of 128 from 384 to
-//     8192 (block_kernel_wide); the wrapper zero-pads every other C JAX's
+//     64, 128, 256 (block_kernel) and every multiple of 128 from 384 up
+//     (block_kernel_wide); the wrapper zero-pads every other C JAX's
 //     kernel admits up to the next of these (weights, biases and y1's
 //     extra channels zero: exact but for f32 summation order), and Wp up
 //     to a multiple of 16 (zero columns: the upsample's zero edge), with
@@ -17,6 +17,7 @@
 //     copies is read from y1 and skip in the kernel;
 //   - decoder_block_info: shared memory, blocks an SM, registers, local
 //     memory and tile width of one instantiation (nothing is launched).
+// There is no ceiling on C: device memory alone limits it.
 // Wrappers: decoder_block_packed, decoder_block_fused and decoder_block_info
 // in cips3dpp_torch/kernels/decoder_block.py.
 //
@@ -85,9 +86,11 @@
 //    trace of it.
 //  - C = 16 to 256 take this template (block_kernel). At C = 16 a tile is
 //    one row x 128 input columns (512 output pixels) and conv_b is one
-//    k-step. C = 384 to 8192 (the 64^2 to 256^2 blocks of decoders at
+//    k-step. C = 384 and up (the 64^2 to 256^2 blocks of decoders at
 //    channel multipliers 3 and up) have a kernel of their own,
-//    block_kernel_wide below: their weight cannot stay in shared memory.
+//    block_kernel_wide below: their weight cannot stay in shared memory;
+//    past C = 2048 its staged build keeps not even the activation tile
+//    there.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -107,7 +110,11 @@ struct Params {
   const void* y1;        // (F*Hp, Wp, C) T
   const void* n1;        // (2Hp, 2Wp) T, buffer mode
   const void* n2;
-  const __nv_bfloat16* w2t;  // (C out, C in)
+  union {                      // block_kernel reads w2t, the staged build of
+    const __nv_bfloat16* w2t;  // block_kernel_wide (which reads no w2t) its
+    unsigned char* scratch;    // CTAs' activation tiles: one slot keeps Params
+  };                           // at 128 bytes. w2t: (C out, C in); scratch: 128 C
+                               // bytes a CTA of the grid
   const float* b1;       // (C,)
   const float* b2;
   const float* nw;       // (2,) noise weights
@@ -698,28 +705,55 @@ __global__ void __launch_bounds__(NTHREADS, C == 256 ? 1 : 2) block_kernel(const
 #endif
 }
 
-// ---- C = 384 to 8192: block_kernel_wide, the conv_b weight streamed ----
+// ---- C = 384 and up: block_kernel_wide, the conv_b weight streamed ----
 //
 // From C = 384 up, conv_b's weight (C x C bf16: 288 KB at 384, 8 MB at
 // 2048, 128 MB at 8192) cannot stay in shared memory as in block_kernel.
-// A tile is one input row x TW_IN input columns whose bf16 activation tile
-// (TM pixels x C, 48-128 KB) stays in shared memory while the whole weight
-// streams past it: TM = 64 output pixels at C <= 1024, 32 to 2048, 16 to
-// 4096 and 8 to 8192 (2 output rows x TM / 2 columns, TW_IN = TM / 4, so
-// with Wp a multiple of 16 no tile is ragged). Past C = 2048 the small
-// tiles cost L2 reads: a cluster reads the whole weight once for each CL
-// tiles, ~16 GB a launch at y1 (64, 64, 4096) and ~128 GB at (64, 64,
-// 8192) with clusters of 2; staging the activation in K chunks would keep
-// 32-pixel tiles and read a quarter of that (not done). At C <= 512 the 64-pixel tile gives y1 (64, 64, C) 256 tiles,
-// enough for every SM. C is taken at run time; C = 384, 512, 1024 and
-// 2048 (the 128^2 blocks at channel multipliers 3, 4, 8 and 16) are also
-// built with C fixed (CT), which folds the index arithmetic.
+// A tile is one input row x TW_IN input columns (2 output rows x TM / 2
+// columns, TW_IN = TM / 4, so with Wp a multiple of 16 no tile is ragged)
+// whose bf16 activation tile (TM pixels x C) meets the whole weight as it
+// streams past. Up to C = 2048 the activation tile stays in shared memory
+// beside the weight ring (48-128 KB): TM = 64 output pixels at C <= 1024
+// and 32 to 2048. At C <= 512 the 64-pixel tile gives y1 (64, 64, C) 256
+// tiles, enough for every SM. C is taken at run time; C = 384, 512, 1024
+// and 2048 (the 128^2 blocks at channel multipliers 3, 4, 8 and 16) are
+// also built with C fixed (CT), which folds the index arithmetic.
+//
+// Past C = 2048 the staged build (CT = STAGED, C at run time, no ceiling)
+// keeps 64-pixel tiles and nothing in shared memory that grows with C. A
+// tile in shared memory would have to shrink as C grows (16 pixels to 4096,
+// 8 to 8192 in the earlier build), and a cluster reads the whole weight
+// once for each CL tiles, so small tiles multiply the weight bytes into the
+// SMs (137 GB a launch at y1 (64, 64, 8192) with 8-pixel tiles). Instead:
+//  - the upsample writes the tile to the CTA's scratch in global memory
+//    (128 C bytes a CTA, allocated by the caller), in the layout wgmma's B
+//    operand reads: C / 64 K-chunks of 64 pixels x 64 channels (8 KB), a
+//    pixel's 16-byte group j at j ^ (pixel % 8);
+//  - a ring slot (STAGED_SLOT_BYTES, 24 KB) holds a 16 KB weight chunk,
+//    multicast to the cluster as below, and the 8 KB activation chunk it
+//    multiplies, bulk-copied from the CTA's own scratch (no multicast: the
+//    pixels are the CTA's own), both completing on the slot's full barrier;
+//  - so a tile takes in C^2 bytes of weight (2 C^2 a cluster of 2) and C^2
+//    of activation (C / 64 chunks a pass, C / 128 passes): 512 C^2 bytes a
+//    launch at y1 (64, 64, C), against 2048 C^2 for 8-pixel tiles;
+//  - the upsample's writers fence the generic proxy against the async one
+//    (fence.proxy.async.global) and meet at a consumer barrier; one thread
+//    then arrives on the tile's ready mbarrier. The producer waits on it
+//    (and fences) before it copies the tile's first activation chunk;
+//    until then it copies weight chunks up to NS slots ahead. The scratch
+//    is rewritten by the next tile's upsample only after every consumer
+//    has waited on the full barrier of the tile's last chunk, by which
+//    time every copy out of it has landed;
+//  - 8 slots of 24 KB, ~210 KB of shared memory at every C; offsets into
+//    y1, feat, the weight and the scratch are 64-bit.
+// Every rounding point, mode, sum order (the walk's start and the ToRGB
+// reduce-scatter included) and the epilogue are the 64-pixel tile's.
 //
 // conv_b runs transposed, out^T (channels x pixels) = W (C out x C in) .
 // act^T, on wgmma: the weight is the 64-row A operand and the activation
-// tile the N = TM-column B operand (8 to 64), both K-major in shared
-// memory in the 128-byte swizzle, so a small tile still fills wgmma's 64
-// rows.
+// tile the N = TM-column B operand (32 or 64), both K-major in shared
+// memory in the 128-byte swizzle, so a 32-pixel tile still fills wgmma's
+// 64 rows.
 // A consumer warpgroup takes the chunk's 64 rows of its half: 64 x TM
 // outputs, TM / 2 accumulators a thread.
 // decoder_block_prepare lays the weight out as (128 out x 64 in) chunks of
@@ -732,8 +766,9 @@ __global__ void __launch_bounds__(NTHREADS, C == 256 ? 1 : 2) block_kernel(const
 //
 // Roles: warps 0-7 are two consumer warpgroups, warp 8 the producer. The
 // producer's first thread keeps an NS-slot ring full (NS = 5-8, as many as
-// shared memory leaves, by C) under full / empty mbarriers: wait for the
-// slot's empty barrier, expect 16 KB on its full barrier, copy. A cluster
+// shared memory leaves, by C; 8 in the staged build) under full / empty
+// mbarriers: wait for the slot's empty barrier, expect 16 KB (24 KB staged)
+// on its full barrier, copy. A cluster
 // of CL CTAs (launched with cudaLaunchKernelEx on a persistent grid of as
 // many clusters as cudaOccupancyMaxActiveClusters allows) walks CL
 // neighbouring tiles in lockstep and shares every chunk: CTA q % CL
@@ -764,8 +799,9 @@ __global__ void __launch_bounds__(NTHREADS, C == 256 ? 1 : 2) block_kernel(const
 //
 // The upsample (all 256 consumer threads) reads y1 straight from global
 // memory, rounds where block_kernel rounds and writes the activation tile
-// in the swizzled layout with ordinary stores, then fence.proxy.async and
-// a consumer barrier before wgmma reads it. Every rounding point, the
+// in the swizzled layout with ordinary stores (to shared memory, or in the
+// staged build to the scratch), then fence.proxy.async and a consumer
+// barrier before wgmma (or the bulk copies) read it. Every rounding point, the
 // modes (K3's bf16 ToRGB operands, bias and upsampled skip included), the
 // frames and the skipped feat store are block_kernel's.
 constexpr int WIDE_CONSUMERS = 256;                  // two consumer warpgroups
@@ -789,9 +825,9 @@ struct Wide {
   static constexpr int RV = 3 * TM / 4;              // a thread's ToRGB partials
   static constexpr int RVP = (RV + 7) / 8 * 8;       // ... padded for an 8-lane reduce-scatter
   static constexpr int NB = TM / 8;                  // n-blocks of 8 pixels
-  static constexpr int NH = NB < 2 ? NB : 2;         // n-blocks an epilogue group (16 pixels)
+  static constexpr int NH = 2;                       // n-blocks an epilogue group (16 pixels)
   static_assert(TW_IN <= 16, "Wp, a multiple of 16, is a whole number of tiles");
-  static_assert(TM == 8 || TM == 16 || TM == 32 || TM == 64, "wgmma N");
+  static_assert(TM == 32 || TM == 64, "wgmma N");
 
   // Shared memory, from a 1024-byte aligned base: the activation tile (C /
   // 64 blocks of TM swizzled 128-byte rows), the ring, then the full and
@@ -817,6 +853,24 @@ struct Wide {
   }
 };
 
+// The staged build (past C = 2048): 64-pixel tiles, CT = STAGED, and a
+// ring of 24 KB slots, each a weight chunk and the activation chunk it
+// multiplies (ACT_CHUNK_BYTES: 64 pixels x 64 channels); its shared memory,
+// the same at every C: the alignment pad, the ring, the small arrays of
+// the 64-pixel tile (full and empty barriers among them) and the ready
+// barrier (16 bytes, which keeps what follows it 16-byte aligned).
+constexpr int STAGED = -1;
+constexpr int STAGED_FROM = 2048;                    // the largest C not staged
+constexpr int STAGED_TM = 64;
+constexpr int ACT_CHUNK_BYTES = STAGED_TM * CHUNK_K * 2;
+constexpr int STAGED_SLOT_BYTES = CHUNK_BYTES + ACT_CHUNK_BYTES;
+constexpr int STAGED_SLOTS = MAX_SLOTS;
+template <typename T>
+constexpr int staged_smem_bytes() {
+  return 1024 + STAGED_SLOTS * STAGED_SLOT_BYTES + Wide<STAGED_TM>::small_bytes<T>() + 16;
+}
+static_assert(staged_smem_bytes<float>() <= SMEM_LIMIT, "the staged ring fits");
+
 // ---- Hopper primitives: mbarriers, bulk copies, clusters, wgmma ----
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -839,6 +893,10 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
 // arrive on the barrier at the same offset in CTA `cta` of the cluster
@@ -899,6 +957,11 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// the staged build: the scratch's generic-proxy stores, seen by the bulk copies
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
 // 1024 bytes apart (the leading offset is unused in this layout)
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
@@ -953,31 +1016,10 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b
       : "l"(a), "l"(b), "r"(1));
 }
 
-// d (64 x 8 / 64 x 16, f32) += A (64 x 16) . B (8 / 16 x 16)^T: the tiles past C = 2048
-__device__ __forceinline__ void wgmma_n8(float (&d)[4], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(a), "l"(b), "r"(1));
-}
-__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// d (64 x N) += A . B^T at N = 8, 16, 32 or 64
+// d (64 x N) += A . B^T at N = 32 or 64
 template <int N>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b) {
-  if constexpr (N == 8) wgmma_n8(d, a, b);
-  else if constexpr (N == 16) wgmma_n16(d, a, b);
-  else if constexpr (N == 32) wgmma_n32(d, a, b);
+  if constexpr (N == 32) wgmma_n32(d, a, b);
   else wgmma_n64(d, a, b);
 }
 
@@ -1004,12 +1046,13 @@ __device__ __forceinline__ void reduce_half(float* x, int mask, bool upper) {
 
 #ifdef DBLOCK_PHASE_CLOCKS
 // Instrumented build only (decoder_block_phase_split --streamed): the
-// producer's thread counts its waits for an empty slot; every consumer
+// producer's thread counts its waits for an empty slot and, in the staged
+// build, for a tile's ready barrier; every consumer
 // warp counts its waits for a full slot, its wgmma issue and group waits,
 // the tile's noise and upsample (their barriers included) and the
 // epilogue (feat, ToRGB, the rgb store, their barriers). Lane 0 of each
 // warp adds its counts to these totals at the end.
-constexpr int NWIDE_PHASES = 5;
+constexpr int NWIDE_PHASES = 6;
 __device__ unsigned long long g_wide_cycles[NWIDE_PHASES];
 #define WIDE_MARK(k)                                          \
   do {                                                        \
@@ -1031,10 +1074,16 @@ __device__ unsigned long long g_wide_cycles[NWIDE_PHASES];
 #endif
 
 // CT: C fixed at compile time (the channel counts of the shipped
-// multipliers' blocks), or 0: C taken from P.c at run time.
+// multipliers' blocks), 0: C taken from P.c at run time, or STAGED: C at
+// run time past 2048, the activation tile staged through the CTA's scratch
+// (TM = 64). Under -DDBLOCK_PLANT_RING_FAULT the staged build's producer
+// copies activation chunks without waiting for the tile's ready barrier
+// (a fault the card tests must catch); nothing else changes.
 template <int TM, int CT, typename T, bool HASH, bool RGB_BF16>
 __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Params P) {
   using W = Wide<TM>;
+  constexpr bool STG = CT == STAGED;
+  static_assert(!STG || TM == STAGED_TM, "the staged tile");
   constexpr int TW_IN = W::TW_IN, TW = W::TW, RV = W::RV, RVP = W::RVP, NB = W::NB,
                 NH = W::NH;
   constexpr int SLD = W::template stage_ld<T>();
@@ -1044,16 +1093,23 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int C = CT > 0 ? CT : P.c;
   const int KCH = C / CHUNK_K, PASSES = C / CHUNK_ROWS;  // chunks a pass, passes a tile
-  const int NS = W::template slots<T>(C);
+  const int NS = STG ? STAGED_SLOTS : W::template slots<T>(C);
+  constexpr int SLOT = STG ? STAGED_SLOT_BYTES : CHUNK_BYTES;
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t s_act = (raw + 1023u) & ~1023u;  // the swizzle wants 1024-byte alignment
   unsigned char* const base = smem_raw + (s_act - raw);
-  const uint32_t s_ring = s_act + W::act_bytes(C);
-  const uint32_t s_full = s_ring + NS * CHUNK_BYTES, s_empty = s_full + 8 * MAX_SLOTS;
-  float* const nz = reinterpret_cast<float*>(base + (s_empty + 8 * MAX_SLOTS - s_act));
+  const uint32_t s_ring = s_act + (STG ? 0 : W::act_bytes(C));
+  const uint32_t s_full = s_ring + NS * SLOT, s_empty = s_full + 8 * MAX_SLOTS;
+  [[maybe_unused]] const uint32_t s_ready = s_empty + 8 * MAX_SLOTS;  // the staged build's
+  float* const nz =
+      reinterpret_cast<float*>(base + (s_empty + 8 * MAX_SLOTS + (STG ? 16 : 0) - s_act));
   float* const rgbp = nz + 2 * TM;       // the warps' ToRGB sums, [warp][pixel][colour]
   T* const stage = reinterpret_cast<T*>(rgbp + 8 * TM * 3);
-  __nv_bfloat16* const act = reinterpret_cast<__nv_bfloat16*>(base);
+  // the activation tile: in shared memory, or the CTA's C / 64 K-chunks in
+  // the scratch
+  __nv_bfloat16* const act =
+      STG ? reinterpret_cast<__nv_bfloat16*>(P.scratch) + size_t(blockIdx.x) * TM * C
+          : reinterpret_cast<__nv_bfloat16*>(base);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const uint32_t rank = cluster_reg(0), ncta = cluster_reg(1), cid = cluster_reg(2),
                  ncl = cluster_reg(3);
@@ -1071,6 +1127,7 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
       mbar_init(s_full + 8 * s, 1);                   // the producer's expect_tx
       mbar_init(s_empty + 8 * s, 2 * int(ncta));      // each warpgroup of the cluster
     }
+    if constexpr (STG) mbar_init(s_ready, 1);         // one consumer thread a tile
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   cluster_sync();  // every barrier of the cluster initialized before any copy or arrival
@@ -1082,20 +1139,71 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
       const uint16_t mask = uint16_t((1u << ncta) - 1);
       int slot = 0;
       uint32_t phase = 0, issuer = 0;
-      for (int grp = int(cid); grp < groups; grp += int(ncl))
-        for (int i = 0, pass = grp % PASSES; i < PASSES; ++i, pass = next_mod(pass, PASSES))
-          for (int j = 0, kc = grp / PASSES % KCH; j < KCH; ++j, kc = next_mod(kc, KCH)) {
-            WIDE_RESTART();
-            mbar_wait(s_empty + 8 * slot, phase ^ 1);  // free in every CTA of the cluster
-            WIDE_MARK(0);
-            mbar_expect_tx(s_full + 8 * slot, CHUNK_BYTES);
-            if (issuer == rank)
-              bulk_load(s_ring + slot * CHUNK_BYTES,
-                        w2c + size_t(pass * KCH + kc) * CHUNK_BYTES, CHUNK_BYTES,
-                        s_full + 8 * slot, mask, ncta > 1);
-            if (++issuer == ncta) issuer = 0;
-            if (++slot == NS) slot = 0, phase ^= 1;
-          }
+      if constexpr (STG) {
+        // each chunk's weight as below; beside it, the K-chunk of the
+        // tile's activation it multiplies, from this CTA's scratch once
+        // the consumers report the tile complete there
+        const unsigned char* const asrc = P.scratch + size_t(blockIdx.x) * TM * 2 * size_t(C);
+        uint32_t ready_parity = 0;
+        for (int grp = int(cid); grp < groups; grp += int(ncl), ready_parity ^= 1) {
+          const int kc0 = grp / PASSES % KCH, slot0 = slot;
+          int acts = 0;  // the tile's chunks whose activation copy is issued
+          bool ready = false;
+          auto issue_acts = [&](int upto) {  // the activations of chunks acts .. upto - 1
+            if (!ready) {
+#ifndef DBLOCK_PLANT_RING_FAULT
+              WIDE_RESTART();
+              mbar_wait(s_ready, ready_parity);
+              WIDE_MARK(5);
+#endif
+              fence_proxy_async_global();
+              ready = true;
+            }
+            for (; acts < upto; ++acts) {
+              const int s = (slot0 + acts) % NS, kc = (kc0 + acts % KCH) % KCH;
+              bulk_load(s_ring + s * SLOT + CHUNK_BYTES, asrc + size_t(kc) * ACT_CHUNK_BYTES,
+                        ACT_CHUNK_BYTES, s_full + 8 * s, 0, false);
+            }
+          };
+          for (int i = 0, pass = grp % PASSES; i < PASSES; ++i, pass = next_mod(pass, PASSES))
+            for (int j = 0, kc = kc0; j < KCH; ++j, kc = next_mod(kc, KCH)) {
+              const int q = i * KCH + j;
+              // the slot of chunk q holds chunk q - NS, whose activation
+              // must be issued before the slot can free
+              if (q - acts == NS) issue_acts(q);
+              WIDE_RESTART();
+              mbar_wait(s_empty + 8 * slot, phase ^ 1);  // free in every CTA of the cluster
+              WIDE_MARK(0);
+              mbar_expect_tx(s_full + 8 * slot, SLOT);
+              if (issuer == rank)
+                bulk_load(s_ring + slot * SLOT, w2c + size_t(pass * KCH + kc) * CHUNK_BYTES,
+                          CHUNK_BYTES, s_full + 8 * slot, mask, ncta > 1);
+              if (++issuer == ncta) issuer = 0;
+#ifdef DBLOCK_PLANT_RING_FAULT
+              issue_acts(q + 1);
+#else
+              if (ready) issue_acts(q + 1);
+#endif
+              if (++slot == NS) slot = 0, phase ^= 1;
+            }
+          issue_acts(PASSES * KCH);
+        }
+      } else {
+        for (int grp = int(cid); grp < groups; grp += int(ncl))
+          for (int i = 0, pass = grp % PASSES; i < PASSES; ++i, pass = next_mod(pass, PASSES))
+            for (int j = 0, kc = grp / PASSES % KCH; j < KCH; ++j, kc = next_mod(kc, KCH)) {
+              WIDE_RESTART();
+              mbar_wait(s_empty + 8 * slot, phase ^ 1);  // free in every CTA of the cluster
+              WIDE_MARK(0);
+              mbar_expect_tx(s_full + 8 * slot, CHUNK_BYTES);
+              if (issuer == rank)
+                bulk_load(s_ring + slot * CHUNK_BYTES,
+                          w2c + size_t(pass * KCH + kc) * CHUNK_BYTES, CHUNK_BYTES,
+                          s_full + 8 * slot, mask, ncta > 1);
+              if (++issuer == ncta) issuer = 0;
+              if (++slot == NS) slot = 0, phase ^= 1;
+            }
+      }
     }
     __syncwarp();
   } else {
@@ -1112,7 +1220,9 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
     // the stride of 256 items in groups and pairs
     const int cgroups = C / 4, cg0 = tid % cgroups, jp0 = tid / cgroups;
     const int dcg = WIDE_CONSUMERS % cgroups, djp = WIDE_CONSUMERS / cgroups;
-    const uint64_t desc_a = sw128_desc(s_ring + r0 * 128), desc_b = sw128_desc(s_act);
+    // B: the activation tile in shared memory, or the slot's activation chunk
+    const uint64_t desc_a = sw128_desc(s_ring + r0 * 128),
+                   desc_b = sw128_desc(STG ? s_ring + CHUNK_BYTES : s_act);
     int slot = 0;
     uint32_t phase = 0;
     for (int grp = int(cid); grp < groups; grp += int(ncl)) {
@@ -1168,8 +1278,14 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
           if (cg >= cgroups) cg -= cgroups, ++jp;
         }
       }
-      fence_proxy_async();
-      consumer_sync();  // the activation tile is complete
+      if constexpr (STG) {
+        fence_proxy_async_global();
+        consumer_sync();  // the activation tile is complete in the scratch
+        if (tid == 0) mbar_arrive(s_ready);  // the producer may copy it
+      } else {
+        fence_proxy_async();
+        consumer_sync();  // the activation tile is complete
+      }
       WIDE_MARK(3);
 
       // ToRGB partials, [n-block j][pixel 2tq + e][colour], summed over the
@@ -1206,8 +1322,7 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
           }
 #pragma unroll
         for (int jq = 0; jq < NB / NH; ++jq) {  // 8 NH pixels: n-blocks NH jq .. NH jq + NH - 1
-          // [n-block of the group][row g, g + 8][pixel 2tq + e]; at NH = 1 the
-          // second n-block's values stay 0 and its staged rows are not stored
+          // [n-block of the group][row g, g + 8][pixel 2tq + e]
           float v[2][2][2] = {};
 #pragma unroll
           for (int h = 0; h < NH; ++h)
@@ -1277,8 +1392,8 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
           wgmma_fence();
 #pragma unroll
           for (int ks = 0; ks < CHUNK_K / 16; ++ks)
-            wgmma<TM>(acc, desc_a + ((slot * CHUNK_BYTES + ks * 32) >> 4),
-                      desc_b + ((kc * TM * 128 + ks * 32) >> 4));
+            wgmma<TM>(acc, desc_a + ((slot * SLOT + ks * 32) >> 4),
+                      desc_b + (((STG ? slot * SLOT : kc * TM * 128) + ks * 32) >> 4));
           wgmma_commit();
           if (prev >= 0) {  // the previous chunk's products are done: free its slot
             wgmma_wait<1>();
@@ -1383,20 +1498,26 @@ int launch(const Params& P, cudaStream_t stream, int* info) {
 // holds at once (cudaOccupancyMaxActiveClusters), at most one a tile
 // group. A cluster the card cannot place is an error, never a fallback.
 // The shared-memory limit (the most any C takes) is set once a device and
-// the cluster count found once a device and C, on the first launch; later
-// launches read them. static: a template's local statics are otherwise
-// one object across every build loaded in the process (GNU unique
-// symbols), and another build's kernel would go without its setting.
+// the cluster count found once a device and C (once a device in the
+// staged build, whose shared memory is the same at every C), on the first
+// launch; later launches read them. static: a template's local statics
+// are otherwise one object across every build loaded in the process (GNU
+// unique symbols), and another build's kernel would go without its
+// setting. The staged build takes `scratch_bytes` of scratch at
+// P.scratch, at least 128 C bytes a CTA of the grid (one CTA an SM at
+// most), or returns cudaErrorInvalidValue.
 constexpr int MAX_DEVICES = 16;
-constexpr int WIDE_MAX_C = 8192;                      // the largest streamed channel count
-constexpr int WIDE_CS = (WIDE_MAX_C - 384) / 128 + 1; // the streamed channel counts
+constexpr int WIDE_CS = (STAGED_FROM - 384) / 128 + 1;  // the counts the unstaged builds take
 
 template <int TM, int CT, typename T, bool HASH, bool RGB_BF16>
-static int launch_wide(const Params& P, cudaStream_t stream, int* info) {
+static int launch_wide(const Params& P, cudaStream_t stream, int* info,
+                       long long scratch_bytes) {
   using W = Wide<TM>;
+  constexpr bool STG = CT == STAGED;
   auto kernel = block_kernel_wide<TM, CT, T, HASH, RGB_BF16>;
-  static std::atomic<int> smem_set[MAX_DEVICES], clusters_at[MAX_DEVICES][WIDE_CS];
-  const int smem = W::template smem_bytes<T>(P.c), cl = WIDE_CLUSTER;
+  static std::atomic<int> smem_set[MAX_DEVICES], clusters_at[MAX_DEVICES][STG ? 1 : WIDE_CS];
+  const int smem = STG ? staged_smem_bytes<T>() : W::template smem_bytes<T>(P.c),
+            cl = WIDE_CLUSTER;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return int(err);
@@ -1418,7 +1539,7 @@ static int launch_wide(const Params& P, cudaStream_t stream, int* info) {
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  std::atomic<int>& cached = clusters_at[dev][(P.c - 384) / 128];
+  std::atomic<int>& cached = clusters_at[dev][STG ? 0 : (P.c - 384) / 128];
   int clusters = cached.load(std::memory_order_relaxed);
   if (clusters == 0) {
     if ((err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) != cudaSuccess)
@@ -1431,17 +1552,22 @@ static int launch_wide(const Params& P, cudaStream_t stream, int* info) {
   const int n_tiles = P.frames * P.hp * ((P.wp + W::TW_IN - 1) / W::TW_IN);
   const int groups = (n_tiles + cl - 1) / cl;
   cfg.gridDim = dim3((clusters < groups ? clusters : groups) * cl);
+  if (STG && (P.scratch == nullptr ||
+              (long long)cfg.gridDim.x * TM * 2 * P.c > scratch_bytes))
+    return int(cudaErrorInvalidValue);
   if ((err = cudaLaunchKernelEx(&cfg, kernel, P)) != cudaSuccess) return int(err);
   return int(cudaGetLastError());
 }
 
-// C = 16 to 256: block_kernel; every multiple of 128 from 384 to 8192:
-// block_kernel_wide, its tile by C, so that the bf16 activation tile stays
-// at most 128 KB: 64 pixels to C = 1024, 32 to 2048, 16 to 4096, 8 to
-// 8192. K2 and K3 take the same channel counts; the wrapper pads any
-// other C with zeros up to the next of them, and Wp up to a multiple of 16.
+// C = 16 to 256: block_kernel; every multiple of 128 from 384 up:
+// block_kernel_wide, its tile by C: 64 pixels to C = 1024 and 32 to 2048
+// with the bf16 activation tile in shared memory, 64 pixels staged through
+// the scratch past 2048. K2 and K3 take the same channel counts; the
+// wrapper pads any other C with zeros up to the next of them, and Wp up to
+// a multiple of 16.
 template <typename T, bool HASH, bool RGB_BF16>
-int launch_c(int c, const Params& P, cudaStream_t s, int* info = nullptr) {
+int launch_c(int c, const Params& P, cudaStream_t s, int* info = nullptr,
+             long long scratch_bytes = 0) {
   if (info == nullptr && (P.wp % 16 != 0 || P.frames < 1 || P.hp < 1))
     return int(cudaErrorInvalidValue);
   switch (c) {
@@ -1452,54 +1578,62 @@ int launch_c(int c, const Params& P, cudaStream_t s, int* info = nullptr) {
     case 256: return launch<256, T, HASH, RGB_BF16>(P, s, info);
     default: break;
   }
-  if (c < 384 || c > WIDE_MAX_C || c % 128 != 0 || P.c != c) return int(cudaErrorInvalidValue);
+  if (c < 384 || c % 128 != 0 || P.c != c) return int(cudaErrorInvalidValue);
   switch (c) {  // the 128^2 blocks of decoders at channel multipliers 3, 4, 8 and 16
-    case 384: return launch_wide<64, 384, T, HASH, RGB_BF16>(P, s, info);
-    case 512: return launch_wide<64, 512, T, HASH, RGB_BF16>(P, s, info);
-    case 1024: return launch_wide<64, 1024, T, HASH, RGB_BF16>(P, s, info);
-    case 2048: return launch_wide<32, 2048, T, HASH, RGB_BF16>(P, s, info);
+    case 384: return launch_wide<64, 384, T, HASH, RGB_BF16>(P, s, info, 0);
+    case 512: return launch_wide<64, 512, T, HASH, RGB_BF16>(P, s, info, 0);
+    case 1024: return launch_wide<64, 1024, T, HASH, RGB_BF16>(P, s, info, 0);
+    case 2048: return launch_wide<32, 2048, T, HASH, RGB_BF16>(P, s, info, 0);
     default: break;
   }
-  if (c <= 1024) return launch_wide<64, 0, T, HASH, RGB_BF16>(P, s, info);
-  if (c <= 2048) return launch_wide<32, 0, T, HASH, RGB_BF16>(P, s, info);
-  if (c <= 4096) return launch_wide<16, 0, T, HASH, RGB_BF16>(P, s, info);
-  return launch_wide<8, 0, T, HASH, RGB_BF16>(P, s, info);
+  if (c <= 1024) return launch_wide<64, 0, T, HASH, RGB_BF16>(P, s, info, 0);
+  if (c <= STAGED_FROM) return launch_wide<32, 0, T, HASH, RGB_BF16>(P, s, info, 0);
+  return launch_wide<STAGED_TM, STAGED, T, HASH, RGB_BF16>(P, s, info, scratch_bytes);
 }
 
 template <bool RGB_BF16>
-int launch_mode(int c, int f32_storage, int hash, const Params& P, cudaStream_t s, int* info) {
-  if constexpr (RGB_BF16) return launch_c<float, false, true>(c, P, s, info);
+int launch_mode(int c, int f32_storage, int hash, const Params& P, cudaStream_t s, int* info,
+                long long scratch_bytes = 0) {
+  if constexpr (RGB_BF16) return launch_c<float, false, true>(c, P, s, info, scratch_bytes);
   if (f32_storage)
-    return hash ? launch_c<float, true, false>(c, P, s, info)
-                : launch_c<float, false, false>(c, P, s, info);
-  return hash ? launch_c<__nv_bfloat16, true, false>(c, P, s, info)
-              : launch_c<__nv_bfloat16, false, false>(c, P, s, info);
+    return hash ? launch_c<float, true, false>(c, P, s, info, scratch_bytes)
+                : launch_c<float, false, false>(c, P, s, info, scratch_bytes);
+  return hash ? launch_c<__nv_bfloat16, true, false>(c, P, s, info, scratch_bytes)
+              : launch_c<__nv_bfloat16, false, false>(c, P, s, info, scratch_bytes);
 }
 
 }  // namespace dblock
 
+// Both entries: past C = 2048 (the staged build) `scratch` is
+// `scratch_bytes` of device memory, at least 128 C bytes a CTA of the
+// grid, one CTA an SM at most (cudaErrorInvalidValue otherwise); w2t is
+// then not read. At C <= 2048 the scratch is not read.
 extern "C" int decoder_block_forward(
     const void* y1, const void* n1, const void* n2, const void* w2t, const void* w2c,
     const float* b1, const float* b2, const float* nw, const void* wrgbt,
     void* feat, float* rgb, int frames, int hp, int wp, int c, int f32_storage,
-    int hash, int hash_wo, unsigned int seed1, unsigned int seed2, void* stream) {
+    int hash, int hash_wo, unsigned int seed1, unsigned int seed2, void* stream,
+    void* scratch, long long scratch_bytes) {
   using namespace dblock;
-  Params P{y1, n1, n2, static_cast<const __nv_bfloat16*>(w2t), b1, b2, nw, wrgbt,
+  Params P{y1, n1, n2, {static_cast<const __nv_bfloat16*>(w2t)}, b1, b2, nw, wrgbt,
            nullptr, {nullptr}, feat, rgb, frames, hp, wp, seed1, seed2, c, w2c};
   P.hash_wo = hash_wo;
+  if (c > STAGED_FROM) P.scratch = static_cast<unsigned char*>(scratch);
   return launch_mode<false>(c, f32_storage, hash, P, static_cast<cudaStream_t>(stream),
-                            nullptr);
+                            nullptr, scratch_bytes);
 }
 
 extern "C" int decoder_block_fused_forward(
     const float* y1, const float* skip, const float* n1, const float* n2,
     const void* w2t, const void* w2c, const float* b1, const float* b2, const float* nw,
     const void* wrgbt, const float* brgb, float* feat, float* rgb, int hp, int wp,
-    int c, void* stream) {
+    int c, void* stream, void* scratch, long long scratch_bytes) {
   using namespace dblock;
-  Params P{y1, n1, n2, static_cast<const __nv_bfloat16*>(w2t), b1, b2, nw, wrgbt,
+  Params P{y1, n1, n2, {static_cast<const __nv_bfloat16*>(w2t)}, b1, b2, nw, wrgbt,
            skip, {brgb}, feat, rgb, 1, hp, wp, 0u, 0u, c, w2c};
-  return launch_mode<true>(c, 1, 0, P, static_cast<cudaStream_t>(stream), nullptr);
+  if (c > STAGED_FROM) P.scratch = static_cast<unsigned char*>(scratch);
+  return launch_mode<true>(c, 1, 0, P, static_cast<cudaStream_t>(stream), nullptr,
+                           scratch_bytes);
 }
 
 #ifdef DBLOCK_PHASE_CLOCKS

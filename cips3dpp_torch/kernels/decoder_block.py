@@ -13,11 +13,14 @@ One decoder block at resolution r, after conv_a's matmul at r/2 (y1):
 `decoder_block_plain` for tensors on the CPU. K2 takes every (C, Wp) the
 packed Pallas block admits (`check_k2`: C = 1, 2, 4, ..., 64 and every C
 >= 128, Wp a multiple of p = max(1, 128 // C)), K3 every C (`check_k3`),
-both up to C = MAX_CHANNELS. The built kernels run the channel counts of
-KERNEL_CHANNELS: at 16-256 conv_b's weight stays in shared memory
-(`block_kernel`), at every multiple of 128 from 384 to 8192 it is
-streamed from L2 in swizzled 16 KB chunks (`chunk_weight`), shared by a
-thread-block cluster (`block_kernel_wide`, its tile by C: `tile_pixels`).
+with no ceiling: device memory alone limits C. The built kernels run the
+channel counts `is_kernel_channels` names: at 16-256 conv_b's weight
+stays in shared memory (`block_kernel`), at every multiple of 128 from
+384 up it is streamed from L2 in swizzled 16 KB chunks (`chunk_weight`),
+shared by a thread-block cluster (`block_kernel_wide`, its tile by C:
+`tile_pixels`); past C = 2048 (`is_staged`) the activation tile goes
+through a scratch in device memory in the same chunked layout, so the
+kernel's shared memory does not grow with C.
 Any other C runs at the next of them (`kernel_channels`): the prepare
 functions pad w2's rows and columns, wrgb's rows and b1 / b2 with zeros,
 so the padded channels hold lrelu(noise * nw), finite, and meet only zero
@@ -55,31 +58,25 @@ import torch.nn.functional as F
 
 from . import _lib
 from ..ops.upfirdn2d import _up_axis
-from .siren_render import fast_sin
+from .siren_render import fast_sin, wide_activation_layout
 
 # normalized [1,3,3,1]/8 * 2 gain (per-axis sqrt of the 4x 2-D gain)
 K4 = (0.25, 0.75, 0.75, 0.25)
 SQRT2 = 1.4142135623730951
-# The channel counts the built kernels run at: 16-256 with the weight
-# resident, and the streamed ones, every multiple of 128 from 384 to
-# MAX_CHANNELS. Every other C is run at the next of them (kernel_channels).
-# MAX_CHANNELS is block_kernel_wide's ceiling: a tile's bf16 activations
-# stay in at most 128 KB of shared memory beside the weight ring, and its
-# smallest tile is 8 pixels (8 x 8192 x 2 = 131072 bytes): the 128^2 block
-# of a decoder at channel multiplier 64.
+# The channel counts the built kernels run at (is_kernel_channels): 16-256
+# with the weight resident, and the streamed ones, every multiple of 128
+# from 384 up (is_streamed); past STAGED_FROM the streamed kernel stages a
+# tile's activations through a scratch of STAGED_TILE_PIXELS x C bf16 a
+# CTA (is_staged). Every other C is run at the next of them
+# (kernel_channels).
 RESIDENT_CHANNELS = (16, 32, 64, 128, 256)
-MAX_CHANNELS = 8192
-STREAMED_CHANNELS = range(384, MAX_CHANNELS + 1, 128)
-KERNEL_CHANNELS = RESIDENT_CHANNELS + tuple(STREAMED_CHANNELS)
+STAGED_FROM = 2048
+STAGED_TILE_PIXELS = 64
 # the kernels' Wp step: a tile's input columns divide it at every C
 WIDTH_STEP = 16
 # JAX's admission rules, quoted in the errors
 K2_RULE = ("JAX's packed block asserts (c * p) % 128 == 0 or c >= 128 and wp % p == 0, "
            "p = max(1, 128 // c) (cips3dpp_tpu/kernels/decoder_block.py:754-756)")
-CEILING = (f"the decoder block kernels take C up to {MAX_CHANNELS}: block_kernel_wide "
-           "keeps a tile's bf16 activations, 8 pixels x C x 2 bytes, in at most 128 KB "
-           f"of shared memory beside its weight ring (8 x {MAX_CHANNELS} x 2 = "
-           f"{8 * MAX_CHANNELS * 2} bytes)")
 STORAGE = (torch.bfloat16, torch.float32)
 # block_kernel_wide's weight chunk: 128 output channels x 64 input channels
 CHUNK_ROWS, CHUNK_K = 128, 64
@@ -151,35 +148,49 @@ def hash_noise_map(height: int, width: int, seed: int, device=None,
 # ---- what the kernels take
 
 
+def is_streamed(c: int) -> bool:
+    """Whether a built kernel at C = c streams conv_b's weight
+    (block_kernel_wide): every multiple of 128 from 384 up."""
+    return c >= 384 and c % 128 == 0
+
+
+def is_staged(c: int) -> bool:
+    """Whether the streamed kernel at C = c stages its activation tile
+    through the scratch (its staged build): past STAGED_FROM."""
+    return is_streamed(c) and c > STAGED_FROM
+
+
+def is_kernel_channels(c: int) -> bool:
+    """Whether a built kernel runs C = c as it is: 16-256 with the weight
+    resident, every multiple of 128 from 384 up with it streamed."""
+    return c in RESIDENT_CHANNELS or is_streamed(c)
+
+
 def check_k2(c: int, wp: int | None = None) -> None:
     """Raise ValueError where JAX's packed block (K2) refuses C = c (and,
-    given, Wp = wp), or where C passes MAX_CHANNELS."""
+    given, Wp = wp). There is no upper limit."""
     p = max(1, 128 // c) if c >= 1 else 1
     if c < 1 or not ((c * p) % 128 == 0 or c >= 128):
         raise ValueError(f"decoder_block: C = {c} is not admitted ({K2_RULE})")
     if wp is not None and wp % p:
         raise ValueError(f"decoder_block: Wp = {wp} at C = {c} is not admitted (p = {p}; "
                          f"{K2_RULE})")
-    if c > MAX_CHANNELS:
-        raise ValueError(f"decoder_block: C = {c}: {CEILING}")
 
 
 def check_k3(c: int) -> None:
     """Raise ValueError where K3 cannot take C = c: JAX's v1 block takes
     every C (it asserts only hp % t_rows == 0, cips3dpp_tpu/kernels/
     decoder_block.py:127; the port's entry point has no row tile), so only
-    C < 1 and C past MAX_CHANNELS."""
+    C < 1."""
     if c < 1:
         raise ValueError(f"decoder_block_fused: C = {c}: want C >= 1")
-    if c > MAX_CHANNELS:
-        raise ValueError(f"decoder_block_fused: C = {c}: {CEILING}")
 
 
 def kernel_channels(c: int) -> int:
     """The channel count of the built kernel that runs a block at C = c:
-    the least of KERNEL_CHANNELS at or above it."""
-    if not 1 <= c <= MAX_CHANNELS:
-        raise ValueError(f"C = {c}: {CEILING}")
+    the least count is_kernel_channels takes at or above it."""
+    if c < 1:
+        raise ValueError(f"C = {c}: want C >= 1")
     for r in RESIDENT_CHANNELS:
         if c <= r:
             return r
@@ -233,7 +244,7 @@ def decoder_block_prepare(noise1, noise2, w2, b1, b2, noise_w1, noise_w2,
             for v in (noise_w1, noise_w2)
         ]),
     }
-    if ck in STREAMED_CHANNELS:
+    if is_streamed(ck):
         prep["w2c"] = chunk_weight(prep["w2t"])
     if noise_seeds is not None:
         prep["seeds"] = tuple(int(s) & _M32 for s in noise_seeds)
@@ -264,9 +275,55 @@ def chunk_weight(w2t):
 def launch_name(prepared) -> str:
     """The launch-count name of the K2 variant that `prepared` runs:
     "decoder_block" (bf16 storage, noise buffers), with "_hash" when the
-    kernel makes the noise and "_f32" for f32 storage."""
+    kernel makes the noise, "_f32" for f32 storage and "_staged" where its
+    channel count runs on the staged build (is_staged)."""
     return ("decoder_block" + ("_hash" if "seeds" in prepared else "")
-            + ("_f32" if prepared["dtype"] == torch.float32 else ""))
+            + ("_f32" if prepared["dtype"] == torch.float32 else "")
+            + ("_staged" if is_staged(prepared["w2t"].shape[0]) else ""))
+
+
+def fused_launch_name(c: int) -> str:
+    """The launch-count name of K3 at the caller's C = c: "decoder_block_fused",
+    with "_staged" where its channel count runs on the staged build."""
+    return "decoder_block_fused" + ("_staged" if is_staged(kernel_channels(c)) else "")
+
+
+def staged_scratch_bytes(c: int) -> int:
+    """Bytes of scratch one CTA of the staged build uses at kernel C = c:
+    its activation tile, STAGED_TILE_PIXELS pixels x c bf16, in the layout
+    of K1's run-time-width scratch (siren_render.wide_activation_layout:
+    64-channel K-chunks of 64 pixels, each pixel's 16-byte groups swizzled
+    by pixel % 8, as chunk_weight swizzles a weight chunk's rows)."""
+    return STAGED_TILE_PIXELS * c * 2
+
+
+def _scratch(c, dev, scratch=None):
+    """The staged build's scratch at kernel C = c: `scratch` (uint8 on the
+    card, from a caller that reads it back), or one of staged_scratch_bytes
+    a CTA, one CTA an SM, allocated here; None where C is not staged."""
+    if not is_staged(c):
+        return None
+    if scratch is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        return torch.empty(sms * staged_scratch_bytes(c), dtype=torch.uint8, device=dev)
+    _lib.check(scratch, "scratch", (scratch.numel(),), torch.uint8, dev)
+    return scratch
+
+
+def staged_tiles_plain(y1, prepared, frames=1, width=None):
+    """What the staged build's scratch holds of each tile of a launch on
+    y1 (F*Hp, Wp, C) at the kernel's shape, by the plain version: the tile's
+    conv_b input (decoder_block_activation_plain; 2 output rows x 32
+    columns, row by row) in the scratch's layout (staged_scratch_bytes),
+    tiles in the kernel's order (frame rows, then 16-column segments).
+    Returns (tiles, STAGED_TILE_PIXELS * C) bf16; a launch over at most as
+    many tiles as its grid has CTAs leaves tile i in CTA i's scratch."""
+    rows, wp, c = y1.shape
+    h = decoder_block_activation_plain(y1, prepared, frames, width)  # (F, 2Hp, 2Wp, C)
+    tw = STAGED_TILE_PIXELS // 2  # output columns a tile
+    tiles = (h.reshape(rows, 2, 2 * wp // tw, tw, c).transpose(1, 2)
+             .reshape(-1, STAGED_TILE_PIXELS, c))
+    return torch.stack([wide_activation_layout(t) for t in tiles])
 
 
 def decoder_block_work(hp, wp, c, dtype, hashed, emit_feat, emit_rgb=True, frames=1):
@@ -288,13 +345,33 @@ def decoder_block_work(hp, wp, c, dtype, hashed, emit_feat, emit_rgb=True, frame
             "f32_apart": K2_APART_PER_VALUE * px * c + 2 * px}
 
 
-def _noise_maps(prepared, hp, wp, device, width):
-    """The block's two (2Hp, 2Wp, 1) f32 noise maps; hash noise counts its
-    pixel ids in rows of 2 * width."""
+def decoder_block_intake(hp, wp, c, frames=1, cluster=2):
+    """The bytes the streamed-weight kernel takes into the SMs in one call
+    on y1 (frames*hp, wp, c) with clusters of `cluster` CTAs, at its
+    kernel's C (ck = kernel_channels(c)) and width: the weight, 2 ck^2
+    bytes, once for each tile group of a cluster (multicast to its CTAs),
+    and past C = 2048 the staged activations, each tile's ck / 128 passes
+    reading its whole tile (STAGED_TILE_PIXELS x ck bf16) back from the
+    scratch: ck^2 bytes a tile. Returns {"tile_pixels", "tiles",
+    "weight_bytes", "activation_bytes", "bytes"}; raises where the weight
+    is resident (C <= 256)."""
+    ck = kernel_channels(c)
+    if not is_streamed(ck):
+        raise ValueError(f"C = {c} runs at {ck}: the weight stays in shared memory")
+    tm = tile_pixels(c)
+    tiles = frames * hp * kernel_width(wp) * 4 // tm
+    weight = -(-tiles // cluster) * 2 * ck * ck
+    act = tiles * (ck // CHUNK_ROWS) * tm * ck * 2 if is_staged(ck) else 0
+    return {"tile_pixels": tm, "tiles": tiles, "weight_bytes": weight,
+            "activation_bytes": act, "bytes": weight + act}
+
+
+def _noise_map(prepared, k, hp, wp, device, width):
+    """The block's noise map k (0: noise1, 1: noise2), (2Hp, 2Wp, 1) f32;
+    hash noise counts its pixel ids in rows of 2 * width."""
     if "seeds" in prepared:
-        return tuple(hash_noise_map(2 * hp, 2 * wp, s, device, row_len=2 * width)
-                     for s in prepared["seeds"])
-    return prepared["n1"].float()[..., None], prepared["n2"].float()[..., None]
+        return hash_noise_map(2 * hp, 2 * wp, prepared["seeds"][k], device, row_len=2 * width)
+    return prepared[("n1", "n2")[k]].float()[..., None]
 
 
 def decoder_block_plain(y1, prepared, emit_feat=True, frames=1, width=None):
@@ -302,18 +379,12 @@ def decoder_block_plain(y1, prepared, emit_feat=True, frames=1, width=None):
     y1 (F*Hp, Wp, C) with F frames stacked on rows, at the kernel's C;
     `width`: the caller's Wp where y1 was padded past it (the hash's
     pixel ids count in it)."""
-    dt = prepared["dtype"]
     rows, wp, c = y1.shape
-    x = y1.to(dt).float().reshape(frames, rows // frames, wp, c)
-    x = _up_axis(x, 1, K4)  # rows, f32
-    x = x.to(dt).float()  # rounded before the column blend
-    x = _up_axis(x, 2, K4)
-    nw = prepared["nw"]
-    n1, n2 = _noise_maps(prepared, rows // frames, wp, y1.device, width or wp)
-    h = _lrelu(x + nw[0] * n1 + prepared["b1"])
-    h2 = h.to(torch.bfloat16).float() @ prepared["w2t"].float().t()
-    h2 = _lrelu(h2 + nw[1] * n2 + prepared["b2"])
-    stored = h2.to(dt)
+    h = decoder_block_activation_plain(y1, prepared, frames, width)
+    n2 = _noise_map(prepared, 1, rows // frames, wp, y1.device, width or wp)
+    h2 = h.float() @ prepared["w2t"].float().t()
+    h2 = _lrelu(h2 + prepared["nw"][1] * n2 + prepared["b2"])
+    stored = h2.to(prepared["dtype"])
     out_rows = 2 * rows
     res = []
     if emit_feat:
@@ -324,25 +395,40 @@ def decoder_block_plain(y1, prepared, emit_feat=True, frames=1, width=None):
     return tuple(res) if len(res) > 1 else res[0]
 
 
+def decoder_block_activation_plain(y1, prepared, frames=1, width=None):
+    """The plain version's conv_b input on y1 (F*Hp, Wp, C): the 2x
+    upsample (rows, rounded to the storage type, then columns), + noise1 +
+    b1, lrelu, in bf16. Returns (F, 2Hp, 2Wp, C)."""
+    dt = prepared["dtype"]
+    rows, wp, c = y1.shape
+    x = y1.to(dt).float().reshape(frames, rows // frames, wp, c)
+    x = _up_axis(x, 1, K4)  # rows, f32
+    x = x.to(dt).float()  # rounded before the column blend
+    x = _up_axis(x, 2, K4)
+    n1 = _noise_map(prepared, 0, rows // frames, wp, y1.device, width or wp)
+    return _lrelu(x + prepared["nw"][0] * n1 + prepared["b1"]).to(torch.bfloat16)
+
+
 def tile_pixels(c) -> int:
     """Output pixels of the tile of the kernel that runs C = c (2 output
     rows x half as many columns), at its channel count ck =
     kernel_channels(c): 8192 / ck with the weight resident; with it
-    streamed, 64 at ck <= 1024, 32 to 2048, 16 to 4096 and 8 to 8192, so
-    that the bf16 activation tile stays at most 128 KB of shared memory,
-    beside the weight ring."""
+    streamed, 64 at ck <= 1024 and 32 to 2048 (the bf16 activation tile in
+    at most 128 KB of shared memory, beside the weight ring), and 64 past
+    2048, where the staged build keeps the tile in its scratch."""
     ck = kernel_channels(c)
     if ck in RESIDENT_CHANNELS:
         return 8192 // ck
-    return 64 if ck <= 1024 else 32 if ck <= 2048 else 16 if ck <= 4096 else 8
+    return 32 if 1024 < ck <= STAGED_FROM else 64
 
 
 def _check_kernel_shape(what, rows, wp, c, frames):
     """The shape a launch takes: y1 padded to a built kernel's C and to a
     multiple of WIDTH_STEP columns (the entry points pad)."""
-    if c not in KERNEL_CHANNELS or wp % WIDTH_STEP or rows % frames:
+    if not is_kernel_channels(c) or wp % WIDTH_STEP or rows % frames:
         raise ValueError(f"{what} kernel: y1 {(rows, wp, c)} for {frames} frames: the "
-                         f"kernel runs C in KERNEL_CHANNELS and Wp % {WIDTH_STEP} == 0")
+                         f"kernel runs C = 16-256 or a multiple of 128 from 384 up, and "
+                         f"Wp % {WIDTH_STEP} == 0")
 
 
 def _check_aligned(**tensors):
@@ -364,11 +450,12 @@ def decoder_block_info(c, dtype=torch.bfloat16, hashed=False, k3=False, defines=
     resident kernel, whose cluster is 1). K3 (`k3=True`) is the f32
     instantiation with the bias and skip epilogue. C is the caller's: the
     instantiation is the one that runs it, at kernel_channels(c); raises
-    where check_k2 (check_k3) refuses C, before any build. Kernel C =
-    384-8192 is the streamed-weight kernel (block_kernel_wide): one
+    where check_k2 (check_k3) refuses C, before any build. Kernel C of 384
+    and up is the streamed-weight kernel (block_kernel_wide): one
     instantiation a tile size (`tile_pixels`) and mode with C at run time,
-    and one each with C fixed at 384, 512, 1024 and 2048; raises if the
-    card cannot place its cluster. `defines`: of the library built with
+    one each with C fixed at 384, 512, 1024 and 2048, and past 2048 the
+    staged build, whose shared memory is the same at every C; raises if
+    the card cannot place its cluster. `defines`: of the library built with
     those extra flags (the cluster size is a build's,
     -DDBLOCK_WIDE_CLUSTER)."""
     check_k3(c) if k3 else check_k2(c)
@@ -383,10 +470,13 @@ def decoder_block_info(c, dtype=torch.bfloat16, hashed=False, k3=False, defines=
     return dict(zip(INFO_KEYS, list(info)))
 
 
-def _launch(y1, prepared, emit_feat, frames, defines=(), width=None):
+def _launch(y1, prepared, emit_feat, frames, defines=(), width=None, scratch=None):
     """Launch K2 (the library built with the extra flags `defines`) on y1
     at the kernel's shape; `width`: the caller's Wp where y1 was padded
-    past it (hash noise counts its pixel ids in it)."""
+    past it (hash noise counts its pixel ids in it). Past C = 2048 the
+    staged build takes a scratch of `staged_scratch_bytes` a CTA, one CTA
+    an SM at most: allocated here, or `scratch` (uint8 on the card, from a
+    caller that reads the tiles back: staged_tiles_plain)."""
     dev = y1.device
     rows, wp, c = y1.shape
     dt = prepared["dtype"]
@@ -400,7 +490,7 @@ def _launch(y1, prepared, emit_feat, frames, defines=(), width=None):
         _lib.check(prepared["n2"], "noise2", (2 * hp, 2 * wp), dt, dev)
     _lib.check(prepared["w2t"], "w2t", (c, c), torch.bfloat16, dev)
     w2c = prepared.get("w2c")
-    if c in STREAMED_CHANNELS:
+    if is_streamed(c):
         _lib.check(w2c, "w2c", (c * c,), torch.bfloat16, dev)
     _lib.check(prepared["b1"], "b1", (c,), torch.float32, dev)
     _lib.check(prepared["b2"], "b2", (c,), torch.float32, dev)
@@ -411,22 +501,23 @@ def _launch(y1, prepared, emit_feat, frames, defines=(), width=None):
             if emit_feat else None)
     rgb = (torch.empty((2 * rows, 2 * wp, 3), dtype=torch.float32, device=dev)
            if emit_rgb else None)
+    scratch = _scratch(c, dev, scratch)
     _check_aligned(y1=y1, noise1=prepared.get("n1"), noise2=prepared.get("n2"),
-                   w2t=prepared["w2t"], w2c=w2c)
+                   w2t=prepared["w2t"], w2c=w2c, scratch=scratch)
     seed1, seed2 = prepared["seeds"] if hashed else (0, 0)
     hash_wo = 2 * (wp if width is None else width)
     lib = _lib.load("decoder_block", defines)
     fn = lib.decoder_block_forward
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
-                   + [ctypes.c_uint32] * 2 + [ctypes.c_void_p])
+                   + [ctypes.c_uint32] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_longlong])
     p = _lib.ptr
     code = fn(
         p(y1), p(prepared.get("n1")), p(prepared.get("n2")), p(prepared["w2t"]), p(w2c),
         p(prepared["b1"]), p(prepared["b2"]), p(prepared["nw"]),
         p(prepared.get("wrgbt")), p(feat), p(rgb),
         frames, hp, wp, c, int(dt == torch.float32), int(hashed), hash_wo, seed1, seed2,
-        _lib.stream_ptr(dev),
+        _lib.stream_ptr(dev), p(scratch), 0 if scratch is None else scratch.numel(),
     )
     _lib.raise_on_error(code, "decoder_block")
     _lib.LAUNCHES[launch_name(prepared)] += 1
@@ -537,7 +628,8 @@ def decoder_block_fused_plain(y1, skip, noise1, noise2, w2, wrgb, b1, b2, brgb,
 def _launch_fused(y1, skip, noise1, noise2, w2, wrgb, b1, b2, brgb, noise_w1,
                   noise_w2, defines=()):
     """Launch K3 (the library built with the extra flags `defines`) on
-    operands at the kernel's shape."""
+    operands at the kernel's shape; past C = 2048 with a scratch allocated
+    as K2's `_launch` allocates it."""
     dev = y1.device
     hp, wp, c = y1.shape
     _check_kernel_shape("decoder_block_fused", hp, wp, c, 1)
@@ -555,32 +647,34 @@ def _launch_fused(y1, skip, noise1, noise2, w2, wrgb, b1, b2, brgb, noise_w1,
         "wrgbt": wrgb.t().contiguous().to(bf16),
         "brgb": brgb.reshape(3).float().contiguous(),
     }
-    if c in STREAMED_CHANNELS:
+    if is_streamed(c):
         ops["w2c"] = chunk_weight(ops["w2t"])
     shapes = {"y1": ((hp, wp, c), f32), "skip": ((hp, wp, 3), f32),
               "noise1": ((2 * hp, 2 * wp), f32), "noise2": ((2 * hp, 2 * wp), f32),
               "w2t": ((c, c), bf16), "b1": ((c,), f32), "b2": ((c,), f32),
               "nw": ((2,), f32), "wrgbt": ((3, c), bf16), "brgb": ((3,), f32)}
-    if c in STREAMED_CHANNELS:
+    if is_streamed(c):
         shapes["w2c"] = ((c * c,), bf16)
     for name, (shape, dtype) in shapes.items():
         _lib.check(ops[name], name, shape, dtype, dev)
-    _check_aligned(**ops)
+    scratch = _scratch(c, dev)
+    _check_aligned(scratch=scratch, **ops)
     feat = torch.empty((2 * hp, 2 * wp, c), dtype=f32, device=dev)
     rgb = torch.empty((2 * hp, 2 * wp, 3), dtype=f32, device=dev)
     lib = _lib.load("decoder_block", defines)
     fn = lib.decoder_block_fused_forward
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_longlong])
     p = _lib.ptr
     code = fn(
         p(ops["y1"]), p(ops["skip"]), p(ops["noise1"]), p(ops["noise2"]),
         p(ops["w2t"]), p(ops.get("w2c")), p(ops["b1"]), p(ops["b2"]), p(ops["nw"]),
         p(ops["wrgbt"]), p(ops["brgb"]), p(feat), p(rgb), hp, wp, c,
-        _lib.stream_ptr(dev),
+        _lib.stream_ptr(dev), p(scratch), 0 if scratch is None else scratch.numel(),
     )
     _lib.raise_on_error(code, "decoder_block_fused")
-    _lib.LAUNCHES["decoder_block_fused"] += 1
+    _lib.LAUNCHES[fused_launch_name(c)] += 1
     return feat, rgb
 
 

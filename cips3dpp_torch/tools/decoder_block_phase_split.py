@@ -16,10 +16,13 @@ plain and the instrumented builds, so the cost of the marks can be read
 beside the split.
 
 With --streamed the same is done for the streamed-weight kernel
-(block_kernel_wide) at y1 (64, 64, 1024) and (64, 64, 2048) with feat
-stored, whose phases are the producer's waits for an empty ring slot, the
-consumers' waits for a full one, wgmma (issue and group waits), the
-tile's noise and upsample, and the epilogue.
+(block_kernel_wide) at y1 (64, 64, 1024) and (64, 64, 2048), and its
+staged build at (64, 64, 4096) and (64, 64, 8320), with feat stored, whose
+phases are the producer's waits for an empty ring slot, the consumers'
+waits for a full one, wgmma (issue and group waits), the tile's noise and
+upsample (in the staged build into the scratch, with the ready barrier's
+arrival), the epilogue, and the staged build's producer waits for a
+tile's ready barrier before it copies the tile's activation chunks.
 """
 
 from __future__ import annotations
@@ -36,11 +39,13 @@ from ..kernels import decoder_block as kdb
 DEFINES = ("-DDBLOCK_PHASE_CLOCKS",)
 PHASES = ("prologue", "wait_copies_barrier", "last_tile_rgb", "start_next_copies",
           "upsample", "barrier", "conv_b", "epilogue", "last_rgb")
-WIDE_PHASES = ("producer_wait_empty", "consumer_wait_full", "wgmma", "upsample", "epilogue")
+WIDE_PHASES = ("producer_wait_empty", "consumer_wait_full", "wgmma", "upsample", "epilogue",
+               "producer_wait_ready")
 # (Hp, C) of the four upsample blocks of the r1024 decoder (64^2 feature map)
 SHAPES = ((64, 256), (128, 128), (256, 64), (512, 32))
-# the streamed kernel's: the 128^2 blocks of decoders at multipliers 8 and 16
-STREAMED_SHAPES = ((64, 1024), (64, 2048))
+# the streamed kernel's: the 128^2 blocks of decoders at multipliers 8 and
+# 16, and the staged build's at 32 and 65
+STREAMED_SHAPES = ((64, 1024), (64, 2048), (64, 4096), (64, 8320))
 
 
 def block_inputs(hp, c, dtype, hashed, device, seed=0):
@@ -115,7 +120,7 @@ def main(argv=None) -> None:
     ap.add_argument("--hash", action="store_true", help="noise hashed in the kernel")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--streamed", action="store_true",
-                    help="the streamed-weight kernel at C = 1024 and 2048")
+                    help="the streamed-weight kernel at C = 1024, 2048, 4096 and 8320")
     args = ap.parse_args(argv)
     with torch.inference_mode():
         print(json.dumps(measure(getattr(torch, args.dtype), args.hash, args.iters,

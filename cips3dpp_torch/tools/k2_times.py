@@ -1,6 +1,6 @@
 """K2's device time at given y1 shapes, in its four modes, on the card.
 
-    python -m cips3dpp_torch.tools.k2_times [--shapes 64x64x512 64x64x1024]
+    python -m cips3dpp_torch.tools.k2_times [--shapes 64x64x1024 64x64x8192]
         [--root DIR] [--label L] [--cluster 2 4]
 
 Each shape HpxWpxC is a y1 of one frame with feat stored and ToRGB folded,
@@ -34,7 +34,8 @@ def cluster_defines(cluster: int) -> tuple[str, ...]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--shapes", nargs="+", default=["64x64x512", "64x64x1024", "64x64x2048"])
+    ap.add_argument("--shapes", nargs="+", default=["64x64x1024", "64x64x2048", "64x64x2176",
+                                                    "64x64x4096", "64x64x8192"])
     ap.add_argument("--root", default=None, help="a checkout whose package is timed")
     ap.add_argument("--label", default="")
     ap.add_argument("--cluster", type=int, nargs="+", default=None,
@@ -70,7 +71,7 @@ def main(argv=None) -> int:
                     # padded to); Wp a multiple of 16
                     y1 = torch.randn((hp, wp, bp["w2t"].shape[0]), generator=gen).to(dev, dt)
                     key = f"C={c} y1={hp}x{wp} {kdb.launch_name(bp)}"
-                    streamed = args.cluster and c in kdb.STREAMED_CHANNELS
+                    streamed = args.cluster and kdb.kernel_channels(c) >= 384
                     for cl in args.cluster if streamed else (None,):
                         defines = () if cl is None else cluster_defines(cl)
                         ms = _lib.device_ms(lambda i: kdb._launch(y1, bp, True, 1, defines),

@@ -295,10 +295,10 @@ def _cluster_builds(shape, c):
     """[(cluster, defines)]: the libraries to run the kernel in at `shape`
     and C = c, each with its streamed kernel's cluster size (None: the
     plain library, its cluster not asserted)."""
-    from cips3dpp_torch.kernels.decoder_block import STREAMED_CHANNELS
+    from cips3dpp_torch.kernels.decoder_block import is_streamed
     from cips3dpp_torch.tools.k2_times import cluster_defines
 
-    if not (shape.startswith("cluster") and c in STREAMED_CHANNELS):
+    if not (shape.startswith("cluster") and is_streamed(c)):
         return [(None, ())]
     return [(cl, () if cl == CLUSTER_SIZES[0] else cluster_defines(cl))
             for cl in CLUSTER_SIZES]
@@ -493,13 +493,15 @@ def test_hash_noise_in_kernel_matches_its_map(dev):
 # 144 to 256, 272 and 288 to 384, 576 to 640, 1088 to 1152, widths padded
 # to a multiple of 16 (Wp = 8 at C = 16, 6 at 64, 24 at 256, 20 and 40
 # streamed, with hash noise counting in the caller's width), and the
-# streamed kernel's 16- and 8-pixel tiles (C = 2176-4096, 4224-8192);
-# at Hp = 1 the cluster shapes, also run with clusters of 4
+# streamed kernel's staged build past C = 2048 (2176-8192, and past 8192,
+# where the port once stopped: 8320, 8193 run at 8320, and 16384); at Hp =
+# 1 the cluster shapes, also run with clusters of 4
 PADDED_BLOCKS = [(1, 8, 128, 1), (2, 4, 64, 2), (4, 8, 32, 1), (8, 8, 16, 2), (8, 2, 48, 3),
                  (16, 4, 8, 2), (64, 4, 6, 1), (144, 8, 16, 2), (144, 3, 20, 1),
                  (256, 8, 24, 2), (272, 4, 16, 1), (288, 4, 40, 2), (576, 8, 16, 1),
                  (1088, 4, 16, 1), (2176, 8, 16, 2), (2176, 1, 20, 1), (4096, 8, 16, 1),
-                 (4224, 1, 16, 1), (8192, 4, 16, 1), (8192, 1, 24, 2)]
+                 (4224, 1, 16, 1), (8192, 4, 16, 1), (8192, 1, 24, 2), (8320, 4, 16, 1),
+                 (8193, 1, 20, 3), (16384, 2, 16, 1)]
 
 
 @pytest.mark.parametrize("mode", MODES, ids=["-".join(m) for m in MODES])
@@ -559,9 +561,11 @@ def test_decoder_block_kernel_at_padded_counts(dev, c, hp, wp, frames, mode):
 
 
 # K3 at the C and Wp it runs padded (its JAX block takes every C): C = 3,
-# 48 and 144 as the CPU tests, 2176 and 4224 on the small streamed tiles
+# 48 and 144 as the CPU tests, 2176-8192 on the staged build, and past 8192;
+# then full-size blocks on it: y1 (64, 64, 4096 / 8192) and (8, 16, 16384)
 K3_PADDED = [(3, 8, 16), (48, 8, 24), (144, 8, 16), (144, 2, 20), (2176, 4, 16),
-             (4224, 2, 20), (8192, 1, 16)]
+             (4224, 2, 20), (8192, 1, 16), (8320, 2, 16), (16384, 1, 16), (4096, 64, 64),
+             (8192, 64, 64), (16384, 8, 16)]
 
 
 @pytest.mark.parametrize("c,hp,wp", K3_PADDED, ids=[f"C{c}-{h}x{w}" for c, h, w in K3_PADDED])
@@ -570,7 +574,7 @@ def test_decoder_block_fused_kernel_at_padded_counts(dev, c, hp, wp):
     twice bit-equal, against its plain version at the caller's shape."""
     from cips3dpp_torch.kernels import _lib
     from cips3dpp_torch.kernels.decoder_block import (
-        decoder_block_fused, decoder_block_fused_plain,
+        decoder_block_fused, decoder_block_fused_plain, fused_launch_name,
     )
 
     gen = torch.Generator().manual_seed(200 + c + wp)
@@ -578,9 +582,11 @@ def test_decoder_block_fused_kernel_at_padded_counts(dev, c, hp, wp):
     args = (rnd(hp, wp, c), rnd(hp, wp, 3), rnd(2 * hp, 2 * wp, 1), rnd(2 * hp, 2 * wp, 1),
             rnd(c, c) / c**0.5, rnd(c, 3) / c**0.5, 0.1 * rnd(c), 0.1 * rnd(c),
             0.1 * rnd(3), 0.3, 0.2)
-    before = _lib.LAUNCHES["decoder_block_fused"]
+    name = fused_launch_name(c)
+    assert name == "decoder_block_fused" + ("_staged" if c > 2048 else "")
+    before = _lib.LAUNCHES[name]
     got = decoder_block_fused(*args)
-    assert _lib.LAUNCHES["decoder_block_fused"] == before + 1
+    assert _lib.LAUNCHES[name] == before + 1
     again = decoder_block_fused(*args)
     want = decoder_block_fused_plain(*args)
     torch.cuda.synchronize()
@@ -653,57 +659,69 @@ def test_decoder_block_phase_split_counts_every_phase(dev):
     assert len(cycles) == len(PHASES) and all(c > 0 for c in cycles)
 
 
-def test_decoder_block_streamed_phase_split_counts_every_phase(dev):
-    """The instrumented streamed-weight kernel at y1 (64, 64, 1024) computes
-    what the plain build computes and counts cycles in each of its five
-    phases (producer, consumers' waits, wgmma, upsample, epilogue)."""
+@pytest.mark.parametrize("c", [1024, 4096])
+def test_decoder_block_streamed_phase_split_counts_every_phase(dev, c):
+    """The instrumented streamed-weight kernel at y1 (64, 64, 1024) and, in
+    its staged build, (64, 64, 4096) computes what the plain build computes
+    and counts cycles in each of its phases (producer, consumers' waits,
+    wgmma, upsample, epilogue); the producer's waits for a tile's ready
+    barrier are the staged build's alone."""
     from cips3dpp_torch.kernels import decoder_block as kdb
     from cips3dpp_torch.tools.decoder_block_phase_split import (
         DEFINES, WIDE_PHASES, block_inputs, phase_cycles,
     )
 
-    prep, y1 = block_inputs(64, 1024, torch.bfloat16, False, dev)
+    prep, y1 = block_inputs(64, c, torch.bfloat16, False, dev)
     want = kdb.decoder_block_packed(y1, prepared=prep)
     phase_cycles(reset=True, streamed=True)
     got = kdb._launch(y1, prep, True, 1, DEFINES)
     torch.cuda.synchronize()
-    cycles = phase_cycles(reset=False, streamed=True)
-    print(dict(zip(WIDE_PHASES, cycles)))
+    cycles = dict(zip(WIDE_PHASES, phase_cycles(reset=False, streamed=True)))
+    print(cycles)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert len(cycles) == len(WIDE_PHASES) and all(c > 0 for c in cycles)
+    assert len(cycles) == len(WIDE_PHASES)
+    assert all(v > 0 for k, v in cycles.items() if k != "producer_wait_ready")
+    assert (cycles["producer_wait_ready"] > 0) == kdb.is_staged(c)
 
 
 def test_decoder_block_resources(dev):
     """Every K2 / K3 instantiation fits on the card with no spill, at every
-    C the built kernels run; tiles hold 8192 values at C = 16 to 256, and
-    64, 32, 16 or 8 pixels (16, 8, 4 or 2 input columns) with the weight
-    streamed (C = 384-1024, 1152-2048, 2176-4096, 4224-8192) by clusters
-    of CLUSTER_SIZES[0] CTAs, the plain library's, the card can place (1
-    for the resident kernel). A C no built kernel runs is run by the next
-    one's instantiation (192 and 4096 among them); a C JAX's packed block
-    refuses raises for K2 and is taken by K3, and C past MAX_CHANNELS
-    raises for both."""
+    C the built kernels run to 8320 and at 16384; tiles hold 8192 values
+    at C = 16 to 256, and 64 or 32 pixels (16 or 8 input columns) with
+    the weight streamed (C = 384-1024, 1152-2048), and 64 past 2048 in the
+    staged build, whose shared memory is the same at every C (2176, 8192,
+    16384: nothing in it grows with C), by clusters of CLUSTER_SIZES[0]
+    CTAs, the plain library's, the card can place (1 for the resident
+    kernel). A C no built kernel runs is run by the next one's
+    instantiation (192 and 4096 among them); a C JAX's packed block refuses
+    raises for K2 and is taken by K3; C past 8192, where the kernels once
+    stopped, is taken by both."""
     from cips3dpp_torch.kernels.decoder_block import (
-        KERNEL_CHANNELS, MAX_CHANNELS, STREAMED_CHANNELS, decoder_block_info, kernel_channels,
+        RESIDENT_CHANNELS, decoder_block_info, is_staged, is_streamed, kernel_channels,
         tile_pixels,
     )
 
     for dt, hashed, k3 in ((torch.bfloat16, False, False), (torch.bfloat16, True, False),
                            (torch.float32, False, False), (torch.float32, True, False),
                            (torch.float32, False, True)):
-        for c in KERNEL_CHANNELS:
+        staged = {}
+        for c in RESIDENT_CHANNELS + tuple(range(384, 8321, 128)) + (16384,):
             info = decoder_block_info(c, dt, hashed, k3)
             print(dt, hashed, k3, c, info)
             assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
             assert info["smem_bytes"] <= 232448
             assert info["tile_pixels"] == tile_pixels(c)
-            assert info["tile_pixels"] == (8192 // c if c <= 256 else 64 if c <= 1024 else
-                                           32 if c <= 2048 else 16 if c <= 4096 else 8)
+            assert info["tile_pixels"] == (8192 // c if c <= 256 else 32 if 1024 < c <= 2048
+                                           else 64)
             assert info["tile_input_columns"] * 4 == info["tile_pixels"]
-            assert info["cluster"] == (CLUSTER_SIZES[0] if c in STREAMED_CHANNELS else 1)
+            assert info["cluster"] == (CLUSTER_SIZES[0] if is_streamed(c) else 1)
             assert info["clusters_on_card"] >= 1
-        for c in (1, 8, 144, 192, 288, 2176, 4096, 8064):
+            if is_staged(c):
+                staged[c] = info
+        # one staged instantiation a mode: the same resources at every C
+        assert staged[2176] == staged[8192] == staged[16384]
+        for c in (1, 8, 144, 192, 288, 2176, 4096, 8064, 8193):
             assert decoder_block_info(c, dt, hashed, k3) == decoder_block_info(
                 kernel_channels(c), dt, hashed, k3)
         for c in (3, 48, 96):
@@ -713,8 +731,220 @@ def test_decoder_block_resources(dev):
             else:
                 with pytest.raises(ValueError, match="c >= 128"):
                     decoder_block_info(c, dt, hashed, k3)
-        with pytest.raises(ValueError, match=f"take C up to {MAX_CHANNELS}"):
-            decoder_block_info(MAX_CHANNELS + 128, dt, hashed, k3)
+        assert decoder_block_info(8192 + 128, dt, hashed, k3) == staged[8320]
+
+
+# SHA-1 of each decoder_block entry's SASS at C <= 2048 (block_kernel at
+# 16-256, block_kernel_wide's 64- and 32-pixel tiles), in every mode, as
+# the build before the staged build compiled them (sass_diff.parse_sass:
+# instructions without their addresses): a change to the staged build
+# leaves their code as it was.
+NARROW_DBLOCK_SASS = {
+    "_ZN6dblock12block_kernelILi128E13__nv_bfloat16Lb0ELb0EEEvNS_6ParamsE":
+        "27251f0c5212b6c8109065a4e2542da3f219258a",
+    "_ZN6dblock12block_kernelILi128E13__nv_bfloat16Lb1ELb0EEEvNS_6ParamsE":
+        "94d703dc30b891cb3e6e8d43a7edd4a369868ad2",
+    "_ZN6dblock12block_kernelILi128EfLb0ELb0EEEvNS_6ParamsE":
+        "32de66cc94632686569cc50ccd104c413aa06723",
+    "_ZN6dblock12block_kernelILi128EfLb0ELb1EEEvNS_6ParamsE":
+        "197d8dd9c2fa8008ead5018cd2ca64d088c46cee",
+    "_ZN6dblock12block_kernelILi128EfLb1ELb0EEEvNS_6ParamsE":
+        "7acc12650243a370864c04b71f041a5498f26d93",
+    "_ZN6dblock12block_kernelILi16E13__nv_bfloat16Lb0ELb0EEEvNS_6ParamsE":
+        "2d1f3a1dab97adde92ef7c0dbb34c3139a514a32",
+    "_ZN6dblock12block_kernelILi16E13__nv_bfloat16Lb1ELb0EEEvNS_6ParamsE":
+        "3bff56eb1b3fa03f6d6ef69035d140280b857f9c",
+    "_ZN6dblock12block_kernelILi16EfLb0ELb0EEEvNS_6ParamsE":
+        "8f4119a3bcafd7d689c9e21e19bd63be988fbae0",
+    "_ZN6dblock12block_kernelILi16EfLb0ELb1EEEvNS_6ParamsE":
+        "eab32a716944bf3425e2740ba2d60b0f323b447e",
+    "_ZN6dblock12block_kernelILi16EfLb1ELb0EEEvNS_6ParamsE":
+        "3af3d9cabaee3027669b1b18fae2005acaf81a66",
+    "_ZN6dblock12block_kernelILi256E13__nv_bfloat16Lb0ELb0EEEvNS_6ParamsE":
+        "55a6cb580832c22f58a0019c6f1eb005cf81b717",
+    "_ZN6dblock12block_kernelILi256E13__nv_bfloat16Lb1ELb0EEEvNS_6ParamsE":
+        "5a22aa08a5ea0baa649a47cb981828e089d4acb8",
+    "_ZN6dblock12block_kernelILi256EfLb0ELb0EEEvNS_6ParamsE":
+        "3105a2598fd96855753bfbf10233cc481c535f3b",
+    "_ZN6dblock12block_kernelILi256EfLb0ELb1EEEvNS_6ParamsE":
+        "a1ce1927dd2e82f1a89b4aed014840b0a81625f3",
+    "_ZN6dblock12block_kernelILi256EfLb1ELb0EEEvNS_6ParamsE":
+        "353c2bcc4eeb7c220794b97b16a73989c48e88f9",
+    "_ZN6dblock12block_kernelILi32E13__nv_bfloat16Lb0ELb0EEEvNS_6ParamsE":
+        "0e35dbdd24c0b6f16fb52732560c7c3981051e09",
+    "_ZN6dblock12block_kernelILi32E13__nv_bfloat16Lb1ELb0EEEvNS_6ParamsE":
+        "0e0b65d9b55faa9b260f66dd1a0a9073d5f5be71",
+    "_ZN6dblock12block_kernelILi32EfLb0ELb0EEEvNS_6ParamsE":
+        "c352b6465a24bac97f23166bc2ce68960bd81d44",
+    "_ZN6dblock12block_kernelILi32EfLb0ELb1EEEvNS_6ParamsE":
+        "6a99bafb8b072c5f9446152dd2c8d2a064f7a2d9",
+    "_ZN6dblock12block_kernelILi32EfLb1ELb0EEEvNS_6ParamsE":
+        "c9dd01e02ea8d16db09f6453fa1901a70c3b15d8",
+    "_ZN6dblock12block_kernelILi64E13__nv_bfloat16Lb0ELb0EEEvNS_6ParamsE":
+        "ffc6d1c494e4b0cd7050b17e18fe529587b79660",
+    "_ZN6dblock12block_kernelILi64E13__nv_bfloat16Lb1ELb0EEEvNS_6ParamsE":
+        "7d504829c2d801a877eab76031a01ac5db93c140",
+    "_ZN6dblock12block_kernelILi64EfLb0ELb0EEEvNS_6ParamsE":
+        "7b22c012d5d76af3f56a83ba697005ca04c93a28",
+    "_ZN6dblock12block_kernelILi64EfLb0ELb1EEEvNS_6ParamsE":
+        "c7514b1c9aa476e0615f275b819894a38d15771e",
+    "_ZN6dblock12block_kernelILi64EfLb1ELb0EEEvNS_6ParamsE":
+        "aa8fa58b60eb47148ef83256395fbbd5175be49d",
+    "_ZN6dblock17block_kernel_wideILi32ELi0E13__nv_bfloat16Lb0ELb0EEEvNS_6ParamsE":
+        "63647056661ba21db0428aab9aea5c85cfeaa4ef",
+    "_ZN6dblock17block_kernel_wideILi32ELi0E13__nv_bfloat16Lb1ELb0EEEvNS_6ParamsE":
+        "5e03b118d3f9b42fd2b56f89977dbca9e78c3d5a",
+    "_ZN6dblock17block_kernel_wideILi32ELi0EfLb0ELb0EEEvNS_6ParamsE":
+        "f1c1688d43faab6f94a476d853e78ba3fe77ce17",
+    "_ZN6dblock17block_kernel_wideILi32ELi0EfLb0ELb1EEEvNS_6ParamsE":
+        "cfb284d9bf1e3179b88b1bc617cdc855f7333a8d",
+    "_ZN6dblock17block_kernel_wideILi32ELi0EfLb1ELb0EEEvNS_6ParamsE":
+        "4da8393c35f41414703d795a5bc0f2abf0034a8a",
+    "_ZN6dblock17block_kernel_wideILi32ELi2048E13__nv_bfloat16Lb0ELb0EEEvNS_6ParamsE":
+        "697e79b1e623072c0f71ecd5b3ed762f911b2781",
+    "_ZN6dblock17block_kernel_wideILi32ELi2048E13__nv_bfloat16Lb1ELb0EEEvNS_6ParamsE":
+        "ab1237300676c149ffff19de9af8dc272defdd57",
+    "_ZN6dblock17block_kernel_wideILi32ELi2048EfLb0ELb0EEEvNS_6ParamsE":
+        "1f3ee3f2d7360283761abbdd8b27e94832e0f0fd",
+    "_ZN6dblock17block_kernel_wideILi32ELi2048EfLb0ELb1EEEvNS_6ParamsE":
+        "ea265eb16967db98804429e050e8e22021ad9c98",
+    "_ZN6dblock17block_kernel_wideILi32ELi2048EfLb1ELb0EEEvNS_6ParamsE":
+        "62da9b1643f5cd265f570a36bc61c7c218ef2a05",
+    "_ZN6dblock17block_kernel_wideILi64ELi0E13__nv_bfloat16Lb0ELb0EEEvNS_6ParamsE":
+        "432cb52bc8adb8a6d52e36d450bf018c0600fa27",
+    "_ZN6dblock17block_kernel_wideILi64ELi0E13__nv_bfloat16Lb1ELb0EEEvNS_6ParamsE":
+        "d35fce3fd261d71a59ede7cd444c4cb9776b2405",
+    "_ZN6dblock17block_kernel_wideILi64ELi0EfLb0ELb0EEEvNS_6ParamsE":
+        "7002edab9fd39ab2bf56bc224d910cc6e8c40117",
+    "_ZN6dblock17block_kernel_wideILi64ELi0EfLb0ELb1EEEvNS_6ParamsE":
+        "4dce0dc39122f7ad47ecd9e6025aa171e22c6b71",
+    "_ZN6dblock17block_kernel_wideILi64ELi0EfLb1ELb0EEEvNS_6ParamsE":
+        "e224489cfaba1666f9568a16d15c23b958f61a5f",
+    "_ZN6dblock17block_kernel_wideILi64ELi1024E13__nv_bfloat16Lb0ELb0EEEvNS_6ParamsE":
+        "1f30f36d71f9efc63dfb874e4d5aed755f21ffbc",
+    "_ZN6dblock17block_kernel_wideILi64ELi1024E13__nv_bfloat16Lb1ELb0EEEvNS_6ParamsE":
+        "cffb416a10b795e0927560f4620ccb0bff4b84e3",
+    "_ZN6dblock17block_kernel_wideILi64ELi1024EfLb0ELb0EEEvNS_6ParamsE":
+        "f4f0cdff7a6e5a80a370b073d03c308a6d6cb02a",
+    "_ZN6dblock17block_kernel_wideILi64ELi1024EfLb0ELb1EEEvNS_6ParamsE":
+        "c695e09c328a1116c3ebd814deae73091c8718b2",
+    "_ZN6dblock17block_kernel_wideILi64ELi1024EfLb1ELb0EEEvNS_6ParamsE":
+        "5d01f7580ed554883868a38b9db67413fd223c1d",
+    "_ZN6dblock17block_kernel_wideILi64ELi384E13__nv_bfloat16Lb0ELb0EEEvNS_6ParamsE":
+        "dfdbf1c194e187419dad4dc94413b2d9ca1acb7c",
+    "_ZN6dblock17block_kernel_wideILi64ELi384E13__nv_bfloat16Lb1ELb0EEEvNS_6ParamsE":
+        "a3423fc48a18a4c25f0f703211016c4ce0adba43",
+    "_ZN6dblock17block_kernel_wideILi64ELi384EfLb0ELb0EEEvNS_6ParamsE":
+        "752d9ccb206f1597be9e92a36fabbca55aa658c9",
+    "_ZN6dblock17block_kernel_wideILi64ELi384EfLb0ELb1EEEvNS_6ParamsE":
+        "66387d3a12f8c7de30e1754d33446069c7c34611",
+    "_ZN6dblock17block_kernel_wideILi64ELi384EfLb1ELb0EEEvNS_6ParamsE":
+        "2902397077cc9350bba8833ef13a6bf046a3300f",
+    "_ZN6dblock17block_kernel_wideILi64ELi512E13__nv_bfloat16Lb0ELb0EEEvNS_6ParamsE":
+        "aa753995fae7b9bde2c5a32279c111e1ed354e33",
+    "_ZN6dblock17block_kernel_wideILi64ELi512E13__nv_bfloat16Lb1ELb0EEEvNS_6ParamsE":
+        "b1be99eb9b4a719a481b686264ccf0f2c2010e92",
+    "_ZN6dblock17block_kernel_wideILi64ELi512EfLb0ELb0EEEvNS_6ParamsE":
+        "bf61bda5f64cd8389124ba51982bc2b4f50ee63f",
+    "_ZN6dblock17block_kernel_wideILi64ELi512EfLb0ELb1EEEvNS_6ParamsE":
+        "19a9a424f937753cdef03a68aaad0c7d50f98ae6",
+    "_ZN6dblock17block_kernel_wideILi64ELi512EfLb1ELb0EEEvNS_6ParamsE":
+        "6d837bdec2f44eea3cf64cad2af1e0fea38f3491",
+}
+
+
+def test_decoder_block_narrow_builds_keep_their_sass(dev):
+    """Every entry of the decoder_block library that runs C <= 2048
+    compiles to the SASS in NARROW_DBLOCK_SASS, entry by entry."""
+    import hashlib
+    import subprocess
+
+    from cips3dpp_torch.kernels import _lib
+    from cips3dpp_torch.tools import sass_diff
+
+    _lib.build([("decoder_block", ())])
+    text = subprocess.run([sass_diff._cuobjdump(), "-sass",
+                           str(_lib._lib_path("decoder_block"))],
+                          capture_output=True, text=True, check=True).stdout
+    seen = {entry: hashlib.sha1("\n".join(ins).encode()).hexdigest()
+            for entry, ins in sass_diff.parse_sass(text).items() if entry in NARROW_DBLOCK_SASS}
+    assert seen == NARROW_DBLOCK_SASS, {k: v for k, v in NARROW_DBLOCK_SASS.items()
+                                        if seen.get(k) != v}
+
+
+# the staged build with a planted fault (-DDBLOCK_PLANT_RING_FAULT: its
+# producer copies a tile's activation chunks without waiting for the
+# tile's ready barrier), at y1 (64, 64, 2176), (8, 16, 8320) and
+# (2, 16, 16384)
+PLANTED = [(2176, 64, 64), (8320, 8, 16), (16384, 2, 16)]
+
+
+@pytest.mark.parametrize("c,hp,wp", PLANTED, ids=[f"C{c}-{h}x{w}" for c, h, w in PLANTED])
+def test_decoder_block_staged_planted_ring_fault_is_caught(dev, c, hp, wp):
+    """The planted build launches and returns, and the comparison the tests
+    above make against the plain version (K2_TOL in bf16 storage) fails:
+    they can catch activation chunks copied before the upsample wrote
+    them."""
+    from cips3dpp_torch.kernels.decoder_block import (
+        _launch, decoder_block_plain, decoder_block_prepare,
+    )
+
+    gen = torch.Generator().manual_seed(c + hp)
+    rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
+    prep = decoder_block_prepare(
+        rnd(2 * hp, 2 * wp, 1), rnd(2 * hp, 2 * wp, 1), rnd(c, c) / c**0.5, 0.1 * rnd(c),
+        0.1 * rnd(c), 0.3, -0.2, rnd(c, 3) / c**0.5)
+    y1 = rnd(hp, wp, c).to(torch.bfloat16)
+    got = _launch(y1, prep, True, 1, ("-DDBLOCK_PLANT_RING_FAULT",))
+    want = decoder_block_plain(y1, prep)
+    torch.cuda.synchronize()
+    errs = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)]
+    print(f"planted ring fault, C={c} y1=({hp},{wp}): max |kernel - plain| {errs}")
+    caught = []
+    for g, w in zip(got, want):
+        try:
+            torch.testing.assert_close(g.float(), w.float(), rtol=1.6e-2, atol=2e-2)
+            caught.append(False)
+        except AssertionError:
+            caught.append(True)
+    assert any(caught), errs
+
+
+@pytest.mark.parametrize("mode", MODES[:3], ids=["-".join(m) for m in MODES[:3]])
+@pytest.mark.parametrize("c", [2176, 8320])
+def test_decoder_block_staged_scratch_holds_the_tiles(dev, c, mode):
+    """The staged build writes each tile's conv_b input to its CTA's
+    scratch in the layout staged_tiles_plain gives: after a launch on y1
+    (2, 32, C), 2 frames of one row (4 tiles, one a CTA of the grid of 4),
+    the scratch holds the plain version's upsampled, noised, biased and
+    lrelu'd tiles in bf16, a value off by at most one bf16 step where
+    another f32 rounding of the blend flips it, and few of them."""
+    from cips3dpp_torch.kernels import decoder_block as kdb
+
+    gen = torch.Generator().manual_seed(c)
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[mode[0]]
+    rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
+    hp, wp, frames = 1, 32, 2
+    prep = kdb.decoder_block_prepare(
+        rnd(2 * hp, 2 * wp, 1), rnd(2 * hp, 2 * wp, 1), rnd(c, c) / c**0.5, 0.1 * rnd(c),
+        0.1 * rnd(c), 0.3, -0.2, rnd(c, 3) / c**0.5, dtype=dt,
+        noise_seeds=(123, 456) if mode[1] == "hash" else None)
+    y1 = rnd(frames * hp, wp, c).to(dt)
+    per_cta = kdb.staged_scratch_bytes(c)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    scratch = torch.zeros(sms * per_cta, dtype=torch.uint8, device=dev)
+    kdb._launch(y1, prep, True, frames, scratch=scratch)
+    want = kdb.staged_tiles_plain(y1, prep, frames)
+    torch.cuda.synchronize()
+    assert want.shape == (4, per_cta // 2)
+    got = scratch[:4 * per_cta].view(torch.bfloat16).reshape(want.shape)
+    d = (got.float() - want.float()).abs()
+    step = 2.0 ** (torch.floor(torch.log2(want.float().abs().clamp_min(2.0**-100))) - 7)
+    off = float((d > 0).float().mean())
+    print(f"C={c} {'-'.join(mode)}: max |scratch - plain| {float(d.max()):.3e}, share off "
+          f"{off:.5f}")
+    assert bool((d <= step).all()) and off <= 0.01, (float(d.max()), off)
+    assert not scratch[4 * per_cta:].any()  # the grid's 4 CTAs wrote nothing past their own
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
