@@ -213,12 +213,19 @@ Phases, each fatal on failure:
  18. the models at channel multipliers 9, 17 and 65, run after phase 17
      in its child process: preset_serving frames (1 K1 + 4 K2 a frame,
      blocks at C (1152, 576, 288, 144), (2176, 1088, 544, 272) and (8320,
-     4160, 2080, 1040), run at (1152, 640, 384, 256), (2176, 1152, 640,
-     384) and (8320, 4224, 2176, 1152) by the serving prepare's zero
-     padding, the blocks past 2048 on the staged build, gated as 15b's,
+     4160, 2080, 1040), run at (1152, 576, 320, 192), (2176, 1088, 576,
+     320) and (8320, 4160, 2112, 1088) by the serving prepare's zero
+     padding (the counts with C % 128 == 64 through the streamed
+     kernel's tail pass), the blocks past 2048 on the staged build, gated
+     as 15b's,
      at m = 65 also each block's K2 on its own input in the frame against
      its plain version at K2_TOL, ms a frame, the frame's device time by
-     kernel group and idle share by the profiler).
+     kernel group and idle share by the profiler, and one line of each
+     frame's ms, device ms, GEMM ms and K2 ms). Before it, in the same
+     child, 15a's tail check (tail_pass_phase): K2 at C = 272, 288, 320,
+     576, 1088 and 2112 in its four modes and K3 at the same C against
+     their plain versions, twice bit-equal, and the planted tail fault
+     (-DDBLOCK_PLANT_TAIL_FAULT) missing K2_TOL at 272 and 2112.
  19. K1 at every width and sample count JAX's kernel takes, in a child
      process of its own after phase 18's: (a) K1 at 4096 rays over (W, S)
      = (96, 24), (200, 48), (384, 24) (run zero-padded at 128, 256, 512),
@@ -281,6 +288,10 @@ K2_SRC, K2_TPU = "cips3dpp_torch/csrc/decoder_block.cu", "cips3dpp_tpu/kernels/d
 # one bf16 ulp of a stored feature, so a kernel that rounded any of the f32
 # mode's values at a bf16 point would fail it.
 K2_TOL = {torch.bfloat16: dict(rtol=1.6e-2, atol=2e-2), torch.float32: dict(rtol=0, atol=1e-3)}
+# the K2 library with a planted fault in the streamed kernel's tail pass (3
+# of each tail chunk's 4 k16 wgmmas): 15a's tail check must see it miss
+# K2_TOL
+TAIL_FAULT = ("-DDBLOCK_PLANT_TAIL_FAULT",)
 
 
 def log(*args):
@@ -3226,9 +3237,10 @@ def k2_channels_phase(dev, smi, group):
     stored; then the counts and widths no built kernel runs as
     they are, through the entry point's padding: y1 (32, 128, C) at C = 1,
     2, 4 and 8 (run at 16), (512, 512, 144) and (512, 512, 272) rgb only
-    (the 1024^2 blocks of m = 9 and 17, run at 256 and 384), (256, 256,
-    288), (128, 128, 576) (m = 9's 512^2 and 256^2 blocks, run at 384 and
-    640), (64, 64, 2176) (m = 17's 128^2 block), (64, 64, 4096), (64, 64,
+    (the 1024^2 blocks of m = 9 and 17, run at 192 and 320 with a tail
+    pass), (256, 256, 288), (128, 128, 576) (m = 9's 512^2 and 256^2
+    blocks, run at 320 and as it is, with a tail pass), (64, 64, 2176)
+    (m = 17's 128^2 block), (64, 64, 4096), (64, 64,
     8192) and (64, 64, 8320) (m = 32's, 64's and 65's) and (8, 16, 16384)
     on the staged build (64-pixel tiles, activations through the scratch)
     with feat stored, and (64, 24, 256) (Wp run at 32); the bound is the
@@ -3291,6 +3303,115 @@ def k2_channels_phase(dev, smi, group):
                             if "matmul_ms" in v))
     k3 = k3_phase(gen, dev, k3_shapes, "15a K3")
     return {"k2": res, "k3": k3, "k2_s": time.perf_counter() - t0}
+
+
+# The counts whose streamed kernel runs a tail pass of 64 channels (C %
+# 128 == 64 at the kernel's C): K2's (C, Hp, Wp, last) at phase 18's
+# block shapes or smaller, and the planted fault's (C, Hp, Wp)
+TAIL_SHAPES = [(272, 512, 512, True), (320, 512, 512, True), (288, 256, 256, False),
+               (544, 256, 256, False), (576, 128, 128, False), (1088, 128, 128, False),
+               (1088, 64, 64, False), (2112, 64, 64, False)]
+TAIL_FAULT_SHAPES = [(272, 64, 64), (2112, 64, 64)]
+
+
+def tail_pass_phase(dev, smi):
+    """Phase 15a's tail check, run before phase 18 in its child process:
+    the counts the streamed kernel runs with a tail pass of 64 output
+    channels (TAIL_SHAPES: 272 and 288 run at 320, 320, 544 at 576, 576,
+    1088 with the 32-pixel tile, 2112 on the staged build), K2 in its four
+    modes through
+    the entry point and K3 at y1 (64, 64, C), each against its plain
+    version (K2_TOL; K3 at phase 4's bounds), two launches bit-equal, the
+    kernel not timed here (15a-padded times 272, 288 and 576; `k2_times`
+    the rest), K2's plain route in bf16 with noise buffers by CUDA events;
+    then
+    the library with the planted tail fault (TAIL_FAULT) at
+    TAIL_FAULT_SHAPES, which must miss K2_TOL."""
+    from cips3dpp_torch.kernels import decoder_block as kdb
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 160)
+    rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
+
+    def prepared(c, hp, wp, dt=torch.bfloat16, hashed=False):
+        return kdb.decoder_block_prepare(
+            rnd(2 * hp, 2 * wp, 1), rnd(2 * hp, 2 * wp, 1), rnd(c, c) / c**0.5, 0.1 * rnd(c),
+            0.1 * rnd(c), 0.3, -0.2, rnd(c, 3) / c**0.5, dtype=dt,
+            noise_seeds=(NOISE_SEED, NOISE_SEED + 1) if hashed else None)
+
+    def outputs(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    res = {"k2": {}, "k3": {}, "planted": {}, "plain_ms": {}}
+    for c, hp, wp, last in TAIL_SHAPES:
+        ck = kdb.kernel_channels(c)
+        if ck % 128 != 64 or not kdb.is_streamed(ck):
+            raise AssertionError(f"15a tail: C = {c} runs at {ck}, no tail pass")
+        for dt in kdb.STORAGE:
+            for hashed in (False, True):
+                bp = prepared(c, hp, wp, dt, hashed)
+                y1 = torch.randn((hp, wp, c), generator=gen).to(dev, dt)
+                run = lambda: outputs(kdb.decoder_block_packed(y1, prepared=bp,
+                                                               emit_feat=not last))
+                got, again = run(), run()
+                want = outputs(kdb.decoder_block_packed_plain(y1, bp, emit_feat=not last))
+                torch.cuda.synchronize()
+                for g, a, w in zip(got, again, want):
+                    if not (torch.isfinite(g.float()).all() and torch.equal(g, a)):
+                        raise AssertionError(f"15a tail {kdb.launch_name(bp)} C={c}: not "
+                                             "finite, or two launches differ")
+                    torch.testing.assert_close(g.float(), w.float(), **K2_TOL[dt])
+                res["k2"][f"{kdb.launch_name(bp)} C={c} y1={hp}"] = max(
+                    max_err(g, w) for g, w in zip(got, want))
+                if dt == torch.bfloat16 and not hashed:
+                    res["plain_ms"][f"C={c} y1={hp}"] = cuda_time(
+                        lambda: kdb.decoder_block_packed_plain(y1, bp, emit_feat=not last),
+                        iters=3)
+                del bp, y1, got, again, want
+        torch.cuda.empty_cache()
+    for c in sorted({c for c, _, _, _ in TAIL_SHAPES}):
+        args = (rnd(64, 64, c), rnd(64, 64, 3), rnd(128, 128, 1), rnd(128, 128, 1),
+                rnd(c, c) / c**0.5, rnd(c, 3) / c**0.5, 0.1 * rnd(c), 0.1 * rnd(c),
+                0.1 * rnd(3), 0.3, -0.2)
+        got, again = kdb.decoder_block_fused(*args), kdb.decoder_block_fused(*args)
+        want = kdb.decoder_block_fused_plain(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"15a tail K3 C={c}: two launches differ")
+        torch.testing.assert_close(got[0], want[0], **K2_TOL[torch.float32])
+        torch.testing.assert_close(got[1], want[1], **K2_TOL[torch.bfloat16])
+        res["k3"][f"C={c} y1=64"] = max(max_err(g, w) for g, w in zip(got, want))
+        torch.cuda.empty_cache()
+    for c, hp, wp in TAIL_FAULT_SHAPES:
+        bp = prepared(c, hp, wp)
+        y1 = torch.randn((hp, wp, c), generator=gen).to(dev, torch.bfloat16)
+        got = kdb._padded(lambda x, *a, **k: kdb._launch(x, *a, defines=TAIL_FAULT, **k),
+                          y1, bp, True, 1)
+        want = kdb.decoder_block_packed_plain(y1, bp)
+        torch.cuda.synchronize()
+        caught = False
+        for g, w in zip(got, want):
+            try:
+                torch.testing.assert_close(g.float(), w.float(), **K2_TOL[torch.bfloat16])
+            except AssertionError:
+                caught = True
+        errs = [max_err(g, w) for g, w in zip(got, want)]
+        if not caught:
+            raise AssertionError(f"15a tail: the planted tail fault at C = {c} passes K2_TOL "
+                                 f"(max |kernel - plain| {errs})")
+        res["planted"][f"C={c} y1={hp}"] = errs
+    res["phase_s"] = time.perf_counter() - t0
+    log("[15a tail] K2 with a tail pass against its plain version (K2_TOL, two launches "
+        "bit-equal), max |kernel - plain|: " + "; ".join(
+            f"{k} {v:.3e}" for k, v in res["k2"].items()))
+    log("[15a tail] K3 with a tail pass: " + "; ".join(
+        f"{k} {v:.3e}" for k, v in res["k3"].items()))
+    log("[15a tail] K2's plain route, bf16 with noise buffers (ms a call, CUDA events): "
+        + "; ".join(f"{k} {v:.3f}" for k, v in res["plain_ms"].items()))
+    log(f"[15a tail] the planted tail fault ({' '.join(TAIL_FAULT)}) misses K2_TOL: " + "; ".join(
+        f"{k} max |kernel - plain| feat / rgb {v[0]:.3e} / {v[1]:.3e}"
+        for k, v in res["planted"].items()) + f"; {res['phase_s']:.1f} s; {smi}")
+    return res
 
 
 def multiplier_cfg(base, m):
@@ -3622,12 +3743,14 @@ def padded_multipliers_phase(dev, smi):
     """Phase 18, run after phase 17 in the same child process
     (child_phases), where the frames' profile sees every record: the models
     at channel multipliers 9 and 17, whose blocks (C 1152 / 576 / 288 / 144
-    and 2176 / 1088 / 544 / 272) no built kernel runs as they are: the
-    serving path's prepare pads them to the next count one does (1152 /
-    640 / 384 / 256 and 2176 / 1152 / 640 / 384) and a frame launches what
-    it launches at any other m; and at 65, the first multiplier past C =
-    8192 (blocks at 8320 / 4160 / 2080 / 1040, run at 8320 / 4224 / 2176 /
-    1152: three on the staged build). preset_serving at m = 9, 17 and 65
+    and 2176 / 1088 / 544 / 272) built kernels run in part padded: the
+    serving path's prepare pads them to the count kernel_channels gives
+    (1152 / 576 / 320 / 192 and 2176 / 1088 / 576 / 320, the counts with C
+    % 128 == 64 through the streamed kernel's tail pass) and a frame
+    launches what it launches at any other m; and at 65, the first
+    multiplier past C = 8192 (blocks at 8320 / 4160 / 2080 / 1040, run at
+    8320 / 4160 / 2112 / 1088: three on the staged build). preset_serving
+    at m = 9, 17 and 65
     (serve_multiplier: 1 K1 + 4 K2 a frame, the blocks' C checked against
     the channel table, K2's part at phase 5's bounds, the frame at 1.5x the
     plain path's own spread, the same camera bit-equal, ms a frame by CUDA
@@ -3653,6 +3776,13 @@ def padded_multipliers_phase(dev, smi):
                                                      block_check=big)
         add_launches(launches, got)
         torch.cuda.empty_cache()
+    log("[multipliers] 18 frames (ms a frame by CUDA events; by the profiler the frame's "
+        "device ms, its cuBLAS GEMMs and K2): " + "; ".join(
+            f"m = {m} {r['frame_ms']:.3f} ms, device {r['profile']['device_ms_per_call']:.3f}, "
+            f"GEMMs {r['profile']['groups'].get('matmul (cuBLAS)', 0.0):.3f}, K2 "
+            f"{r['profile']['groups'].get('K2 decoder_block', 0.0):.3f} (blocks at "
+            f"{r['kernel_channels']})"
+            for m, r in ((m, res[f"serving_m{m}"]) for m in (9, 17, 65))) + f"; {smi}")
     res["launches"] = launches
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"[multipliers] phase 18: {res['phase_s']:.1f} s; launches on its paths {launches}")
@@ -3812,7 +3942,8 @@ CHILD_RESULT = "[child result] "
 CHILD_PHASES = {"15a-17": {"wide": "wide_multipliers_phase",
                            "wide_renderer": "wide_renderer_phase"},
                 "15a-padded": {},
-                "15a-wide-18": {"padded_multipliers": "padded_multipliers_phase"},
+                "15a-wide-18": {"tail": "tail_pass_phase",
+                                "padded_multipliers": "padded_multipliers_phase"},
                 "19": {"k1_geometries": "k1_geometries_phase"}}
 
 
@@ -3825,7 +3956,7 @@ def child_phases():
     each child runs at most ~40 (CHILD_PHASES). A child builds nothing
     (the libraries are built), echoes its log and hands back its results,
     launch counts included, as JSON. Returns (k2_channels_phase's results
-    merged, wide_multipliers_phase's, wide_renderer_phase's,
+    merged, with tail_pass_phase's under "tail", wide_multipliers_phase's, wide_renderer_phase's,
     padded_multipliers_phase's, k1_geometries_phase's)."""
     results = {}
     for group in CHILD_PHASES:
@@ -3846,7 +3977,8 @@ def child_phases():
                    "k3": {"launches": dict(sum((collections.Counter(p["k3"]["launches"])
                                                 for p in parts), collections.Counter())),
                           "parts": [p["k3"] for p in parts]},
-                   "k2_s": sum(p["k2_s"] for p in parts)}
+                   "k2_s": sum(p["k2_s"] for p in parts),
+                   "tail": results["15a-wide-18"]["tail"]}
     return (k2_channels, results["15a-17"]["wide"], results["15a-17"]["wide_renderer"],
             results["15a-wide-18"]["padded_multipliers"], results["19"]["k1_geometries"])
 
@@ -3860,7 +3992,8 @@ def child_main(group) -> int:
 
     # built by the parent: nothing to do
     os.makedirs(OUT, exist_ok=True)
-    _lib.build([(name, ()) for name in _lib.SOURCES] + ksr.kernel_builds())
+    _lib.build([(name, ()) for name in _lib.SOURCES] + ksr.kernel_builds()
+               + [("decoder_block", TAIL_FAULT)])
     ksr.plain_precision()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -3905,8 +4038,10 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.time()
-    # every source, and K1 once more a width (kernels/siren_render.py)
-    ptxas = _lib.build([(name, ()) for name in _lib.SOURCES] + ksr.kernel_builds())
+    # every source, K1 once more a width (kernels/siren_render.py), and
+    # K2 with the planted tail-pass fault (15a's tail check)
+    ptxas = _lib.build([(name, ()) for name in _lib.SOURCES] + ksr.kernel_builds()
+                       + [("decoder_block", TAIL_FAULT)])
     build_s = time.time() - t0
     log(f"[build] {len(ptxas)} libraries built in {build_s:.1f} s")
     for lib, rep in ptxas.items():  # each kernel's registers and spills, by entry
@@ -3918,20 +4053,21 @@ def main() -> int:
     # every K2 / K3 instantiation: shared memory (sizeof(Smem)), blocks an SM,
     # registers and local (spill) bytes a thread, tile geometry
     # (logged at the resident counts, the fixed-C builds, the first and
-    # last count of each run-time-C tile and the staged build past 2048 to
-    # 16384; every count to 8320 gated, and 16384; the staged build's
-    # resources the same at every C)
+    # last count of each run-time-C tile, with and without a tail pass, and
+    # the staged build past 2048 to 16384; every count to 8320 gated, and
+    # 16384; the staged build's resources the same at every C)
     report["decoder_block_info"] = {}
-    logged = {16, 32, 64, 128, 256, 384, 512, 640, 1024, 1152, 2048, 2176, 8320, 16384}
+    logged = {16, 32, 64, 128, 192, 256, 320, 384, 512, 640, 1024, 1088, 1152, 2048, 2112,
+              2176, 8320, 16384}
     for mode, (dt, hashed, k3) in {
             "bf16": (torch.bfloat16, False, False), "bf16-hash": (torch.bfloat16, True, False),
             "f32": (torch.float32, False, False), "f32-hash": (torch.float32, True, False),
             "K3": (torch.float32, False, True)}.items():
-        for c in kdb.RESIDENT_CHANNELS + tuple(range(384, 8321, 128)) + (16384,):
+        for c in kdb.RESIDENT_CHANNELS + (192,) + tuple(range(320, 8321, 64)) + (16384,):
             info = kdb.decoder_block_info(c, dt, hashed, k3)
             report["decoder_block_info"][f"{mode} C={c}"] = info
             if c in logged:
-                log(f"[build] {'block_kernel' if c <= 256 else 'block_kernel_wide'}"
+                log(f"[build] {'block_kernel_wide' if kdb.is_streamed(c) else 'block_kernel'}"
                     f"{' (staged)' if kdb.is_staged(c) else ''} {mode} "
                     f"C={c}: {info['smem_bytes']} B shared, "
                     f"{info['blocks_per_sm']} block(s) an SM, {info['registers']} registers, "
@@ -3940,8 +4076,9 @@ def main() -> int:
                     f"{info['cluster']} ({info['clusters_on_card']} on the card at once)")
             if (info["local_bytes"] or info["smem_bytes"] > 232448 or info["blocks_per_sm"] < 1
                     or info["tile_pixels"] != kdb.tile_pixels(c)
-                    or (kdb.is_staged(c)
-                        and info != report["decoder_block_info"][f"{mode} C=2176"])):
+                    or (kdb.is_staged(c)  # the same as at the first staged count
+                        and info != report["decoder_block_info"][
+                            f"{mode} C={kdb.STAGED_FROM + 64}"])):
                 raise AssertionError(f"decoder block {mode} C={c}: {info}")
 
     # ---- models and trajectory state ----

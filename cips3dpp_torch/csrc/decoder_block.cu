@@ -4,8 +4,8 @@
 //     cips3dpp_tpu/kernels/decoder_block.py:_packed_kernel, the serving block
 //     with bf16 or f32 storage, noise from buffers or hashed in the kernel,
 //     F frames stacked on rows and an optional ToRGB fold, at C = 16, 32,
-//     64, 128, 256 (block_kernel) and every multiple of 128 from 384 up
-//     (block_kernel_wide); the wrapper zero-pads every other C JAX's
+//     64, 128, 256 (block_kernel) and 192 and every multiple of 64 from 320
+//     up (block_kernel_wide); the wrapper zero-pads every other C JAX's
 //     kernel admits up to the next of these (weights, biases and y1's
 //     extra channels zero: exact but for f32 summation order), and Wp up
 //     to a multiple of 16 (zero columns: the upsample's zero edge), with
@@ -86,7 +86,7 @@
 //    trace of it.
 //  - C = 16 to 256 take this template (block_kernel). At C = 16 a tile is
 //    one row x 128 input columns (512 output pixels) and conv_b is one
-//    k-step. C = 384 and up (the 64^2 to 256^2 blocks of decoders at
+//    k-step. C = 320 and up (the 64^2 to 256^2 blocks of decoders at
 //    channel multipliers 3 and up) have a kernel of their own,
 //    block_kernel_wide below: their weight cannot stay in shared memory;
 //    past C = 2048 its staged build keeps not even the activation tile
@@ -705,19 +705,23 @@ __global__ void __launch_bounds__(NTHREADS, C == 256 ? 1 : 2) block_kernel(const
 #endif
 }
 
-// ---- C = 384 and up: block_kernel_wide, the conv_b weight streamed ----
+// ---- C = 320 and up: block_kernel_wide, the conv_b weight streamed ----
 //
-// From C = 384 up, conv_b's weight (C x C bf16: 288 KB at 384, 8 MB at
+// From C = 320 up, conv_b's weight (C x C bf16: 200 KB at 320, 8 MB at
 // 2048, 128 MB at 8192) cannot stay in shared memory as in block_kernel.
 // A tile is one input row x TW_IN input columns (2 output rows x TM / 2
 // columns, TW_IN = TM / 4, so with Wp a multiple of 16 no tile is ragged)
 // whose bf16 activation tile (TM pixels x C) meets the whole weight as it
 // streams past. Up to C = 2048 the activation tile stays in shared memory
-// beside the weight ring (48-128 KB): TM = 64 output pixels at C <= 1024
+// beside the weight ring (40-128 KB): TM = 64 output pixels at C <= 1024
 // and 32 to 2048. At C <= 512 the 64-pixel tile gives y1 (64, 64, C) 256
-// tiles, enough for every SM. C is taken at run time; C = 384, 512, 1024
-// and 2048 (the 128^2 blocks at channel multipliers 3, 4, 8 and 16) are
-// also built with C fixed (CT), which folds the index arithmetic.
+// tiles, enough for every SM. C is taken at run time (every multiple of
+// 64, below); C = 384, 512, 1024 and 2048 (the 128^2 blocks at channel
+// multipliers 3, 4, 8 and 16), and 192 and 320 (the 1024^2 and 512^2
+// blocks that multipliers 9-12 and 17 pad to) are also built with C fixed
+// (CT), which folds the index arithmetic: at (512, 512, 272) the run-time
+// build at 320 took 2.09 ms in bf16 storage, the fixed one 1.40 (k2_times
+// on an H100 80GB HBM3 at 700 W).
 //
 // Past C = 2048 the staged build (CT = STAGED, C at run time, no ceiling)
 // keeps 64-pixel tiles and nothing in shared memory that grows with C. A
@@ -759,7 +763,21 @@ __global__ void __launch_bounds__(NTHREADS, C == 256 ? 1 : 2) block_kernel(const
 // decoder_block_prepare lays the weight out as (128 out x 64 in) chunks of
 // 16 KB, pass by pass (128 output channels over C / 64 chunks), each
 // already swizzled (chunk_weight in kernels/decoder_block.py), so one 1-D
-// bulk copy (cp.async.bulk) fills a ring slot; no tensor map. Tile group g
+// bulk copy (cp.async.bulk) fills a ring slot; no tensor map.
+// The run-time-C builds (CT <= 0) take every multiple of 64: where C % 128
+// == 64 a tile walks C / 128 full passes and a tail pass of 64 output
+// channels, whose chunks (64 out x 64 in, 8 KB, laid out after the full
+// passes' in the same swizzle) fill half a slot; the producer expects and
+// copies 8 KB (8 + 8 KB in the staged build). In the tail pass both
+// consumer warpgroups take the chunk's 64 rows, each for half the tile's
+// pixels (one output row of the tile: wgmma at N = TM / 2), so neither
+// idles through the tail's wgmma or its epilogue; the ToRGB partials keep
+// their places by pixel. The staged build, at its 168 registers, spilled
+// with that split; there warpgroup 0 takes the tail's 64 rows for every
+// pixel and warpgroup 1's products (of the slot's stale upper half) are
+// dropped: it waits on its intake, not on wgmma. A fixed C of
+// whole passes (384, 512, 1024, 2048) has no tail, and the tail code
+// compiles away there (if constexpr). Tile group g
 // walks the passes from pass g % P and each pass's chunks from chunk
 // g / P % (C / 64), so the clusters on the card at once read different
 // parts of the weight instead of the same chunk (3% at C = 384-1024).
@@ -809,6 +827,8 @@ constexpr int WIDE_THREADS = WIDE_CONSUMERS + 32;    // and the producer warp
 constexpr int CHUNK_ROWS = 128;                      // output channels a chunk (a pass)
 constexpr int CHUNK_K = 64;                          // input channels a chunk: 128 bytes
 constexpr int CHUNK_BYTES = CHUNK_ROWS * CHUNK_K * 2;
+constexpr int TAIL_ROWS = 64;                        // output channels of a tail pass's chunk
+constexpr int TAIL_BYTES = TAIL_ROWS * CHUNK_K * 2;  // 8 KB
 constexpr int MAX_SLOTS = 8;
 constexpr int SMEM_LIMIT = 232448;                   // a block's shared memory on sm_90
 #ifndef DBLOCK_WIDE_CLUSTER
@@ -987,6 +1007,18 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// d (64 x 16, f32) += A (64 x 16) . B (16 x 16)^T, bf16, both from shared
+// memory (the tail pass of a 32-pixel tile: 16 pixels a warpgroup)
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
 // d (64 x 32, f32) += A (64 x 16) . B (32 x 16)^T, bf16, both from shared memory
 __device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t a, uint64_t b) {
   asm volatile(
@@ -1016,10 +1048,11 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b
       : "l"(a), "l"(b), "r"(1));
 }
 
-// d (64 x N) += A . B^T at N = 32 or 64
+// d (64 x N) += A . B^T at N = 16, 32 or 64
 template <int N>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b) {
-  if constexpr (N == 32) wgmma_n32(d, a, b);
+  if constexpr (N == 16) wgmma_n16(d, a, b);
+  else if constexpr (N == 32) wgmma_n32(d, a, b);
   else wgmma_n64(d, a, b);
 }
 
@@ -1073,12 +1106,14 @@ __device__ unsigned long long g_wide_cycles[NWIDE_PHASES];
   } while (0)
 #endif
 
-// CT: C fixed at compile time (the channel counts of the shipped
-// multipliers' blocks), 0: C taken from P.c at run time, or STAGED: C at
+// CT: C fixed at compile time (192, 320, 384, 512, 1024 and 2048: see
+// launch_c), 0: C taken from P.c at run time, or STAGED: C at
 // run time past 2048, the activation tile staged through the CTA's scratch
 // (TM = 64). Under -DDBLOCK_PLANT_RING_FAULT the staged build's producer
-// copies activation chunks without waiting for the tile's ready barrier
-// (a fault the card tests must catch); nothing else changes.
+// copies activation chunks without waiting for the tile's ready barrier;
+// under -DDBLOCK_PLANT_TAIL_FAULT the tail pass issues 3 of each chunk's 4
+// k16 wgmmas (faults the card tests and chip_smoke.py must catch); nothing
+// else changes.
 template <int TM, int CT, typename T, bool HASH, bool RGB_BF16>
 __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Params P) {
   using W = Wide<TM>;
@@ -1092,7 +1127,22 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
   using WT = typename std::conditional<RGB_BF16, __nv_bfloat16, T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int C = CT > 0 ? CT : P.c;
-  const int KCH = C / CHUNK_K, PASSES = C / CHUNK_ROWS;  // chunks a pass, passes a tile
+  // chunks a pass, passes a tile: the last pass is a tail of 64 output
+  // channels where C % 128 == 64 (never at a fixed C of whole passes)
+  constexpr bool WHOLE = CT > 0 && CT % CHUNK_ROWS == 0;
+  const int KCH = C / CHUNK_K,
+            PASSES = WHOLE ? C / CHUNK_ROWS : (C + CHUNK_ROWS - 1) / CHUNK_ROWS;
+  auto is_tail = [&](int pass) -> bool {
+    if constexpr (WHOLE) return false;
+    else return pass == PASSES - 1 && C % CHUNK_ROWS != 0;
+  };
+  // the weight chunk of pass `pass`, chunk kc in w2c (a tail pass's chunks
+  // are 8 KB, after the full passes' 16 KB ones), and its bytes
+  auto chunk_at = [&](int pass, int kc) -> size_t {
+    return is_tail(pass) ? size_t(pass * KCH) * CHUNK_BYTES + size_t(kc) * TAIL_BYTES
+                         : size_t(pass * KCH + kc) * CHUNK_BYTES;
+  };
+  auto chunk_bytes = [&](int pass) -> int { return is_tail(pass) ? TAIL_BYTES : CHUNK_BYTES; };
   const int NS = STG ? STAGED_SLOTS : W::template slots<T>(C);
   constexpr int SLOT = STG ? STAGED_SLOT_BYTES : CHUNK_BYTES;
   const uint32_t raw = smem_u32(smem_raw);
@@ -1174,10 +1224,10 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
               WIDE_RESTART();
               mbar_wait(s_empty + 8 * slot, phase ^ 1);  // free in every CTA of the cluster
               WIDE_MARK(0);
-              mbar_expect_tx(s_full + 8 * slot, SLOT);
+              mbar_expect_tx(s_full + 8 * slot, chunk_bytes(pass) + ACT_CHUNK_BYTES);
               if (issuer == rank)
-                bulk_load(s_ring + slot * SLOT, w2c + size_t(pass * KCH + kc) * CHUNK_BYTES,
-                          CHUNK_BYTES, s_full + 8 * slot, mask, ncta > 1);
+                bulk_load(s_ring + slot * SLOT, w2c + chunk_at(pass, kc), chunk_bytes(pass),
+                          s_full + 8 * slot, mask, ncta > 1);
               if (++issuer == ncta) issuer = 0;
 #ifdef DBLOCK_PLANT_RING_FAULT
               issue_acts(q + 1);
@@ -1195,11 +1245,10 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
               WIDE_RESTART();
               mbar_wait(s_empty + 8 * slot, phase ^ 1);  // free in every CTA of the cluster
               WIDE_MARK(0);
-              mbar_expect_tx(s_full + 8 * slot, CHUNK_BYTES);
+              mbar_expect_tx(s_full + 8 * slot, chunk_bytes(pass));
               if (issuer == rank)
-                bulk_load(s_ring + slot * CHUNK_BYTES,
-                          w2c + size_t(pass * KCH + kc) * CHUNK_BYTES, CHUNK_BYTES,
-                          s_full + 8 * slot, mask, ncta > 1);
+                bulk_load(s_ring + slot * CHUNK_BYTES, w2c + chunk_at(pass, kc),
+                          chunk_bytes(pass), s_full + 8 * slot, mask, ncta > 1);
               if (++issuer == ncta) issuer = 0;
               if (++slot == NS) slot = 0, phase ^= 1;
             }
@@ -1308,10 +1357,15 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
 
       // The pass's epilogue: noise2 + b2 + lrelu (rounded to bf16 where
       // the storage is bf16), feat through the staging slice, ToRGB
-      // partials. Accumulator i of M block mb holds row 16 wi + g (+ 8
-      // for i % 4 >= 2) and pixel 8 (i / 4) + 2 tq + i % 2.
-      auto epilogue = [&](int pass, const float (&acc)[TM / 2]) {
-        const int cb = pass * CHUNK_ROWS + r0 + 16 * wi;  // the warp's first channel
+      // partials. cb: the warp's first channel. Accumulator i of M block
+      // mb holds row 16 wi + g (+ 8 for i % 4 >= 2) and pixel 8 (JB + i /
+      // 4) + 2 tq + i % 2: the accumulators cover n-blocks JB .. of the
+      // tile (JB = 0 and all of them in a full pass; half of them from 0
+      // or NB / 2 in the tail pass).
+      auto epilogue = [&](int cb, const auto& acc, auto jb) {
+        constexpr int JB = decltype(jb)::value;
+        // the accumulators' n-blocks
+        constexpr int NBA = int(std::extent<std::remove_reference_t<decltype(acc)>>::value) / 4;
         const float bA = __ldg(P.b2 + cb + g), bB = __ldg(P.b2 + cb + g + 8);
         float wA[3] = {}, wB[3] = {};
         if (emit_rgb)
@@ -1321,17 +1375,17 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
             wB[jj] = to_f(wrgbt[jj * C + cb + g + 8]);
           }
 #pragma unroll
-        for (int jq = 0; jq < NB / NH; ++jq) {  // 8 NH pixels: n-blocks NH jq .. NH jq + NH - 1
+        for (int jq = 0; jq < NBA / NH; ++jq) {  // 8 NH pixels: n-blocks JB + NH jq ..
           // [n-block of the group][row g, g + 8][pixel 2tq + e]
           float v[2][2][2] = {};
 #pragma unroll
           for (int h = 0; h < NH; ++h)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              const int j = NH * jq + h, p = 8 * j + 2 * tq + e;
+              const int ja = NH * jq + h, j = JB + ja, p = 8 * j + 2 * tq + e;
               const float z = __fmul_rn(nw2, nz[TM + p]);
-              float va = lrelu(__fadd_rn(__fadd_rn(acc[4 * j + e], z), bA));
-              float vb = lrelu(__fadd_rn(__fadd_rn(acc[4 * j + 2 + e], z), bB));
+              float va = lrelu(__fadd_rn(__fadd_rn(acc[4 * ja + e], z), bA));
+              float vb = lrelu(__fadd_rn(__fadd_rn(acc[4 * ja + 2 + e], z), bB));
               if constexpr (!F32) va = bf16r(va), vb = bf16r(vb);  // feat rounded; ToRGB reads it
               v[h][0][e] = va, v[h][1][e] = vb;
               if (emit_rgb) {
@@ -1355,7 +1409,7 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
                 row[g + 8] = v[h][1][e];
               }
           } else {
-            // matrix 2h + u: rows g + 8u (channels) x pixels of n-block NH jq + h
+            // matrix 2h + u: rows g + 8u (channels) x pixels of n-block JB + NH jq + h
             const uint32_t pk[4] = {pack_bf16(v[0][0][0], v[0][0][1]),
                                     pack_bf16(v[0][1][0], v[0][1][1]),
                                     pack_bf16(v[1][0][0], v[1][0][1]),
@@ -1370,7 +1424,7 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
 #pragma unroll
             for (int u = lane; u < 8 * NH * VPR; u += 32) {
               const int row = u / VPR, qv = u % VPR;
-              const int p = 8 * NH * jq + row;
+              const int p = 8 * (JB + NH * jq) + row;
               *reinterpret_cast<uint4*>(feat + (out0 + size_t(p / TW) * wo + p % TW) * C + cb +
                                         qv * (16 / int(sizeof(T)))) =
                   *reinterpret_cast<const uint4*>(stw + row * SLD + qv * (16 / int(sizeof(T))));
@@ -1381,6 +1435,51 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
       };
 
       for (int i = 0, pass = grp % PASSES; i < PASSES; ++i, pass = next_mod(pass, PASSES)) {
+        if constexpr (!WHOLE && !STG) {
+          if (is_tail(pass)) {
+            // the tail pass: the chunk's 64 rows (both warpgroups), for
+            // this warpgroup's TN pixels from pixel wg TN, one output row
+            // of the tile
+            constexpr int TN = TM / 2;
+#ifdef DBLOCK_PLANT_TAIL_FAULT
+            constexpr int KS = CHUNK_K / 16 - 1;
+#else
+            constexpr int KS = CHUNK_K / 16;
+#endif
+            const uint64_t desc_t = sw128_desc(s_ring);
+            float acc[TN / 2];
+#pragma unroll
+            for (int k = 0; k < TN / 2; ++k) acc[k] = 0.f;
+            int prev = -1;
+            for (int j = 0, kc = grp / PASSES % KCH; j < KCH; ++j, kc = next_mod(kc, KCH)) {
+              WIDE_MARK(2);
+              mbar_wait(s_full + 8 * slot, phase);
+              WIDE_MARK(1);
+              wgmma_fence();
+#pragma unroll
+              for (int ks = 0; ks < KS; ++ks)
+                wgmma<TN>(acc, desc_t + ((slot * SLOT + ks * 32) >> 4),
+                          desc_b + (((STG ? slot * SLOT : kc * TM * 128) + wg * TN * 128 +
+                                     ks * 32) >> 4));
+              wgmma_commit();
+              if (prev >= 0) {
+                wgmma_wait<1>();
+                if (wi == 0 && lane < int(ncta)) mbar_arrive_cluster(s_empty + 8 * prev, lane);
+              }
+              prev = slot;
+              if (++slot == NS) slot = 0, phase ^= 1;
+            }
+            wgmma_wait<0>();
+            fence_acc(acc);
+            if (wi == 0 && lane < int(ncta)) mbar_arrive_cluster(s_empty + 8 * prev, lane);
+            WIDE_MARK(2);
+            const int cb = pass * CHUNK_ROWS + 16 * wi;
+            if (wg == 0) epilogue(cb, acc, std::integral_constant<int, 0>{});
+            else epilogue(cb, acc, std::integral_constant<int, NB / 2>{});
+            WIDE_MARK(4);
+            continue;
+          }
+        }
         float acc[TM / 2];
 #pragma unroll
         for (int k = 0; k < TM / 2; ++k) acc[k] = 0.f;
@@ -1390,8 +1489,12 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
           mbar_wait(s_full + 8 * slot, phase);
           WIDE_MARK(1);
           wgmma_fence();
+#ifdef DBLOCK_PLANT_TAIL_FAULT
+          for (int ks = 0; ks < CHUNK_K / 16 - int(is_tail(pass)); ++ks)
+#else
 #pragma unroll
           for (int ks = 0; ks < CHUNK_K / 16; ++ks)
+#endif
             wgmma<TM>(acc, desc_a + ((slot * SLOT + ks * 32) >> 4),
                       desc_b + (((STG ? slot * SLOT : kc * TM * 128) + ks * 32) >> 4));
           wgmma_commit();
@@ -1406,7 +1509,14 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1) block_kernel_wide(const Param
         fence_acc(acc);
         if (wi == 0 && lane < int(ncta)) mbar_arrive_cluster(s_empty + 8 * prev, lane);
         WIDE_MARK(2);
-        epilogue(pass, acc);
+        // the staged build's tail pass: warpgroup 0 takes the chunk's 64
+        // rows for every pixel; warpgroup 1's products read the slot's
+        // stale upper half and are dropped (a tail split as in the other
+        // builds spilled the staged build past its 168 registers)
+        bool dropped = false;
+        if constexpr (STG) dropped = wg == 1 && is_tail(pass);
+        if (!dropped)
+          epilogue(pass * CHUNK_ROWS + r0 + 16 * wi, acc, std::integral_constant<int, 0>{});
         WIDE_MARK(4);
       }
       if (emit_rgb) reduce_rgb();
@@ -1507,7 +1617,10 @@ int launch(const Params& P, cudaStream_t stream, int* info) {
 // P.scratch, at least 128 C bytes a CTA of the grid (one CTA an SM at
 // most), or returns cudaErrorInvalidValue.
 constexpr int MAX_DEVICES = 16;
-constexpr int WIDE_CS = (STAGED_FROM - 384) / 128 + 1;  // the counts the unstaged builds take
+constexpr int WIDE_FROM = 192;                       // the least C the streamed kernel takes
+// the counts the unstaged builds take: every multiple of 64 from WIDE_FROM
+// to STAGED_FROM (one cached cluster count each)
+constexpr int WIDE_CS = (STAGED_FROM - WIDE_FROM) / CHUNK_K + 1;
 
 template <int TM, int CT, typename T, bool HASH, bool RGB_BF16>
 static int launch_wide(const Params& P, cudaStream_t stream, int* info,
@@ -1539,7 +1652,7 @@ static int launch_wide(const Params& P, cudaStream_t stream, int* info,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  std::atomic<int>& cached = clusters_at[dev][STG ? 0 : (P.c - 384) / 128];
+  std::atomic<int>& cached = clusters_at[dev][STG ? 0 : (P.c - WIDE_FROM) / CHUNK_K];
   int clusters = cached.load(std::memory_order_relaxed);
   if (clusters == 0) {
     if ((err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) != cudaSuccess)
@@ -1559,12 +1672,13 @@ static int launch_wide(const Params& P, cudaStream_t stream, int* info,
   return int(cudaGetLastError());
 }
 
-// C = 16 to 256: block_kernel; every multiple of 128 from 384 up:
-// block_kernel_wide, its tile by C: 64 pixels to C = 1024 and 32 to 2048
-// with the bf16 activation tile in shared memory, 64 pixels staged through
-// the scratch past 2048. K2 and K3 take the same channel counts; the
-// wrapper pads any other C with zeros up to the next of them, and Wp up to
-// a multiple of 16.
+// C = 16, 32, 64, 128 and 256: block_kernel; 192 and every multiple of 64
+// from 320 up: block_kernel_wide (a tail pass where C % 128 == 64; C fixed
+// at 192, 320, 384, 512, 1024 and 2048), its tile by C: 64 pixels to C =
+// 1024 and 32 to 2048 with the bf16 activation tile in shared memory, 64
+// pixels staged through the scratch past 2048. K2 and K3 take the same
+// channel counts; the wrapper pads any other C with zeros up to the count
+// it runs it at, and Wp up to a multiple of 16.
 template <typename T, bool HASH, bool RGB_BF16>
 int launch_c(int c, const Params& P, cudaStream_t s, int* info = nullptr,
              long long scratch_bytes = 0) {
@@ -1578,8 +1692,12 @@ int launch_c(int c, const Params& P, cudaStream_t s, int* info = nullptr,
     case 256: return launch<256, T, HASH, RGB_BF16>(P, s, info);
     default: break;
   }
-  if (c < 384 || c % 128 != 0 || P.c != c) return int(cudaErrorInvalidValue);
-  switch (c) {  // the 128^2 blocks of decoders at channel multipliers 3, 4, 8 and 16
+  if (c < WIDE_FROM || c % CHUNK_K != 0 || P.c != c) return int(cudaErrorInvalidValue);
+  // the 128^2 blocks of decoders at channel multipliers 3, 4, 8 and 16, and
+  // the 1024^2 / 512^2 blocks multipliers 9-12 and 17 run at 192 and 320
+  switch (c) {
+    case 192: return launch_wide<64, 192, T, HASH, RGB_BF16>(P, s, info, 0);
+    case 320: return launch_wide<64, 320, T, HASH, RGB_BF16>(P, s, info, 0);
     case 384: return launch_wide<64, 384, T, HASH, RGB_BF16>(P, s, info, 0);
     case 512: return launch_wide<64, 512, T, HASH, RGB_BF16>(P, s, info, 0);
     case 1024: return launch_wide<64, 1024, T, HASH, RGB_BF16>(P, s, info, 0);

@@ -14,14 +14,18 @@ One decoder block at resolution r, after conv_a's matmul at r/2 (y1):
 packed Pallas block admits (`check_k2`: C = 1, 2, 4, ..., 64 and every C
 >= 128, Wp a multiple of p = max(1, 128 // C)), K3 every C (`check_k3`),
 with no ceiling: device memory alone limits C. The built kernels run the
-channel counts `is_kernel_channels` names: at 16-256 conv_b's weight
-stays in shared memory (`block_kernel`), at every multiple of 128 from
-384 up it is streamed from L2 in swizzled 16 KB chunks (`chunk_weight`),
-shared by a thread-block cluster (`block_kernel_wide`, its tile by C:
-`tile_pixels`); past C = 2048 (`is_staged`) the activation tile goes
-through a scratch in device memory in the same chunked layout, so the
-kernel's shared memory does not grow with C.
-Any other C runs at the next of them (`kernel_channels`): the prepare
+channel counts `is_kernel_channels` names: at 16, 32, 64, 128 and 256
+conv_b's weight stays in shared memory (`block_kernel`), at 192 and
+every multiple of 64
+from 320 up it is streamed from L2 in swizzled chunks of 64 input
+channels (`chunk_weight`: 128 output channels a pass, and a tail pass of
+64 where C % 128 == 64), shared by a thread-block cluster
+(`block_kernel_wide`, its tile by C: `tile_pixels`); past C = 2048
+(`is_staged`) the activation tile goes through a scratch in device
+memory in the same chunked layout, so the kernel's shared memory does
+not grow with C.
+Any other C runs at the count `kernel_channels` gives (the next multiple
+of 64 past 256, and 192 for C = 129-192): the prepare
 functions pad w2's rows and columns, wrgb's rows and b1 / b2 with zeros,
 so the padded channels hold lrelu(noise * nw), finite, and meet only zero
 weights (exact but for the order of f32 sums). y1 arrives padded from
@@ -63,13 +67,14 @@ from .siren_render import fast_sin, wide_activation_layout
 # normalized [1,3,3,1]/8 * 2 gain (per-axis sqrt of the 4x 2-D gain)
 K4 = (0.25, 0.75, 0.75, 0.25)
 SQRT2 = 1.4142135623730951
-# The channel counts the built kernels run at (is_kernel_channels): 16-256
-# with the weight resident, and the streamed ones, every multiple of 128
-# from 384 up (is_streamed); past STAGED_FROM the streamed kernel stages a
-# tile's activations through a scratch of STAGED_TILE_PIXELS x C bf16 a
-# CTA (is_staged). Every other C is run at the next of them
-# (kernel_channels).
+# The channel counts the built kernels run at (is_kernel_channels): the
+# powers of two 16-256 with the weight resident, and the streamed ones, 192 (WIDE_FROM) and
+# every multiple of 64 from 320 up (is_streamed); past STAGED_FROM the
+# streamed kernel stages a tile's activations through a scratch of
+# STAGED_TILE_PIXELS x C bf16 a CTA (is_staged). Every other C is run at
+# the count kernel_channels gives.
 RESIDENT_CHANNELS = (16, 32, 64, 128, 256)
+WIDE_FROM = 192
 STAGED_FROM = 2048
 STAGED_TILE_PIXELS = 64
 # the kernels' Wp step: a tile's input columns divide it at every C
@@ -79,6 +84,7 @@ K2_RULE = ("JAX's packed block asserts (c * p) % 128 == 0 or c >= 128 and wp % p
            "p = max(1, 128 // c) (cips3dpp_tpu/kernels/decoder_block.py:754-756)")
 STORAGE = (torch.bfloat16, torch.float32)
 # block_kernel_wide's weight chunk: 128 output channels x 64 input channels
+# (a tail pass's: 64 x 64)
 CHUNK_ROWS, CHUNK_K = 128, 64
 _M32 = 0xFFFFFFFF
 # f32 operations of one hash_normal value: two avalanche hashes (2 x 7
@@ -150,8 +156,9 @@ def hash_noise_map(height: int, width: int, seed: int, device=None,
 
 def is_streamed(c: int) -> bool:
     """Whether a built kernel at C = c streams conv_b's weight
-    (block_kernel_wide): every multiple of 128 from 384 up."""
-    return c >= 384 and c % 128 == 0
+    (block_kernel_wide): 192 and every multiple of 64 from 320 up, the
+    last pass a tail of 64 output channels where c % 128 == 64."""
+    return c >= WIDE_FROM and c % CHUNK_K == 0 and c not in RESIDENT_CHANNELS
 
 
 def is_staged(c: int) -> bool:
@@ -161,8 +168,9 @@ def is_staged(c: int) -> bool:
 
 
 def is_kernel_channels(c: int) -> bool:
-    """Whether a built kernel runs C = c as it is: 16-256 with the weight
-    resident, every multiple of 128 from 384 up with it streamed."""
+    """Whether a built kernel runs C = c as it is: 16, 32, 64, 128 and 256
+    with the weight resident, 192 and every multiple of 64 from 320 up
+    with it streamed."""
     return c in RESIDENT_CHANNELS or is_streamed(c)
 
 
@@ -188,13 +196,21 @@ def check_k3(c: int) -> None:
 
 def kernel_channels(c: int) -> int:
     """The channel count of the built kernel that runs a block at C = c:
-    the least count is_kernel_channels takes at or above it."""
+    the least count is_kernel_channels takes at or above it, the next of
+    16, 32, 64, 128, 192 and 256, and past 256 the next multiple of 64.
+    C = 129-192 (the 1024^2 blocks at channel multipliers 9-12) run on the
+    streamed kernel at 192 (its build with C fixed), not block_kernel at
+    256: at y1 (512, 512, 144) 0.8810-0.8851 / 0.8434-0.8480 /
+    0.9353-0.9394 / 0.8889-0.8891 ms against 0.9925-0.9953 /
+    1.0042-1.0051 / 0.9931-0.9960 / 1.0121-1.0290 (bf16 / hash / f32 /
+    hash f32, `k2_times` parent / change / change / parent on an NVIDIA
+    H100 80GB HBM3 at 700 W)."""
     if c < 1:
         raise ValueError(f"C = {c}: want C >= 1")
-    for r in RESIDENT_CHANNELS:
+    for r in sorted(RESIDENT_CHANNELS + (WIDE_FROM,)):
         if c <= r:
             return r
-    return max(384, -(-c // 128) * 128)
+    return -(-c // CHUNK_K) * CHUNK_K
 
 
 def kernel_width(wp: int) -> int:
@@ -259,16 +275,27 @@ def decoder_block_prepare(noise1, noise2, w2, b1, b2, noise_w1, noise_w2,
 
 
 def chunk_weight(w2t):
-    """conv_b's (C out, C in) bf16 weight as block_kernel_wide reads it:
-    (C / 128) passes x (C / 64) chunks of 128 output x 64 input channels,
-    16 KB each, contiguous in that order; within a chunk row n, the 16-byte
-    group j of 8 input channels sits at j ^ (n % 8), the 128-byte swizzle
-    wgmma reads. One 1-D bulk copy then fills a ring slot. Returns a flat
-    bf16 tensor of C * C values."""
+    """conv_b's (C out, C in) bf16 weight as block_kernel_wide reads it
+    (C a multiple of 64): C // 128 passes x (C / 64) chunks of 128 output
+    x 64 input channels, 16 KB each, then where C % 128 == 64 a tail pass
+    of C / 64 chunks of 64 output x 64 input channels, 8 KB each,
+    contiguous in that order; within a chunk row n, the 16-byte group j of
+    8 input channels sits at j ^ (n % 8), the 128-byte swizzle wgmma reads.
+    One 1-D bulk copy then fills a ring slot (half of one in the tail).
+    Returns a flat bf16 tensor of C * C values."""
     c = w2t.shape[0]
-    w = w2t.reshape(c // CHUNK_ROWS, CHUNK_ROWS, c // CHUNK_K, 8, 8).permute(0, 2, 1, 3, 4)
-    rows = torch.arange(CHUNK_ROWS, device=w2t.device)[:, None]
-    swizzle = torch.arange(8, device=w2t.device)[None, :] ^ (rows % 8)
+    full = c // CHUNK_ROWS * CHUNK_ROWS
+    passes = [_swizzled_chunks(w2t[:full], CHUNK_ROWS)] if full else []
+    if c > full:
+        passes.append(_swizzled_chunks(w2t[full:], c - full))
+    return torch.cat(passes)
+
+
+def _swizzled_chunks(w, rows):
+    """Passes of `rows` rows of w (out, in) as chunk_weight lays them out."""
+    w = w.reshape(-1, rows, w.shape[1] // CHUNK_K, 8, 8).permute(0, 2, 1, 3, 4)
+    n = torch.arange(rows, device=w.device)[:, None]
+    swizzle = torch.arange(8, device=w.device)[None, :] ^ (n % 8)
     return torch.gather(w, 3, swizzle[None, None, :, :, None].expand(w.shape)).reshape(-1)
 
 
@@ -349,19 +376,20 @@ def decoder_block_intake(hp, wp, c, frames=1, cluster=2):
     """The bytes the streamed-weight kernel takes into the SMs in one call
     on y1 (frames*hp, wp, c) with clusters of `cluster` CTAs, at its
     kernel's C (ck = kernel_channels(c)) and width: the weight, 2 ck^2
-    bytes, once for each tile group of a cluster (multicast to its CTAs),
-    and past C = 2048 the staged activations, each tile's ck / 128 passes
-    reading its whole tile (STAGED_TILE_PIXELS x ck bf16) back from the
-    scratch: ck^2 bytes a tile. Returns {"tile_pixels", "tiles",
-    "weight_bytes", "activation_bytes", "bytes"}; raises where the weight
-    is resident (C <= 256)."""
+    bytes (a tail pass's chunks are half a full pass's), once for each
+    tile group of a cluster (multicast to its CTAs), and past C = 2048 the
+    staged activations, each of a tile's ceil(ck / 128) passes, the tail
+    pass too, reading its whole tile (STAGED_TILE_PIXELS x ck bf16) back
+    from the scratch: ck^2 bytes a tile at ck % 128 == 0, and 64 ck more
+    a tile with a tail. Returns {"tile_pixels", "tiles", "weight_bytes",
+    "activation_bytes", "bytes"}; raises where the weight is resident."""
     ck = kernel_channels(c)
     if not is_streamed(ck):
         raise ValueError(f"C = {c} runs at {ck}: the weight stays in shared memory")
     tm = tile_pixels(c)
     tiles = frames * hp * kernel_width(wp) * 4 // tm
     weight = -(-tiles // cluster) * 2 * ck * ck
-    act = tiles * (ck // CHUNK_ROWS) * tm * ck * 2 if is_staged(ck) else 0
+    act = tiles * -(-ck // CHUNK_ROWS) * tm * ck * 2 if is_staged(ck) else 0
     return {"tile_pixels": tm, "tiles": tiles, "weight_bytes": weight,
             "activation_bytes": act, "bytes": weight + act}
 
@@ -427,8 +455,9 @@ def _check_kernel_shape(what, rows, wp, c, frames):
     multiple of WIDTH_STEP columns (the entry points pad)."""
     if not is_kernel_channels(c) or wp % WIDTH_STEP or rows % frames:
         raise ValueError(f"{what} kernel: y1 {(rows, wp, c)} for {frames} frames: the "
-                         f"kernel runs C = 16-256 or a multiple of 128 from 384 up, and "
-                         f"Wp % {WIDTH_STEP} == 0")
+                         f"kernel runs C = 16, 32, 64, 128, 192, 256 or a multiple of 64 from "
+                         f"320 up, "
+                         f"and Wp % {WIDTH_STEP} == 0")
 
 
 def _check_aligned(**tensors):
@@ -450,10 +479,11 @@ def decoder_block_info(c, dtype=torch.bfloat16, hashed=False, k3=False, defines=
     resident kernel, whose cluster is 1). K3 (`k3=True`) is the f32
     instantiation with the bias and skip epilogue. C is the caller's: the
     instantiation is the one that runs it, at kernel_channels(c); raises
-    where check_k2 (check_k3) refuses C, before any build. Kernel C of 384
-    and up is the streamed-weight kernel (block_kernel_wide): one
-    instantiation a tile size (`tile_pixels`) and mode with C at run time,
-    one each with C fixed at 384, 512, 1024 and 2048, and past 2048 the
+    where check_k2 (check_k3) refuses C, before any build. Kernel C of 192
+    and of 320 and up is the streamed-weight kernel (block_kernel_wide):
+    one instantiation a tile size (`tile_pixels`) and mode with C at run
+    time (a tail pass where C % 128 == 64), one each with C fixed at 192,
+    320, 384, 512, 1024 and 2048, and past 2048 the
     staged build, whose shared memory is the same at every C; raises if
     the card cannot place its cluster. `defines`: of the library built with
     those extra flags (the cluster size is a build's,

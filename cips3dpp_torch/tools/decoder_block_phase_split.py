@@ -16,8 +16,9 @@ plain and the instrumented builds, so the cost of the marks can be read
 beside the split.
 
 With --streamed the same is done for the streamed-weight kernel
-(block_kernel_wide) at y1 (64, 64, 1024) and (64, 64, 2048), and its
-staged build at (64, 64, 4096) and (64, 64, 8320), with feat stored, whose
+(block_kernel_wide) at y1 (64, 64, 1024) and (64, 64, 2048), with a tail
+pass at (512, 512, 272) (run at 320) and (64, 64, 1088), and its staged
+build at (64, 64, 4096) and (64, 64, 8320), with feat stored, whose
 phases are the producer's waits for an empty ring slot, the consumers'
 waits for a full one, wgmma (issue and group waits), the tile's noise and
 upsample (in the staged build into the scratch, with the ready barrier's
@@ -44,19 +45,21 @@ WIDE_PHASES = ("producer_wait_empty", "consumer_wait_full", "wgmma", "upsample",
 # (Hp, C) of the four upsample blocks of the r1024 decoder (64^2 feature map)
 SHAPES = ((64, 256), (128, 128), (256, 64), (512, 32))
 # the streamed kernel's: the 128^2 blocks of decoders at multipliers 8 and
-# 16, and the staged build's at 32 and 65
-STREAMED_SHAPES = ((64, 1024), (64, 2048), (64, 4096), (64, 8320))
+# 16, the 1024^2 and 256^2 blocks at 17 (a tail pass of 64 channels), and
+# the staged build's 128^2 blocks at 32 and 65
+STREAMED_SHAPES = ((64, 1024), (64, 2048), (512, 272), (64, 1088), (64, 4096), (64, 8320))
 
 
 def block_inputs(hp, c, dtype, hashed, device, seed=0):
-    """A seeded prepared block and y1 (hp, hp, c) on `device`."""
+    """A seeded prepared block and y1 (hp, hp, C) on `device`, C the
+    kernel's (kernel_channels(c): zero-padded operands where c is not)."""
     gen = torch.Generator().manual_seed(seed + c)
     rnd = lambda *shape: torch.randn(shape, generator=gen).to(device)
     prep = kdb.decoder_block_prepare(
         rnd(2 * hp, 2 * hp, 1), rnd(2 * hp, 2 * hp, 1), rnd(c, c) / c**0.5,
         0.1 * rnd(c), 0.1 * rnd(c), 0.3, -0.2, rnd(c, 3) / c**0.5, dtype=dtype,
         noise_seeds=(123, 456) if hashed else None)
-    return prep, rnd(hp, hp, c).to(dtype)
+    return prep, rnd(hp, hp, kdb.kernel_channels(c)).to(dtype)
 
 
 def phase_cycles(reset: bool, streamed: bool = False) -> list[int]:
@@ -120,7 +123,8 @@ def main(argv=None) -> None:
     ap.add_argument("--hash", action="store_true", help="noise hashed in the kernel")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--streamed", action="store_true",
-                    help="the streamed-weight kernel at C = 1024, 2048, 4096 and 8320")
+                    help="the streamed-weight kernel at C = 1024, 2048, 272, 1088, 4096 "
+                         "and 8320")
     args = ap.parse_args(argv)
     with torch.inference_mode():
         print(json.dumps(measure(getattr(torch, args.dtype), args.hash, args.iters,

@@ -10,7 +10,7 @@ hash noise) is timed by the profiler's device time over 50 launches
 (`_lib.device_ms`). `--root` times the package under another checkout
 instead of this one (its kernels built from its own sources there), so two
 versions compare in one call on one card: run parent, change, change,
-parent. `--cluster` times the streamed-weight kernel (C >= 384) once at
+parent. `--cluster` times the streamed-weight kernel (is_streamed) once at
 each cluster size given, each in a library of its own built with
 -DDBLOCK_WIDE_CLUSTER=n (`cluster_defines`; the packages since the
 cluster kernel), the keys then ending in " CL=n". Prints one JSON line:
@@ -71,7 +71,7 @@ def main(argv=None) -> int:
                     # padded to); Wp a multiple of 16
                     y1 = torch.randn((hp, wp, bp["w2t"].shape[0]), generator=gen).to(dev, dt)
                     key = f"C={c} y1={hp}x{wp} {kdb.launch_name(bp)}"
-                    streamed = args.cluster and kdb.kernel_channels(c) >= 384
+                    streamed = args.cluster and kdb.is_streamed(kdb.kernel_channels(c))
                     for cl in args.cluster if streamed else (None,):
                         defines = () if cl is None else cluster_defines(cl)
                         ms = _lib.device_ms(lambda i: kdb._launch(y1, bp, True, 1, defines),

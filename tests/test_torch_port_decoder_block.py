@@ -154,8 +154,9 @@ def test_channel_table_blocks_lie_in_the_kernel(m):
     when JAX's packed block admits it (cips3dpp_tpu/kernels/
     decoder_block.py:754: (c * p) % 128 == 0 or c >= 128 with p = max(1,
     128 // c)), and then runs it at a built kernel's count no smaller, the
-    next multiple of 128 past 256 (the 1024^2 blocks at m = 3, 5, 6 and 7,
-    48 to 112 channels, JAX refuses). There is no ceiling: m = 65 (the
+    next multiple of 64 past 256, 192 at 129-192 and 256 at 193-256 (the
+    1024^2 blocks at m = 3, 5, 6 and 7, 48 to 112 channels, JAX refuses).
+    There is no ceiling: m = 65 (the
     first multiplier past C = 8192, its 128^2 block at 8320) and 128 (at
     16384) run every block, past C = 2048 on the staged build."""
     from cips3dpp_tpu.models.layers import channel_table as jax_table
@@ -178,9 +179,9 @@ def test_channel_table_blocks_lie_in_the_kernel(m):
         if taken:
             ck = kdb.kernel_channels(c)
             assert kdb.is_kernel_channels(ck) and c <= ck
-            assert ck == c or ck == (-(-c // 128) * 128 if c > 256 else 256)
+            assert ck == c or ck == (-(-c // 64) * 64 if c > 256 else 192 if c <= 192 else 256)
             assert kdb.is_staged(ck) == (ck > 2048)
-    assert all(kdb.kernel_channels(c) == c for c in got) == (m in (1, 2, 4, 8, 16, 32, 128))
+    assert all(kdb.kernel_channels(c) == c for c in got) == (m in (1, 2, 4, 8, 12, 16, 32, 128))
 
 
 @pytest.mark.parametrize("c", [48, 96])
@@ -212,10 +213,10 @@ def test_shape_check_names_the_channel_counts_taken(c):
     assert kdb.kernel_channels(c) == {48: 64, 96: 128}[c]
     assert [kdb.tile_pixels(c) for c in (1, 16, 144, 256, 288, 384, 512, 640, 1024, 1152,
                                          2048, 2176, 4096, 4224, 8192)] == [
-        512, 512, 32, 32, 64, 64, 64, 64, 64, 32, 32, 64, 64, 64, 64]
+        512, 512, 64, 32, 64, 64, 64, 64, 64, 32, 32, 64, 64, 64, 64]
     with pytest.raises(ValueError):
         kdb.check_k3(0)
-    kdb.check_k3(8193)  # no ceiling: K3 takes it at 8320
+    kdb.check_k3(8193)  # no ceiling: K3 takes it at 8256
 
 
 @pytest.mark.parametrize("c", [384, 1024, 2048])

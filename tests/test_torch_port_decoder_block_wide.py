@@ -1,6 +1,6 @@
 """K2 and K3 past C = 8192, where the port once stopped: JAX's packed block
 admits every C >= 128 and its v1 block every C, and so does the port,
-whose streamed-weight kernel runs every multiple of 128 past 2048 on its
+whose streamed-weight kernel runs every multiple of 64 past 2048 on its
 staged build (the activation tile through a scratch in device memory,
 shared memory the same at every C). On the CPU the port's route runs the
 plain version in the kernel's place.
@@ -117,15 +117,15 @@ def test_k3_past_8192_matches_pallas_and_oracle():
 
 
 # (C, the kernel's C, its tile's output pixels, the staged build)
-ADMITTED = [(2176, 2176, 64, True), (8192, 8192, 64, True), (8193, 8320, 64, True),
-            (8320, 8320, 64, True), (16384, 16384, 64, True), (46400, 46464, 64, True),
+ADMITTED = [(2176, 2176, 64, True), (8192, 8192, 64, True), (8193, 8256, 64, True),
+            (8320, 8320, 64, True), (16384, 16384, 64, True), (46400, 46400, 64, True),
             (2048, 2048, 32, False), (1152, 1152, 32, False)]
 
 
 @pytest.mark.parametrize("c,ck,tm,staged", ADMITTED, ids=[f"C{v[0]}" for v in ADMITTED])
 def test_no_ceiling_past_8192(c, ck, tm, staged):
     """check_k2 and check_k3 admit every C JAX admits, with no upper limit;
-    the kernel's C is the next multiple of 128, its tile 64 pixels past
+    the kernel's C is the next multiple of 64, its tile 64 pixels past
     2048 on the staged build, whose scratch is 64 x C bf16 a CTA. Nothing
     is built or allocated."""
     from cips3dpp_torch.kernels import decoder_block as kdb
@@ -202,11 +202,12 @@ def test_intake_count():
         assert got == {"tile_pixels": 64, "tiles": 256, "weight_bytes": 256 * c * c,
                        "activation_bytes": 256 * c * c, "bytes": 512 * c * c}
     assert kdb.decoder_block_intake(64, 64, 8192)["bytes"] == 34359738368  # 34.4 GB
-    # padded: C = 8193 runs at 8320; Wp = 20 at 32; 3 frames of Hp = 1; a
+    # padded: C = 8193 runs at 8256 (64 passes and a tail: 65 reads of the
+    # tile, 8320 channels' worth); Wp = 20 at 32; 3 frames of Hp = 1; a
     # cluster of 4 leaves the last group part-full
     got = kdb.decoder_block_intake(1, 20, 8193, frames=3, cluster=4)
     assert got["tiles"] == 3 * 32 * 4 // 64 == 6
-    assert got["weight_bytes"] == 2 * 2 * 8320 * 8320
-    assert got["activation_bytes"] == 6 * 8320 * 8320
+    assert got["weight_bytes"] == 2 * 2 * 8256 * 8256
+    assert got["activation_bytes"] == 6 * 8320 * 8256
     with pytest.raises(ValueError, match="shared memory"):
         kdb.decoder_block_intake(64, 64, 256)

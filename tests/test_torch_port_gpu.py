@@ -305,9 +305,10 @@ def _cluster_builds(shape, c):
 
 
 # every resident C, and the streamed kernel at each tile size (64 pixels
-# at 384-1024, 32 at 1152-2048), with C fixed (384, 512, 1024, 2048) and
-# at run time (640, 1152)
-BLOCK_CHANNELS = [16, 32, 64, 128, 256, 384, 512, 640, 1024, 1152, 2048]
+# at 192-1024, 32 at 1088-2048), with C fixed (384, 512, 1024, 2048) and
+# at run time (640, 1152), and with a tail pass of 64 channels, C fixed
+# (192, 320) and at run time at each tile size (576, 1088)
+BLOCK_CHANNELS = [16, 32, 64, 128, 256, 384, 512, 640, 1024, 1152, 2048, 192, 320, 576, 1088]
 
 
 @pytest.mark.parametrize("mode", MODES, ids=["-".join(m) for m in MODES])
@@ -499,7 +500,8 @@ def test_hash_noise_in_kernel_matches_its_map(dev):
 PADDED_BLOCKS = [(1, 8, 128, 1), (2, 4, 64, 2), (4, 8, 32, 1), (8, 8, 16, 2), (8, 2, 48, 3),
                  (16, 4, 8, 2), (64, 4, 6, 1), (144, 8, 16, 2), (144, 3, 20, 1),
                  (256, 8, 24, 2), (272, 4, 16, 1), (288, 4, 40, 2), (576, 8, 16, 1),
-                 (1088, 4, 16, 1), (2176, 8, 16, 2), (2176, 1, 20, 1), (4096, 8, 16, 1),
+                 (1088, 4, 16, 1), (2112, 4, 16, 1), (2112, 1, 20, 2), (2176, 8, 16, 2),
+                 (2176, 1, 20, 1), (4096, 8, 16, 1),
                  (4224, 1, 16, 1), (8192, 4, 16, 1), (8192, 1, 24, 2), (8320, 4, 16, 1),
                  (8193, 1, 20, 3), (16384, 2, 16, 1)]
 
@@ -563,7 +565,8 @@ def test_decoder_block_kernel_at_padded_counts(dev, c, hp, wp, frames, mode):
 # K3 at the C and Wp it runs padded (its JAX block takes every C): C = 3,
 # 48 and 144 as the CPU tests, 2176-8192 on the staged build, and past 8192;
 # then full-size blocks on it: y1 (64, 64, 4096 / 8192) and (8, 16, 16384)
-K3_PADDED = [(3, 8, 16), (48, 8, 24), (144, 8, 16), (144, 2, 20), (2176, 4, 16),
+K3_PADDED = [(3, 8, 16), (48, 8, 24), (144, 8, 16), (144, 2, 20), (272, 8, 16), (2112, 2, 16),
+             (2176, 4, 16),
              (4224, 2, 20), (8192, 1, 16), (8320, 2, 16), (16384, 1, 16), (4096, 64, 64),
              (8192, 64, 64), (16384, 8, 16)]
 
@@ -603,7 +606,8 @@ K3_SHAPES = {"32x16": (32, 16), "ragged": (8, 48), "hp1": (1, 32), "large": None
              "cluster-ragged": (1, 80), "cluster-short": (1, 16)}
 
 
-@pytest.mark.parametrize("c", [16, 32, 64, 128, 256, 384, 512, 640, 1024, 1152, 2048])
+@pytest.mark.parametrize("c", [16, 32, 64, 128, 256, 384, 512, 640, 1024, 1152, 2048, 192,
+                               320, 576, 1088])
 @pytest.mark.parametrize("shape", list(K3_SHAPES))
 def test_decoder_block_fused_kernel_matches_plain(dev, c, shape):
     """K3, the v1 block: f32 in and out, bias and upsampled-skip epilogue."""
@@ -659,10 +663,11 @@ def test_decoder_block_phase_split_counts_every_phase(dev):
     assert len(cycles) == len(PHASES) and all(c > 0 for c in cycles)
 
 
-@pytest.mark.parametrize("c", [1024, 4096])
+@pytest.mark.parametrize("c", [1024, 1088, 4096])
 def test_decoder_block_streamed_phase_split_counts_every_phase(dev, c):
-    """The instrumented streamed-weight kernel at y1 (64, 64, 1024) and, in
-    its staged build, (64, 64, 4096) computes what the plain build computes
+    """The instrumented streamed-weight kernel at y1 (64, 64, 1024), with a
+    tail pass at (64, 64, 1088) and, in its staged build, (64, 64, 4096)
+    computes what the plain build computes
     and counts cycles in each of its phases (producer, consumers' waits,
     wgmma, upsample, epilogue); the producer's waits for a tile's ready
     barrier are the staged build's alone."""
@@ -689,12 +694,13 @@ def test_decoder_block_resources(dev):
     """Every K2 / K3 instantiation fits on the card with no spill, at every
     C the built kernels run to 8320 and at 16384; tiles hold 8192 values
     at C = 16 to 256, and 64 or 32 pixels (16 or 8 input columns) with
-    the weight streamed (C = 384-1024, 1152-2048), and 64 past 2048 in the
+    the weight streamed (C = 192 and 320-1024, 1088-2048: every multiple
+    of 64), and 64 past 2048 in the
     staged build, whose shared memory is the same at every C (2176, 8192,
     16384: nothing in it grows with C), by clusters of CLUSTER_SIZES[0]
     CTAs, the plain library's, the card can place (1 for the resident
     kernel). A C no built kernel runs is run by the next one's
-    instantiation (192 and 4096 among them); a C JAX's packed block refuses
+    instantiation (144 and 8193 among them); a C JAX's packed block refuses
     raises for K2 and is taken by K3; C past 8192, where the kernels once
     stopped, is taken by both."""
     from cips3dpp_torch.kernels.decoder_block import (
@@ -706,14 +712,14 @@ def test_decoder_block_resources(dev):
                            (torch.float32, False, False), (torch.float32, True, False),
                            (torch.float32, False, True)):
         staged = {}
-        for c in RESIDENT_CHANNELS + tuple(range(384, 8321, 128)) + (16384,):
+        for c in RESIDENT_CHANNELS + (192,) + tuple(range(320, 8321, 64)) + (16384,):
             info = decoder_block_info(c, dt, hashed, k3)
             print(dt, hashed, k3, c, info)
             assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
             assert info["smem_bytes"] <= 232448
             assert info["tile_pixels"] == tile_pixels(c)
-            assert info["tile_pixels"] == (8192 // c if c <= 256 else 32 if 1024 < c <= 2048
-                                           else 64)
+            assert info["tile_pixels"] == (8192 // c if c in RESIDENT_CHANNELS
+                                           else 32 if 1024 < c <= 2048 else 64)
             assert info["tile_input_columns"] * 4 == info["tile_pixels"]
             assert info["cluster"] == (CLUSTER_SIZES[0] if is_streamed(c) else 1)
             assert info["clusters_on_card"] >= 1
@@ -721,7 +727,7 @@ def test_decoder_block_resources(dev):
                 staged[c] = info
         # one staged instantiation a mode: the same resources at every C
         assert staged[2176] == staged[8192] == staged[16384]
-        for c in (1, 8, 144, 192, 288, 2176, 4096, 8064, 8193):
+        for c in (1, 8, 144, 160, 288, 2176, 4096, 8000, 8193):
             assert decoder_block_info(c, dt, hashed, k3) == decoder_block_info(
                 kernel_channels(c), dt, hashed, k3)
         for c in (3, 48, 96):
@@ -735,10 +741,13 @@ def test_decoder_block_resources(dev):
 
 
 # SHA-1 of each decoder_block entry's SASS at C <= 2048 (block_kernel at
-# 16-256, block_kernel_wide's 64- and 32-pixel tiles), in every mode, as
-# the build before the staged build compiled them (sass_diff.parse_sass:
-# instructions without their addresses): a change to the staged build
-# leaves their code as it was.
+# 16-256, block_kernel_wide's 64- and 32-pixel tiles), in every mode
+# (sass_diff.parse_sass: instructions without their addresses): the
+# resident builds and the streamed builds with C fixed at 384-2048 as the
+# build before the staged build compiled them, the run-time-C builds and
+# the builds fixed at 192 and 320 as recorded once they took the
+# 64-channel tail pass. A change to the staged build leaves their code as
+# it was.
 NARROW_DBLOCK_SASS = {
     "_ZN6dblock12block_kernelILi128E13__nv_bfloat16Lb0ELb0EEEvNS_6ParamsE":
         "27251f0c5212b6c8109065a4e2542da3f219258a",
@@ -791,15 +800,15 @@ NARROW_DBLOCK_SASS = {
     "_ZN6dblock12block_kernelILi64EfLb1ELb0EEEvNS_6ParamsE":
         "aa8fa58b60eb47148ef83256395fbbd5175be49d",
     "_ZN6dblock17block_kernel_wideILi32ELi0E13__nv_bfloat16Lb0ELb0EEEvNS_6ParamsE":
-        "63647056661ba21db0428aab9aea5c85cfeaa4ef",
+        "318b5689414839bae8441844e41cd7add8349469",
     "_ZN6dblock17block_kernel_wideILi32ELi0E13__nv_bfloat16Lb1ELb0EEEvNS_6ParamsE":
-        "5e03b118d3f9b42fd2b56f89977dbca9e78c3d5a",
+        "a71ef0fb9e56f84e4b74dfdfc341479e5845c942",
     "_ZN6dblock17block_kernel_wideILi32ELi0EfLb0ELb0EEEvNS_6ParamsE":
-        "f1c1688d43faab6f94a476d853e78ba3fe77ce17",
+        "838ab8c216d703cc7492aac73a7bbcc68b4161b1",
     "_ZN6dblock17block_kernel_wideILi32ELi0EfLb0ELb1EEEvNS_6ParamsE":
-        "cfb284d9bf1e3179b88b1bc617cdc855f7333a8d",
+        "854758377411d6982f07b9b54b949a39930037f6",
     "_ZN6dblock17block_kernel_wideILi32ELi0EfLb1ELb0EEEvNS_6ParamsE":
-        "4da8393c35f41414703d795a5bc0f2abf0034a8a",
+        "3a9ae4ee62e3d98b785b0102dc9920a5686f1ec4",
     "_ZN6dblock17block_kernel_wideILi32ELi2048E13__nv_bfloat16Lb0ELb0EEEvNS_6ParamsE":
         "697e79b1e623072c0f71ecd5b3ed762f911b2781",
     "_ZN6dblock17block_kernel_wideILi32ELi2048E13__nv_bfloat16Lb1ELb0EEEvNS_6ParamsE":
@@ -811,15 +820,15 @@ NARROW_DBLOCK_SASS = {
     "_ZN6dblock17block_kernel_wideILi32ELi2048EfLb1ELb0EEEvNS_6ParamsE":
         "62da9b1643f5cd265f570a36bc61c7c218ef2a05",
     "_ZN6dblock17block_kernel_wideILi64ELi0E13__nv_bfloat16Lb0ELb0EEEvNS_6ParamsE":
-        "432cb52bc8adb8a6d52e36d450bf018c0600fa27",
+        "bf4bf22345dbaa6bbcbc8fd2e41ed2e5ab094522",
     "_ZN6dblock17block_kernel_wideILi64ELi0E13__nv_bfloat16Lb1ELb0EEEvNS_6ParamsE":
-        "d35fce3fd261d71a59ede7cd444c4cb9776b2405",
+        "e4e09d5d2ef966910111eb29bc8d742fb09b8ff2",
     "_ZN6dblock17block_kernel_wideILi64ELi0EfLb0ELb0EEEvNS_6ParamsE":
-        "7002edab9fd39ab2bf56bc224d910cc6e8c40117",
+        "8725c3b1de56bdd9e3155d00fbe2028919e958a3",
     "_ZN6dblock17block_kernel_wideILi64ELi0EfLb0ELb1EEEvNS_6ParamsE":
-        "4dce0dc39122f7ad47ecd9e6025aa171e22c6b71",
+        "49f13e1956cc197fbef21ba4c7cbd0bb71d24e07",
     "_ZN6dblock17block_kernel_wideILi64ELi0EfLb1ELb0EEEvNS_6ParamsE":
-        "e224489cfaba1666f9568a16d15c23b958f61a5f",
+        "380851825a698a2144882c901526c0167df9a52d",
     "_ZN6dblock17block_kernel_wideILi64ELi1024E13__nv_bfloat16Lb0ELb0EEEvNS_6ParamsE":
         "1f30f36d71f9efc63dfb874e4d5aed755f21ffbc",
     "_ZN6dblock17block_kernel_wideILi64ELi1024E13__nv_bfloat16Lb1ELb0EEEvNS_6ParamsE":
@@ -830,6 +839,26 @@ NARROW_DBLOCK_SASS = {
         "c695e09c328a1116c3ebd814deae73091c8718b2",
     "_ZN6dblock17block_kernel_wideILi64ELi1024EfLb1ELb0EEEvNS_6ParamsE":
         "5d01f7580ed554883868a38b9db67413fd223c1d",
+    "_ZN6dblock17block_kernel_wideILi64ELi192E13__nv_bfloat16Lb0ELb0EEEvNS_6ParamsE":
+        "6850ae9e3e3f3de50197bf79813d1e32d6b4dbd3",
+    "_ZN6dblock17block_kernel_wideILi64ELi192E13__nv_bfloat16Lb1ELb0EEEvNS_6ParamsE":
+        "e2cf0c7da9b87044ae87a7dd5efec2d6977f7a13",
+    "_ZN6dblock17block_kernel_wideILi64ELi192EfLb0ELb0EEEvNS_6ParamsE":
+        "011200892aa03f931a3a68b278af2ab5f5b422e1",
+    "_ZN6dblock17block_kernel_wideILi64ELi192EfLb0ELb1EEEvNS_6ParamsE":
+        "71a4a44faa32e2db5e28bcd74d147c2212252c46",
+    "_ZN6dblock17block_kernel_wideILi64ELi192EfLb1ELb0EEEvNS_6ParamsE":
+        "5ef2119da521830e5213fd429a097a21a2e0d3df",
+    "_ZN6dblock17block_kernel_wideILi64ELi320E13__nv_bfloat16Lb0ELb0EEEvNS_6ParamsE":
+        "e4c8e57c775155109f2bfaad684510feb393376b",
+    "_ZN6dblock17block_kernel_wideILi64ELi320E13__nv_bfloat16Lb1ELb0EEEvNS_6ParamsE":
+        "af3f2538fec8945ad44a6154ffde4812acd17742",
+    "_ZN6dblock17block_kernel_wideILi64ELi320EfLb0ELb0EEEvNS_6ParamsE":
+        "8ecb7cc0a8758dab7347800d9f81e836ef812504",
+    "_ZN6dblock17block_kernel_wideILi64ELi320EfLb0ELb1EEEvNS_6ParamsE":
+        "dfc30510e88342a1792e82fe29ee9be088897553",
+    "_ZN6dblock17block_kernel_wideILi64ELi320EfLb1ELb0EEEvNS_6ParamsE":
+        "6b6ae3825ca3991aaf4c0148bd6216d80d2dd88c",
     "_ZN6dblock17block_kernel_wideILi64ELi384E13__nv_bfloat16Lb0ELb0EEEvNS_6ParamsE":
         "dfdbf1c194e187419dad4dc94413b2d9ca1acb7c",
     "_ZN6dblock17block_kernel_wideILi64ELi384E13__nv_bfloat16Lb1ELb0EEEvNS_6ParamsE":
@@ -872,6 +901,37 @@ def test_decoder_block_narrow_builds_keep_their_sass(dev):
                                         if seen.get(k) != v}
 
 
+def _planted_fault_caught(dev, define, c, hp, wp):
+    """K2 in the library built with the planted fault `define`, through the
+    entry point's padding (bf16 storage, feat and rgb), against the same
+    route with the plain version (decoder_block_packed_plain): whether the
+    comparison the tests above make (K2_TOL in bf16 storage) fails for any
+    output, and the max gaps."""
+    from cips3dpp_torch.kernels.decoder_block import (
+        _launch, _padded, decoder_block_packed_plain, decoder_block_prepare,
+    )
+
+    gen = torch.Generator().manual_seed(c + hp)
+    rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
+    prep = decoder_block_prepare(
+        rnd(2 * hp, 2 * wp, 1), rnd(2 * hp, 2 * wp, 1), rnd(c, c) / c**0.5, 0.1 * rnd(c),
+        0.1 * rnd(c), 0.3, -0.2, rnd(c, 3) / c**0.5)
+    y1 = rnd(hp, wp, c).to(torch.bfloat16)
+    got = _padded(lambda x, *a, **k: _launch(x, *a, defines=(define,), **k), y1, prep, True, 1)
+    want = decoder_block_packed_plain(y1, prep)
+    torch.cuda.synchronize()
+    errs = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)]
+    print(f"planted {define}, C={c} y1=({hp},{wp}): max |kernel - plain| {errs}")
+    caught = []
+    for g, w in zip(got, want):
+        try:
+            torch.testing.assert_close(g.float(), w.float(), rtol=1.6e-2, atol=2e-2)
+            caught.append(False)
+        except AssertionError:
+            caught.append(True)
+    return any(caught), errs
+
+
 # the staged build with a planted fault (-DDBLOCK_PLANT_RING_FAULT: its
 # producer copies a tile's activation chunks without waiting for the
 # tile's ready barrier), at y1 (64, 64, 2176), (8, 16, 8320) and
@@ -885,29 +945,24 @@ def test_decoder_block_staged_planted_ring_fault_is_caught(dev, c, hp, wp):
     above make against the plain version (K2_TOL in bf16 storage) fails:
     they can catch activation chunks copied before the upsample wrote
     them."""
-    from cips3dpp_torch.kernels.decoder_block import (
-        _launch, decoder_block_plain, decoder_block_prepare,
-    )
+    caught, errs = _planted_fault_caught(dev, "-DDBLOCK_PLANT_RING_FAULT", c, hp, wp)
+    assert caught, errs
 
-    gen = torch.Generator().manual_seed(c + hp)
-    rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
-    prep = decoder_block_prepare(
-        rnd(2 * hp, 2 * wp, 1), rnd(2 * hp, 2 * wp, 1), rnd(c, c) / c**0.5, 0.1 * rnd(c),
-        0.1 * rnd(c), 0.3, -0.2, rnd(c, 3) / c**0.5)
-    y1 = rnd(hp, wp, c).to(torch.bfloat16)
-    got = _launch(y1, prep, True, 1, ("-DDBLOCK_PLANT_RING_FAULT",))
-    want = decoder_block_plain(y1, prep)
-    torch.cuda.synchronize()
-    errs = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)]
-    print(f"planted ring fault, C={c} y1=({hp},{wp}): max |kernel - plain| {errs}")
-    caught = []
-    for g, w in zip(got, want):
-        try:
-            torch.testing.assert_close(g.float(), w.float(), rtol=1.6e-2, atol=2e-2)
-            caught.append(False)
-        except AssertionError:
-            caught.append(True)
-    assert any(caught), errs
+
+# a planted fault in the tail pass (-DDBLOCK_PLANT_TAIL_FAULT: 3 of each
+# tail chunk's 4 k16 wgmmas), at each build a tail runs in: C = 272 (run at
+# 320, 64-pixel tiles), 1088 (32-pixel tiles) and 2112 (staged)
+TAIL_PLANTED = [(272, 16, 16), (1088, 8, 16), (2112, 8, 16)]
+
+
+@pytest.mark.parametrize("c,hp,wp", TAIL_PLANTED,
+                         ids=[f"C{c}-{h}x{w}" for c, h, w in TAIL_PLANTED])
+def test_decoder_block_planted_tail_fault_is_caught(dev, c, hp, wp):
+    """The build with the tail pass's planted fault launches and returns,
+    and the comparison against the plain version at K2_TOL fails: the
+    tests can catch a tail pass that drops input channels."""
+    caught, errs = _planted_fault_caught(dev, "-DDBLOCK_PLANT_TAIL_FAULT", c, hp, wp)
+    assert caught, errs
 
 
 @pytest.mark.parametrize("mode", MODES[:3], ids=["-".join(m) for m in MODES[:3]])

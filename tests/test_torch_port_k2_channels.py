@@ -6,8 +6,8 @@ in interpret mode and its jnp oracle, and against the plain version on
 the unpadded operands (tests/test_torch_port_k2_multipliers.py: the
 fused decoder at channel multipliers 9 and 17, and the refusals).
 
-K2: C = 1 and 8 (run at 16), 144 (at 256), 288 (at 384) and 2176 (the
-streamed kernel's 16-pixel tile), Wp = 24 at C = 256 and Wp = 8 at C = 16
+K2: C = 1 and 8 (run at 16), 144 (at 192), 288 (at 320) and 2176 (the
+staged build), Wp = 24 at C = 256 and Wp = 8 at C = 16
 (run at Wp = 32 and 16), with noise buffers and with hash noise, whose
 pixel ids count in the caller's width. K3: C = 3, 48 and 144 at Wp = 12.
 
@@ -165,7 +165,7 @@ def test_padded_route_equals_the_unpadded_plain_version(c, wp, hashed):
 
 @pytest.mark.parametrize("c", [3, 48, 144])
 def test_k3_matches_pallas_and_oracle(c):
-    """K3 at C no built kernel runs (3 -> 16, 48 -> 64, 144 -> 256) and Wp =
+    """K3 at C no built kernel runs (3 -> 16, 48 -> 64, 144 -> 192) and Wp =
     12 (-> 16), through its entry point, against the v1 Pallas kernel in
     interpret mode and its jnp oracle at tests/test_kernels.py's 2e-3."""
     from cips3dpp_tpu.kernels.decoder_block import decoder_block_fused as jfused

@@ -1,13 +1,15 @@
-"""The fused decoder at channel multipliers whose blocks no built kernel
-runs as they are (9: C = 1152, 576, 288, 144; 17: 2176, 1088, 544, 272)
-against the flax Decoder and against its own route with nothing padded,
+"""The fused decoder at channel multipliers with blocks no built kernel
+runs as they are (9: C = 1152, 576, 288, 144, of which 288 and 144 run at
+320 and 192; 17: 2176, 1088, 544, 272, of which 544 and 272 run at 576 and
+320) against the flax Decoder and against its own route with nothing padded,
 and preset_serving refusing the multipliers whose blocks JAX's packed
 block refuses (3 and 6).
 
 Bounds: against the flax Decoder (f32 throughout) the blocks round
 conv_b's operands to bf16, a few parts in 2^9 of |rgb| ~1.3-1.8: max 0.1,
 mean 1e-2 (measured max / mean 0.032 / 5.8e-3 at m = 9, 0.018 / 3.2e-3 at
-m = 17, 0.017 / 3.2e-3 with two plain steps; a decoder at m = 2, which
+m = 17, 0.017 / 3.2e-3 with two plain steps, with the blocks padded to
+multiples of 128 as they were before the tail pass; a decoder at m = 2, which
 pads nothing, lies 3.0e-3 from flax by the same rounding); against the
 same route with the counts left unpadded (kernel_channels the identity,
 which the plain version takes) only the order of f32 sums over zero rows
@@ -27,20 +29,24 @@ from torch_port_helpers import a, t
 # the four upsample blocks' C at channel multipliers 9 and 17, and the
 # counts the built kernels run them at
 ALL_UP = (128, 256, 512, 1024)
-# (m, upsample list): the four upsample blocks, and two followed by two
-# plain steps, whose first conv reads a padded feat (576 -> 640 channels)
-CASES = [(9, ALL_UP), (17, ALL_UP), (9, (128, 256))]
-BLOCKS = {(9, ALL_UP): ([1152, 576, 288, 144], [1152, 640, 384, 256]),
-          (17, ALL_UP): ([2176, 1088, 544, 272], [2176, 1152, 640, 384]),
-          (9, (128, 256)): ([1152, 576], [1152, 640])}
+# (m, upsample list): the four upsample blocks; two followed by two plain
+# steps (576 runs as it is: their first conv reads an unpadded feat); and
+# three followed by one plain step, whose conv reads a padded feat (288 ->
+# 320 channels)
+CASES = [(9, ALL_UP), (17, ALL_UP), (9, (128, 256)), (9, (128, 256, 512))]
+BLOCKS = {(9, ALL_UP): ([1152, 576, 288, 144], [1152, 576, 320, 192]),
+          (17, ALL_UP): ([2176, 1088, 544, 272], [2176, 1088, 576, 320]),
+          (9, (128, 256)): ([1152, 576], [1152, 576]),
+          (9, (128, 256, 512)): ([1152, 576, 288], [1152, 576, 320])}
 
 
-@pytest.mark.parametrize("m,ups", CASES, ids=["m9", "m17", "m9-two-plain-steps"])
+@pytest.mark.parametrize("m,ups", CASES, ids=["m9", "m17", "m9-two-plain-steps",
+                                             "m9-one-plain-step"])
 def test_fused_decoder_matches_flax_at_multiplier(m, ups):
     """decoder_fused_apply (f32 storage, the serving path's prepare padding
     conv_a's columns and the next reader's rows) against the flax Decoder
     at channel multiplier m: size_start 64, 4x4 features, the upsample
-    blocks of `ups` (to 64x64, or to 16x16 then two plain steps), weights
+    blocks of `ups` (to 64x64, or to 16x16 or 32x32 then plain steps), weights
     carried by the bridge. The blocks run at the padded counts, y1 made at
     them (one block call a block, no padding a frame); the route equals
     itself with nothing padded (the module's bounds)."""
