@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import count
+
 
 class CameraParams(NamedTuple):
     extrinsics: torch.Tensor  # (B, 3, 4) camera-to-world [R | t]
@@ -59,8 +61,11 @@ def camera_from_angles(
     camera_dir = torch.stack([x, y, z], dim=-1)  # (B, 3)
     camera_loc = dist[:, None] * camera_dir
 
-    up = torch.tensor([0.0, 1.0, 0.0], **kw) if up is None else up.to(**kw)
-    up = up.expand(b, 3)
+    if up is None:
+        up = torch.tensor([0.0, 1.0, 0.0], **kw)
+        if up.is_cuda:  # a copy from pageable host memory waits for the device
+            count("host_sync")
+    up = up.to(**kw).expand(b, 3)
 
     z_axis = _normalize(camera_dir)
     x_axis = _normalize(torch.linalg.cross(up, z_axis))

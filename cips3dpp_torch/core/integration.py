@@ -12,6 +12,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import count
+
+
+def _cumprod_backward_read(grad):
+    """A hook on cumprod's input: torch's cumprod backward reads on the
+    host whether that input holds a zero (`(input == 0).any().item()`)."""
+    count("host_sync")
+
 
 def sdf_to_sigma(sdf: torch.Tensor, sigmoid_beta: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(-sdf / sigmoid_beta) / sigmoid_beta
@@ -58,7 +66,10 @@ def volume_integration(
     alpha = 1.0 - torch.exp(-sigma * dists[..., None])  # (..., N, 1)
 
     # exclusive cumprod of (1 - alpha), +1e-10 as in nerf_utils
-    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-2)
+    kept = 1.0 - alpha + 1e-10
+    if kept.requires_grad:
+        kept.register_hook(_cumprod_backward_read)
+    trans = torch.cumprod(kept, dim=-2)
     visibility = torch.cat([torch.ones_like(alpha[..., :1, :]), trans[..., :-1, :]], dim=-2)
     weights = alpha * visibility  # (..., N, 1)
     if force_background:

@@ -9,8 +9,9 @@ rebuilt. `build` starts one nvcc per library, all at once; `defines`
 geometry of a kernel, or an instrumented build.
 
 `LAUNCHES[name]` counts kernel launches: a wrapper adds one where it
-launches its kernel and nowhere else. `device_ms` times a kernel on the
-card by the profiler's device time.
+launches its kernel and nowhere else (the registry's "launches" counter,
+utils/profiling.py). `device_ms` times a kernel on the card by the
+profiler's device time.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
@@ -34,14 +37,14 @@ NVCC_FLAGS = (
 )
 SOURCES = ("siren_render", "decoder_block", "elem_probe")
 
-LAUNCHES: collections.Counter = collections.Counter()
+LAUNCHES: collections.Counter = profiling.counter("launches")
 
 _lock = threading.Lock()
 _libs: dict[tuple, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    LAUNCHES.clear()
+    profiling.reset("launches")
 
 
 def _nvcc() -> str:

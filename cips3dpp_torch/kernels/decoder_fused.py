@@ -34,6 +34,7 @@ import torch
 from ..ops.fused_act import fused_leaky_relu
 from ..ops.modulated import modulate_weights_1x1
 from ..ops.upfirdn2d import upsample2x
+from ..utils.profiling import span
 from .decoder_block import (
     _pad_to, decoder_block_packed, decoder_block_prepare, hash_noise_map, kernel_channels,
     layer_seed,
@@ -71,6 +72,7 @@ def _plan(upsample_list, size_start, size_end):
     ]
 
 
+@span("decoder.prepare")
 @torch.no_grad()
 def decoder_fused_prepare(decoder, styles, noise, *, fold_rgb=True,
                           noise_seed=None, feat_size=None):
@@ -171,6 +173,7 @@ def decoder_fused_prepare(decoder, styles, noise, *, fold_rgb=True,
     return prep
 
 
+@span("decoder.render")
 @torch.no_grad()
 def decoder_fused_render(decoder, prep, features, *, fold_rgb=True):
     """Per-frame half. features (F, H, W, in_channel): F frames of the

@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import count, span
 from . import _lib
 
 _INV_2PI = 0.15915494309189535
@@ -87,6 +88,7 @@ def _pack_siren_params(net, styles):
     )
 
 
+@span("k1.prepare")
 @torch.no_grad()
 def siren_prepare(renderer, styles, near, far):
     """Trajectory-invariant half: FiLM folds, f32 weights, the kernel's
@@ -116,10 +118,12 @@ def siren_prepare(renderer, styles, near, far):
                         for w, (r, c) in zip(weights, grow))
     scale = (2.0 / (far - near)).reshape(()).float()
     sbeta = renderer.sigmoid_beta.reshape(()).float()
+    count("host_sync", 2)
     prepared = {
         "weights": weights,
         "width": width,
-        # f32 values as Python floats: the kernel takes them by value
+        # f32 values as Python floats: the kernel takes them by value (two
+        # reads of the device on the host)
         "consts": (float(scale), float(sbeta)),
         # (out, in) bf16 for the tensor-core B operand
         "w1t": weights[3].t().contiguous().to(torch.bfloat16),
@@ -349,6 +353,7 @@ def _launch(prepared, pts, viewdirs, z_vals, dnorm, defines=(), scratch=None):
     return thumb, feat, sdf[..., None], maskd, xyz
 
 
+@span("k1.render")
 def siren_render_prepared(prepared, pts, viewdirs, z_vals, rays_d):
     """Per-frame half (camera-dependent inputs only). pts (R,S,3),
     viewdirs (R,3), z_vals (R,S), rays_d (R,3). Returns (thumb (R,3),

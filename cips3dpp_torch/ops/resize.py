@@ -24,6 +24,8 @@ import math
 import numpy as np
 import torch
 
+from ..utils.profiling import count
+
 
 def _keys_cubic(x):
     out = ((1.5 * x - 2.5) * x) * x + 1.0
@@ -48,6 +50,8 @@ def resize_weights(in_size: int, out_size: int, method: str, device=None) -> tor
     f32 = dict(dtype=torch.float32, device=device)
     # the scale is a Python float; JAX rounds 1 / scale to f32 and goes on in f32
     inv_scale = torch.tensor(1.0 / (out_size / in_size), **f32)
+    if inv_scale.is_cuda:  # a copy from pageable host memory waits for the device
+        count("host_sync")
     kernel_scale = torch.clamp(inv_scale, min=1.0)
     sample_f = (torch.arange(out_size, **f32) + 0.5) * inv_scale - 0.5
     x = torch.abs(sample_f[None, :] - torch.arange(in_size, **f32)[:, None]) / kernel_scale

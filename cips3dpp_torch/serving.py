@@ -22,6 +22,7 @@ from .core.rays import prepare_nerf_inputs
 from .device import check_on, resolve_device
 from .kernels.decoder_fused import decoder_fused_prepare, decoder_fused_render
 from .kernels.siren_render import kernel_route_refusal, siren_prepare, siren_render_prepared
+from .utils.profiling import span
 
 
 def _device_for(model, device) -> torch.device:
@@ -53,34 +54,37 @@ def prepare_trajectory(
     take (a density renderer among them) or a decoder of k x k convs. The
     JAX package's serving path would composite a density model by the SDF
     rule and read only the centre tap of a k x k weight, without a word."""
-    dev = _device_for(model, device)
-    r = model.cfg.renderer
-    why = kernel_route_refusal(r.n_layers, r.hidden_dim, model.cfg.n_samples, r.with_sdf, dev)
-    if why is not None:
-        raise ValueError(f"serving renders through K1: {why}")
-    if noise_bufs is None and noise_seed is None:
-        raise ValueError("serving trajectories use fixed noise: pass noise_bufs "
-                         "or noise_seed")
-    cfg = model.cfg
-    style_render, style_decoder = model.map_zs(
-        zs, truncation, mean_latents, inject_index
-    )
-    if style_render.shape[0] != 1:
-        raise ValueError("batch-1 serving path: one identity per trajectory")
-    # near/far depend on dist_radius alone, so the SIREN scale fold is
-    # trajectory-invariant
-    if near is None or far is None:
-        zero = torch.zeros((1,), device=dev)
-        cam0 = camera_from_angles(zero, zero, cfg.img_size, fov_ang=cfg.fov_ang,
-                                  dist_radius=cfg.dist_radius)
-        near, far = cam0.near, cam0.far
-    return {
-        "siren": siren_prepare(model.renderer, style_render[0],
-                               near.reshape(-1)[0], far.reshape(-1)[0]),
-        "dec": decoder_fused_prepare(
-            model.decoder, style_decoder, noise_bufs, fold_rgb=fold_rgb,
-            noise_seed=noise_seed, feat_size=cfg.img_size),
-    }
+    with span("serve.prepare"):
+        dev = _device_for(model, device)
+        r = model.cfg.renderer
+        why = kernel_route_refusal(r.n_layers, r.hidden_dim, model.cfg.n_samples,
+                                   r.with_sdf, dev)
+        if why is not None:
+            raise ValueError(f"serving renders through K1: {why}")
+        if noise_bufs is None and noise_seed is None:
+            raise ValueError("serving trajectories use fixed noise: pass noise_bufs "
+                             "or noise_seed")
+        cfg = model.cfg
+        with span("serve.map_zs"):
+            style_render, style_decoder = model.map_zs(
+                zs, truncation, mean_latents, inject_index
+            )
+        if style_render.shape[0] != 1:
+            raise ValueError("batch-1 serving path: one identity per trajectory")
+        # near/far depend on dist_radius alone, so the SIREN scale fold is
+        # trajectory-invariant
+        if near is None or far is None:
+            zero = torch.zeros((1,), device=dev)
+            cam0 = camera_from_angles(zero, zero, cfg.img_size, fov_ang=cfg.fov_ang,
+                                      dist_radius=cfg.dist_radius)
+            near, far = cam0.near, cam0.far
+        return {
+            "siren": siren_prepare(model.renderer, style_render[0],
+                                   near.reshape(-1)[0], far.reshape(-1)[0]),
+            "dec": decoder_fused_prepare(
+                model.decoder, style_decoder, noise_bufs, fold_rgb=fold_rgb,
+                noise_seed=noise_seed, feat_size=cfg.img_size),
+        }
 
 
 @torch.no_grad()
@@ -90,12 +94,15 @@ def render_frame(model, prep, azim, elev, *, img_size: int | None = None,
     through one launch of each kernel. Returns {"rgb": (F, out, out, 3),
     "thumb_rgb": (F, img, img, 3), "depth": (F, img, img, 1),
     "xyz": (F, img, img, 3)}."""
+    _device_for(model, device)
     cfg = model.cfg
     img_size = img_size or cfg.img_size
-    cam = camera_from_angles(azim, elev, img_size, fov_ang=cfg.fov_ang,
-                             dist_radius=cfg.dist_radius)
-    return render_camera(model, prep, cam, img_size=img_size, fold_rgb=fold_rgb,
-                         device=device)
+    with span("serve.render"):
+        with span("serve.rays"):
+            cam = camera_from_angles(azim, elev, img_size, fov_ang=cfg.fov_ang,
+                                     dist_radius=cfg.dist_radius)
+            rays = _rays(model, cam, img_size)
+        return _render(model, prep, rays, fold_rgb)
 
 
 @torch.no_grad()
@@ -104,12 +111,25 @@ def render_camera(model, prep, cam, *, img_size: int | None = None,
     """`render_frame` from F cameras (core.camera.CameraParams) whose depth
     range is the prepared one."""
     _device_for(model, device)
+    img_size = img_size or model.cfg.img_size
+    with span("serve.render"):
+        with span("serve.rays"):
+            rays = _rays(model, cam, img_size)
+        return _render(model, prep, rays, fold_rgb)
+
+
+def _rays(model, cam, img_size):
+    """(pts, rays_d, viewdirs, z_vals) of the cameras' unperturbed rays."""
     cfg = model.cfg
-    img_size = img_size or cfg.img_size
-    pts, rays_d, viewdirs, z_vals = prepare_nerf_inputs(
+    return prepare_nerf_inputs(
         cam.focal, img_size, cam.extrinsics, cam.near, cam.far, cfg.n_samples,
         perturb=False, static_viewdirs=cfg.static_viewdirs,
     )
+
+
+def _render(model, prep, rays, fold_rgb):
+    """K1 then the decoder over the rays of F cameras."""
+    pts, rays_d, viewdirs, z_vals = rays
     b, h, w, _, _ = pts.shape
     flat = lambda a: a.reshape(b * h * w, *a.shape[3:])
     thumb, feat, _, maskd, xyz = siren_render_prepared(

@@ -60,6 +60,7 @@ from ..models.diffaug import diff_augment, diffaug_draws
 from ..models.generator import torch_dtype
 from ..ops.resize import resize
 from ..parallel.mesh import all_gather_batch, global_means, shard_batch
+from ..utils.profiling import span
 from .losses import (
     d_logistic_loss,
     eikonal_loss,
@@ -334,7 +335,7 @@ def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
         current G."""
         batch = real_imgs.shape[0] * world
         draws = inputs(state, generator, batch, draws, ("fake", "real", "r1"))
-        with torch.no_grad():
+        with span("train.d.fakes"), torch.no_grad():
             ret = g_forward(state.g, draws, False, None,
                             fused_route(cfg.fused_renderer_d, "D", state.g.device))
         fake_rgb, fake_thumb = ret["rgb"], ret["thumb_rgb"]
@@ -377,7 +378,8 @@ def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
         total = d_gan_r + r1_r + pose + d_gan + r1_d
 
         pd, pr = list(state.d.parameters()), list(state.d_render.parameters())
-        grads = torch.autograd.grad(total, pd + pr, allow_unused=True)
+        with span("train.d.grads"):
+            grads = torch.autograd.grad(total, pd + pr, allow_unused=True)
         gd, gr = list(grads[:len(pd)]), grads[len(pd):]
         total = total.detach()
         if d_cat:
@@ -411,8 +413,9 @@ def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
             r1_d, g1 = r1_chunks(state.d, real_imgs, aug.get("r1"), alpha, chunk)
             gd = _add(gd, g1)
             total = total + r1_d
-        state.opt_d.step({"d": gd})
-        state.opt_d_render.step({"d": gr})
+        with span("train.d.optim"):
+            state.opt_d.step({"d": gd})
+            state.opt_d_render.step({"d": gr})
         metrics = {
             "d_loss_gan_render": d_gan_r, "d_loss_r1_render": r1_r,
             "d_loss_pose_render": pose, "d_loss_gan_decoder": d_gan,
@@ -428,8 +431,9 @@ def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
         """update_G (train_v10.py:303-405): GAN + pose + eikonal +
         minimal surface on the thumbnail, GAN on the image."""
         draws = inputs(state, generator, cfg.batch, draws, ("g",))
-        ret = g_forward(state.g, draws, cfg.eikonal_reg, renderer_detach,
-                        fused_route(cfg.fused_renderer_g, "G", state.g.device))
+        with span("train.g.forward"):
+            ret = g_forward(state.g, draws, cfg.eikonal_reg, renderer_detach,
+                            fused_route(cfg.fused_renderer_g, "G", state.g.device))
         zero = torch.zeros((), device=ret["rgb"].device)
         fake_pred_r, fake_view = state.d_render(ret["thumb_rgb"], alpha)
         g_gan_r = g_nonsaturating_loss(fake_pred_r)
@@ -447,9 +451,11 @@ def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
 
         groups = state.opt_g.groups
         n = len(groups["renderer"])
-        grads = torch.autograd.grad(total, groups["renderer"] + groups["decoder"],
-                                    allow_unused=True)
-        state.opt_g.step({"renderer": grads[:n], "decoder": grads[n:]})
+        with span("train.g.grads"):
+            grads = torch.autograd.grad(total, groups["renderer"] + groups["decoder"],
+                                        allow_unused=True)
+        with span("train.g.optim"):
+            state.opt_g.step({"renderer": grads[:n], "decoder": grads[n:]})
         state.step += 1
         metrics = {
             "g_loss_gan_render": g_gan_r, "g_loss_pose_render": pose,
@@ -505,6 +511,7 @@ def make_train_steps(gen_cfg, cfg: TrainConfig, mesh=None):
     return d_step, g_step, path_reg_step, sphere_init_step
 
 
+@span("train.ema")
 @torch.no_grad()
 def ema_update(state: TrainState, decay: float) -> TrainState:
     """g_ema = decay * g_ema + (1 - decay) * g (cips3d/utils.py:63-79);

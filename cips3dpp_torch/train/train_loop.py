@@ -45,6 +45,7 @@ from ..models.layers import init_parameters
 from ..parallel.mesh import barrier, replicate, shard_batch
 from ..parallel.prefetch import prefetch_to_device
 from ..utils.logging import MetricLogger
+from ..utils.profiling import count, span
 from .state import TrainConfig, TrainState, create_train_state
 from .steps import ema_update, fade_alpha, make_train_steps
 
@@ -190,6 +191,7 @@ class Trainer:
         if self.mesh is not None:
             flag = torch.tensor([float(switch)], device=self.device)
             dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+            count("host_sync")
             switch = bool(flag.item())
         self.auto_remat_probe = {"peak": peak, "limit": limit, "switched": switch}
         if not switch:
@@ -264,10 +266,12 @@ class Trainer:
         # the queue of work ahead of the device.
         pending = None  # (idx, alpha, device metrics, dispatch time)
 
+        @span("train.log")
         def emit(p):
             if not self.main:
                 return
             p_idx, p_alpha, dev, p_time = p
+            count("host_sync", sum(isinstance(v, torch.Tensor) for v in dev.values()))
             metrics = {k: float(v) for k, v in dev.items()}
             metrics["alpha"] = p_alpha
             # the rate as of when this log point was issued, not when its
@@ -283,15 +287,19 @@ class Trainer:
             # warmup: the decoder's view of the renderer features is frozen
             renderer_detach = True if (idx < cfg.warmup_iters and sphere_init_done) else None
 
-            real = next(batches)
+            with span("train.data_wait"):
+                real = next(batches)
 
             d_regularize = cfg.d_reg_every > 0 and (idx + 1) % cfg.d_reg_every == 0
-            state, dm = d_step(state, real, generator, alpha, d_regularize=d_regularize)
-            state, gm = g_step(state, generator, alpha, renderer_detach=renderer_detach)
+            with span("train.d_step_r1" if d_regularize else "train.d_step"):
+                state, dm = d_step(state, real, generator, alpha, d_regularize=d_regularize)
+            with span("train.g_step"):
+                state, gm = g_step(state, generator, alpha, renderer_detach=renderer_detach)
 
             g_regularize = cfg.g_reg_every > 0 and (idx + 1) % cfg.g_reg_every == 0
             if g_regularize:
-                state, pm = path_step(state, generator)
+                with span("train.path_step"):
+                    state, pm = path_step(state, generator)
             else:
                 pm = {}
 

@@ -6,11 +6,23 @@ utilities: a torch.profiler trace, device-memory statistics under the JAX
 package's keys, a timed loop that reads one checksum a repetition (CUDA
 events on the card), and the rendering-time measurement of r1024 frames
 through the serving path, the work `bench.py` times for the JAX package.
+
+The port's own instruments: `span(name)`, a host range named
+`cips.<name>` around a layer's work while a torch profiler runs, and the
+counters of `COUNTERS` (`count(what, n)` for host events, `LAUNCHES` in
+kernels/_lib.py for kernel launches). The ranges are of the profiler's
+ordinary operator scope, stamped on the clock of its device records, so
+each gap between device records falls inside a named span; unlike
+`torch.profiler.record_function`'s user annotations, the profiler does not
+copy them onto the device timeline. With no profiler running a span is
+one flag check and a shared no-op context.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import os
 import subprocess
 import time
@@ -20,6 +32,102 @@ import torch
 #: the reference's headline: r1024 frames a second on a V100-class GPU
 #: (BASELINE.md)
 BASELINE_FPS = 46.93
+
+# a range of the operator scope: exported as "cpu_op", never mirrored on
+# the device timeline as a user annotation is
+_Range = torch._C._profiler._RecordFunctionFast
+_profiling = torch.autograd._profiler_enabled
+
+
+class _Span:
+    """A span's context: `enter` opens the range `cips.<name>` (none
+    while no profiler runs); as a decorator, a span around every call."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name, self._range = name, None
+
+    def __enter__(self):
+        self._range = _Range("cips." + self.name)
+        self._range.__enter__()
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        return False
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return spanned
+
+
+class _Off(_Span):
+    """What `span` returns while no profiler runs: nothing to open."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+# one no-op context a span name, made at its first use
+_OFF: dict[str, _Off] = {}
+
+
+def span(name: str):
+    """A context around a layer's work, or with `@span(name)` around every
+    call of a function: while a torch profiler runs, a host range named
+    `cips.<name>` (spans nest by time on the one host thread, each inside
+    the span around it); otherwise a no-op shared by every use of the
+    name, so the cost is one flag check. A span left open when the
+    profiler stops ends at the stop."""
+    if _profiling():
+        return _Span(name)
+    off = _OFF.get(name)
+    if off is None:
+        off = _OFF[name] = _Off(name)
+    return off
+
+
+#: every counter of the port by name, each a collections.Counter by key:
+#: "launches" (kernels/_lib.py: LAUNCHES, a kernel's launches) and
+#: "counts" (`count`: "host_sync", where the host waits for the card's
+#: queue of work to drain: a device value read on the host, or a copy to
+#: the card from pageable host memory)
+COUNTERS: dict[str, collections.Counter] = {}
+
+
+def counter(name: str) -> collections.Counter:
+    """The registry's counter `name` (made on first use)."""
+    return COUNTERS.setdefault(name, collections.Counter())
+
+
+def reset(name: str) -> None:
+    """Clear the counter `name`."""
+    counter(name).clear()
+
+
+COUNTS = counter("counts")
+
+
+def count(what: str, n: int = 1) -> None:
+    """Add `n` to `COUNTS[what]`; while a torch profiler runs, also leave
+    `n` instant ranges `cips.count.<what>`, so each event carries its time
+    and its enclosing span to the trace."""
+    COUNTS[what] += n
+    if _profiling():
+        for _ in range(n):
+            with _Range("cips.count." + what):
+                pass
 
 
 @contextlib.contextmanager

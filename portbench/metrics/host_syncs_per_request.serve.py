@@ -1,0 +1,9 @@
+"""host_syncs_per_request.serve: the program's `host_sync` events (a
+device value read on the host, which drains the device's queue) a traced
+request, from their `cips.count.host_sync` markers."""
+
+from portbench.lib.program_spans import per_unit_count
+
+
+def read(run):
+    return per_unit_count(run, "host_sync")

@@ -1291,6 +1291,103 @@ def test_d_step_launches_k1_once_per_item(dev):
     assert any(not torch.equal(p, q) for p, q in zip(state.d.parameters(), before))
 
 
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def _sync_warnings(fn):
+    """(growth of COUNTS["host_sync"], the place of each synchronising CUDA
+    call: its innermost frames in the port) over fn() under
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import traceback
+    import warnings
+
+    from cips3dpp_torch.utils import profiling
+
+    sites = []
+
+    def record(message, *args, **kwargs):
+        if SYNC_WARNING in str(message):
+            stack = [f"{f.filename.rsplit('/', 2)[-1]}:{f.lineno}"
+                     for f in traceback.extract_stack()[:-1] if "cips3dpp_torch" in f.filename]
+            sites.append(" < ".join(reversed(stack[-3:])))
+
+    torch.cuda.synchronize()
+    before = profiling.COUNTS["host_sync"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return profiling.COUNTS["host_sync"] - before, sites
+
+
+def test_host_syncs_counted_are_the_card_syncs(dev, tmp_path):
+    """The port's `host_sync` count against the card: a serving request
+    (prepare_trajectory, one render_frame call) and a training iteration
+    at a log point (the D step's fakes through K1, a path step), each after
+    one of its kind, under torch.cuda.set_sync_debug_mode("warn"): every
+    synchronising CUDA call warns once, and the warnings equal the count's
+    growth: K1's two constants a prepare, the camera's up vector copied
+    from the host a camera, the lanczos scale copied from the host an axis
+    of the D step's real thumbnails, the G step's cumprod backward and each
+    metric read at the log point."""
+    import dataclasses
+
+    import numpy as np
+
+    from cips3dpp_torch import serving
+    from cips3dpp_torch.models.discriminator import DStyleGANProgressive
+    from cips3dpp_torch.models.discriminator_pose import DVolumeRenderProgressive
+    from cips3dpp_torch.models.generator import Generator, preset_r1024, preset_serving
+    from cips3dpp_torch.train import TrainConfig, Trainer, TrainHooks
+
+    def small(base):
+        return dataclasses.replace(base, img_size=16, decoder=dataclasses.replace(
+            base.decoder, upsample_list=(128,)))
+
+    cfg = small(preset_serving())
+    g = Generator(cfg, device=dev, seed=2)
+    gen = torch.Generator().manual_seed(3)
+    zs = [[torch.randn((1, cfg.mapping.z_dim), generator=gen).to(dev) for _ in range(2)]
+          for _ in range(2)]
+    noise = g.decoder.make_noise(gen, cfg.img_size, device=dev)
+    azim, elev = torch.tensor([0.1, -0.1], device=dev), torch.zeros(2, device=dev)
+
+    def request(z):
+        prep = serving.prepare_trajectory(g, z, noise_bufs=noise, truncation=0.7, device=dev)
+        serving.render_frame(g, prep, azim, elev, device=dev)
+
+    request(zs[0])
+    serve = _sync_warnings(lambda: request(zs[1]))
+
+    cfg = small(preset_r1024())
+    tcfg = TrainConfig(batch=2, d_reg_every=16, g_reg_every=4, cam_img_size=16,
+                       gen_img_size=32, data_img_size=32)
+    tr = Trainer(Generator(cfg, device=dev, seed=4),
+                 DStyleGANProgressive(32, 1, device=dev, seed=5),
+                 DVolumeRenderProgressive(16, device=dev, seed=6), cfg, tcfg, str(tmp_path),
+                 log_every=1)
+    state = tr.init_state()
+    draws = torch.Generator(device=dev).manual_seed(7)
+    images = np.random.default_rng(0).uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    state = tr.train(state, iter([images] * 2), draws, start_iter=2, total_iters=4)
+    logged = []
+    # iteration 7: a path step and a log point
+    train = _sync_warnings(lambda: tr.train(
+        state, iter([images]), draws, start_iter=7, total_iters=8,
+        hooks=TrainHooks(on_metrics=lambda i, m: logged.append(m))))
+    print("serving", serve, "training", train)
+    for counted, sites in (serve, train):
+        assert len(sites) == counted, sites
+    # the prepare's camera and the call's; D, G and path steps' cameras
+    assert serve[0] == 2 + 2
+    n_metrics = len(logged[0]) - 2  # but alpha and iters_per_sec, host values
+    assert train[0] == 2 * 2 + 3 + 2 + 1 + n_metrics
+
+
 def test_remat_d_lowers_the_r1_step_peak(dev, tmp_path):
     """remat_d lowers the lazy-R1 D step's peak, JAX's reason for it
     (cips3dpp_tpu/train/state.py:71-75): train_r1024 (configs/ffhq.yaml),
